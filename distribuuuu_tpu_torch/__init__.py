@@ -1,0 +1,18 @@
+"""distribuuuu_tpu_torch: the PyTorch/CUDA port of distribuuuu_tpu for the H100.
+
+The JAX package ``distribuuuu_tpu`` is the reference; this package mirrors
+its layout module for module and imports nothing of it (nor of JAX). Its
+kernels are hand-written CUDA C++ for ``sm_90a`` under ``csrc/``, built at
+first use (``ops/cuda/_build.py``). What is ported so far is the image
+serving path: ``python -m distribuuuu_tpu_torch.serve_net --cfg
+config/resnet50.yaml``.
+"""
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The refusal for a feature a later slice ports: names the
+    ``ROADMAP.md`` Queue 1 item that holds it."""
+    return NotImplementedError(
+        f"{what} is not ported to distribuuuu_tpu_torch yet: see ROADMAP.md, "
+        f'Queue 1, "{item}"'
+    )

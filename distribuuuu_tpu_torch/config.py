@@ -1,0 +1,302 @@
+"""Configuration system of the port.
+
+The port's own copy of the yacs-compatible ``CfgNode`` of
+``distribuuuu_tpu/config.py`` (attribute access, ``freeze``/``defrost``,
+``merge_from_file``, ``merge_from_list`` with dotted keys, typed merges),
+with the part of the default tree that the image configs and the ported
+slices use. Every shipped image config (``config/resnet*.yaml`` and the
+other CNN and ViT yamls) merges into it unchanged; nodes that only the
+unported planes read (LM, GENERATE, FAULTS, ASYNC, TELEMETRY, ...) are
+added with the slices that port them.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import yaml
+
+__all__ = ["CfgNode", "cfg", "merge_from_file", "reset_cfg"]
+
+
+class CfgNode(dict):
+    """A dict subclass with attribute access, freezing, and typed merges."""
+
+    _FROZEN = "__frozen__"
+
+    def __init__(self, init_dict=None):
+        init_dict = {} if init_dict is None else init_dict
+        super().__init__()
+        object.__setattr__(self, CfgNode._FROZEN, False)
+        for k, v in init_dict.items():
+            if isinstance(v, dict) and not isinstance(v, CfgNode):
+                v = CfgNode(v)
+            dict.__setitem__(self, k, v)
+
+    def __getattr__(self, name):
+        if name in self:
+            return self[name]
+        raise AttributeError(f"Config key not found: {name}")
+
+    def __setattr__(self, name, value):
+        if self.is_frozen():
+            raise AttributeError(
+                f"Attempted to set {name} to {value}, but CfgNode is frozen"
+            )
+        dict.__setitem__(self, name, value)
+
+    def __setitem__(self, name, value):
+        if self.is_frozen():
+            raise AttributeError(
+                f"Attempted to set {name} to {value}, but CfgNode is frozen"
+            )
+        dict.__setitem__(self, name, value)
+
+    def is_frozen(self):
+        return object.__getattribute__(self, CfgNode._FROZEN)
+
+    def freeze(self):
+        self._set_frozen(True)
+
+    def defrost(self):
+        self._set_frozen(False)
+
+    def _set_frozen(self, frozen):
+        object.__setattr__(self, CfgNode._FROZEN, frozen)
+        for v in self.values():
+            if isinstance(v, CfgNode):
+                v._set_frozen(frozen)
+
+    def clone(self):
+        return copy.deepcopy(self)
+
+    def merge_from_file(self, cfg_filename):
+        with open(cfg_filename, "r") as f:
+            loaded = yaml.safe_load(f)
+        if loaded is None:
+            return
+        self._merge_dict(CfgNode(loaded), [])
+
+    def merge_from_other_cfg(self, other):
+        self._merge_dict(other, [])
+
+    def merge_from_list(self, cfg_list):
+        if len(cfg_list) % 2 != 0:
+            raise ValueError(
+                f"Override list has odd length: {cfg_list}; it must be (key, value) pairs"
+            )
+        for full_key, v in zip(cfg_list[0::2], cfg_list[1::2]):
+            d = self
+            key_parts = full_key.split(".")
+            for sub in key_parts[:-1]:
+                if sub not in d:
+                    raise KeyError(f"Non-existent key: {full_key}")
+                d = d[sub]
+            sub = key_parts[-1]
+            if sub not in d:
+                raise KeyError(f"Non-existent key: {full_key}")
+            value = _decode_value(v)
+            value = _check_and_coerce(value, d[sub], full_key)
+            dict.__setitem__(d, sub, value)
+
+    def _merge_dict(self, other, key_path):
+        for k, v in other.items():
+            full_key = ".".join(key_path + [str(k)])
+            if k not in self:
+                raise KeyError(f"Non-existent config key: {full_key}")
+            old = self[k]
+            if isinstance(old, CfgNode):
+                if not isinstance(v, (dict, CfgNode)):
+                    raise ValueError(
+                        f"Cannot merge non-dict value into config section {full_key}"
+                    )
+                old._merge_dict(CfgNode(v) if not isinstance(v, CfgNode) else v, key_path + [str(k)])
+            else:
+                value = _check_and_coerce(copy.deepcopy(v), old, full_key)
+                dict.__setitem__(self, k, value)
+
+    def to_dict(self):
+        out = {}
+        for k, v in self.items():
+            out[k] = v.to_dict() if isinstance(v, CfgNode) else v
+        return out
+
+    def dump(self, **kwargs):
+        kwargs.setdefault("default_flow_style", None)
+        return yaml.safe_dump(self.to_dict(), **kwargs)
+
+    def __repr__(self):
+        return f"CfgNode({dict.__repr__(self)})"
+
+    def __str__(self):
+        return self.dump()
+
+
+def _decode_value(v):
+    """Parse a CLI string into a Python literal (yaml rules, like yacs)."""
+    if not isinstance(v, str):
+        return v
+    try:
+        return yaml.safe_load(v)
+    except yaml.YAMLError:
+        return v
+
+
+def _check_and_coerce(new, old, full_key):
+    """Type-check a replacement value, with yacs-style coercions."""
+    old_type, new_type = type(old), type(new)
+    if old_type is new_type or old is None or new is None:
+        return new
+    if isinstance(old, (tuple, list)) and isinstance(new, (tuple, list)):
+        return old_type(new)
+    if isinstance(old, float) and isinstance(new, int) and not isinstance(new, bool):
+        return float(new)
+    if isinstance(old, int) and isinstance(new, float):
+        if float(new).is_integer():
+            return int(new)
+    raise ValueError(
+        f"Type mismatch ({old_type} vs {new_type}) for config key {full_key}: "
+        f"cannot replace {old!r} with {new!r}"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Default config tree: the reference schema plus the DEVICE / MESH / DATA /
+# KERNELS / SERVE additions of distribuuuu_tpu/config.py that the ported
+# slices read.
+# ---------------------------------------------------------------------------
+
+_C = CfgNode()
+cfg = _C
+
+# ------------------------------- model -------------------------------------
+_C.MODEL = CfgNode()
+_C.MODEL.ARCH = "resnet18"
+_C.MODEL.NUM_CLASSES = 1000
+# The pretrained URL zoo needs the network: the port refuses it.
+_C.MODEL.PRETRAINED = False
+# BN statistic regime (training): SYNCBN True = global-batch stats, False =
+# ghost groups of BN_GROUP samples (0 = TRAIN.BATCH_SIZE).
+_C.MODEL.SYNCBN = False
+_C.MODEL.BN_GROUP = 0
+# A torch .pth / .pth.tar state dict (utils/weights.load_weights).
+_C.MODEL.WEIGHTS = None
+_C.MODEL.DUMMY_INPUT = False
+_C.MODEL.MOE = CfgNode()
+_C.MODEL.MOE.NUM_EXPERTS = 8
+_C.MODEL.MOE.TOP_K = 2
+_C.MODEL.MOE.EVERY = 2
+_C.MODEL.MOE.AUX_WEIGHT = 0.01
+
+# ------------------------------- training ----------------------------------
+_C.TRAIN = CfgNode()
+_C.TRAIN.DATASET = "./data/ILSVRC/"
+_C.TRAIN.SPLIT = "train"
+# Model input size; also the served image size.
+_C.TRAIN.IM_SIZE = 224
+_C.TRAIN.BATCH_SIZE = 32
+_C.TRAIN.AUTO_RESUME = True
+_C.TRAIN.LOAD_OPT = True
+_C.TRAIN.WORKERS = 4
+_C.TRAIN.PIN_MEMORY = True
+_C.TRAIN.PRINT_FREQ = 30
+_C.TRAIN.TOPK = 5
+
+# ------------------------------- testing -----------------------------------
+_C.TEST = CfgNode()
+_C.TEST.DATASET = "./data/ILSVRC/"
+_C.TEST.SPLIT = "val"
+# Shorter side the val transform resizes to before the center crop.
+_C.TEST.IM_SIZE = 256
+_C.TEST.BATCH_SIZE = 200
+_C.TEST.PRINT_FREQ = 10
+
+# ------------------------------- cudnn --------------------------------------
+_C.CUDNN = CfgNode()
+_C.CUDNN.BENCHMARK = True
+_C.CUDNN.DETERMINISTIC = False
+
+# ------------------------------- optimizer ----------------------------------
+_C.OPTIM = CfgNode()
+_C.OPTIM.BASE_LR = 0.1
+_C.OPTIM.LR_POLICY = "cos"
+_C.OPTIM.LR_MULT = 0.1
+_C.OPTIM.MAX_EPOCH = 100
+_C.OPTIM.MOMENTUM = 0.9
+_C.OPTIM.DAMPENING = 0.0
+_C.OPTIM.NESTEROV = True
+_C.OPTIM.WEIGHT_DECAY = 5e-5
+_C.OPTIM.WARMUP_FACTOR = 0.1
+_C.OPTIM.WARMUP_EPOCHS = 0
+_C.OPTIM.STEPS = []
+_C.OPTIM.MIN_LR = 0.0
+
+# ------------------------------- kernel tier ---------------------------------
+# Hand-written CUDA kernels (ops/cuda/). "auto" is the only value: the
+# kernel on CUDA tensors, its plain PyTorch version on CPU tensors.
+_C.KERNELS = CfgNode()
+# Fused pointwise conv + folded eval BN + activation (ops/cuda/conv_epilogue.py)
+# at every 1x1/s1 ungrouped conv+BN site of the eval/serve forward.
+_C.KERNELS.CONV_EPILOGUE = "auto"
+
+# ------------------------------- device / mesh -------------------------------
+_C.DEVICE = CfgNode()
+# "auto" | "cuda" -> cuda:{SERVE.DEVICE}, raising when CUDA is absent;
+# "cpu" is the explicit CPU request (tests).
+_C.DEVICE.PLATFORM = "auto"
+# Compute dtype of the model; parameters stay fp32 and are cast once when
+# the serving engine is built.
+_C.DEVICE.COMPUTE_DTYPE = "bfloat16"
+_C.DEVICE.DETERMINISTIC = False
+# Space-to-depth stem: not ported (the port refuses True).
+_C.DEVICE.S2D_STEM = False
+
+_C.MESH = CfgNode()
+_C.MESH.DATA = -1
+_C.MESH.MODEL = 1
+_C.MESH.SEQ = 1
+_C.MESH.PIPE = 1
+_C.MESH.MICROBATCH = 0
+
+# ------------------------------- data ----------------------------------------
+_C.DATA = CfgNode()
+# Ship uint8 pixels and normalize on the device (data/transforms.
+# normalize_on_device); False sends host-normalized float32.
+_C.DATA.DEVICE_NORMALIZE = True
+
+# ------------------------------- serving ------------------------------------
+_C.SERVE = CfgNode()
+# Dynamic micro-batching: flush at MAX_BATCH waiting or MAX_WAIT_MS after
+# the oldest request arrived.
+_C.SERVE.MAX_BATCH = 8
+_C.SERVE.MAX_WAIT_MS = 5.0
+# Batch-shape buckets warmed once at startup; [] = powers of two up to
+# MAX_BATCH.
+_C.SERVE.BUCKET_SIZES = []
+# Bounded-queue backpressure.
+_C.SERVE.MAX_QUEUE = 64
+# CUDA device index of the replica.
+_C.SERVE.DEVICE = 0
+_C.SERVE.HOST = "127.0.0.1"
+_C.SERVE.PORT = 8765
+# Weight-only quantization: not ported (the port refuses anything but "").
+_C.SERVE.QUANTIZE = ""
+
+# ------------------------------- misc ---------------------------------------
+_C.OUT_DIR = "./output"
+_C.CFG_DEST = "config.yaml"
+_C.RNG_SEED = None
+
+_CFG_DEFAULT = _C.clone()
+_CFG_DEFAULT.freeze()
+
+
+def merge_from_file(cfg_file):
+    """Merge a YAML file into the global cfg."""
+    _C.merge_from_file(cfg_file)
+
+
+def reset_cfg():
+    """Reset the global cfg back to defaults."""
+    _C.defrost()
+    _C.merge_from_other_cfg(_CFG_DEFAULT)

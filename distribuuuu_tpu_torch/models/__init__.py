@@ -1,0 +1,53 @@
+"""Model registry of the port (counterpart of distribuuuu_tpu/models/__init__.py).
+
+The ResNet family is ported; the other archs of the JAX zoo raise with
+the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from distribuuuu_tpu_torch import not_ported
+from distribuuuu_tpu_torch.models.resnet import (
+    resnet18,
+    resnet34,
+    resnet50,
+    resnet101,
+    resnet152,
+    resnext50_32x4d,
+    resnext101_32x8d,
+    wide_resnet50_2,
+    wide_resnet101_2,
+)
+
+_REGISTRY = {
+    fn.__name__: fn
+    for fn in (
+        resnet18, resnet34, resnet50, resnet101, resnet152,
+        resnext50_32x4d, resnext101_32x8d, wide_resnet50_2, wide_resnet101_2,
+    )
+}
+
+# archs of the JAX zoo that later slices port -> their ROADMAP item
+_UNPORTED = {
+    **{a: "Image zoo" for a in (
+        "densenet121", "densenet161", "densenet169", "densenet201", "botnet50",
+        "regnetx_160", "regnety_160", "regnety_320", "efficientnet_b0",
+        "vit_tiny", "vit_small", "vit_tiny_moe",
+    )},
+    "gpt_nano": "LM plane",
+    "gpt_nano_moe": "LM plane",
+}
+
+
+def available_models():
+    return sorted(_REGISTRY)
+
+
+def build_model(arch: str, **kwargs):
+    """Construct a model by name. Keyword arguments go to the constructor
+    (``num_classes``, ``dtype``, ``generator``, ``device``, ...)."""
+    if arch in _UNPORTED:
+        raise not_ported(f"arch {arch!r}", _UNPORTED[arch])
+    if arch not in _REGISTRY:
+        raise KeyError(f"Unknown arch '{arch}'. Available: {', '.join(available_models())}.")
+    return _REGISTRY[arch](**kwargs)

@@ -1,0 +1,50 @@
+"""The port's kernel tier: hand-written CUDA kernels for Hopper (sm_90a).
+
+Counterpart of ``distribuuuu_tpu/ops/pallas/``. One kernel so far:
+
+* ``conv_epilogue`` — fused 1x1 conv + folded eval BatchNorm + activation
+  (``csrc/conv_epilogue.cu``), the eval/serve path's pointwise convs.
+
+Which implementation runs is decided in ONE place, :func:`use_kernel`, and
+only by where the tensor lives: a CUDA tensor goes through the kernel or
+the call raises; a CPU tensor goes through the kernel's plain PyTorch
+version (the tests' path). There is no knob that sends a CUDA tensor to
+the plain version and no forced-but-unsupported fallback. A call site that
+does not qualify for a kernel (stride 2, a 3x3, groups, training) runs the
+plain layer, as the JAX package does; that is the site's shape, not a
+fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# KERNELS.* knobs the port keeps. "auto" is the only value: kernel on CUDA
+# tensors, plain version on CPU tensors.
+VALID_IMPLS = ("auto",)
+KNOBS = {"conv_epilogue": "CONV_EPILOGUE"}
+
+
+def validate_kernels_cfg(kcfg) -> None:
+    """Refuse any KERNELS.* value other than ``auto``."""
+    for op, knob in KNOBS.items():
+        v = kcfg[knob]
+        if v not in VALID_IMPLS:
+            raise ValueError(
+                f"KERNELS.{knob}={v!r}: the port accepts only {list(VALID_IMPLS)} "
+                f"for the {op} kernel (the kernel on CUDA tensors, its plain "
+                "version on CPU tensors); a CUDA tensor never takes the plain path"
+            )
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True when ``t`` must go through the CUDA kernel, False when it goes
+    through the plain version (a CPU tensor). Other devices raise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(
+        f"no kernel or plain version for tensors on {t.device}: the port "
+        "runs on CUDA, and on the CPU only for tests"
+    )

@@ -1,0 +1,99 @@
+"""Serve a classification model online on the card (the port's twin of the
+top-level ``serve_net.py``).
+
+Builds the configured arch (weights from ``MODEL.WEIGHTS``, a torch
+``.pth``, or made from ``RNG_SEED``), applies the val transform to
+incoming images, and serves predictions through the dynamic
+micro-batching engine over a length-prefixed socket. SIGTERM drains
+gracefully. Runs on ``cuda:{SERVE.DEVICE}`` unless ``DEVICE.PLATFORM cpu``.
+
+Usage:
+    python -m distribuuuu_tpu_torch.serve_net --cfg config/resnet50.yaml \\
+        [MODEL.WEIGHTS path/to/resnet50.pth] [KEY VALUE ...]
+
+    # one-shot batch mode: val-transformed .npy in, logits .npy out
+    python -m distribuuuu_tpu_torch.serve_net --cfg config/resnet50.yaml \\
+        --batch-input imgs.npy --batch-output logits.npy
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import yaml
+
+import distribuuuu_tpu_torch.config as config
+from distribuuuu_tpu_torch import not_ported
+from distribuuuu_tpu_torch.config import cfg
+
+
+def _arch_of(cfg_file: str, opts: list[str]) -> str:
+    """MODEL.ARCH as the yaml and the overrides set it, read before the
+    merge (an LM yaml carries nodes the port's config does not have)."""
+    with open(cfg_file) as f:
+        arch = ((yaml.safe_load(f) or {}).get("MODEL") or {}).get("ARCH", cfg.MODEL.ARCH)
+    for k, v in zip(opts[0::2], opts[1::2]):
+        if k == "MODEL.ARCH":
+            arch = v
+    return str(arch)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Serve a classification model.")
+    parser.add_argument("--cfg", dest="cfg_file", required=True, type=str,
+                        help="Config file location")
+    parser.add_argument("--fleet", type=int, default=0, metavar="N",
+                        help="an N-replica fleet (not ported)")
+    parser.add_argument("--batch-input", default=None,
+                        help="one-shot batch mode: .npy of val-transformed images "
+                             "('-' = stdin) instead of the socket server")
+    parser.add_argument("--batch-output", default="-",
+                        help="batch-mode logits .npy destination ('-' = stdout)")
+    parser.add_argument("opts", help="See distribuuuu_tpu_torch/config.py for all options",
+                        default=None, nargs=argparse.REMAINDER)
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    if args.fleet:
+        raise not_ported("--fleet (the serving fleet)", "Serving fleet")
+    if _arch_of(args.cfg_file, args.opts).startswith("gpt"):
+        raise not_ported("serving the gpt_* archs (LM generation)", "LM plane")
+    config.merge_from_file(args.cfg_file)
+    cfg.merge_from_list(args.opts)
+    cfg.freeze()
+
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.serve import admission, engine_from_cfg, protocol
+    from distribuuuu_tpu_torch.utils.logger import get_logger, setup_logger
+
+    setup_logger()
+    logger = get_logger()
+    engine = engine_from_cfg()
+    logger.info(
+        "serving %s on %s: buckets %s warmed (%d shapes), max_wait %.1f ms, "
+        "queue bound %d",
+        cfg.MODEL.ARCH, engine.device, engine.buckets, engine.n_compiles,
+        cfg.SERVE.MAX_WAIT_MS, cfg.SERVE.MAX_QUEUE,
+    )
+    engine.start()
+
+    if args.batch_input is not None:
+        n = protocol.run_batch(engine, args.batch_input, args.batch_output)
+        engine.drain()
+        logger.info("batch mode: served %d requests", n)
+        return
+
+    admission.install_drain()
+    listener = protocol.open_listener(cfg.SERVE.HOST, cfg.SERVE.PORT)
+    host, port = listener.getsockname()[:2]
+    logger.info("listening on %s:%d (SIGTERM drains gracefully)", host, port)
+    try:
+        protocol.serve_forever(engine, listener, should_stop=admission.drain_requested,
+                               topk=trainer.effective_topk())
+    except KeyboardInterrupt:
+        listener.close()
+        engine.drain()
+    logger.info("drained; exiting")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,129 @@
+"""Carrying weights into the port.
+
+* :func:`state_dict_from_jax` maps the JAX ResNet's variables (``params``
+  and ``batch_stats`` as nested dicts of numpy arrays) onto the port's
+  torchvision-named state dict: conv ``[kh, kw, I, O]`` → ``[O, I, kh, kw]``,
+  dense ``[I, O]`` → ``[O, I]``, BN ``scale``/``bias``/``mean``/``var`` →
+  ``weight``/``bias``/``running_mean``/``running_var``.
+* :func:`load_weights` loads a torch ``.pth``/``.pth.tar`` (a state dict or
+  a ``{"state_dict": ...}`` wrapper, ``module.`` prefixes stripped).
+
+An orbax directory (JAX's checkpoint format) and the pretrained URL zoo
+(``MODEL.PRETRAINED``, which needs the network) are refused.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+
+import numpy as np
+import torch
+
+from distribuuuu_tpu_torch import not_ported
+
+# flax block module -> the number of its main ConvBNs (a further one is
+# the downsample)
+_BLOCK_CONVS = {"BasicBlock": 2, "Bottleneck": 3}
+
+
+def _idx(name: str) -> int:
+    return int(name.rsplit("_", 1)[1])
+
+
+def _sorted(names, prefix):
+    return sorted((n for n in names if re.fullmatch(rf"{prefix}_\d+", n)), key=_idx)
+
+
+def jax_path_map(params: dict) -> dict[tuple[str, ...], str]:
+    """``{flax path: port state-dict key}`` for every leaf of a JAX ResNet's
+    ``params`` and ``batch_stats`` trees. Stages are found from the tree:
+    a block with a downsample ConvBN opens a new stage (stage 1 of the
+    BasicBlock nets has none, and block 0 always opens stage 1)."""
+    out: dict[tuple[str, ...], str] = {}
+
+    def convbn(jax_prefix, conv_key, bn_key):
+        out[(*jax_prefix, "Conv_0", "kernel")] = f"{conv_key}.weight"
+        bn = (*jax_prefix, "BatchNorm_0", "BatchNorm_0")
+        out[(*bn, "scale")] = f"{bn_key}.weight"
+        out[(*bn, "bias")] = f"{bn_key}.bias"
+        out[(*bn, "mean")] = f"{bn_key}.running_mean"
+        out[(*bn, "var")] = f"{bn_key}.running_var"
+
+    stems = _sorted(params, "ConvBN")
+    if stems != ["ConvBN_0"]:
+        raise ValueError(f"not a JAX ResNet tree: top-level ConvBNs {stems}")
+    convbn(("ConvBN_0",), "conv1", "bn1")
+    kinds = [k for k in _BLOCK_CONVS if _sorted(params, k)]
+    if len(kinds) != 1:
+        raise ValueError(f"not a JAX ResNet tree: block kinds {kinds}")
+    kind = kinds[0]
+    n_main = _BLOCK_CONVS[kind]
+    stage, pos = 0, 0
+    for blk in _sorted(params, kind):
+        convs = _sorted(params[blk], "ConvBN")
+        down = len(convs) == n_main + 1
+        if _idx(blk) == 0 or down:
+            stage, pos = stage + 1, 0
+        base = f"layer{stage}.{pos}"
+        for i, name in enumerate(convs[:n_main]):
+            convbn((blk, name), f"{base}.conv{i + 1}", f"{base}.bn{i + 1}")
+        if down:
+            convbn((blk, convs[-1]), f"{base}.downsample.0", f"{base}.downsample.1")
+        pos += 1
+    out[("Dense_0", "Dense_0", "kernel")] = "fc.weight"
+    out[("Dense_0", "Dense_0", "bias")] = "fc.bias"
+    return out
+
+
+def _leaves(tree: dict, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, (*prefix, k))
+        else:
+            yield (*prefix, k), v
+
+
+def state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
+    """The port's state dict for a JAX ResNet's variables (numpy leaves).
+    Every leaf lands in exactly one tensor; an unmapped leaf raises."""
+    paths = jax_path_map(params)
+    sd: dict[str, torch.Tensor] = {}
+    for path, arr in [*_leaves(params), *_leaves(batch_stats)]:
+        if path not in paths:
+            raise KeyError(f"JAX leaf {'/'.join(path)} has no port tensor")
+        a = np.asarray(arr, np.float32)
+        if a.ndim == 4:  # conv HWIO -> OIHW
+            a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 2:  # dense [I, O] -> [O, I]
+            a = a.T
+        sd[paths[path]] = torch.from_numpy(np.ascontiguousarray(a))
+    for key in [k for k in sd if k.endswith(".running_var")]:
+        sd[key.replace("running_var", "num_batches_tracked")] = torch.zeros((), dtype=torch.long)
+    return sd
+
+
+def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load a torch ``.pth``/``.pth.tar`` into ``model`` (strict)."""
+    if os.path.isdir(path):
+        raise not_ported(
+            f"MODEL.WEIGHTS={path!r} is a directory (an orbax checkpoint, JAX's "
+            "format); the port loads torch .pth files. Loading orbax checkpoints",
+            "Orbax weights",
+        )
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
+    if not isinstance(sd, dict):
+        raise ValueError(f"{path}: expected a state dict, got {type(sd).__name__}")
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def pretrained_refusal(arch: str) -> NotImplementedError:
+    """MODEL.PRETRAINED fetches from the URL zoo, which needs the network."""
+    return NotImplementedError(
+        f"MODEL.PRETRAINED for {arch!r} downloads weights from the URL zoo and "
+        "the port does not fetch from the network; download the .pth yourself "
+        "and pass it as MODEL.WEIGHTS"
+    )

@@ -1,0 +1,69 @@
+"""Shared helpers of the tests/test_torch_*.py files: one set of weights,
+made from a seed with numpy, in the JAX ResNet's variable tree (paths from
+``model.init`` under ``jax.eval_shape``), and the port's model on the same
+weights through ``state_dict_from_jax``."""
+
+from __future__ import annotations
+
+import flax.linen as nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from distribuuuu_tpu import models as jmodels
+from distribuuuu_tpu_torch import config as tconfig
+from distribuuuu_tpu_torch import models as tmodels
+from distribuuuu_tpu_torch.utils.weights import state_dict_from_jax
+
+
+def jax_resnet(arch: str, num_classes: int = 10, im: int = 32):
+    """(flax model in f32, its variable tree of ShapeDtypeStructs)."""
+    model = jmodels.build_model(arch, num_classes=num_classes, dtype=jnp.float32)
+    shapes = jax.eval_shape(
+        lambda k: model.init(k, jnp.zeros((1, im, im, 3), jnp.float32), train=False),
+        jax.random.key(0),
+    )
+    return model, nn.unbox(shapes)
+
+
+def random_variables(shapes, seed: int = 0) -> dict:
+    """Numpy leaves for every leaf of the tree: fan-in-scaled convs and
+    dense, and BN scale/bias/mean/var away from their init (1, 0, 0, 1) so
+    the eval fold is exercised. BN scales near 0.4 keep the residual sums,
+    and so the logits, O(1), where an absolute tolerance means something."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(name, s):
+        shape = tuple(s.shape)
+        if name == "kernel" and len(shape) == 4:
+            std = np.sqrt(2.0 / (shape[0] * shape[1] * shape[2]))
+            v = rng.standard_normal(shape) * std
+        elif name == "kernel":
+            v = rng.standard_normal(shape) / np.sqrt(shape[0])
+        elif name == "scale":
+            v = 0.4 + 0.1 * rng.standard_normal(shape)
+        elif name in ("bias", "mean"):
+            v = 0.1 * rng.standard_normal(shape)
+        elif name == "var":
+            v = rng.uniform(0.5, 1.5, shape)
+        else:
+            raise AssertionError(f"unexpected leaf {name}")
+        return v.astype(np.float32)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else leaf(k, v) for k, v in node.items()}
+
+    return walk(shapes)
+
+
+def port_model(arch: str, variables: dict, num_classes: int = 10,
+               dtype=torch.float32):
+    """The port's eval model holding ``variables``."""
+    model = tmodels.build_model(arch, num_classes=num_classes, dtype=dtype)
+    model.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"]))
+    return model.eval()
+
+
+def reset_port_cfg():
+    tconfig.reset_cfg()
