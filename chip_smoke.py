@@ -4,21 +4,35 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Device: requires CUDA; prints the card's name and power limit.
-2. Build: compiles every kernel of the serving path from csrc/ (sm_90a).
-3. Kernel phase: each kernel's wrapper at the shapes the ResNet-50
-   serving path gives it (batch 8, 224², bf16), plus a small ragged f32
-   shape, held against its plain PyTorch version on the card; times the
-   kernel, the plain version and one library call (CUDA events), and
-   computes the bound (bytes over 3.35 TB/s vs operations over the
-   peak rate of their type).
-4. Slice phase: ResNet-50 (1000 classes, 224², bf16, weights from
+2. Build: compiles every kernel of the ported paths from csrc/ (sm_90a),
+   one nvcc per source, all at once.
+3. Kernel phases: each kernel's wrapper at the shapes its path gives it,
+   held against its plain PyTorch version on the card, timed (CUDA
+   events) beside its plain version and one library call, with its bound
+   (bytes over 3.35 TB/s vs operations over the peak rate of their type):
+   conv1x1_bn_act at the ResNet-50 serving shapes (batch 8, 224², bf16),
+   at the eval shapes of the trainer (batches 200 and 48) and a small
+   ragged f32 shape; opt_update over the 161 ResNet-50
+   parameter leaves for its four bodies (SGD with an f32 or bf16 trace,
+   SGD without momentum, AdamW).
+4. Serving slice: ResNet-50 (1000 classes, 224², bf16, weights from
    RNG_SEED) through ``engine_from_cfg`` on cuda:0 with
    config/resnet50.yaml; two bursts of 64 seeded uint8 requests through
    ``submit`` with buckets [1, 2, 4, 8] (img/s and latency are the second
    burst's; the first is reported apart). Checks that every kernel of the path ran
    (33 conv-epilogue launches per forward, warm-ups included) and that
    the card's logits agree with the port's CPU run in f32.
-5. Prints the ``{"kernels": [...]}`` line, the card's name and power
+5. Training slice: ``trainer.train_model`` with config/resnet50.yaml and
+   MODEL.DUMMY_INPUT (bf16, RNG_SEED 0): one epoch of 64 steps at batch
+   32 and an eval of 2048 images at batch 200, then MAX_EPOCH 2, which
+   auto-resumes at epoch 2. Checks one opt_update launch per step, 33
+   conv-epilogue launches per eval forward, a finite loss that falls, and
+   the resume point; reports train img/s over the warm steps, the mean
+   step time and eval img/s. Then one f32 step of ResNet-50 (batch 4,
+   TF32 off) on the card and on the port's CPU path (and an f64 step on
+   the CPU as the yardstick of f32 rounding) from the same weights, whose
+   updates must agree.
+6. Prints the ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Exits non-zero, printing no result,
@@ -32,6 +46,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -42,6 +57,22 @@ F32_TOL = 1e-5
 SLICE_REL_TOL = 0.05  # max |logit diff| / max |CPU logit|
 SLICE_TOP1_MIN = 0.9  # share of requests with the same top-1 class
 N_REQUESTS = 64
+# opt_update against its plain version: bit-equal is expected; the plain
+# version's f64 emulation of a fused multiply-add can round twice (about
+# once in 2^29 fused operations), which may move a rare element by 1 ulp
+OPT_MAX_ULP = 1
+OPT_MAX_ULP_ELEMS = 8
+OPT_HOLD_CYCLES = 400_000_000  # about 0.2 s at the H100's 1.98 GHz boost clock
+# one f32 ResNet-50 step (batch 4, random init, 1000 classes), card vs
+# CPU, TF32 off. The gradient at this point is ill-conditioned in f32: the
+# CPU's own f32 step differs from its f64 step by about 2 % in the L2 norm
+# over all parameters (the phase measures it). So the card's update must
+# agree with the CPU's f32 update to 5 % in that norm, and lie no further
+# from the f64 update than twice the CPU's f32 update does.
+STEP_UPDATE_L2_TOL = 0.05
+STEP_F64_RATIO_MAX = 2.0
+TRAIN_STEPS_PER_EPOCH = 64
+EVAL_FORWARDS = 11  # 2048 images at batch 200: 10 full batches and a ragged 48
 
 
 def emit(obj) -> None:
@@ -74,15 +105,16 @@ def resnet50_sites(batch: int, im: int):
     return sites
 
 
-def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
+def time_ms(torch, fn, reps: int = 25, warmup: int = 3, hold_cycles: int = 50_000_000) -> float:
     """Median device time of one call: CUDA events around each call, with
-    the stream held by a sleep kernel while the host enqueues, so host
-    launch overhead does not enter the device time."""
+    the stream held by a sleep kernel of ``hold_cycles`` clock cycles while
+    the host enqueues, so host launch overhead does not enter the device
+    time (the hold must outlast the host's enqueueing of all ``reps``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     evs = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    torch.cuda._sleep(50_000_000)
+    torch.cuda._sleep(hold_cycles)
     evs[0].record()
     for i in range(reps):
         fn()
@@ -99,15 +131,17 @@ def bound(m, k, n, dtype, torch, ce):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes
 
 
-def kernel_phase(torch, ce, dev):
+def kernel_phase(torch, ce, dev, batch: int = 8, ragged: bool = True):
     """conv1x1_bn_act against its plain version at every distinct site
-    shape of the serving path, and at a ragged f32 shape."""
-    sites = resnet50_sites(8, 224)
+    shape of a ResNet-50 forward at ``batch`` (8: serving; 200 and the
+    ragged 48: the trainer's eval), and at a ragged f32 shape."""
+    sites = resnet50_sites(batch, 224)
     shapes = {}
     for s in sites:
         shapes[s] = shapes.get(s, 0) + 1
     cases = [(*s, torch.bfloat16, cnt) for s, cnt in shapes.items()]
-    cases.append((50, 48, 96, "silu", torch.float32, 0))  # ragged M, N, K
+    if ragged:
+        cases.append((50, 48, 96, "silu", torch.float32, 0))  # ragged M, N, K
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, worst = [], 0.0
     for m, k, n, act, dtype, count in cases:
@@ -122,7 +156,7 @@ def kernel_phase(torch, ce, dev):
         tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
         bms, by, nbytes = bound(m, k, n, dtype, torch, ce)
         row = {
-            "phase": "kernel", "name": "conv1x1_bn_act", "M": m, "K": k, "N": n,
+            "phase": "kernel", "name": "conv1x1_bn_act", "batch": batch, "M": m, "K": k, "N": n,
             "act": act, "dtype": str(dtype).split(".")[-1], "sites_per_forward": count,
             "max_abs_err": err, "tol": tol,
             "ms": time_ms(torch, lambda: ce.conv1x1_bn_act(x, w, a, c, act)),
@@ -222,12 +256,261 @@ def slice_phase(torch, ce, n_requests: int):
     return launches, engine.model
 
 
+def resnet50_leaves(torch):
+    """The shapes of ResNet-50's parameter leaves, in the model's order."""
+    from distribuuuu_tpu_torch.models import build_model
+
+    return [tuple(p.shape) for p in build_model("resnet50", num_classes=1000).parameters()]
+
+
+OPT_BODIES = {  # name -> (Hyper kwargs, trace dtype)
+    "sgd_nesterov_f32": (dict(kind="sgd", wd=5e-5, mom=0.9, nesterov=True), "float32"),
+    "sgd_nesterov_bf16": (dict(kind="sgd", wd=5e-5, mom=0.9, nesterov=True), "bfloat16"),
+    "sgd_no_momentum": (dict(kind="sgd", wd=5e-5, mom=0.0), None),
+    "adamw": (dict(kind="adamw", wd=5e-5), "float32"),
+}
+OPT_FLOPS_PER_ELEM = {"sgd": 6, "sgd_plain": 4, "adamw": 16}
+
+
+def _ulps(torch, a, b) -> tuple[int, int]:
+    """(max ulp distance, elements that differ) of two same-dtype tensors."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    d = (a.view(view).long() - b.view(view).long()).abs()
+    return int(d.max()), int((d != 0).sum())
+
+
+def opt_kernel_phase(torch, ou, dev, shapes):
+    """opt_update against its plain version over the ResNet-50 leaves, for
+    every body: one step from the same state (bit-equal expected), then
+    the kernel, the plain version and the fused torch.optim step timed
+    over one whole step."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    for name, (hkw, mdt) in OPT_BODIES.items():
+        h = ou.Hyper(**hkw)
+
+        def rnd(scale, dtype=torch.float32, positive=False):
+            out = []
+            for s in shapes:
+                t = torch.rand(s, device=dev, generator=gen) if positive else \
+                    torch.randn(s, device=dev, generator=gen)
+                out.append((t * scale).to(dtype))
+            return out
+
+        p, g = rnd(0.05), rnd(0.01)
+        m = None if mdt is None else rnd(0.01, getattr(torch, mdt))
+        v = rnd(1e-4, positive=True) if h.kind == "adamw" else None
+
+        def clone(ts):
+            return None if ts is None else [t.clone() for t in ts]
+
+        kp, km, kv = clone(p), clone(m), clone(v)
+        before = ou.update.launches
+        ou.update(kp, g, km, kv, h, 0.1, 5)
+        ou.update_plain(p, g, m, v, h, 0.1, 5)
+        torch.cuda.synchronize()
+        if ou.update.launches != before + 1:
+            raise AssertionError(f"opt_update {name}: {ou.update.launches - before} launches")
+        worst, n_diff = 0, 0
+        for got, want in zip([*kp, *(km or []), *(kv or [])], [*p, *(m or []), *(v or [])]):
+            u, n = _ulps(torch, got, want)
+            worst, n_diff = max(worst, u), n_diff + n
+        nbytes = ou.pass_bytes(p, m, v)
+        n_elem = sum(t.numel() for t in p)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_elem * OPT_FLOPS_PER_ELEM[h.body()] / PEAK_FLOPS["float32"] * 1e3
+
+        lib = None
+        if mdt != "bfloat16":  # torch.optim has no SGD with a bf16 trace
+            lp = [t.clone() for t in kp]
+            for t, gt in zip(lp, g):
+                t.grad = gt
+            lib = (torch.optim.AdamW(lp, lr=0.1, eps=1e-8, weight_decay=5e-5, fused=True)
+                   if h.kind == "adamw" else
+                   torch.optim.SGD(lp, lr=0.1, momentum=h.mom, nesterov=h.nesterov,
+                                   weight_decay=5e-5, fused=True))
+        row = {
+            "phase": "kernel", "name": "opt_update", "body": name, "leaves": len(shapes),
+            "elements": n_elem, "max_ulp": worst, "elements_differing": n_diff,
+            "max_abs_err": max(float((a.float() - b.float()).abs().max()) for a, b in
+                               zip([*kp, *(km or []), *(kv or [])],
+                                   [*p, *(m or []), *(v or [])])),
+            # the wrapper checks 161 leaves in Python before each launch (about
+            # 1 ms of host time): hold the stream for 20 of them
+            "ms": time_ms(torch, lambda: ou.update(kp, g, km, kv, h, 0.1, 5), reps=20,
+                          hold_cycles=OPT_HOLD_CYCLES),
+            "plain_ms": time_ms(torch, lambda: ou.update_plain(p, g, m, v, h, 0.1, 5),
+                                reps=5, warmup=1),
+            "library_ms": None if lib is None else time_ms(torch, lib.step, reps=20,
+                                                           hold_cycles=OPT_HOLD_CYCLES),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "bytes": nbytes,
+        }
+        emit(row)
+        if worst > OPT_MAX_ULP or (worst and n_diff > OPT_MAX_ULP_ELEMS):
+            raise AssertionError(f"opt_update {name}: kernel vs plain differ by up to "
+                                 f"{worst} ulp in {n_diff} elements")
+        rows[name] = row
+        del p, g, m, v, kp, km, kv, lib
+    return rows
+
+
+def train_phase(torch, ce, ou, out_dir: str):
+    """train_model with config/resnet50.yaml on dummy data: MAX_EPOCH 1,
+    then MAX_EPOCH 2 (auto-resume). Returns the two runs' reports."""
+    import math
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+
+    runs = []
+    for max_epoch in (1, 2):
+        config.reset_cfg()
+        config.merge_from_file("config/resnet50.yaml")
+        cfg.merge_from_list([
+            "MODEL.DUMMY_INPUT", True, "DEVICE.PLATFORM", "auto",
+            "DEVICE.COMPUTE_DTYPE", "bfloat16", "RNG_SEED", 0,
+            "OPTIM.MAX_EPOCH", max_epoch, "OUT_DIR", out_dir,
+        ])
+        recs = []
+        ou.update.launches = 0
+        ce.conv1x1_bn_act.launches = 0
+        t0 = time.perf_counter()
+        trainer.train_model(recs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, conv_launches = ou.update.launches, ce.conv1x1_bn_act.launches
+        if len(recs) != 1 or recs[0]["epoch"] != max_epoch - 1:
+            raise AssertionError(f"MAX_EPOCH {max_epoch}: ran epochs "
+                                 f"{[r['epoch'] + 1 for r in recs]}, wanted [{max_epoch}]")
+        rec = recs[0]
+        losses = rec["losses"]
+        (d0, t_0), (d1, t_1) = rec["flushes"][0], rec["flushes"][-1]
+        res = {
+            "phase": "train", "max_epoch": max_epoch, "epoch_run": rec["epoch"] + 1,
+            "steps": rec["steps"], "opt_update_launches": launches,
+            "conv_epilogue_launches": conv_launches, "eval_forwards": EVAL_FORWARDS,
+            "batch": cfg.TRAIN.BATCH_SIZE, "first_loss": losses[0],
+            "loss_first8_mean": statistics.mean(losses[:8]),
+            "loss_last8_mean": statistics.mean(losses[-8:]),
+            "warm_steps": d1 - d0, "train_img_per_s": (d1 - d0) * cfg.TRAIN.BATCH_SIZE / (t_1 - t_0),
+            "mean_step_ms": (t_1 - t_0) / (d1 - d0) * 1e3,
+            "eval_images": rec.get("eval_images"), "eval_wall_s": rec.get("eval_wall_s"),
+            "eval_img_per_s": rec.get("eval_images", 0) / rec.get("eval_wall_s", float("inf")),
+            "acc1": rec.get("acc1"), "wall_s": wall,
+        }
+        emit(res)
+        if rec["steps"] != TRAIN_STEPS_PER_EPOCH or launches != rec["steps"]:
+            raise AssertionError(f"opt_update launches {launches} != steps {rec['steps']} "
+                                 f"(want {TRAIN_STEPS_PER_EPOCH})")
+        if conv_launches != 33 * EVAL_FORWARDS:
+            raise AssertionError(f"conv epilogue launches {conv_launches} != 33 x "
+                                 f"{EVAL_FORWARDS} eval forwards")
+        if len(losses) != rec["steps"] or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"losses not finite or missing: {losses}")
+        if max_epoch == 1 and not res["loss_last8_mean"] < res["loss_first8_mean"]:
+            raise AssertionError(f"loss did not fall over the epoch: {losses}")
+        runs.append(res)
+    return runs
+
+
+def step_vs_cpu_phase(torch, dev, batch: int = 4):
+    """One f32 train step of ResNet-50 (full width, TF32 off) on the card
+    and on the port's CPU path, and one f64 step on the CPU, from the same
+    weights and batch. The card's update agrees with the CPU's f32 update
+    within STEP_UPDATE_L2_TOL, relative in the L2 norm over all
+    parameters, and lies within STEP_F64_RATIO_MAX times the CPU f32
+    update's distance from the f64 update."""
+    import numpy as np
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
+    from distribuuuu_tpu_torch.utils.optim import Optimizer
+
+    config.reset_cfg()
+    rng = np.random.default_rng(1)
+    host = {"image": torch.from_numpy(rng.integers(0, 256, (batch, 224, 224, 3), np.uint8)),
+            "label": torch.from_numpy(rng.integers(0, 1000, batch).astype(np.int32))}
+    cpu = torch.device("cpu")
+    deltas, losses = [], []
+    for device, dtype in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
+        model = build_model("resnet50", num_classes=1000, dtype=dtype, bn_group=batch,
+                            generator=torch.Generator().manual_seed(0)).to(device, dtype)
+        names = [n for n, _ in model.named_parameters()]
+        before = [p.detach().cpu().clone() for p in model.parameters()]
+        opt = Optimizer(list(model.named_parameters()),
+                        ou.Hyper(kind="sgd", wd=5e-5, mom=0.9, nesterov=True), 0.1)
+        m = trainer.train_step(model.train(), opt, {k: v.to(device) for k, v in host.items()},
+                               5)
+        losses.append(float(m["loss"]))
+        deltas.append([p.detach().cpu().double() - b.double()
+                       for p, b in zip(model.parameters(), before)])
+        del model, opt
+
+    def l2_rel(xs, ys):
+        return float(torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(xs, ys))
+                                / sum((y ** 2).sum() for y in ys)))
+
+    card, cpu32, cpu64 = deltas
+    upd_l2, card_f64, cpu_f64 = l2_rel(card, cpu32), l2_rel(card, cpu64), l2_rel(cpu32, cpu64)
+    per_tensor = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  for a, b in zip(card, cpu32)]
+    worst = max(range(len(names)), key=per_tensor.__getitem__)
+    res = {"phase": "step_vs_cpu", "batch": batch, "dtype": "float32",
+           "loss_card": losses[0], "loss_cpu": losses[1], "loss_cpu_f64": losses[2],
+           "update_l2_rel_err": upd_l2, "update_l2_tol": STEP_UPDATE_L2_TOL,
+           "card_vs_f64_update_l2": card_f64, "cpu_f32_vs_f64_update_l2": cpu_f64,
+           "update_rel_err_median_tensor": float(np.median(per_tensor)),
+           "update_rel_err_worst_tensor": [names[worst], per_tensor[worst]]}
+    emit(res)
+    if not (upd_l2 <= STEP_UPDATE_L2_TOL and card_f64 <= STEP_F64_RATIO_MAX * cpu_f64):
+        raise AssertionError(f"f32 step card vs CPU: update L2 rel err {upd_l2} (tol "
+                             f"{STEP_UPDATE_L2_TOL}); from f64: card {card_f64}, CPU f32 "
+                             f"{cpu_f64} (ratio max {STEP_F64_RATIO_MAX})")
+
+
+def _breakdown(torch, prof, iters: int, classify) -> dict:
+    """Device time by kind per iteration, kernels per iteration, busy time
+    and idle share of the traced window, from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+
+    kinds, names, spans = {}, {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3 / iters
+        kind = classify(e.name)
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        names[e.name[:80]] = names.get(e.name[:80], 0.0) + ms
+        spans.append((e.time_range.start, e.time_range.end))
+    if not spans:
+        raise AssertionError("the profiler recorded no device kernels")
+    spans.sort()
+    busy, (cur_s, cur_e) = 0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy, cur_s, cur_e = busy + cur_e - cur_s, s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_ms_by_kind": kinds, "top_kernels_ms": top, "kernels": len(spans) / iters,
+            "device_busy_ms": busy / 1e3 / iters, "device_idle_share": 1.0 - busy / window}
+
+
+def _is_conv(name: str) -> bool:
+    return any(s in name for s in ("conv", "xmma", "cudnn", "implicit", "dgrad", "wgrad"))
+
+
 def profile_phase(torch, model, batch: int, im: int, iters: int = 10):
     """Where the time of one bf16 forward at ``batch`` goes: its host wall
     time (synchronised, no profiler), and from a torch.profiler trace the
     device time by kernel kind and the device's idle share of the traced
     window (host launch overhead shows up as idle)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from distribuuuu_tpu_torch.data.transforms import normalize_on_device
@@ -248,41 +531,64 @@ def profile_phase(torch, model, batch: int, im: int, iters: int = 10):
             for _ in range(iters):
                 model(x)
             torch.cuda.synchronize()
-    kinds, spans, n_kernels = {}, [], 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        n_kernels += 1
-        us = e.time_range.elapsed_us()
-        name = e.name
-        kind = ("conv_epilogue" if "epilogue_gemm" in name
-                else "cudnn_conv" if any(s in name for s in ("conv", "xmma", "cudnn", "implicit"))
-                else "other")
-        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3 / iters
-        spans.append((e.time_range.start, e.time_range.end))
-    if not spans:
-        raise AssertionError("the profiler recorded no device kernels")
-    spans.sort()
-    busy, (cur_s, cur_e) = 0, spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy, cur_s, cur_e = busy + cur_e - cur_s, s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    b = _breakdown(torch, prof, iters, lambda n: "conv_epilogue" if "epilogue_gemm" in n
+                   else "cudnn_conv" if _is_conv(n) else "other")
     emit({"phase": "profile", "batch": batch, "iters": iters,
           "forward_wall_ms": wall_ms / iters,
-          "device_ms_per_forward_by_kind": kinds,
-          "kernels_per_forward": n_kernels / iters,
-          "device_busy_ms_per_forward": busy / 1e3 / iters,
-          "device_idle_share": 1.0 - busy / window})
+          "device_ms_per_forward_by_kind": b["device_ms_by_kind"],
+          "kernels_per_forward": b["kernels"],
+          "device_busy_ms_per_forward": b["device_busy_ms"],
+          "device_idle_share": b["device_idle_share"]})
+
+
+def train_profile_phase(torch, dev, batch: int = 32, iters: int = 5):
+    """Where the time of one bf16 ResNet-50 train step at ``batch`` goes:
+    host wall time (synchronised), device time by kind (cuDNN convs
+    forward and backward, opt_update, BN/elementwise and the rest) and the
+    device's idle share, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    config.reset_cfg()
+    model = build_model("resnet50", num_classes=1000, dtype=torch.bfloat16, bn_group=batch,
+                        generator=torch.Generator().manual_seed(0)).to(dev).train()
+    opt = construct_optimizer(model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b = {"image": torch.randint(0, 256, (batch, 224, 224, 3), dtype=torch.uint8, device=dev,
+                                generator=gen),
+         "label": torch.randint(0, 1000, (batch,), device=dev, generator=gen)}
+    for _ in range(3):
+        trainer.train_step(model, opt, b, 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        trainer.train_step(model, opt, b, 5)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            trainer.train_step(model, opt, b, 5)
+        torch.cuda.synchronize()
+    br = _breakdown(torch, prof, iters, lambda n: "opt_update" if "opt_update" in n
+                    else "cudnn_conv_bwd" if _is_conv(n) and ("dgrad" in n or "wgrad" in n)
+                    else "cudnn_conv" if _is_conv(n) else "bn_elementwise_other")
+    emit({"phase": "profile_train", "batch": batch, "iters": iters, "dtype": "bfloat16",
+          "step_wall_ms": wall_ms, "img_per_s": batch / wall_ms * 1e3,
+          "device_ms_per_step_by_kind": br["device_ms_by_kind"],
+          "top_kernels_ms_per_step": br["top_kernels_ms"],
+          "kernels_per_step": br["kernels"], "device_busy_ms_per_step": br["device_busy_ms"],
+          "device_idle_share": br["device_idle_share"]})
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one bf16 ResNet-50 forward at batch 8")
+                    help="also trace one bf16 ResNet-50 forward at batch 8 and one "
+                         "train step at batch 32")
     args = ap.parse_args(argv)
 
     import torch
@@ -293,6 +599,7 @@ def main(argv=None) -> int:
     try:
         from distribuuuu_tpu_torch.ops.cuda import _build
         from distribuuuu_tpu_torch.ops.cuda import conv_epilogue as ce
+        from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
@@ -304,14 +611,38 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    _build.build("conv_epilogue")
+    _build.build("conv_epilogue", "opt_update")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(_build.build_seconds)})
 
     rows, worst = kernel_phase(torch, ce, dev)
+    for eval_batch in (200, 48):  # the trainer's eval: 10 batches of 200, one of 48
+        eval_rows, eval_worst = kernel_phase(torch, ce, dev, eval_batch, ragged=False)
+        worst = max(worst, eval_worst)
+        emit({"phase": "kernel_forward_total", "name": "conv1x1_bn_act", "batch": eval_batch,
+              **{k: sum(r[k] * r["sites_per_forward"] for r in eval_rows)
+                 for k in ("ms", "plain_ms", "library_ms")},
+              "bound_ms": sum(r["bound_ms"] * r["sites_per_forward"] for r in eval_rows)})
+    shapes = resnet50_leaves(torch)
+    if len(shapes) != 161:
+        raise AssertionError(f"ResNet-50 has {len(shapes)} parameter leaves, not 161")
+    opt_rows = opt_kernel_phase(torch, ou, dev, shapes)
     launches, model = slice_phase(torch, ce, N_REQUESTS)
     if args.profile:
         profile_phase(torch, model, 8, 224)
+    del model
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        runs = train_phase(torch, ce, ou, out_dir)
+    finally:
+        import shutil
+
+        shutil.rmtree(out_dir, ignore_errors=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    step_vs_cpu_phase(torch, dev)
+    if args.profile:
+        train_profile_phase(torch, dev)
 
     # per-forward totals over the 33 sites (sites_per_forward weights)
     def total(key):
@@ -320,18 +651,31 @@ def main(argv=None) -> int:
     t_bytes = sum(r["bytes"] * r["sites_per_forward"] for r in rows) / HBM_BYTES_PER_S * 1e3
     t_ops = sum(2 * r["M"] * r["K"] * r["N"] * r["sites_per_forward"] for r in rows
                 if r["sites_per_forward"]) / PEAK_FLOPS["bfloat16"] * 1e3
+    main_body = opt_rows["sgd_nesterov_f32"]  # config/resnet50.yaml's optimizer
     emit({"kernels": [{
         "name": "conv1x1_bn_act",
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/csrc/conv_epilogue.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/conv_epilogue.py:121",
-        "launches": launches,
+        "launches": launches + sum(r["conv_epilogue_launches"] for r in runs),
         "max_abs_err": worst,
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": total("library_ms"),
+    }, {
+        "name": "opt_update",
+        "route": "cuda",
+        "source": "distribuuuu_tpu_torch/csrc/opt_update.cu",
+        "replaces": "distribuuuu_tpu/ops/pallas/opt_update.py:75",
+        "launches": sum(r["opt_update_launches"] for r in runs),
+        "max_abs_err": max(r["max_abs_err"] for r in opt_rows.values()),
+        "ms": main_body["ms"],
+        "plain_ms": main_body["plain_ms"],
+        "bound_ms": main_body["bound_ms"],
+        "bound_by": main_body["bound_by"],
+        "library_ms": main_body["library_ms"],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,17 +6,21 @@ The port's own copy of the yacs-compatible ``CfgNode`` of
 with the part of the default tree that the image configs and the ported
 slices use. Every shipped image config (``config/resnet*.yaml`` and the
 other CNN and ViT yamls) merges into it unchanged; nodes that only the
-unported planes read (LM, GENERATE, FAULTS, ASYNC, TELEMETRY, ...) are
-added with the slices that port them.
+unported planes read (LM, GENERATE, ASYNC, TELEMETRY, ...) are added with
+the slices that port them.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
+import os
+import sys
 
 import yaml
 
-__all__ = ["CfgNode", "cfg", "merge_from_file", "reset_cfg"]
+__all__ = ["CfgNode", "cfg", "dump_cfg", "load_cfg_from_args", "merge_from_file",
+           "reset_cfg"]
 
 
 class CfgNode(dict):
@@ -194,13 +198,34 @@ _C.TRAIN.DATASET = "./data/ILSVRC/"
 _C.TRAIN.SPLIT = "train"
 # Model input size; also the served image size.
 _C.TRAIN.IM_SIZE = 224
+# Per-process batch size (the reference's per-GPU meaning).
 _C.TRAIN.BATCH_SIZE = 32
 _C.TRAIN.AUTO_RESUME = True
 _C.TRAIN.LOAD_OPT = True
+# On SIGTERM, leave the epoch at the next step boundary and write a
+# mid-epoch checkpoint that AUTO_RESUME prefers (utils/preempt.py).
+_C.TRAIN.PREEMPT_SAVE = True
 _C.TRAIN.WORKERS = 4
 _C.TRAIN.PIN_MEMORY = True
 _C.TRAIN.PRINT_FREQ = 30
 _C.TRAIN.TOPK = 5
+# Optimizer steps per dispatched call; the port takes 1 (refuses more).
+_C.TRAIN.STEPS_PER_CALL = 1
+# Device prefetch depth (data/loader.device_prefetch): batches k+1..k+N
+# are copied host-to-device (pinned, non_blocking) while step k runs.
+_C.TRAIN.PREFETCH_DEVICE = 2
+# Per-batch timeline records: the port writes none yet (logged once).
+_C.TRAIN.TIMELINE = True
+# Rematerialized stages 1-2: not ported (the port refuses True).
+_C.TRAIN.REMAT = False
+# Micro-batches per optimizer step: the port takes 1 (refuses more).
+_C.TRAIN.GRAD_ACCUM_STEPS = 1
+# Non-finite loss policy (resilience/supervisor.py): "raise" fails at the
+# next metric flush, "skip" discards the poisoned update and keeps the
+# state before the step; "rollback" is not ported.
+_C.TRAIN.NONFINITE = "raise"
+# Validation overlapped with the next epoch: not ported (refuses True).
+_C.TRAIN.CONCURRENT_EVAL = False
 
 # ------------------------------- testing -----------------------------------
 _C.TEST = CfgNode()
@@ -218,6 +243,10 @@ _C.CUDNN.DETERMINISTIC = False
 
 # ------------------------------- optimizer ----------------------------------
 _C.OPTIM = CfgNode()
+# "sgd" (the reference's recipe) or "adamw" (eps 1e-8).
+_C.OPTIM.OPTIMIZER = "sgd"
+_C.OPTIM.BETA1 = 0.9
+_C.OPTIM.BETA2 = 0.999
 _C.OPTIM.BASE_LR = 0.1
 _C.OPTIM.LR_POLICY = "cos"
 _C.OPTIM.LR_MULT = 0.1
@@ -230,11 +259,17 @@ _C.OPTIM.WARMUP_FACTOR = 0.1
 _C.OPTIM.WARMUP_EPOCHS = 0
 _C.OPTIM.STEPS = []
 _C.OPTIM.MIN_LR = 0.0
+# SGD momentum-buffer dtype: "float32" or "bfloat16" (fp32 master params,
+# half-size trace; utils/optim.py).
+_C.OPTIM.MOMENTUM_DTYPE = "float32"
 
 # ------------------------------- kernel tier ---------------------------------
 # Hand-written CUDA kernels (ops/cuda/). "auto" is the only value: the
 # kernel on CUDA tensors, its plain PyTorch version on CPU tensors.
 _C.KERNELS = CfgNode()
+# Fused optimizer update (ops/cuda/opt_update.py): one launch per step
+# over every parameter, gradient and moment.
+_C.KERNELS.OPT_UPDATE = "auto"
 # Fused pointwise conv + folded eval BN + activation (ops/cuda/conv_epilogue.py)
 # at every 1x1/s1 ungrouped conv+BN site of the eval/serve forward.
 _C.KERNELS.CONV_EPILOGUE = "auto"
@@ -263,6 +298,16 @@ _C.DATA = CfgNode()
 # Ship uint8 pixels and normalize on the device (data/transforms.
 # normalize_on_device); False sends host-normalized float32.
 _C.DATA.DEVICE_NORMALIZE = True
+
+# ------------------------------- checkpoints ---------------------------------
+_C.CHECKPOINT = CfgNode()
+# Background commit of checkpoints: not ported (the port refuses True).
+_C.CHECKPOINT.ASYNC = False
+
+# ------------------------------- fault injection -----------------------------
+# Deterministic failure injection: not ported (the port refuses True).
+_C.FAULTS = CfgNode()
+_C.FAULTS.ENABLED = False
 
 # ------------------------------- serving ------------------------------------
 _C.SERVE = CfgNode()
@@ -294,6 +339,29 @@ _CFG_DEFAULT.freeze()
 def merge_from_file(cfg_file):
     """Merge a YAML file into the global cfg."""
     _C.merge_from_file(cfg_file)
+
+
+def dump_cfg() -> str:
+    """Write the merged config to ``OUT_DIR/CFG_DEST``; returns the path."""
+    os.makedirs(_C.OUT_DIR, exist_ok=True)
+    path = os.path.join(_C.OUT_DIR, _C.CFG_DEST)
+    with open(path, "w") as f:
+        f.write(_C.dump())
+    return path
+
+
+def load_cfg_from_args(description: str = "Config file options.", argv=None):
+    """``--cfg path.yaml`` plus dotted ``KEY VALUE`` overrides (the JAX
+    package's ``load_cfg_fom_args``)."""
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("--cfg", dest="cfg_file", required=True, type=str,
+                        help="Config file location")
+    parser.add_argument("opts", help="See distribuuuu_tpu_torch/config.py for all options",
+                        default=None, nargs=argparse.REMAINDER)
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    merge_from_file(args.cfg_file)
+    _C.merge_from_list(args.opts)
+    return _C
 
 
 def reset_cfg():

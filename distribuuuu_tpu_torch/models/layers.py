@@ -5,20 +5,23 @@ Conventions kept from the JAX package:
     runs ``F.conv2d`` (cuDNN) on the ``permute(0, 3, 1, 2)`` view, which is
     NCHW with channels-last strides, so cuDNN stays channels-last and the
     fused 1x1 kernel reads ``[M, Cin]`` with no copy;
-  - parameters are fp32, compute runs in ``DEVICE.COMPUTE_DTYPE``. The
-    compute-dtype weights and the folded BN affines are made once, by
-    ``prepare()``, when the serving engine is built;
-  - eval BatchNorm is the running-stat affine in fp32, cast to the compute
-    dtype; at a pointwise site it folds to ``(a, c)`` and rides the fused
-    conv epilogue (ops/cuda/conv_epilogue.py).
-
-Training-mode BatchNorm (ghost groups, shifted one-pass variance) belongs
-to the training slice and raises here.
+  - parameters are fp32 masters, compute runs in ``DEVICE.COMPUTE_DTYPE``
+    with explicit casts (the JAX dtype policy, not ``torch.autocast``):
+    convs in the compute dtype, BN statistics in fp32, the head in fp32;
+  - in eval the compute-dtype weights and the folded BN affines are made
+    once per entry into eval (``prepare()``, or lazily at the first
+    forward); eval BatchNorm is the running-stat affine in fp32, cast to
+    the compute dtype, and at a pointwise site it folds to ``(a, c)`` and
+    rides the fused conv epilogue (ops/cuda/conv_epilogue.py);
+  - in training every forward casts the fp32 weight (a differentiable
+    cast, so the gradient reaches the master) and runs conv → batch-stat
+    BN → act unfused, as ``conv_epilogue.qualifies(train=True)`` decides.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -46,13 +49,32 @@ def head_dtype(dtype: torch.dtype) -> torch.dtype:
 class BatchNorm(nn.Module):
     """BatchNorm with torch's parameter names (``weight``, ``bias``,
     ``running_mean``, ``running_var``, ``num_batches_tracked``), so a
-    torchvision state dict loads as it is. Eval only in this slice."""
+    torchvision state dict loads as it is.
+
+    Training computes the batch statistics as ``_BNCore`` of the JAX
+    package does (distribuuuu_tpu/models/layers.py):
+
+    * ghost groups of ``group_size`` samples (0 = the whole batch); a batch
+      of ``n <= group_size`` is one group, an indivisible one raises;
+    * statistics in fp32, promoted to f64 on f64 input;
+    * the one-pass shifted variance ``E[d²] − E[d]²`` with ``d = x − m̂``
+      and the running mean as the constant shift ``m̂``, clamped at 0;
+      ``DISTRIBUUUU_BN_VARIANCE`` = ``centered`` (two-pass) or
+      ``uncentered`` (shift 0) selects the other formulations;
+    * the running variance is the mean of the per-group UNBIASED
+      variances; running stats move as ``m·ra + (1−m)·upd`` with flax's
+      m = 0.9 (``DISTRIBUUUU_BN_MOMENTUM`` overrides), stored in their
+      own dtype.
+    """
+
+    momentum = 0.9  # flax's decay (torch's momentum 0.1)
 
     def __init__(self, features: int, eps: float = 1e-5, zero_init: bool = False,
-                 device=None):
+                 group_size: int = 0, device=None):
         super().__init__()
         self.eps = eps
         self.zero_init = zero_init
+        self.group_size = group_size
         init = torch.zeros if zero_init else torch.ones
         self.weight = nn.Parameter(init(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
@@ -61,25 +83,68 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long, device=device))
 
-    def _check_eval(self):
-        if self.training:
-            raise not_ported("train-mode BatchNorm", "Training slice")
-
     def fold(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The eval normalization as fp32 per-channel ``(a, c)`` with
         ``y = x·a + c`` = ``(x − mean)·inv + bias``."""
-        self._check_eval()
+        if self.training:
+            raise ValueError("BatchNorm.fold is the eval path; batch statistics "
+                             "cannot be folded into an affine")
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
         return inv, self.bias - self.running_mean * inv
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """Eval BN over the last (channel) dim of an NHWC tensor, in fp32
-        (fp64 for fp64 input), cast to ``dtype``."""
-        self._check_eval()
+        """BN over the last (channel) dim of an NHWC tensor, in fp32 (fp64
+        for fp64 input), cast to ``dtype``: batch statistics in training,
+        the running-stat affine in eval."""
         stats_dtype = torch.promote_types(torch.float32, x.dtype)
+        if self.training:
+            return self._train(x.to(stats_dtype)).to(dtype)
         inv = (torch.rsqrt(self.running_var + self.eps) * self.weight).to(stats_dtype)
         y = (x.to(stats_dtype) - self.running_mean.to(stats_dtype)) * inv
         return (y + self.bias.to(stats_dtype)).to(dtype)
+
+    def _moments(self, v: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, biased var) of ``v`` over ``dims``, by the formulation
+        ``DISTRIBUUUU_BN_VARIANCE`` names."""
+        mode = os.environ.get("DISTRIBUUUU_BN_VARIANCE", "shifted")
+        if mode not in ("shifted", "centered", "uncentered"):
+            raise ValueError(f"DISTRIBUUUU_BN_VARIANCE={mode!r}")
+        if mode == "centered":
+            m = v.mean(dims, keepdim=True)
+            return m.squeeze(dims), torch.square(v - m).mean(dims)
+        shift = self.running_mean.detach() if mode == "shifted" else 0.0
+        d = v - shift
+        s1 = d.mean(dims)
+        s2 = torch.square(d).mean(dims)
+        return s1 + shift, torch.clamp_min(s2 - torch.square(s1), 0.0)
+
+    def _train(self, xf: torch.Tensor) -> torch.Tensor:
+        n, feat, gs = xf.shape[0], xf.shape[-1], self.group_size
+        spatial = math.prod(xf.shape[1:-1])
+        if gs > 0 and n > gs:
+            if n % gs:
+                raise ValueError(
+                    f"ghost BN group_size={gs} does not divide batch {n}; "
+                    "set MODEL.BN_GROUP to a divisor of the batch"
+                )
+            xg = xf.reshape(n // gs, gs, *xf.shape[1:])
+            dims = tuple(range(1, xg.dim() - 1))
+            bshape = (n // gs,) + (1,) * (xg.dim() - 2) + (feat,)
+            gmean, gvar = self._moments(xg, dims)  # (groups, C)
+            inv = torch.rsqrt(gvar + self.eps).reshape(bshape) * self.weight
+            y = ((xg - gmean.reshape(bshape)) * inv + self.bias).reshape(xf.shape)
+            count = gs * spatial
+            mean_upd, var_upd = gmean.mean(0), gvar.mean(0) * count / max(count - 1, 1)
+        else:
+            mean, var = self._moments(xf, tuple(range(xf.dim() - 1)))
+            y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+            count = n * spatial
+            mean_upd, var_upd = mean, var * count / max(count - 1, 1)
+        m = float(os.environ.get("DISTRIBUUUU_BN_MOMENTUM", self.momentum))
+        with torch.no_grad():
+            for buf, upd in ((self.running_mean, mean_upd), (self.running_var, var_upd)):
+                buf.copy_((m * buf + (1.0 - m) * upd.detach()).to(buf.dtype))
+        return y
 
 
 class ConvBN:
@@ -87,9 +152,10 @@ class ConvBN:
 
     Not a module of its own: it pairs a ``nn.Conv2d`` and a
     :class:`BatchNorm` that the block registers under torchvision's names
-    (``conv1``/``bn1``, ``downsample.0``/``downsample.1``). A pointwise,
-    stride-1, ungrouped site with a kernel-known activation runs the fused
-    conv epilogue; every other site runs ``F.conv2d`` then BN then act.
+    (``conv1``/``bn1``, ``downsample.0``/``downsample.1``). In eval a
+    pointwise, stride-1, ungrouped site with a kernel-known activation runs
+    the fused conv epilogue; every other site, and every site in training
+    (the BN's mode decides), runs ``F.conv2d`` then BN then act.
     """
 
     def __init__(self, conv: nn.Conv2d, bn: BatchNorm, act=None,
@@ -105,8 +171,9 @@ class ConvBN:
 
     def prepare(self) -> None:
         """Cast the weight to the compute dtype (and fold the BN at a fused
-        site) once; later forwards read the cache. Call again after the
-        weights change."""
+        site) once; later eval forwards read the cache. The model drops the
+        cache whenever it changes mode (``ResNet.train``), so an eval after
+        training steps rebuilds it from the updated weights."""
         w = self.conv.weight.detach()
         if self.fused:
             o, i = w.shape[:2]
@@ -117,7 +184,8 @@ class ConvBN:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.bn.training:
-            raise not_ported("the training forward", "Training slice")
+            w = self.conv.weight.to(self.dtype, memory_format=torch.channels_last)
+            return self._conv_bn_act(x, w)
         if self._cache is None:
             self.prepare()
         if self.fused:
@@ -126,7 +194,9 @@ class ConvBN:
                 x.to(self.dtype), w, a, c, conv_epilogue.act_code(self.act),
                 out_dtype=self.dtype,
             )
-        (w,) = self._cache
+        return self._conv_bn_act(x, self._cache[0])
+
+    def _conv_bn_act(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, None,
                      self.conv.stride, self.conv.padding, 1, self.conv.groups)
         y = self.bn(y.permute(0, 2, 3, 1), self.dtype)
@@ -163,10 +233,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     kaiming-normal (fan_out, relu), Linear U(±1/sqrt(fan_in)) with zero
     bias, BN weight 1 (or 0 where zero-initialised), bias 0, stats 0/1.
     Every value is written, so the model may be built on the meta device
-    and materialised with ``to_empty`` first."""
+    and materialised with ``to_empty`` first. Conv weights are stored
+    channels last, the layout cuDNN computes in, so their gradients, the
+    optimizer's moments and the weights share one memory layout."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+            m.weight.data = m.weight.data.contiguous(memory_format=torch.channels_last)
             m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
         elif isinstance(m, nn.Linear):
             bound = 1.0 / math.sqrt(m.in_features)

@@ -6,7 +6,10 @@ constructors of the JAX package. Submodules and parameters carry
 torchvision's names (``conv1``, ``bn1``, ``layer1.0.conv2``,
 ``downsample.0/1``, ``fc``), so a torchvision-style state dict loads
 directly; convs, BNs and the Linear are defined in the flax modules' order.
-Activations are NHWC (layers.py). Eval only in this slice.
+Activations are NHWC (layers.py). ``model.train()`` reaches every
+BatchNorm (batch statistics in ghost groups of ``bn_group``); switching
+mode drops the eval weight cache, so an eval after training steps sees the
+updated weights.
 """
 
 from __future__ import annotations
@@ -106,10 +109,8 @@ class ResNet(nn.Module):
                  zero_init_residual: bool = False, dtype=torch.bfloat16,
                  bn_group: int = 0, s2d_stem: bool = False, device=None):
         super().__init__()
-        # bn_group is the training slice's ghost-BN group size; eval BN
-        # reads running statistics and does not use it
         self.dtype = dtype
-        self.bn_group = bn_group
+        self.bn_group = bn_group  # ghost-BN group size of training (0 = whole batch)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False, device=device)
         self.bn1 = BatchNorm(64, device=device)
         self.stem = ConvBN(self.conv1, self.bn1, F.relu, dtype, s2d_stem=s2d_stem)
@@ -127,6 +128,17 @@ class ResNet(nn.Module):
                 in_ch = feats * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.fc = Dense(in_ch, num_classes, device=device)
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group_size = bn_group
+
+    def train(self, mode: bool = True) -> "ResNet":
+        """Set the mode of every BatchNorm and drop the eval weight cache
+        (it is rebuilt from the current weights at the next eval)."""
+        super().train(mode)
+        for unit in self.conv_units():
+            unit._cache = None
+        return self
 
     def conv_units(self):
         """Every ConvBN of the network, stem first."""
@@ -139,7 +151,8 @@ class ResNet(nn.Module):
 
     def prepare(self) -> "ResNet":
         """Cast the conv weights to the compute dtype and fold the BNs of
-        the fused sites, once (the serving engine calls this at build)."""
+        the fused sites, once per entry into eval (the serving engine calls
+        this at build; otherwise the first eval forward does)."""
         for unit in self.conv_units():
             unit.prepare()
         return self

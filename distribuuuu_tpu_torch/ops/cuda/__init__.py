@@ -1,9 +1,11 @@
 """The port's kernel tier: hand-written CUDA kernels for Hopper (sm_90a).
 
-Counterpart of ``distribuuuu_tpu/ops/pallas/``. One kernel so far:
+Counterpart of ``distribuuuu_tpu/ops/pallas/``. Two kernels so far:
 
 * ``conv_epilogue`` — fused 1x1 conv + folded eval BatchNorm + activation
-  (``csrc/conv_epilogue.cu``), the eval/serve path's pointwise convs.
+  (``csrc/conv_epilogue.cu``), the eval/serve path's pointwise convs;
+* ``opt_update`` — the fused optimizer update (``csrc/opt_update.cu``),
+  one launch per training step over every parameter.
 
 Which implementation runs is decided in ONE place, :func:`use_kernel`, and
 only by where the tensor lives: a CUDA tensor goes through the kernel or
@@ -22,7 +24,7 @@ import torch
 # KERNELS.* knobs the port keeps. "auto" is the only value: kernel on CUDA
 # tensors, plain version on CPU tensors.
 VALID_IMPLS = ("auto",)
-KNOBS = {"conv_epilogue": "CONV_EPILOGUE"}
+KNOBS = {"conv_epilogue": "CONV_EPILOGUE", "opt_update": "OPT_UPDATE"}
 
 
 def validate_kernels_cfg(kcfg) -> None:

@@ -1,0 +1,24 @@
+"""Train a classification model with the port (the twin of the top-level
+``train_net.py``). Runs on ``cuda:0`` unless ``DEVICE.PLATFORM cpu``.
+
+Usage:
+    python -m distribuuuu_tpu_torch.train_net --cfg config/resnet50.yaml \\
+        MODEL.DUMMY_INPUT True [KEY VALUE ...]
+"""
+
+from __future__ import annotations
+
+import distribuuuu_tpu_torch.config as config
+from distribuuuu_tpu_torch.config import cfg
+
+
+def main(argv=None):
+    config.load_cfg_from_args("Train a classification model.", argv)
+    cfg.freeze()
+    from distribuuuu_tpu_torch import trainer
+
+    return trainer.train_model()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,60 @@
-"""Model construction from the config (counterpart of the parts of
-distribuuuu_tpu/trainer.py that serving reads). The training slice adds
-the train and eval loops here."""
+"""Training and evaluation on one device (counterpart of
+distribuuuu_tpu/trainer.py and the step bodies of
+distribuuuu_tpu/parallel/partition/lowering.py).
+
+* :func:`train_step`: forward in training mode, cross-entropy, backward,
+  ONE fused optimizer update (``ops/cuda/opt_update``), the step's metrics
+  and the non-finite guard. Metrics stay on the device; the epoch loop
+  fetches them at ``PRINT_FREQ``, so steps dispatch back to back.
+* :func:`train_epoch`: epoch-granular learning rate, the device prefetch
+  ring, meters and ETA, the preemption check at every step boundary.
+* :func:`validate`: masked sums over the val set (the padded tail counts
+  nothing); on the card every pointwise conv of the eval forward runs the
+  conv-epilogue kernel.
+* :func:`train_model` / :func:`test_model`: the loops of ``train_net`` and
+  ``test_net``, with epoch checkpoints, ``best``, preemption saves and
+  auto-resume (``utils/checkpoint.py``).
+
+The trainer runs on ``cuda:0`` under ``DEVICE.PLATFORM`` ``auto``/``cuda``
+(raising without CUDA) and on the CPU only when asked (``cpu``, the
+tests). What this slice does not run raises with its ROADMAP item: more
+than one process or device, folded steps, gradient accumulation,
+rematerialization, concurrent eval, fault injection, asynchronous
+checkpoints and the ``rollback`` policy.
+"""
 
 from __future__ import annotations
 
+import os
+import time
+
 import torch
+import torch.nn.functional as F
 
 from distribuuuu_tpu_torch import not_ported
 from distribuuuu_tpu_torch.config import cfg
+from distribuuuu_tpu_torch.data.loader import (
+    construct_train_loader,
+    construct_val_loader,
+    device_prefetch,
+)
+from distribuuuu_tpu_torch.data.transforms import normalize_on_device
 from distribuuuu_tpu_torch.models import build_model
-from distribuuuu_tpu_torch.models.layers import resolve_dtype
+from distribuuuu_tpu_torch.models.layers import head_dtype, resolve_dtype
 from distribuuuu_tpu_torch.ops import cuda as kernel_tier
+from distribuuuu_tpu_torch.ops.cuda import opt_update
+from distribuuuu_tpu_torch.resilience import supervisor
+from distribuuuu_tpu_torch.utils import checkpoint as ckpt
+from distribuuuu_tpu_torch.utils import preempt
+from distribuuuu_tpu_torch.utils.logger import setup_logger
+from distribuuuu_tpu_torch.utils.meters import construct_meters
+from distribuuuu_tpu_torch.utils.metrics import accuracy, count_parameters, cross_entropy
+from distribuuuu_tpu_torch.utils.optim import construct_optimizer, set_lr
+from distribuuuu_tpu_torch.utils.schedules import get_epoch_lr
+from distribuuuu_tpu_torch.utils.seed import setup_env, setup_seed
+from distribuuuu_tpu_torch.utils.weights import load_weights, pretrained_refusal
+
+SLICE3 = "Slice 3"
 
 
 def bn_group_from_cfg() -> int:
@@ -46,9 +90,10 @@ def device_from_cfg() -> torch.device:
     return torch.device("cuda", idx)
 
 
-def build_model_from_cfg():
-    """The configured arch on the CPU, in fp32 master weights, filled from
-    ``RNG_SEED`` (0 when unset) by a ``torch.Generator``."""
+def build_model_from_cfg(generator: torch.Generator | None = None):
+    """The configured arch on the CPU, in fp32 master weights, filled by
+    ``generator`` (default: a ``torch.Generator`` seeded with ``RNG_SEED``,
+    0 when unset)."""
     kernel_tier.validate_kernels_cfg(cfg.KERNELS)
     if cfg.DEVICE.S2D_STEM:
         raise not_ported("DEVICE.S2D_STEM (space-to-depth stem)", "S2D stem")
@@ -57,10 +102,313 @@ def build_model_from_cfg():
         num_classes=cfg.MODEL.NUM_CLASSES,
         dtype=resolve_dtype(cfg.DEVICE.COMPUTE_DTYPE),
         bn_group=bn_group_from_cfg(),
-        generator=torch.Generator().manual_seed(int(cfg.RNG_SEED or 0)),
+        generator=generator or torch.Generator().manual_seed(int(cfg.RNG_SEED or 0)),
     )
 
 
 def effective_topk() -> int:
     """TOPK clamped to the class count."""
     return min(cfg.TRAIN.TOPK, cfg.MODEL.NUM_CLASSES)
+
+
+def check_train_cfg(eval_only: bool = False) -> None:
+    """Refuse, before any work, what this slice does not run."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = cfg.MESH
+    refusals = [
+        (world > 1 or (torch.distributed.is_available()
+                       and torch.distributed.is_initialized()),
+         f"training in more than one process (WORLD_SIZE={world}, torch.distributed)"),
+        (mesh.DATA not in (-1, 1) or mesh.MODEL != 1 or mesh.SEQ != 1 or mesh.PIPE != 1,
+         f"MESH beyond one device (DATA={mesh.DATA}, MODEL={mesh.MODEL}, "
+         f"SEQ={mesh.SEQ}, PIPE={mesh.PIPE})"),
+        (bool(cfg.MODEL.SYNCBN), "MODEL.SYNCBN (SyncBN across processes)"),
+        (bool(cfg.FAULTS.ENABLED), "FAULTS.ENABLED (fault injection)"),
+    ]
+    if not eval_only:
+        refusals += [
+            (cfg.TRAIN.STEPS_PER_CALL > 1,
+             f"TRAIN.STEPS_PER_CALL={cfg.TRAIN.STEPS_PER_CALL} (folded steps)"),
+            (cfg.TRAIN.GRAD_ACCUM_STEPS > 1,
+             f"TRAIN.GRAD_ACCUM_STEPS={cfg.TRAIN.GRAD_ACCUM_STEPS} (gradient accumulation)"),
+            (bool(cfg.TRAIN.REMAT), "TRAIN.REMAT (rematerialized stages)"),
+            (bool(cfg.TRAIN.CONCURRENT_EVAL), "TRAIN.CONCURRENT_EVAL"),
+            (bool(cfg.CHECKPOINT.ASYNC), "CHECKPOINT.ASYNC (background checkpoint commits)"),
+        ]
+        supervisor.validate_policy(str(cfg.TRAIN.NONFINITE))
+    for refused, what in refusals:
+        if refused:
+            raise not_ported(what, SLICE3)
+    if cfg.MODEL.PRETRAINED and not cfg.MODEL.WEIGHTS:
+        raise pretrained_refusal(cfg.MODEL.ARCH)
+
+
+def apply_backend_flags() -> None:
+    """``CUDNN.BENCHMARK``/``DETERMINISTIC`` (or ``DEVICE.DETERMINISTIC``);
+    TF32 off when the compute dtype is float32, so f32 means f32."""
+    torch.backends.cudnn.benchmark = bool(cfg.CUDNN.BENCHMARK)
+    torch.backends.cudnn.deterministic = bool(cfg.CUDNN.DETERMINISTIC
+                                              or cfg.DEVICE.DETERMINISTIC)
+    if cfg.DEVICE.COMPUTE_DTYPE == "float32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def prep_images(images: torch.Tensor) -> torch.Tensor:
+    """The device half of ``DATA.DEVICE_NORMALIZE``: uint8 batches are
+    normalized on the device; float batches arrive normalized."""
+    if images.dtype == torch.uint8 and cfg.DATA.DEVICE_NORMALIZE:
+        return normalize_on_device(images)
+    return images
+
+
+def train_step(model, optimizer, batch: dict, topk: int, policy: str = "raise") -> dict:
+    """One optimizer step on ``batch`` (device tensors; ``model`` in train
+    mode). Returns the step's metrics as device scalars: ``loss``,
+    ``top1``, ``topk`` and ``nonfinite`` (1.0 when the loss is NaN/Inf).
+    Under ``policy="skip"`` a non-finite step leaves the parameters, the
+    optimizer state and the BN running stats as they were."""
+    labels = batch["label"]
+    saved = ([b.clone() for b in model.buffers()] if policy == "skip" else None)
+    logits = model(prep_images(batch["image"]))
+    loss = cross_entropy(logits, labels)
+    # the fused update walks each leaf's memory: a gradient laid out
+    # unlike its parameter is copied into the parameter's layout
+    grads = [g if opt_update.same_layout(g, p) else torch.empty_like(p).copy_(g)
+             for g, p in zip(torch.autograd.grad(loss, optimizer.params), optimizer.params)]
+    loss = loss.detach()
+    bad = torch.logical_not(torch.isfinite(loss))
+    if saved is not None and bool(bad):
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), saved):
+                b.copy_(s)
+    else:
+        optimizer.step(grads)
+    acc1, acck = accuracy(logits.detach(), labels, topk=(1, topk))
+    return {"loss": loss, "top1": acc1, "topk": acck, "nonfinite": bad.float()}
+
+
+@torch.inference_mode()
+def eval_step(model, batch: dict, topk: int) -> dict:
+    """Masked sums of one eval batch: ``loss_sum``, ``correct1``,
+    ``correctk`` and ``count`` (device scalars; ``model`` in eval mode)."""
+    logits = model(prep_images(batch["image"]))
+    mask, labels = batch["mask"], batch["label"].long()
+    logp = F.log_softmax(logits.to(head_dtype(logits.dtype)), dim=-1)
+    nll = -logp.gather(-1, labels[:, None])[:, 0]
+    hits = logits.topk(topk, dim=-1).indices == labels[:, None]
+    return {
+        "loss_sum": (nll * mask).sum(),
+        "correct1": (hits[:, :1].any(dim=1) * mask).sum(),
+        "correctk": (hits.any(dim=1) * mask).sum(),
+        "count": mask.sum(),
+    }
+
+
+def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
+                device: torch.device):
+    """One epoch. Returns ``(interrupted, batches_done, record)``: with
+    ``TRAIN.PREEMPT_SAVE`` a SIGTERM ends the epoch at the next step
+    boundary with ``interrupted`` True. ``record`` holds the epoch, its
+    steps, the step losses, and the (steps done, host time) of each metric
+    flush; every flush waits for the device."""
+    lr = get_epoch_lr(epoch)
+    set_lr(optimizer, lr)
+    loader.set_epoch(epoch)
+    model.train()
+    num_batches, topk = len(loader), effective_topk()
+    batch_time, data_time, losses, top1, topk_m, progress = construct_meters(
+        num_batches, f"Epoch[{epoch + 1}/{cfg.OPTIM.MAX_EPOCH}]", topk)
+    policy = str(cfg.TRAIN.NONFINITE)
+    monitor = supervisor.NonFiniteMonitor(policy, epoch, logger)
+    record = {"epoch": epoch, "steps": 0, "flushes": [], "losses": []}
+    pending, done = [], 0
+
+    def flush():
+        for m in pending:
+            m = {k: float(v) for k, v in m.items()}
+            if monitor.observe(m["loss"], m["nonfinite"], done):
+                continue
+            losses.update(m["loss"])
+            top1.update(m["top1"])
+            topk_m.update(m["topk"])
+            record["losses"].append(m["loss"])
+        pending.clear()
+        record["flushes"].append((done, time.perf_counter()))
+
+    end = time.perf_counter()
+    for _, batch, tl in device_prefetch(loader, device, cfg.TRAIN.PREFETCH_DEVICE,
+                                        cfg.TRAIN.PIN_MEMORY):
+        data_time.update(tl["get1"] - tl["get0"])
+        pending.append(train_step(model, optimizer, batch, topk, policy))
+        state["step"] += 1
+        done += 1
+        record["steps"] = done
+        batch_time.update(time.perf_counter() - end)
+        end = time.perf_counter()
+        if done % cfg.TRAIN.PRINT_FREQ == 0 or done == num_batches:
+            flush()
+            eta = progress.get_eta(
+                done, (num_batches - done) + (cfg.OPTIM.MAX_EPOCH - epoch - 1) * num_batches)
+            logger.info("%s  LR %.5f  ETA %s", progress.display(done), lr, eta)
+        if cfg.TRAIN.PREEMPT_SAVE and done < num_batches and preempt.requested():
+            flush()
+            logger.warning("preemption signaled — leaving epoch %d at batch %d/%d",
+                           epoch + 1, done, num_batches)
+            return True, done, record
+    return False, done, record
+
+
+def validate(loader, model, epoch: int, logger, device: torch.device,
+             watch_preemption: bool | None = None):
+    """The full eval pass: ``(top1, topk, loss, samples)``, or ``None`` when
+    preemption was signaled mid-eval (``TRAIN.PREEMPT_SAVE``)."""
+    if watch_preemption is None:
+        watch_preemption = cfg.TRAIN.PREEMPT_SAVE
+    model.eval()
+    topk, num_batches, totals = effective_topk(), len(loader), None
+    end = time.perf_counter()
+    for it, batch, _ in device_prefetch(loader, device, cfg.TRAIN.PREFETCH_DEVICE,
+                                        cfg.TRAIN.PIN_MEMORY):
+        m = eval_step(model, batch, topk)
+        totals = m if totals is None else {k: totals[k] + m[k] for k in totals}
+        if (it + 1) % cfg.TEST.PRINT_FREQ == 0 and it + 1 < num_batches:
+            if watch_preemption and preempt.requested():
+                logger.warning("preemption signaled — abandoning eval at batch %d/%d",
+                               it + 1, num_batches)
+                return None
+            window = time.perf_counter() - end
+            logger.info("Eval[%d][%d/%d]  Time %6.3f (%.3f/batch)  Acc@1 %.3f",
+                        epoch + 1, it + 1, num_batches, window,
+                        window / cfg.TEST.PRINT_FREQ,
+                        float(totals["correct1"]) / max(float(totals["count"]), 1.0) * 100)
+            end = time.perf_counter()
+    totals = {k: float(v) for k, v in totals.items()}
+    n = max(totals["count"], 1.0)
+    top1, topk_acc = totals["correct1"] / n * 100.0, totals["correctk"] / n * 100.0
+    loss = totals["loss_sum"] / n
+    logger.info("Eval[%d]  Loss %.4f  Acc@1 %.3f  Acc@%d %.3f  (%d samples)",
+                epoch + 1, loss, top1, topk, topk_acc, int(n))
+    return top1, topk_acc, loss, int(n)
+
+
+def _resume(model, optimizer, state: dict, logger):
+    """Load the newest checkpoint; returns ``(start_epoch, best_acc1,
+    pending_eval)``."""
+    path = ckpt.get_last_checkpoint()
+    payload = ckpt.load_checkpoint(path)
+    model.load_state_dict(payload["model"])
+    if cfg.TRAIN.LOAD_OPT and "opt" in payload:
+        try:
+            optimizer.load_state_dict(payload["opt"])
+        except ValueError as e:
+            logger.warning("optimizer state not restored (%s); fresh optimizer", e)
+    state["step"] = int(payload.get("step", 0))
+    start_epoch = int(payload.get("epoch", -1)) + 1
+    logger.info("resumed from %s (epoch %d)", path, start_epoch)
+    pending = payload.get("pending_eval")
+    return start_epoch, float(payload.get("best_acc1", 0.0)), \
+        None if pending is None else int(pending)
+
+
+def train_model(records: list | None = None):
+    """End-to-end training (``train_net``). Returns the best Acc@1. Each
+    epoch run appends its record (``train_epoch``, plus the eval's wall
+    time, images and Acc@1) to ``records`` when one is given."""
+    check_train_cfg()
+    setup_env()
+    logger = setup_logger()
+    device = device_from_cfg()
+    apply_backend_flags()
+    model = build_model_from_cfg(setup_seed()).to(device)
+    optimizer = construct_optimizer(model)
+    m_params, mb = count_parameters(model)
+    logger.info("model %s: %.3fM params (%.2f MB fp32) on %s", cfg.MODEL.ARCH, m_params,
+                mb, device)
+    if cfg.TRAIN.TIMELINE:
+        logger.info("TRAIN.TIMELINE and the telemetry sinks: the port writes no "
+                    "records yet (ROADMAP.md Queue 1, Telemetry)")
+    train_loader, val_loader = construct_train_loader(), construct_val_loader()
+
+    state, start_epoch, best_acc1, pending_eval = {"step": 0}, 0, 0.0, None
+    if cfg.TRAIN.AUTO_RESUME and ckpt.has_checkpoint():
+        start_epoch, best_acc1, pending_eval = _resume(model, optimizer, state, logger)
+    elif cfg.MODEL.PRETRAINED and cfg.MODEL.WEIGHTS:
+        load_weights(model, cfg.MODEL.WEIGHTS)
+        logger.info("warm-started from pretrained weights %s", cfg.MODEL.WEIGHTS)
+    elif cfg.MODEL.WEIGHTS:
+        logger.warning("MODEL.WEIGHTS is ignored during training unless "
+                       "MODEL.PRETRAINED True (evaluation uses test_net)")
+    if cfg.TRAIN.PREEMPT_SAVE:
+        preempt.install()
+
+    def full_state():
+        return {"model": model.state_dict(), "opt": optimizer.state_dict(),
+                "step": state["step"]}
+
+    def preempt_exit(path, resume_epoch):
+        logger.warning("preempted: state saved to %s; rerun to resume at epoch %d",
+                       path, resume_epoch + 1)
+        return best_acc1
+
+    def finish_epoch(epoch, record):
+        """Validate, track the best, save; the preempt path if the eval was
+        preempted, else None."""
+        nonlocal best_acc1
+        t0 = time.perf_counter()
+        result = validate(val_loader, model, epoch, logger, device)
+        record["eval_wall_s"] = time.perf_counter() - t0
+        if result is None:
+            return ckpt.save_preempt_checkpoint(full_state(), epoch + 1, best_acc1,
+                                                pending_eval=epoch)
+        acc1 = result[0]
+        record["eval_images"], record["acc1"] = result[3], acc1
+        is_best = acc1 > best_acc1
+        best_acc1 = max(acc1, best_acc1)
+        ckpt.save_checkpoint(full_state(), epoch, best_acc1, is_best)
+        logger.info("epoch %d done: Acc@1 %.3f (best %.3f)", epoch + 1, acc1, best_acc1)
+        return None
+
+    if pending_eval is not None:
+        logger.info("running epoch %d's validation (skipped by the preemption)",
+                    pending_eval + 1)
+        path = finish_epoch(pending_eval, {"epoch": pending_eval, "steps": 0})
+        if path is not None:
+            return preempt_exit(path, pending_eval + 1)
+        ckpt.prune_preempts(pending_eval + 1)
+
+    for epoch in range(start_epoch, cfg.OPTIM.MAX_EPOCH):
+        interrupted, _, record = train_epoch(train_loader, model, optimizer, state, epoch,
+                                             logger, device)
+        if records is not None:
+            records.append(record)
+        if interrupted:
+            return preempt_exit(ckpt.save_preempt_checkpoint(full_state(), epoch,
+                                                             best_acc1), epoch)
+        if cfg.TRAIN.PREEMPT_SAVE and preempt.requested():
+            path = ckpt.save_preempt_checkpoint(full_state(), epoch + 1, best_acc1,
+                                                pending_eval=epoch)
+            return preempt_exit(path, epoch + 1)
+        path = finish_epoch(epoch, record)
+        if path is not None:
+            return preempt_exit(path, epoch + 1)
+    return best_acc1
+
+
+def test_model():
+    """Evaluate ``MODEL.WEIGHTS`` on the val split (``test_net``). Returns
+    ``(top1, topk)``, or None when preempted mid-eval."""
+    check_train_cfg(eval_only=True)
+    logger = setup_logger()
+    device = device_from_cfg()
+    apply_backend_flags()
+    model = build_model_from_cfg()
+    if cfg.MODEL.WEIGHTS:
+        load_weights(model, cfg.MODEL.WEIGHTS)
+        logger.info("loaded weights from %s", cfg.MODEL.WEIGHTS)
+    result = validate(construct_val_loader(), model.to(device), 0, logger, device)
+    if result is None:
+        logger.warning("evaluation preempted before completion")
+        return None
+    logger.info("TEST  Acc@1 %.3f  Acc@%d %.3f", result[0], effective_topk(), result[1])
+    return result[0], result[1]

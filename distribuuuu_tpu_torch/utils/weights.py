@@ -5,8 +5,13 @@
   torchvision-named state dict: conv ``[kh, kw, I, O]`` → ``[O, I, kh, kw]``,
   dense ``[I, O]`` → ``[O, I]``, BN ``scale``/``bias``/``mean``/``var`` →
   ``weight``/``bias``/``running_mean``/``running_var``.
-* :func:`load_weights` loads a torch ``.pth``/``.pth.tar`` (a state dict or
-  a ``{"state_dict": ...}`` wrapper, ``module.`` prefixes stripped).
+* :func:`opt_state_from_jax` maps the optax state of the JAX package's
+  ``construct_optimizer()`` onto the port's optimizer state
+  (``utils/optim.Optimizer.load_state_dict``): the trace, or mu and nu,
+  by the same paths, plus the step count.
+* :func:`load_weights` loads a torch ``.pth``/``.pth.tar`` (a state dict, a
+  ``{"state_dict": ...}`` wrapper or a port checkpoint's ``{"model": ...}``,
+  ``module.`` prefixes stripped).
 
 An orbax directory (JAX's checkpoint format) and the pretrained URL zoo
 (``MODEL.PRETRAINED``, which needs the network) are refused.
@@ -84,6 +89,15 @@ def _leaves(tree: dict, prefix=()):
             yield (*prefix, k), v
 
 
+def _port_layout(arr, dtype=np.float32) -> np.ndarray:
+    a = np.asarray(arr, dtype)
+    if a.ndim == 4:  # conv HWIO -> OIHW
+        a = a.transpose(3, 2, 0, 1)
+    elif a.ndim == 2:  # dense [I, O] -> [O, I]
+        a = a.T
+    return np.ascontiguousarray(a)
+
+
 def state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
     """The port's state dict for a JAX ResNet's variables (numpy leaves).
     Every leaf lands in exactly one tensor; an unmapped leaf raises."""
@@ -92,15 +106,49 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tens
     for path, arr in [*_leaves(params), *_leaves(batch_stats)]:
         if path not in paths:
             raise KeyError(f"JAX leaf {'/'.join(path)} has no port tensor")
-        a = np.asarray(arr, np.float32)
-        if a.ndim == 4:  # conv HWIO -> OIHW
-            a = a.transpose(3, 2, 0, 1)
-        elif a.ndim == 2:  # dense [I, O] -> [O, I]
-            a = a.T
-        sd[paths[path]] = torch.from_numpy(np.ascontiguousarray(a))
+        sd[paths[path]] = torch.from_numpy(_port_layout(arr))
     for key in [k for k in sd if k.endswith(".running_var")]:
         sd[key.replace("running_var", "num_batches_tracked")] = torch.zeros((), dtype=torch.long)
     return sd
+
+
+def _find(state, field: str):
+    """The first namedtuple in a nested optax state that has ``field``."""
+    if hasattr(state, "_fields"):
+        if field in state._fields:
+            return state
+        state = tuple(getattr(state, f) for f in state._fields)
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _find(sub, field)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(opt_state, params: dict) -> dict:
+    """The port's optimizer state (``Optimizer.load_state_dict``) for the
+    optax state of the JAX package's ``construct_optimizer()`` over a JAX
+    ResNet's ``params``: ``{"count", "m", "v"}`` with ``m`` the SGD trace or
+    AdamW's mu and ``v`` AdamW's nu, as numpy arrays under the port's
+    parameter names (``None`` where the optimizer keeps none). ``count`` is
+    the number of steps taken (AdamW's own counter where it has one).
+    Arrays are f32 (f64 where the state is f64; a bf16 trace is exact in
+    f32)."""
+    paths = jax_path_map(params)
+
+    def tree(t):
+        if t is None:
+            return None
+        return {paths[p]: _port_layout(a, np.float64 if np.asarray(a).dtype == np.float64
+                                       else np.float32) for p, a in _leaves(t)}
+
+    adam = _find(opt_state, "mu")
+    if adam is not None:
+        return {"count": int(np.asarray(adam.count)), "m": tree(adam.mu), "v": tree(adam.nu)}
+    trace = _find(opt_state, "trace")
+    return {"count": int(np.asarray(opt_state.count)),
+            "m": tree(trace.trace) if trace is not None else None, "v": None}
 
 
 def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
@@ -112,7 +160,7 @@ def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
             "Orbax weights",
         )
     obj = torch.load(path, map_location="cpu", weights_only=True)
-    sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
+    sd = obj.get("state_dict", obj.get("model", obj)) if isinstance(obj, dict) else obj
     if not isinstance(sd, dict):
         raise ValueError(f"{path}: expected a state dict, got {type(sd).__name__}")
     sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}

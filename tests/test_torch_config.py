@@ -66,3 +66,9 @@ def test_kernel_knob_and_platform_refusals():
         trainer.device_from_cfg()
     tcfg.DEVICE.PLATFORM = "cpu"
     assert str(trainer.device_from_cfg()) == "cpu"
+
+
+def test_opt_update_knob_accepts_only_auto():
+    tcfg.KERNELS.OPT_UPDATE = "pallas"
+    with pytest.raises(ValueError, match="OPT_UPDATE.*accepts only"):
+        trainer.build_model_from_cfg()

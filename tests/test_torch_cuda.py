@@ -3,9 +3,11 @@ CUDA). No JAX here, so they run on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The CUDA kernel is held against its plain version (tolerances as in
-tests/test_torch_conv_epilogue.py), and a small ResNet-50 is served on the
-card through the engine, every fused site launching the kernel.
+The conv-epilogue kernel is held against its plain version (tolerances
+as in tests/test_torch_conv_epilogue.py), and a small ResNet-50 is served
+on the card through the engine, every fused site launching the kernel.
+The fused optimizer update is held bit for bit against its plain version
+for each body, and a train step launches it exactly once.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from distribuuuu_tpu_torch.data.transforms import normalize_on_device
 from distribuuuu_tpu_torch.models import build_model
 from distribuuuu_tpu_torch.ops.cuda import conv_epilogue as ce
+from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
 from distribuuuu_tpu_torch.serve import Engine
 
 pytestmark = pytest.mark.cuda
@@ -79,3 +82,64 @@ def test_engine_on_card_launches_kernel_at_every_fused_site():
         cpu = ref.eval()(normalize_on_device(torch.from_numpy(images))).numpy()
     assert np.isfinite(got).all()
     assert np.abs(got - cpu).max() / np.abs(cpu).max() <= 0.05  # bf16 card vs f32 CPU
+
+
+OPT_BODIES = {
+    "sgd_nesterov_f32": (dict(kind="sgd", wd=5e-5, mom=0.9, nesterov=True), torch.float32),
+    "sgd_f32": (dict(kind="sgd", wd=5e-5, mom=0.9), torch.float32),
+    "sgd_nesterov_bf16": (dict(kind="sgd", wd=5e-5, mom=0.9, nesterov=True), torch.bfloat16),
+    "sgd_no_momentum": (dict(kind="sgd", wd=5e-5), None),
+    "adamw": (dict(kind="adamw", wd=5e-5), torch.float32),
+}
+
+
+@pytest.mark.parametrize("body", list(OPT_BODIES))
+def test_opt_update_kernel_matches_plain_on_card(body):
+    """Leaves of ragged sizes (one spans several chunks), three steps."""
+    dev = _card()
+    hkw, mdt = OPT_BODIES[body]
+    h = ou.Hyper(**hkw)
+    g = torch.Generator(device=dev).manual_seed(7)
+    shapes = [(37, 13), (5,), (70_001,), (3, 3, 64, 64)]
+    p = [torch.randn(s, device=dev, generator=g) for s in shapes]
+    m = None if mdt is None else [torch.zeros(s, device=dev, dtype=mdt) for s in shapes]
+    v = [torch.zeros(s, device=dev) for s in shapes] if h.kind == "adamw" else None
+    kp, km, kv = ([t.clone() for t in x] if x else None for x in (p, m, v))
+    before = ou.update.launches
+    for step in range(1, 4):
+        grads = [0.1 * torch.randn(s, device=dev, generator=g) for s in shapes]
+        ou.update(kp, grads, km, kv, h, 0.1 / step, step)
+        ou.update_plain(p, grads, m, v, h, 0.1 / step, step)
+    torch.cuda.synchronize()
+    assert ou.update.launches == before + 3
+    for got, want in zip([*kp, *(km or []), *(kv or [])], [*p, *(m or []), *(v or [])]):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_opt_update_refuses_what_it_does_not_take():
+    dev = _card()
+    h = ou.Hyper(kind="sgd", mom=0.9)
+    p, gr = torch.zeros(4, device=dev), torch.zeros(4, device=dev)
+    with pytest.raises(TypeError, match="f32 params"):
+        ou.update([p.double()], [gr.double()], [p.double()], None, h, 0.1, 1)
+    with pytest.raises(ValueError, match="on cpu"):
+        ou.update([p], [gr.cpu()], [p.clone()], None, h, 0.1, 1)
+    with pytest.raises(TypeError, match="moment"):
+        ou.update([p], [gr], [p.half()], None, h, 0.1, 1)
+
+
+def test_one_opt_update_launch_per_train_step():
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    dev = _card()
+    model = build_model("resnet18", num_classes=10, dtype=torch.bfloat16, bn_group=4,
+                        generator=torch.Generator().manual_seed(0)).to(dev).train()
+    opt = construct_optimizer(model)
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.integers(0, 256, (8, 32, 32, 3), np.uint8)).to(dev),
+             "label": torch.zeros(8, dtype=torch.int32, device=dev)}
+    before = ou.update.launches
+    losses = [float(trainer.train_step(model, opt, batch, 5)["loss"]) for _ in range(3)]
+    assert ou.update.launches == before + 3 and opt.count == 3
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -75,8 +75,10 @@ def test_seeded_init_is_deterministic_and_bf16_forward_runs():
 
 
 def test_unported_paths_raise_with_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Training slice"):
-        tmodels.build_model("resnet18", num_classes=10).train()(torch.zeros(1, 32, 32, 3))
+    from distribuuuu_tpu_torch.data.loader import construct_train_loader
+
+    with pytest.raises(NotImplementedError, match="Slice 3"):
+        construct_train_loader()  # real images: only MODEL.DUMMY_INPUT is ported
     tcfg.DEVICE.S2D_STEM = True
     with pytest.raises(NotImplementedError, match="S2D stem"):
         trainer.build_model_from_cfg()

@@ -67,3 +67,15 @@ def port_model(arch: str, variables: dict, num_classes: int = 10,
 
 def reset_port_cfg():
     tconfig.reset_cfg()
+
+
+def few_threads(n: int = 2):
+    """A fixture body: PyTorch's CPU ops on ``n`` threads for the test.
+    The suite runs several test processes at once; each spinning up a
+    thread per core would oversubscribe the machine."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
