@@ -14,29 +14,45 @@ Run from the root of a checkout:  python3 chip_smoke.py
    at the eval shapes of the trainer (batches 200 and 48) and a small
    ragged f32 shape; opt_update over the 161 ResNet-50
    parameter leaves for its four bodies (SGD with an f32 or bf16 trace,
-   SGD without momentum, AdamW).
-4. Serving slice: ResNet-50 (1000 classes, 224², bf16, weights from
-   RNG_SEED) through ``engine_from_cfg`` on cuda:0 with
-   config/resnet50.yaml; two bursts of 64 seeded uint8 requests through
-   ``submit`` with buckets [1, 2, 4, 8] (img/s and latency are the second
-   burst's; the first is reported apart). Checks that every kernel of the path ran
-   (33 conv-epilogue launches per forward, warm-ups included) and that
-   the card's logits agree with the port's CPU run in f32.
-5. Training slice: ``trainer.train_model`` with config/resnet50.yaml and
-   MODEL.DUMMY_INPUT (bf16, RNG_SEED 0): one epoch of 64 steps at batch
-   32 and an eval of 2048 images at batch 200, then MAX_EPOCH 2, which
-   auto-resumes at epoch 2. Checks one opt_update launch per step, 33
-   conv-epilogue launches per eval forward, a finite loss that falls, and
+   SGD without momentum, AdamW); the flash-attention forward, dQ and
+   dK/dV at the ViT-S/16 shapes [B·6, 196, 64] (train batch 32, serving
+   batch 8, eval batch 200, bf16), the ViT-Ti/16 1024² shape
+   [4·3, 4096, 64] (bf16, plain and causal) and a ragged f32 shape, with
+   ``F.scaled_dot_product_attention`` (forward; backward) as the library.
+4. Serving slices, through ``engine_from_cfg`` on cuda:0 with buckets
+   [1, 2, 4, 8] and two bursts of 64 seeded uint8 requests through
+   ``submit`` (img/s and latency are the second burst's; the first is
+   reported apart), weights from RNG_SEED:
+   * ResNet-50 (config/resnet50.yaml, bf16): 33 conv-epilogue launches per
+     forward (warm-ups included), logits against the port's f32 CPU run;
+   * ViT-S/16 (config/vit_small.yaml, DEVICE.ATTN_IMPL flash, bf16): 12
+     flash-forward launches per forward and no backward launch; the
+     card's bf16 logits against the port's f32 CPU run, and the same
+     weights in f32 on the card (the f32 flash kernel) against the CPU.
+5. Training slices, ``trainer.train_model`` on MODEL.DUMMY_INPUT (bf16,
+   RNG_SEED 0): one epoch of 64 steps at batch 32 and an eval of 2048
+   images at batch 200, then MAX_EPOCH 2, which auto-resumes at epoch 2.
+   Checks one opt_update launch per step, a finite loss that falls, and
    the resume point; reports train img/s over the warm steps, the mean
-   step time and eval img/s. Then one f32 step of ResNet-50 (batch 4,
-   TF32 off) on the card and on the port's CPU path (and an f64 step on
-   the CPU as the yardstick of f32 rounding) from the same weights, whose
-   updates must agree.
+   step time and eval img/s.
+   * ResNet-50 (config/resnet50.yaml): 33 conv-epilogue launches per eval
+     forward;
+   * ViT-S/16 (config/vit_small.yaml, DEVICE.ATTN_IMPL flash): 12 forward,
+     12 dQ and 12 dK/dV flash launches per step, 12 forward launches per
+     eval forward.
+   Then one f32 step of ResNet-50 and one of ViT-S/16 (batch 4, TF32 off)
+   on the card and on the port's CPU path (and an f64 step on the CPU as
+   the yardstick of f32 rounding) from the same weights, whose updates
+   must agree. Then ViT-Ti/16 at 1024² (4096 tokens) under
+   DEVICE.ATTN_IMPL auto: one train step at batch 4, every block's
+   attention routed to the flash kernels by length.
 6. Prints the ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
-Any failed phase exits non-zero. Exits non-zero, printing no result,
-without CUDA or outside a checkout.
+``--profile`` adds torch.profiler breakdowns of a ResNet-50 forward and
+of a ResNet-50 and a ViT-S/16 train step. Any failed phase exits
+non-zero. Exits non-zero, printing no result, without CUDA or outside a
+checkout.
 """
 
 from __future__ import annotations
@@ -73,6 +89,31 @@ STEP_UPDATE_L2_TOL = 0.05
 STEP_F64_RATIO_MAX = 2.0
 TRAIN_STEPS_PER_EPOCH = 64
 EVAL_FORWARDS = 11  # 2048 images at batch 200: 10 full batches and a ragged 48
+# flash attention against its plain version: max abs error over the
+# reference's scale (max(1, max |ref|)); bf16: four bf16 ulps (p and dS are
+# rounded at the same points, the sums run in other orders); f32: f32 sums
+# in other orders
+FLASH_TOL = {"bfloat16": 2 ** -6, "float32": 1e-5}
+FLASH_SHAPES = [  # (name, batch, heads, length, head dim, dtype, causal)
+    ("vit_s_train_b32", 32, 6, 196, 64, "bfloat16", False),
+    ("vit_s_serve_b8", 8, 6, 196, 64, "bfloat16", False),
+    ("vit_s_eval_b200", 200, 6, 196, 64, "bfloat16", False),
+    ("vit_ti_1024px_b4", 4, 3, 4096, 64, "bfloat16", False),
+    ("causal_4096_b4", 4, 3, 4096, 64, "bfloat16", True),
+    ("ragged_f32", 2, 3, 150, 64, "float32", False),
+]
+FLASH_KERNELS = {  # kernel -> (source function name, TPU kernel it replaces)
+    "forward": ("flash_attention_fwd", "distribuuuu_tpu/ops/flash_attention.py:315"),
+    "dq": ("flash_attention_dq", "distribuuuu_tpu/ops/flash_attention.py:359"),
+    "dkdv": ("flash_attention_dkdv", "distribuuuu_tpu/ops/flash_attention.py:372"),
+}
+VIT_DEPTH = 12
+# ViT-S serving, card vs the port's f32 CPU forward: bf16 on the card within
+# SLICE_REL_TOL of the logit scale; f32 on the card (the f32 flash kernel)
+# within VIT_F32_REL_TOL and the same top-1 for VIT_F32_TOP1_MIN of the
+# requests (bf16 near-ties between random-init classes may flip top-1)
+VIT_F32_REL_TOL = 1e-3
+VIT_F32_TOP1_MIN = 0.9
 
 
 def emit(obj) -> None:
@@ -173,6 +214,30 @@ def kernel_phase(torch, ce, dev, batch: int = 8, ragged: bool = True):
     return rows, worst
 
 
+def _serve_bursts(engine_from_cfg, images):
+    """Build the engine from the global cfg and serve ``images`` twice
+    (the first burst meets the threads' first CUDA calls), then drain.
+    Returns (engine, build seconds, burst walls, batches, last logits)."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch.serve import ServeMetrics
+
+    t_build = time.perf_counter()
+    engine = engine_from_cfg()
+    t_build = time.perf_counter() - t_build
+    engine.start()
+    walls, batches = [], 0
+    for _ in range(2):
+        engine.metrics = ServeMetrics()
+        t0 = time.perf_counter()
+        futs = [engine.submit(img) for img in images]
+        logits = np.stack([f.result(timeout=300) for f in futs])
+        walls.append(time.perf_counter() - t0)
+        batches += engine.metrics.snapshot()["batches"]
+    engine.drain()
+    return engine, t_build, walls, batches, logits
+
+
 def slice_phase(torch, ce, n_requests: int):
     """ResNet-50 serving through the port's engine on cuda:0, checked
     against the port's CPU forward in f32 on the same weights."""
@@ -182,7 +247,7 @@ def slice_phase(torch, ce, n_requests: int):
     from distribuuuu_tpu_torch.config import cfg
     from distribuuuu_tpu_torch.data.transforms import normalize_on_device
     from distribuuuu_tpu_torch.models import build_model
-    from distribuuuu_tpu_torch.serve import ServeMetrics, engine_from_cfg
+    from distribuuuu_tpu_torch.serve import engine_from_cfg
 
     config.reset_cfg()
     config.merge_from_file("config/resnet50.yaml")
@@ -196,21 +261,9 @@ def slice_phase(torch, ce, n_requests: int):
     images = np.random.default_rng(0).integers(0, 256, (n_requests, im, im, 3), np.uint8)
 
     ce.conv1x1_bn_act.launches = 0
-    t_build = time.perf_counter()
-    engine = engine_from_cfg()
-    t_build = time.perf_counter() - t_build
-    engine.start()
-    walls, batches = [], 0
-    for burst in range(2):  # the first burst meets the threads' first CUDA calls
-        engine.metrics = ServeMetrics()
-        t0 = time.perf_counter()
-        futs = [engine.submit(img) for img in images]
-        logits = np.stack([f.result(timeout=300) for f in futs])
-        walls.append(time.perf_counter() - t0)
-        batches += engine.metrics.snapshot()["batches"]
-    wall = walls[-1]
-    engine.drain()
+    engine, t_build, walls, batches, logits = _serve_bursts(engine_from_cfg, images)
     launches = ce.conv1x1_bn_act.launches
+    wall = walls[-1]
     stats = engine.stats()
 
     forwards = batches + engine.n_compiles
@@ -254,6 +307,155 @@ def slice_phase(torch, ce, n_requests: int):
         raise AssertionError(f"card vs CPU logits: rel err {rel} (tol {SLICE_REL_TOL}), "
                              f"top-1 agreement {top1} (min {SLICE_TOP1_MIN})")
     return launches, engine.model
+
+
+def _scaled_err(a, b) -> tuple[float, float]:
+    """(max abs error, the same over max(1, max |b|))."""
+    err = float((a.float() - b.float()).abs().max())
+    return err, err / max(1.0, float(b.float().abs().max()))
+
+
+def flash_kernel_phase(torch, fa, dev):
+    """The flash forward, dQ and dK/dV against their plain versions at
+    FLASH_SHAPES (the backward kernels on the plain forward's lse and
+    delta), each timed beside its plain version and SDPA: forward for the
+    forward, its backward (dQ, dK and dV together) for dQ and dK/dV.
+    Returns {shape name: {kernel: row}}."""
+    F = torch.nn.functional
+    out = {}
+    for name, b, h, L, d, dt, causal in FLASH_SHAPES:
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q, k, v, do = (torch.randn(b * h, L, d, device=dev, generator=gen).to(dtype)
+                       for _ in range(4))
+        scale = d ** -0.5
+        o, lse = fa.forward_kernel(q, k, v, scale, causal)
+        o_ref, lse_ref = fa.forward_plain(q, k, v, scale, causal)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        args = (q, k, v, do, lse_ref, delta, scale, causal)
+        dq, (dk, dv) = fa.dq_kernel(*args), fa.dkdv_kernel(*args)
+        dq_ref, (dk_ref, dv_ref) = fa.dq_plain(*args), fa.dkdv_plain(*args)
+        torch.cuda.synchronize()
+        errs = {"forward": [_scaled_err(o, o_ref), _scaled_err(lse, lse_ref)],
+                "dq": [_scaled_err(dq, dq_ref)],
+                "dkdv": [_scaled_err(dk, dk_ref), _scaled_err(dv, dv_ref)]}
+        q4, k4, v4, do4 = (t.view(b, h, L, d) for t in (q, k, v, do))
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, scale=scale))
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, scale=scale)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(sdpa, (qg, kg, vg), do4,
+                                                             retain_graph=True))
+        del qg, kg, vg, sdpa
+        calls = {
+            "forward": (lambda: fa.forward_kernel(q, k, v, scale, causal),
+                        lambda: fa.forward_plain(q, k, v, scale, causal), lib_fwd),
+            "dq": (lambda: fa.dq_kernel(*args), lambda: fa.dq_plain(*args), lib_bwd),
+            "dkdv": (lambda: fa.dkdv_kernel(*args), lambda: fa.dkdv_plain(*args), lib_bwd),
+        }
+        nbytes, ops = fa.pass_bytes(b * h, L, d, dtype), fa.flops(b * h, L, d, causal)
+        rows = {}
+        for kern, (fn, plain, lib) in calls.items():
+            t_bytes = nbytes[kern] / HBM_BYTES_PER_S * 1e3
+            t_ops = ops[kern] / PEAK_FLOPS[dt] * 1e3
+            row = {
+                "phase": "kernel", "name": FLASH_KERNELS[kern][0], "shape": name,
+                "B": b, "H": h, "L": L, "D": d, "dtype": dt, "causal": causal,
+                "max_abs_err": max(e for e, _ in errs[kern]),
+                "scaled_err": max(r for _, r in errs[kern]), "tol": FLASH_TOL[dt],
+                "ms": time_ms(torch, fn),
+                "plain_ms": time_ms(torch, plain, reps=5, warmup=1,
+                                    hold_cycles=OPT_HOLD_CYCLES),
+                "library_ms": lib, "library": "sdpa forward" if kern == "forward"
+                else "sdpa backward (dq, dk, dv)",
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes[kern], "flops": ops[kern],
+            }
+            emit(row)
+            if not row["scaled_err"] <= FLASH_TOL[dt]:
+                raise AssertionError(f"flash {kern} {name}: error {row['scaled_err']} of "
+                                     f"the scale > {FLASH_TOL[dt]}")
+            rows[kern] = row
+        out[name] = rows
+        del q, k, v, do, o, lse, o_ref, lse_ref, delta, args, dq, dk, dv, dq_ref, dk_ref, dv_ref
+    return out
+
+
+def vit_slice_phase(torch, fa, dev, n_requests: int):
+    """ViT-S/16 serving through the port's engine on cuda:0 with
+    DEVICE.ATTN_IMPL flash; 12 flash-forward launches per forward, the
+    logits held against the port's f32 CPU forward on the same weights,
+    in bf16 (the served run) and in f32 on the card."""
+    import numpy as np
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.data.transforms import normalize_on_device
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.serve import engine_from_cfg
+
+    config.reset_cfg()
+    config.merge_from_file("config/vit_small.yaml")
+    cfg.merge_from_list([
+        "DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE", "bfloat16",
+        "DEVICE.ATTN_IMPL", "flash", "RNG_SEED", 0, "SERVE.DEVICE", 0,
+        "SERVE.MAX_BATCH", 8, "SERVE.BUCKET_SIZES", [1, 2, 4, 8],
+        "SERVE.MAX_QUEUE", 2 * n_requests, "SERVE.MAX_WAIT_MS", 2.0,
+    ])
+    im = cfg.TRAIN.IM_SIZE
+    images = np.random.default_rng(0).integers(0, 256, (n_requests, im, im, 3), np.uint8)
+    fa.reset_launch_counts()
+    engine, t_build, walls, batches, logits = _serve_bursts(engine_from_cfg, images)
+    counts = fa.launch_counts()
+    stats = engine.stats()
+    forwards = batches + engine.n_compiles
+    depth = len(engine.model.blocks)
+    if depth != VIT_DEPTH or counts != {"forward": depth * forwards, "dq": 0, "dkdv": 0}:
+        raise AssertionError(f"flash launches {counts} != {depth} x {forwards} forwards "
+                             f"({batches} batches + {engine.n_compiles} warm-ups), no backward")
+
+    sd = {k: t.cpu() for k, t in engine.model.state_dict().items()}
+    del engine
+
+    def f32_logits(device):
+        model = build_model("vit_small", num_classes=cfg.MODEL.NUM_CLASSES,
+                            dtype=torch.float32, attn_impl="flash", img_size=im)
+        model.load_state_dict(sd)
+        model = model.to(device).eval()
+        with torch.inference_mode():
+            return np.concatenate([
+                model(normalize_on_device(torch.from_numpy(images[i:i + 16]).to(device)))
+                .cpu().numpy() for i in range(0, n_requests, 16)])
+
+    cpu, card32 = f32_logits(torch.device("cpu")), f32_logits(dev)
+    if logits.shape != (n_requests, cfg.MODEL.NUM_CLASSES) or not np.isfinite(logits).all():
+        raise AssertionError(f"bad logits: shape {logits.shape}, finite "
+                             f"{bool(np.isfinite(logits).all())}")
+    scale = float(np.abs(cpu).max())
+    rel, rel32 = (float(np.abs(x - cpu).max() / scale) for x in (logits, card32))
+    top1, top1_32 = (float((x.argmax(1) == cpu.argmax(1)).mean()) for x in (logits, card32))
+    res = {
+        "phase": "slice", "arch": cfg.MODEL.ARCH, "attn_impl": "flash", "dtype": "bfloat16",
+        "im_size": im, "requests": n_requests, "batches": stats["batches"],
+        "forwards": forwards, "warmups": forwards - batches,
+        "flash_launches": counts, "engine_build_s": t_build,
+        "first_burst_wall_s": walls[0], "first_burst_img_per_s": n_requests / walls[0],
+        "img_per_s": n_requests / walls[-1], "wall_s": walls[-1],
+        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+        "batch_occupancy": stats["batch_occupancy"], "mean_batch_ms": stats["mean_batch_ms"],
+        "rel_err_vs_cpu_f32": rel, "rel_tol": SLICE_REL_TOL, "top1_agreement": top1,
+        "card_f32_rel_err_vs_cpu_f32": rel32, "card_f32_rel_tol": VIT_F32_REL_TOL,
+        "card_f32_top1_agreement": top1_32, "card_f32_top1_min": VIT_F32_TOP1_MIN,
+        "logit_scale": scale,
+    }
+    emit(res)
+    if not (rel <= SLICE_REL_TOL and rel32 <= VIT_F32_REL_TOL
+            and top1_32 >= VIT_F32_TOP1_MIN):
+        raise AssertionError(f"ViT card vs CPU logits: bf16 rel err {rel} (tol "
+                             f"{SLICE_REL_TOL}); f32 rel err {rel32} (tol {VIT_F32_REL_TOL}), "
+                             f"top-1 {top1_32} (min {VIT_F32_TOP1_MIN})")
+    return counts["forward"]
 
 
 def resnet50_leaves(torch):
@@ -355,9 +557,12 @@ def opt_kernel_phase(torch, ou, dev, shapes):
     return rows
 
 
-def train_phase(torch, ce, ou, out_dir: str):
-    """train_model with config/resnet50.yaml on dummy data: MAX_EPOCH 1,
-    then MAX_EPOCH 2 (auto-resume). Returns the two runs' reports."""
+def train_phase(torch, out_dir: str, yaml: str, opts: list, reset, read, check):
+    """train_model with ``yaml`` + ``opts`` on dummy data: MAX_EPOCH 1, then
+    MAX_EPOCH 2 (auto-resume). ``reset()`` zeroes the launch counters
+    just before each run, ``read()`` returns them just after, and
+    ``check(launches, steps)`` raises on a count the path must not give.
+    Returns the two runs' reports."""
     import math
 
     import distribuuuu_tpu_torch.config as config
@@ -367,20 +572,19 @@ def train_phase(torch, ce, ou, out_dir: str):
     runs = []
     for max_epoch in (1, 2):
         config.reset_cfg()
-        config.merge_from_file("config/resnet50.yaml")
+        config.merge_from_file(yaml)
         cfg.merge_from_list([
             "MODEL.DUMMY_INPUT", True, "DEVICE.PLATFORM", "auto",
             "DEVICE.COMPUTE_DTYPE", "bfloat16", "RNG_SEED", 0,
-            "OPTIM.MAX_EPOCH", max_epoch, "OUT_DIR", out_dir,
+            "OPTIM.MAX_EPOCH", max_epoch, "OUT_DIR", out_dir, *opts,
         ])
         recs = []
-        ou.update.launches = 0
-        ce.conv1x1_bn_act.launches = 0
+        reset()
         t0 = time.perf_counter()
         trainer.train_model(recs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, conv_launches = ou.update.launches, ce.conv1x1_bn_act.launches
+        launches = read()
         if len(recs) != 1 or recs[0]["epoch"] != max_epoch - 1:
             raise AssertionError(f"MAX_EPOCH {max_epoch}: ran epochs "
                                  f"{[r['epoch'] + 1 for r in recs]}, wanted [{max_epoch}]")
@@ -388,9 +592,9 @@ def train_phase(torch, ce, ou, out_dir: str):
         losses = rec["losses"]
         (d0, t_0), (d1, t_1) = rec["flushes"][0], rec["flushes"][-1]
         res = {
-            "phase": "train", "max_epoch": max_epoch, "epoch_run": rec["epoch"] + 1,
-            "steps": rec["steps"], "opt_update_launches": launches,
-            "conv_epilogue_launches": conv_launches, "eval_forwards": EVAL_FORWARDS,
+            "phase": "train", "arch": cfg.MODEL.ARCH, "max_epoch": max_epoch,
+            "epoch_run": rec["epoch"] + 1, "steps": rec["steps"], "launches": launches,
+            "eval_forwards": EVAL_FORWARDS,
             "batch": cfg.TRAIN.BATCH_SIZE, "first_loss": losses[0],
             "loss_first8_mean": statistics.mean(losses[:8]),
             "loss_last8_mean": statistics.mean(losses[-8:]),
@@ -401,12 +605,10 @@ def train_phase(torch, ce, ou, out_dir: str):
             "acc1": rec.get("acc1"), "wall_s": wall,
         }
         emit(res)
-        if rec["steps"] != TRAIN_STEPS_PER_EPOCH or launches != rec["steps"]:
-            raise AssertionError(f"opt_update launches {launches} != steps {rec['steps']} "
-                                 f"(want {TRAIN_STEPS_PER_EPOCH})")
-        if conv_launches != 33 * EVAL_FORWARDS:
-            raise AssertionError(f"conv epilogue launches {conv_launches} != 33 x "
-                                 f"{EVAL_FORWARDS} eval forwards")
+        if rec["steps"] != TRAIN_STEPS_PER_EPOCH or launches["opt_update"] != rec["steps"]:
+            raise AssertionError(f"opt_update launches {launches['opt_update']} != steps "
+                                 f"{rec['steps']} (want {TRAIN_STEPS_PER_EPOCH})")
+        check(launches, rec["steps"])
         if len(losses) != rec["steps"] or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"losses not finite or missing: {losses}")
         if max_epoch == 1 and not res["loss_last8_mean"] < res["loss_first8_mean"]:
@@ -415,8 +617,44 @@ def train_phase(torch, ce, ou, out_dir: str):
     return runs
 
 
-def step_vs_cpu_phase(torch, dev, batch: int = 4):
-    """One f32 train step of ResNet-50 (full width, TF32 off) on the card
+def resnet_train_phase(torch, ce, ou, out_dir: str):
+    """ResNet-50: 33 conv-epilogue launches per eval forward."""
+    def reset():
+        ou.update.launches = ce.conv1x1_bn_act.launches = 0
+
+    def check(launches, steps):
+        if launches["conv_epilogue"] != 33 * EVAL_FORWARDS:
+            raise AssertionError(f"conv epilogue launches {launches['conv_epilogue']} != 33 x "
+                                 f"{EVAL_FORWARDS} eval forwards")
+
+    return train_phase(torch, out_dir, "config/resnet50.yaml", [], reset,
+                       lambda: {"opt_update": ou.update.launches,
+                                "conv_epilogue": ce.conv1x1_bn_act.launches}, check)
+
+
+def vit_train_phase(torch, fa, ou, out_dir: str):
+    """ViT-S/16 under DEVICE.ATTN_IMPL flash: 12 forward, 12 dQ and 12
+    dK/dV launches per step, 12 forward launches per eval forward."""
+    def reset():
+        ou.update.launches = 0
+        fa.reset_launch_counts()
+
+    def check(launches, steps):
+        want = {"forward": VIT_DEPTH * (steps + EVAL_FORWARDS), "dq": VIT_DEPTH * steps,
+                "dkdv": VIT_DEPTH * steps}
+        got = {k: launches[f"flash_{k}"] for k in want}
+        if got != want:
+            raise AssertionError(f"flash launches {got} != {want} ({steps} steps, "
+                                 f"{EVAL_FORWARDS} eval forwards, {VIT_DEPTH} blocks)")
+
+    return train_phase(torch, out_dir, "config/vit_small.yaml", ["DEVICE.ATTN_IMPL", "flash"],
+                       reset, lambda: {"opt_update": ou.update.launches,
+                                       **{f"flash_{k}": n
+                                          for k, n in fa.launch_counts().items()}}, check)
+
+
+def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, **model_kw):
+    """One f32 train step of ``arch`` (full width, TF32 off) on the card
     and on the port's CPU path, and one f64 step on the CPU, from the same
     weights and batch. The card's update agrees with the CPU's f32 update
     within STEP_UPDATE_L2_TOL, relative in the L2 norm over all
@@ -437,8 +675,9 @@ def step_vs_cpu_phase(torch, dev, batch: int = 4):
     cpu = torch.device("cpu")
     deltas, losses = [], []
     for device, dtype in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
-        model = build_model("resnet50", num_classes=1000, dtype=dtype, bn_group=batch,
-                            generator=torch.Generator().manual_seed(0)).to(device, dtype)
+        model = build_model(arch, num_classes=1000, dtype=dtype,
+                            generator=torch.Generator().manual_seed(0),
+                            **model_kw).to(device, dtype)
         names = [n for n, _ in model.named_parameters()]
         before = [p.detach().cpu().clone() for p in model.parameters()]
         opt = Optimizer(list(model.named_parameters()),
@@ -459,7 +698,7 @@ def step_vs_cpu_phase(torch, dev, batch: int = 4):
     per_tensor = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                   for a, b in zip(card, cpu32)]
     worst = max(range(len(names)), key=per_tensor.__getitem__)
-    res = {"phase": "step_vs_cpu", "batch": batch, "dtype": "float32",
+    res = {"phase": "step_vs_cpu", "arch": arch, "batch": batch, "dtype": "float32",
            "loss_card": losses[0], "loss_cpu": losses[1], "loss_cpu_f64": losses[2],
            "update_l2_rel_err": upd_l2, "update_l2_tol": STEP_UPDATE_L2_TOL,
            "card_vs_f64_update_l2": card_f64, "cpu_f32_vs_f64_update_l2": cpu_f64,
@@ -467,7 +706,7 @@ def step_vs_cpu_phase(torch, dev, batch: int = 4):
            "update_rel_err_worst_tensor": [names[worst], per_tensor[worst]]}
     emit(res)
     if not (upd_l2 <= STEP_UPDATE_L2_TOL and card_f64 <= STEP_F64_RATIO_MAX * cpu_f64):
-        raise AssertionError(f"f32 step card vs CPU: update L2 rel err {upd_l2} (tol "
+        raise AssertionError(f"{arch} f32 step card vs CPU: update L2 rel err {upd_l2} (tol "
                              f"{STEP_UPDATE_L2_TOL}); from f64: card {card_f64}, CPU f32 "
                              f"{cpu_f64} (ratio max {STEP_F64_RATIO_MAX})")
 
@@ -541,11 +780,27 @@ def profile_phase(torch, model, batch: int, im: int, iters: int = 10):
           "device_idle_share": b["device_idle_share"]})
 
 
-def train_profile_phase(torch, dev, batch: int = 32, iters: int = 5):
-    """Where the time of one bf16 ResNet-50 train step at ``batch`` goes:
-    host wall time (synchronised), device time by kind (cuDNN convs
-    forward and backward, opt_update, BN/elementwise and the rest) and the
-    device's idle share, from a torch.profiler trace."""
+def _resnet_kind(n: str) -> str:
+    return ("opt_update" if "opt_update" in n
+            else "cudnn_conv_bwd" if _is_conv(n) and ("dgrad" in n or "wgrad" in n)
+            else "cudnn_conv" if _is_conv(n) else "bn_elementwise_other")
+
+
+def _vit_kind(n: str) -> str:
+    low = n.lower()
+    return ("flash_forward" if "fwd_mma" in n
+            else "flash_dq" if "dq_mma" in n
+            else "flash_dkdv" if "dkdv_mma" in n
+            else "opt_update" if "opt_update" in n
+            else "gemm" if any(t in low for t in ("gemm", "nvjet", "cublas", "cutlass"))
+            else "patch_conv" if _is_conv(n) else "layernorm_gelu_elementwise_other")
+
+
+def train_profile_phase(torch, dev, arch: str = "resnet50", batch: int = 32, iters: int = 5,
+                        classify=_resnet_kind, **model_kw):
+    """Where the time of one bf16 train step of ``arch`` at ``batch`` goes:
+    host wall time (synchronised), device time by kind (``classify``) and
+    the device's idle share, from a torch.profiler trace."""
     from torch.profiler import ProfilerActivity, profile
 
     import distribuuuu_tpu_torch.config as config
@@ -554,8 +809,8 @@ def train_profile_phase(torch, dev, batch: int = 32, iters: int = 5):
     from distribuuuu_tpu_torch.utils.optim import construct_optimizer
 
     config.reset_cfg()
-    model = build_model("resnet50", num_classes=1000, dtype=torch.bfloat16, bn_group=batch,
-                        generator=torch.Generator().manual_seed(0)).to(dev).train()
+    model = build_model(arch, num_classes=1000, dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0), **model_kw).to(dev).train()
     opt = construct_optimizer(model)
     gen = torch.Generator(device=dev).manual_seed(0)
     b = {"image": torch.randint(0, 256, (batch, 224, 224, 3), dtype=torch.uint8, device=dev,
@@ -573,22 +828,66 @@ def train_profile_phase(torch, dev, batch: int = 32, iters: int = 5):
         for _ in range(iters):
             trainer.train_step(model, opt, b, 5)
         torch.cuda.synchronize()
-    br = _breakdown(torch, prof, iters, lambda n: "opt_update" if "opt_update" in n
-                    else "cudnn_conv_bwd" if _is_conv(n) and ("dgrad" in n or "wgrad" in n)
-                    else "cudnn_conv" if _is_conv(n) else "bn_elementwise_other")
-    emit({"phase": "profile_train", "batch": batch, "iters": iters, "dtype": "bfloat16",
-          "step_wall_ms": wall_ms, "img_per_s": batch / wall_ms * 1e3,
+    br = _breakdown(torch, prof, iters, classify)
+    emit({"phase": "profile_train", "arch": arch, "batch": batch, "iters": iters,
+          "dtype": "bfloat16", "step_wall_ms": wall_ms, "img_per_s": batch / wall_ms * 1e3,
           "device_ms_per_step_by_kind": br["device_ms_by_kind"],
           "top_kernels_ms_per_step": br["top_kernels_ms"],
           "kernels_per_step": br["kernels"], "device_busy_ms_per_step": br["device_busy_ms"],
           "device_idle_share": br["device_idle_share"]})
 
 
+def vit_auto_phase(torch, fa, dev, batch: int = 4):
+    """ViT-Ti/16 at 1024² (4096 tokens) from config/vit_tiny.yaml under
+    DEVICE.ATTN_IMPL auto: two bf16 train steps at ``batch``; the length
+    routes every block's attention to the flash kernels (one forward, dQ
+    and dK/dV launch per block per step)."""
+    import math
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    config.reset_cfg()
+    config.merge_from_file("config/vit_tiny.yaml")
+    cfg.merge_from_list(["DEVICE.ATTN_IMPL", "auto", "TRAIN.IM_SIZE", 1024,
+                         "TRAIN.BATCH_SIZE", batch, "RNG_SEED", 0])
+    model = trainer.build_model_from_cfg().to(dev).train()
+    opt = construct_optimizer(model)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b = {"image": torch.randint(0, 256, (batch, 1024, 1024, 3), dtype=torch.uint8,
+                                device=dev, generator=gen),
+         "label": torch.randint(0, 1000, (batch,), device=dev, generator=gen)}
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(model, opt, b, 5)["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = fa.launch_counts()
+    depth = len(model.blocks)
+    res = {"phase": "vit_ti_1024px_auto", "arch": cfg.MODEL.ARCH, "attn_impl": "auto",
+           "tokens": model.pos_embed.shape[1], "batch": batch, "steps": 2,
+           "flash_launches": counts, "losses": losses, "first_step_ms": walls[0],
+           "second_step_ms": walls[1],
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    emit(res)
+    want = 2 * depth
+    if depth != VIT_DEPTH or counts != {"forward": want, "dq": want, "dkdv": want}:
+        raise AssertionError(f"auto at {res['tokens']} tokens: flash launches {counts}, want "
+                             f"{want} each ({depth} blocks, 2 steps)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"ViT-Ti 1024px losses not finite: {losses}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one bf16 ResNet-50 forward at batch 8 and one "
-                         "train step at batch 32")
+                         "ResNet-50 and one ViT-S/16 train step at batch 32")
     args = ap.parse_args(argv)
 
     import torch
@@ -599,19 +898,24 @@ def main(argv=None) -> int:
     try:
         from distribuuuu_tpu_torch.ops.cuda import _build
         from distribuuuu_tpu_torch.ops.cuda import conv_epilogue as ce
+        from distribuuuu_tpu_torch.ops.cuda import flash_attention as fa
         from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def tf32_off():
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    tf32_off()
     card = card_line()
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    _build.build("conv_epilogue", "opt_update")
+    _build.build("conv_epilogue", "opt_update", "flash_attention")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(_build.build_seconds)})
 
@@ -627,22 +931,31 @@ def main(argv=None) -> int:
     if len(shapes) != 161:
         raise AssertionError(f"ResNet-50 has {len(shapes)} parameter leaves, not 161")
     opt_rows = opt_kernel_phase(torch, ou, dev, shapes)
+    flash_rows = flash_kernel_phase(torch, fa, dev)
+
     launches, model = slice_phase(torch, ce, N_REQUESTS)
     if args.profile:
         profile_phase(torch, model, 8, 224)
     del model
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        runs = train_phase(torch, ce, ou, out_dir)
-    finally:
-        import shutil
+    vit_serve_fwd = vit_slice_phase(torch, fa, dev, N_REQUESTS)
 
-        shutil.rmtree(out_dir, ignore_errors=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    step_vs_cpu_phase(torch, dev)
+    import shutil
+
+    runs = {}
+    for arch, phase in (("resnet50", lambda d: resnet_train_phase(torch, ce, ou, d)),
+                        ("vit_small", lambda d: vit_train_phase(torch, fa, ou, d))):
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_train_{arch}_")
+        try:
+            runs[arch] = phase(out_dir)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+    tf32_off()
+    step_vs_cpu_phase(torch, dev, "resnet50", bn_group=4)
+    step_vs_cpu_phase(torch, dev, "vit_small", attn_impl="flash")
+    vit_auto_phase(torch, fa, dev)
     if args.profile:
-        train_profile_phase(torch, dev)
+        train_profile_phase(torch, dev, "resnet50", bn_group=32)
+        train_profile_phase(torch, dev, "vit_small", classify=_vit_kind, attn_impl="flash")
 
     # per-forward totals over the 33 sites (sites_per_forward weights)
     def total(key):
@@ -652,12 +965,12 @@ def main(argv=None) -> int:
     t_ops = sum(2 * r["M"] * r["K"] * r["N"] * r["sites_per_forward"] for r in rows
                 if r["sites_per_forward"]) / PEAK_FLOPS["bfloat16"] * 1e3
     main_body = opt_rows["sgd_nesterov_f32"]  # config/resnet50.yaml's optimizer
-    emit({"kernels": [{
+    kernels = [{
         "name": "conv1x1_bn_act",
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/csrc/conv_epilogue.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/conv_epilogue.py:121",
-        "launches": launches + sum(r["conv_epilogue_launches"] for r in runs),
+        "launches": launches + sum(r["launches"]["conv_epilogue"] for r in runs["resnet50"]),
         "max_abs_err": worst,
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
@@ -669,14 +982,29 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/csrc/opt_update.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/opt_update.py:75",
-        "launches": sum(r["opt_update_launches"] for r in runs),
+        "launches": sum(r["launches"]["opt_update"] for rs in runs.values() for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in opt_rows.values()),
         "ms": main_body["ms"],
         "plain_ms": main_body["plain_ms"],
         "bound_ms": main_body["bound_ms"],
         "bound_by": main_body["bound_by"],
         "library_ms": main_body["library_ms"],
-    }]})
+    }]
+    # the flash kernels at the ViT-S training shape, launches from the
+    # ViT-S serving and training runs
+    for kern, (name, replaces) in FLASH_KERNELS.items():
+        train = flash_rows[FLASH_SHAPES[0][0]][kern]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "distribuuuu_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": (vit_serve_fwd if kern == "forward" else 0)
+            + sum(r["launches"][f"flash_{kern}"] for r in runs["vit_small"]),
+            "max_abs_err": max(rs[kern]["max_abs_err"] for rs in flash_rows.values()),
+            **{k: train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        })
+    emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

@@ -283,6 +283,11 @@ _C.DEVICE.PLATFORM = "auto"
 # the serving engine is built.
 _C.DEVICE.COMPUTE_DTYPE = "bfloat16"
 _C.DEVICE.DETERMINISTIC = False
+# ViT attention: "auto" (the flash kernels at >= 1024 tokens, dense below),
+# "xla" (dense, fp32 scores), "flash" (ops/cuda/flash_attention.py),
+# "blockwise" (the O(L*chunk) online-softmax loop); "ring"/"ulysses" need
+# MESH.SEQ > 1, which the port does not run yet.
+_C.DEVICE.ATTN_IMPL = "auto"
 # Space-to-depth stem: not ported (the port refuses True).
 _C.DEVICE.S2D_STEM = False
 

@@ -1,7 +1,7 @@
 """Model registry of the port (counterpart of distribuuuu_tpu/models/__init__.py).
 
-The ResNet family is ported; the other archs of the JAX zoo raise with
-the ROADMAP item that ports them.
+The ResNet family and the ViTs (vit_tiny, vit_small) are ported; the
+other archs of the JAX zoo raise with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -18,12 +18,14 @@ from distribuuuu_tpu_torch.models.resnet import (
     wide_resnet50_2,
     wide_resnet101_2,
 )
+from distribuuuu_tpu_torch.models.vit import vit_small, vit_tiny
 
 _REGISTRY = {
     fn.__name__: fn
     for fn in (
         resnet18, resnet34, resnet50, resnet101, resnet152,
         resnext50_32x4d, resnext101_32x8d, wide_resnet50_2, wide_resnet101_2,
+        vit_tiny, vit_small,
     )
 }
 
@@ -32,8 +34,8 @@ _UNPORTED = {
     **{a: "Image zoo" for a in (
         "densenet121", "densenet161", "densenet169", "densenet201", "botnet50",
         "regnetx_160", "regnety_160", "regnety_320", "efficientnet_b0",
-        "vit_tiny", "vit_small", "vit_tiny_moe",
     )},
+    "vit_tiny_moe": "Parallel layouts beyond DP",
     "gpt_nano": "LM plane",
     "gpt_nano_moe": "LM plane",
 }

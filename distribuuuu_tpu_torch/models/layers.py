@@ -217,6 +217,35 @@ class Dense(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` over the last dim, with torch's parameter
+    names (``weight`` for flax's ``scale``, ``bias``) in fp32.
+
+    Not ``F.layer_norm``: flax takes ``epsilon = 1e-6`` and the fast
+    variance ``E[x²] − E[x]²`` clamped at 0, with the statistics and the
+    affine in at least fp32, and casts the result to the compute dtype."""
+
+    eps = 1e-6
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(torch.float32, x.dtype))
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.clamp_min(torch.square(xf).mean(-1, keepdim=True) - torch.square(mu), 0.0)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(self.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu``, whose default is the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """NHWC global average pooling (mean in the compute dtype)."""
     return x.mean(dim=(1, 2))

@@ -1,20 +1,24 @@
 """The port's kernel tier: hand-written CUDA kernels for Hopper (sm_90a).
 
-Counterpart of ``distribuuuu_tpu/ops/pallas/``. Two kernels so far:
+Counterpart of ``distribuuuu_tpu/ops/pallas/`` and the Pallas kernels of
+``distribuuuu_tpu/ops/flash_attention.py``. The kernels so far:
 
 * ``conv_epilogue`` — fused 1x1 conv + folded eval BatchNorm + activation
   (``csrc/conv_epilogue.cu``), the eval/serve path's pointwise convs;
 * ``opt_update`` — the fused optimizer update (``csrc/opt_update.cu``),
-  one launch per training step over every parameter.
+  one launch per training step over every parameter;
+* ``flash_attention`` — the flash-attention forward, dQ and dK/dV
+  (``csrc/flash_attention.cu``), the ViT's attention under
+  ``DEVICE.ATTN_IMPL flash`` (or ``auto`` at 1024 tokens or more).
 
 Which implementation runs is decided in ONE place, :func:`use_kernel`, and
 only by where the tensor lives: a CUDA tensor goes through the kernel or
 the call raises; a CPU tensor goes through the kernel's plain PyTorch
 version (the tests' path). There is no knob that sends a CUDA tensor to
 the plain version and no forced-but-unsupported fallback. A call site that
-does not qualify for a kernel (stride 2, a 3x3, groups, training) runs the
-plain layer, as the JAX package does; that is the site's shape, not a
-fallback.
+does not qualify for a kernel (stride 2, a 3x3, groups, training; dense
+attention under ``DEVICE.ATTN_IMPL xla``) runs the plain layer, as the JAX
+package does; that is the site's shape, not a fallback.
 """
 
 from __future__ import annotations

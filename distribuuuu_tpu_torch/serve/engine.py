@@ -84,7 +84,7 @@ class Engine:
     """Request-level serving engine over one device.
 
     ``model`` is an eval-mode ``nn.Module`` on NHWC input (the port's
-    ResNet); it is moved to ``device`` and prepared here. Parameters default
+    ResNet or ViT); it is moved to ``device`` and prepared here. Parameters default
     from ``cfg.SERVE``. ``submit`` before ``start`` is allowed — requests
     queue until the threads run.
     """

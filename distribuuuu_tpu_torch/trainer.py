@@ -9,8 +9,10 @@ distribuuuu_tpu/parallel/partition/lowering.py).
 * :func:`train_epoch`: epoch-granular learning rate, the device prefetch
   ring, meters and ETA, the preemption check at every step boundary.
 * :func:`validate`: masked sums over the val set (the padded tail counts
-  nothing); on the card every pointwise conv of the eval forward runs the
-  conv-epilogue kernel.
+  nothing); on the card every pointwise conv of a ResNet's eval forward
+  runs the conv-epilogue kernel, and a ViT's attention runs the flash
+  kernels under ``DEVICE.ATTN_IMPL flash`` (or ``auto`` at 1024 tokens
+  or more), whose backward kernels also run in every train step.
 * :func:`train_model` / :func:`test_model`: the loops of ``train_net`` and
   ``test_net``, with epoch checkpoints, ``best``, preemption saves and
   auto-resume (``utils/checkpoint.py``).
@@ -54,7 +56,7 @@ from distribuuuu_tpu_torch.utils.schedules import get_epoch_lr
 from distribuuuu_tpu_torch.utils.seed import setup_env, setup_seed
 from distribuuuu_tpu_torch.utils.weights import load_weights, pretrained_refusal
 
-SLICE3 = "Slice 3"
+SLICE4 = "Slice 4"
 
 
 def bn_group_from_cfg() -> int:
@@ -90,19 +92,52 @@ def device_from_cfg() -> torch.device:
     return torch.device("cuda", idx)
 
 
+RESNETS = ("resnet", "resnext", "wide_resnet")
+
+
+def attn_impl_from_cfg() -> str:
+    """``DEVICE.ATTN_IMPL`` for the ViT archs, as the JAX trainer routes it:
+    ``auto``/``xla``/``flash``/``blockwise`` on one device; ``ring``/
+    ``ulysses`` need a sequence-sharded mesh (``MESH.SEQ > 1``), which the
+    port does not have yet."""
+    impl = cfg.DEVICE.ATTN_IMPL
+    if cfg.MESH.SEQ > 1:
+        raise not_ported(f"sequence-sharded attention (MESH.SEQ={cfg.MESH.SEQ})",
+                         "Parallel layouts beyond DP")
+    if impl in ("ring", "ulysses"):
+        raise ValueError(f"DEVICE.ATTN_IMPL={impl!r} needs a sequence-sharded mesh: set "
+                         "MESH.SEQ > 1")
+    if impl not in ("auto", "xla", "flash", "blockwise"):
+        raise ValueError(f"DEVICE.ATTN_IMPL={impl!r}: ViT archs accept 'auto', 'xla' "
+                         "(dense), 'flash' (the flash kernels), 'blockwise', or MESH.SEQ>1 "
+                         "for ring attention")
+    return impl
+
+
 def build_model_from_cfg(generator: torch.Generator | None = None):
     """The configured arch on the CPU, in fp32 master weights, filled by
     ``generator`` (default: a ``torch.Generator`` seeded with ``RNG_SEED``,
-    0 when unset)."""
+    0 when unset). The CNNs take their BN regime (``bn_group``); the ViTs,
+    LayerNorm-only, take ``DEVICE.ATTN_IMPL`` and the input size."""
     kernel_tier.validate_kernels_cfg(cfg.KERNELS)
     if cfg.DEVICE.S2D_STEM:
         raise not_ported("DEVICE.S2D_STEM (space-to-depth stem)", "S2D stem")
+    arch = cfg.MODEL.ARCH
+    kwargs = {}
+    if arch.startswith("vit"):
+        kwargs.update(attn_impl=attn_impl_from_cfg(), img_size=cfg.TRAIN.IM_SIZE)
+    else:
+        kwargs["bn_group"] = bn_group_from_cfg()
+    if cfg.TRAIN.REMAT and not arch.startswith(RESNETS):
+        raise ValueError(
+            f"TRAIN.REMAT targets the resnet/resnext/wide_resnet family (stages 1-2 "
+            f"rematerialization); {arch!r} does not take the knob")
     return build_model(
-        cfg.MODEL.ARCH,
+        arch,
         num_classes=cfg.MODEL.NUM_CLASSES,
         dtype=resolve_dtype(cfg.DEVICE.COMPUTE_DTYPE),
-        bn_group=bn_group_from_cfg(),
         generator=generator or torch.Generator().manual_seed(int(cfg.RNG_SEED or 0)),
+        **kwargs,
     )
 
 
@@ -131,14 +166,15 @@ def check_train_cfg(eval_only: bool = False) -> None:
              f"TRAIN.STEPS_PER_CALL={cfg.TRAIN.STEPS_PER_CALL} (folded steps)"),
             (cfg.TRAIN.GRAD_ACCUM_STEPS > 1,
              f"TRAIN.GRAD_ACCUM_STEPS={cfg.TRAIN.GRAD_ACCUM_STEPS} (gradient accumulation)"),
-            (bool(cfg.TRAIN.REMAT), "TRAIN.REMAT (rematerialized stages)"),
+            (bool(cfg.TRAIN.REMAT) and cfg.MODEL.ARCH.startswith(RESNETS),
+             "TRAIN.REMAT (rematerialized stages)"),
             (bool(cfg.TRAIN.CONCURRENT_EVAL), "TRAIN.CONCURRENT_EVAL"),
             (bool(cfg.CHECKPOINT.ASYNC), "CHECKPOINT.ASYNC (background checkpoint commits)"),
         ]
         supervisor.validate_policy(str(cfg.TRAIN.NONFINITE))
     for refused, what in refusals:
         if refused:
-            raise not_ported(what, SLICE3)
+            raise not_ported(what, SLICE4)
     if cfg.MODEL.PRETRAINED and not cfg.MODEL.WEIGHTS:
         raise pretrained_refusal(cfg.MODEL.ARCH)
 

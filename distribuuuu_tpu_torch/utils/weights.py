@@ -1,10 +1,13 @@
 """Carrying weights into the port.
 
-* :func:`state_dict_from_jax` maps the JAX ResNet's variables (``params``
-  and ``batch_stats`` as nested dicts of numpy arrays) onto the port's
-  torchvision-named state dict: conv ``[kh, kw, I, O]`` → ``[O, I, kh, kw]``,
-  dense ``[I, O]`` → ``[O, I]``, BN ``scale``/``bias``/``mean``/``var`` →
-  ``weight``/``bias``/``running_mean``/``running_var``.
+* :func:`state_dict_from_jax` maps the JAX ResNet's or ViT's variables
+  (``params`` and ``batch_stats`` as nested dicts of numpy arrays; a ViT
+  has no ``batch_stats``) onto the port's torchvision/timm-named state
+  dict: conv ``[kh, kw, I, O]`` → ``[O, I, kh, kw]``, dense ``[I, O]`` →
+  ``[O, I]`` (qkv keeps its ``(3, heads, head_dim)`` column order), BN
+  ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
+  ``running_mean``/``running_var``, LayerNorm ``scale`` → ``weight``,
+  ``pos_embed`` as it is.
 * :func:`opt_state_from_jax` maps the optax state of the JAX package's
   ``construct_optimizer()`` onto the port's optimizer state
   (``utils/optim.Optimizer.load_state_dict``): the trace, or mu and nu,
@@ -40,11 +43,45 @@ def _sorted(names, prefix):
     return sorted((n for n in names if re.fullmatch(rf"{prefix}_\d+", n)), key=_idx)
 
 
+def _vit_path_map(params: dict) -> dict[tuple[str, ...], str]:
+    """The ViT tree: ``Conv_0`` (patch embed), ``pos_embed``, ``Block_N``
+    with ``LayerNorm_0/1``, ``Attention_0/Dense_{0,1}/Dense_0`` (qkv, proj)
+    and ``Mlp_0/Dense_{0,1}/Dense_0`` (fc1, fc2), ``LayerNorm_0`` (the
+    final norm) and ``Dense_0/Dense_0`` (the head)."""
+    out: dict[tuple[str, ...], str] = {("pos_embed",): "pos_embed"}
+
+    def dense(prefix, key):
+        out[(*prefix, "Dense_0", "kernel")] = f"{key}.weight"
+        out[(*prefix, "Dense_0", "bias")] = f"{key}.bias"
+
+    def norm(prefix, key):
+        out[(*prefix, "scale")] = f"{key}.weight"
+        out[(*prefix, "bias")] = f"{key}.bias"
+
+    out[("Conv_0", "kernel")] = "patch_embed.proj.weight"
+    out[("Conv_0", "bias")] = "patch_embed.proj.bias"
+    for blk in _sorted(params, "Block"):
+        base = f"blocks.{_idx(blk)}"
+        norm((blk, "LayerNorm_0"), f"{base}.norm1")
+        dense((blk, "Attention_0", "Dense_0"), f"{base}.attn.qkv")
+        dense((blk, "Attention_0", "Dense_1"), f"{base}.attn.proj")
+        norm((blk, "LayerNorm_1"), f"{base}.norm2")
+        dense((blk, "Mlp_0", "Dense_0"), f"{base}.mlp.fc1")
+        dense((blk, "Mlp_0", "Dense_1"), f"{base}.mlp.fc2")
+    norm(("LayerNorm_0",), "norm")
+    dense(("Dense_0",), "head")
+    return out
+
+
 def jax_path_map(params: dict) -> dict[tuple[str, ...], str]:
     """``{flax path: port state-dict key}`` for every leaf of a JAX ResNet's
-    ``params`` and ``batch_stats`` trees. Stages are found from the tree:
-    a block with a downsample ConvBN opens a new stage (stage 1 of the
-    BasicBlock nets has none, and block 0 always opens stage 1)."""
+    ``params`` and ``batch_stats`` trees, or of a JAX ViT's ``params``
+    (told apart by its top-level ``pos_embed``). ResNet stages are found
+    from the tree: a block with a downsample ConvBN opens a new stage
+    (stage 1 of the BasicBlock nets has none, and block 0 always opens
+    stage 1)."""
+    if "pos_embed" in params:
+        return _vit_path_map(params)
     out: dict[tuple[str, ...], str] = {}
 
     def convbn(jax_prefix, conv_key, bn_key):
@@ -98,12 +135,14 @@ def _port_layout(arr, dtype=np.float32) -> np.ndarray:
     return np.ascontiguousarray(a)
 
 
-def state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
-    """The port's state dict for a JAX ResNet's variables (numpy leaves).
-    Every leaf lands in exactly one tensor; an unmapped leaf raises."""
+def state_dict_from_jax(params: dict, batch_stats: dict | None = None
+                        ) -> dict[str, torch.Tensor]:
+    """The port's state dict for a JAX ResNet's or ViT's variables (numpy
+    leaves; a ViT's ``batch_stats`` is empty or None). Every leaf lands in
+    exactly one tensor; an unmapped leaf raises."""
     paths = jax_path_map(params)
     sd: dict[str, torch.Tensor] = {}
-    for path, arr in [*_leaves(params), *_leaves(batch_stats)]:
+    for path, arr in [*_leaves(params), *_leaves(batch_stats or {})]:
         if path not in paths:
             raise KeyError(f"JAX leaf {'/'.join(path)} has no port tensor")
         sd[paths[path]] = torch.from_numpy(_port_layout(arr))

@@ -7,7 +7,11 @@ The conv-epilogue kernel is held against its plain version (tolerances
 as in tests/test_torch_conv_epilogue.py), and a small ResNet-50 is served
 on the card through the engine, every fused site launching the kernel.
 The fused optimizer update is held bit for bit against its plain version
-for each body, and a train step launches it exactly once.
+for each body, and a train step launches it exactly once. The three
+flash-attention kernels are held against their plain versions at ragged
+lengths, causal and not, in bf16 and f32; the gradients through the
+autograd Function on the card against the same Function on the CPU; and
+each launch counter moves once per call.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from distribuuuu_tpu_torch.data.transforms import normalize_on_device
 from distribuuuu_tpu_torch.models import build_model
 from distribuuuu_tpu_torch.ops.cuda import conv_epilogue as ce
+from distribuuuu_tpu_torch.ops.cuda import flash_attention as fa
 from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
 from distribuuuu_tpu_torch.serve import Engine
 
@@ -126,6 +131,81 @@ def test_opt_update_refuses_what_it_does_not_take():
         ou.update([p], [gr.cpu()], [p.clone()], None, h, 0.1, 1)
     with pytest.raises(TypeError, match="moment"):
         ou.update([p], [gr], [p.half()], None, h, 0.1, 1)
+
+
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}  # of the reference's scale
+
+
+def _flash_inputs(dev, shape, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, device=dev, generator=g).to(dtype) for _ in range(4)]
+
+
+def _close(got, want, tol):
+    scale = max(float(want.float().abs().max()), 1.0)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,L,d", [(6, 150, 64), (3, 70, 32), (2, 200, 128)])
+def test_flash_kernels_match_plain_on_card(dtype, causal, bh, L, d):
+    """Each of the three kernels against its plain version on the same
+    inputs, at ragged lengths (masked key and query tails)."""
+    dev = _card()
+    q, k, v, do = _flash_inputs(dev, (bh, L, d), dtype)
+    scale = d ** -0.5
+    before = fa.launch_counts()
+    o, lse = fa.forward_kernel(q, k, v, scale, causal)
+    o_ref, lse_ref = fa.forward_plain(q, k, v, scale, causal)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    dq = fa.dq_kernel(q, k, v, do, lse_ref, delta, scale, causal)
+    dk, dv = fa.dkdv_kernel(q, k, v, do, lse_ref, delta, scale, causal)
+    dq_ref = fa.dq_plain(q, k, v, do, lse_ref, delta, scale, causal)
+    dk_ref, dv_ref = fa.dkdv_plain(q, k, v, do, lse_ref, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {n: c + 1 for n, c in before.items()}
+    tol = FLASH_TOL[dtype]
+    _close(o, o_ref, tol)
+    _close(lse, lse_ref, 1e-5)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        _close(got, want, tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_gradients_on_card_match_the_cpu(causal):
+    """Gradients through the autograd Function on the card (the kernels)
+    against the same Function on the CPU (the plain versions), f32, with a
+    head dim the kernels pad (40 → 64) and an lse cotangent."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    arrs = [rng.standard_normal((2, 3, 97, 40)).astype(np.float32) for _ in range(5)]
+    g_lse = rng.standard_normal((2, 3, 97)).astype(np.float32)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        q, k, v = (torch.tensor(a, device=device, requires_grad=True) for a in arrs[:3])
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        loss = (o * torch.tensor(arrs[3], device=device)).sum() + \
+            (lse * torch.tensor(g_lse, device=device)).sum()
+        grads.append([t.detach().cpu() for t in (o, lse, *torch.autograd.grad(loss, (q, k, v)))])
+    for got, want in zip(*grads):
+        _close(got, want, 1e-5)
+
+
+def test_flash_attention_launches_each_kernel_once_per_call():
+    dev = _card()
+    q, k, v, _ = (t.requires_grad_() for t in _flash_inputs(dev, (2, 6, 196, 64),
+                                                           torch.bfloat16))
+    fa.reset_launch_counts()
+    out = fa.flash_attention(q, k, v)
+    assert fa.launch_counts() == {"forward": 1, "dq": 0, "dkdv": 0}
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {"forward": 1, "dq": 1, "dkdv": 1}
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+    with pytest.raises(TypeError, match="f32, bf16 or f16"):
+        fa.flash_attention(q.double(), k.double(), v.double())
 
 
 def test_one_opt_update_launch_per_train_step():

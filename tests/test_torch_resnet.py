@@ -77,7 +77,7 @@ def test_seeded_init_is_deterministic_and_bf16_forward_runs():
 def test_unported_paths_raise_with_roadmap_item():
     from distribuuuu_tpu_torch.data.loader import construct_train_loader
 
-    with pytest.raises(NotImplementedError, match="Slice 3"):
+    with pytest.raises(NotImplementedError, match="Slice 4"):
         construct_train_loader()  # real images: only MODEL.DUMMY_INPUT is ported
     tcfg.DEVICE.S2D_STEM = True
     with pytest.raises(NotImplementedError, match="S2D stem"):

@@ -1,7 +1,7 @@
 """Shared helpers of the tests/test_torch_*.py files: one set of weights,
-made from a seed with numpy, in the JAX ResNet's variable tree (paths from
-``model.init`` under ``jax.eval_shape``), and the port's model on the same
-weights through ``state_dict_from_jax``."""
+made from a seed with numpy, in the JAX ResNet's or ViT's variable tree
+(paths from ``model.init`` under ``jax.eval_shape``), and the port's model
+on the same weights through ``state_dict_from_jax``."""
 
 from __future__ import annotations
 
@@ -27,16 +27,32 @@ def jax_resnet(arch: str, num_classes: int = 10, im: int = 32):
     return model, nn.unbox(shapes)
 
 
+def jax_vit(arch: str = "vit_small", num_classes: int = 10, im: int = 64, **kw):
+    """(flax ViT in f32, its variable tree of ShapeDtypeStructs); ``kw``
+    go to the constructor (``depth``, ``attn_impl``)."""
+    model = jmodels.build_model(arch, num_classes=num_classes, dtype=jnp.float32, **kw)
+    shapes = jax.eval_shape(
+        lambda k: model.init(k, jnp.zeros((1, im, im, 3), jnp.float32), train=False),
+        jax.random.key(0),
+    )
+    return model, nn.unbox(shapes)
+
+
 def random_variables(shapes, seed: int = 0) -> dict:
     """Numpy leaves for every leaf of the tree: fan-in-scaled convs and
     dense, and BN scale/bias/mean/var away from their init (1, 0, 0, 1) so
     the eval fold is exercised. BN scales near 0.4 keep the residual sums,
-    and so the logits, O(1), where an absolute tolerance means something."""
+    and so the logits, O(1), where an absolute tolerance means something.
+    LayerNorm scales near 1 and biases near 0, and ``pos_embed`` at 0.1."""
     rng = np.random.default_rng(seed)
 
-    def leaf(name, s):
+    def leaf(parent, name, s):
         shape = tuple(s.shape)
-        if name == "kernel" and len(shape) == 4:
+        if name == "pos_embed":
+            v = 0.1 * rng.standard_normal(shape)
+        elif parent.startswith("LayerNorm") and name == "scale":
+            v = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name == "kernel" and len(shape) == 4:
             std = np.sqrt(2.0 / (shape[0] * shape[1] * shape[2]))
             v = rng.standard_normal(shape) * std
         elif name == "kernel":
@@ -51,8 +67,9 @@ def random_variables(shapes, seed: int = 0) -> dict:
             raise AssertionError(f"unexpected leaf {name}")
         return v.astype(np.float32)
 
-    def walk(node):
-        return {k: walk(v) if isinstance(v, dict) else leaf(k, v) for k, v in node.items()}
+    def walk(node, parent=""):
+        return {k: walk(v, k) if isinstance(v, dict) else leaf(parent, k, v)
+                for k, v in node.items()}
 
     return walk(shapes)
 
