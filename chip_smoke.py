@@ -18,7 +18,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    dK/dV at the ViT-S/16 shapes [B·6, 196, 64] (train batch 32, serving
    batch 8, eval batch 200, bf16), the ViT-Ti/16 1024² shape
    [4·3, 4096, 64] (bf16, plain and causal) and a ragged f32 shape, with
-   ``F.scaled_dot_product_attention`` (forward; backward) as the library.
+   ``F.scaled_dot_product_attention`` (forward; backward) as the library;
+   decode_attention at the GPT-nano decode tiles (4 and 32 slots × 256
+   positions × 4 heads × 32, bf16), the TPU-side bench shape, a
+   bandwidth probe at [8, 16, 4096, 128] (not a model) and a ragged f32
+   tile, with SDPA over a length mask as the library.
 4. Serving slices, through ``engine_from_cfg`` on cuda:0 with buckets
    [1, 2, 4, 8] and two bursts of 64 seeded uint8 requests through
    ``submit`` (img/s and latency are the second burst's; the first is
@@ -46,11 +50,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
    must agree. Then ViT-Ti/16 at 1024² (4096 tokens) under
    DEVICE.ATTN_IMPL auto: one train step at batch 4, every block's
    attention routed to the flash kernels by length.
-6. Prints the ``{"kernels": [...]}`` line, the card's name and power
+6. LM generation serving, ``lm.service.engine_from_cfg`` on cuda:0 with
+   config/gpt_nano.yaml (bf16, RNG_SEED 0, GENERATE defaults, EOS -1): two
+   bursts of 32 greedy requests (prompts of 8–64 tokens, 64 new tokens
+   each), then the same at batch tiles up to 32; tokens/s, decode and
+   prefill latency, 4 decode_attention launches per decode step (warm-up
+   launches reported apart). Checks: f32 greedy streams on the card equal
+   the port's CPU engine's; bf16 logits teacher-forced over the CPU's
+   streams within SLICE_REL_TOL of the CPU's f32 scale; a sampled request
+   replays; one request through the socket protocol.
+7. Prints the ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds torch.profiler breakdowns of a ResNet-50 forward and
-of a ResNet-50 and a ViT-S/16 train step. Any failed phase exits
+``--profile`` adds torch.profiler breakdowns of a ResNet-50 forward, of a
+ResNet-50 and a ViT-S/16 train step, and of one GPT-nano decode step at
+batch 4. Any failed phase exits
 non-zero. Exits non-zero, printing no result, without CUDA or outside a
 checkout.
 """
@@ -114,6 +128,24 @@ VIT_DEPTH = 12
 # requests (bf16 near-ties between random-init classes may flip top-1)
 VIT_F32_REL_TOL = 1e-3
 VIT_F32_TOP1_MIN = 0.9
+# decode attention against its plain version, of max(1, max |ref|): bf16
+# inputs are read exactly by both, so only fp32 summation order differs
+DECODE_TOL = {"bfloat16": 2 ** -6, "float32": 1e-5}
+DECODE_SHAPES = [  # (name, batch, heads, cache, head dim, dtype, lengths or None: seeded)
+    ("gpt_nano_b4_c256", 4, 4, 256, 32, "bfloat16", [0, 37, 128, 255]),
+    ("gpt_nano_b32_c256", 32, 4, 256, 32, "bfloat16", None),
+    ("bench_b4_h6_c256_d64", 4, 6, 256, 64, "bfloat16", None),
+    ("probe_b8_h16_c4096_d128", 8, 16, 4096, 128, "bfloat16", None),  # bandwidth probe
+    ("ragged_f32", 3, 2, 96, 32, "float32", [0, 50, 95]),
+]
+LM_DEPTH = 4  # gpt_nano's blocks: decode_attention launches per decode step
+LM_REQUESTS = 32
+LM_NEW_TOKENS = 64
+LM_BIG_TILES = [1, 2, 4, 8, 16, 32]
+LM_F32_PROMPTS = 8
+# f32 greedy card vs CPU: a divergence is allowed only at a near-tie whose
+# CPU logit gap is below this share of the logit scale
+LM_F32_GAP_TOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -883,11 +915,275 @@ def vit_auto_phase(torch, fa, dev, batch: int = 4):
         raise AssertionError(f"ViT-Ti 1024px losses not finite: {losses}")
 
 
+def decode_kernel_phase(torch, da, dev):
+    """decode_attention against its plain version at DECODE_SHAPES, timed
+    beside its plain version and SDPA over the same length mask, with its
+    bound: the live bytes (K and V rows 0..length once, q and lengths read,
+    the fp32 out written) over the memory rate. Returns {shape name: row}."""
+    import numpy as np
+
+    F = torch.nn.functional
+    out = {}
+    for name, b, h, c, d, dt, lengths in DECODE_SHAPES:
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q = torch.randn(b, h, d, device=dev, generator=gen).to(dtype)
+        k, v = (torch.randn(b, h, c, d, device=dev, generator=gen).to(dtype) for _ in range(2))
+        if lengths is None:
+            lengths = np.random.default_rng(0).integers(0, c, b).tolist()
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        scale = d ** -0.5
+        got = da.decode_attention_kernel(q, k, v, lens, scale)
+        ref = da.decode_attention_plain(q, k, v, lens, scale)
+        torch.cuda.synchronize()
+        err, scaled = _scaled_err(got, ref)
+        mask = (torch.arange(c, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
+        nbytes = da.live_bytes(lengths, h, c, d, dtype)
+        live = sum(min(n + 1, c) for n in lengths)
+        ops = 4 * h * d * live  # q·k and p·v, a multiply and an add each, fp32
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+        row = {
+            "phase": "kernel", "name": "decode_attention", "shape": name, "B": b, "H": h,
+            "C": c, "D": d, "dtype": dt, "lengths_sum": int(sum(lengths)),
+            "max_abs_err": err, "scaled_err": scaled, "tol": DECODE_TOL[dt],
+            "ms": time_ms(torch, lambda: da.decode_attention_kernel(q, k, v, lens, scale)),
+            "plain_ms": time_ms(torch, lambda: da.decode_attention_plain(q, k, v, lens, scale)),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, scale=scale)),
+            "library": "sdpa, length mask (returns the compute dtype)",
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "live_bytes": nbytes,
+            "tile_bytes": da.pass_bytes(b, h, c, d, dtype),
+        }
+        row["achieved_gb_per_s"] = nbytes / row["ms"] / 1e6
+        emit(row)
+        if not scaled <= DECODE_TOL[dt]:
+            raise AssertionError(f"decode_attention {name}: error {scaled} of the scale > "
+                                 f"{DECODE_TOL[dt]}")
+        out[name] = row
+        del q, k, v, lens, got, ref, mask
+    return out
+
+
+def _lm_cfg(dtype: str = "bfloat16", tiles=None):
+    """config/gpt_nano.yaml as a user serves it, every request to its full
+    64 new tokens (EOS off), weights from RNG_SEED 0."""
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch.config import cfg
+
+    config.reset_cfg()
+    config.merge_from_file("config/gpt_nano.yaml")
+    cfg.merge_from_list(["DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE", dtype,
+                         "RNG_SEED", 0, "SERVE.DEVICE", 0, "GENERATE.EOS_ID", -1,
+                         "SERVE.MAX_QUEUE", 2 * LM_REQUESTS,
+                         *(["GENERATE.BATCH_TILES", tiles] if tiles else [])])
+    return cfg
+
+
+def _lm_prompts(n: int, seed: int = 0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, int(m)).tolist() for m in rng.integers(8, 65, n)]
+
+
+def _pct(v, q):
+    v = sorted(v)
+    return v[min(len(v) - 1, int(q * len(v)))] if v else 0.0
+
+
+def lm_serve_phase(torch, da, tiles=None):
+    """GPT-nano generation serving through lm.service.engine_from_cfg on
+    cuda:0: two bursts of LM_REQUESTS greedy requests; the second is
+    reported. Every decode step launches decode_attention once per block.
+    Returns (report, launches of both bursts, the engine, the prompts)."""
+    from distribuuuu_tpu_torch.lm import service as lm_service
+
+    cfg = _lm_cfg(tiles=tiles)
+    prompts = _lm_prompts(LM_REQUESTS)
+    da.reset_launch_counts()
+    t_build = time.perf_counter()
+    engine = lm_service.engine_from_cfg()
+    t_build = time.perf_counter() - t_build
+    warm = da.launches
+    engine.start()
+    bursts, launches = [], 0
+    for _ in range(2):
+        st0 = engine.stats()
+        n_ms0, n_pf0 = len(engine._decode_ms), len(engine._prefill_ms)
+        da.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = [s.result(timeout=300) for s in [engine.submit(p) for p in prompts]]
+        wall = time.perf_counter() - t0
+        n = da.launches
+        st = engine.stats()
+        steps = st["decode_steps"] - st0["decode_steps"]
+        tokens = sum(len(o) for o in outs)
+        dms, pms = list(engine._decode_ms)[n_ms0:], list(engine._prefill_ms)[n_pf0:]
+        bursts.append({"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+                       "decode_steps": steps, "decode_attention_launches": n,
+                       "decode_p50_ms": _pct(dms, 0.5), "decode_p99_ms": _pct(dms, 0.99),
+                       "decode_mean_ms": sum(dms) / max(1, len(dms)),
+                       "prefill_p50_ms": _pct(pms, 0.5), "prefill_p99_ms": _pct(pms, 0.99),
+                       "mean_active_slots": (tokens - len(prompts)) / max(1, steps)})
+        launches += n
+        if tokens != LM_REQUESTS * LM_NEW_TOKENS or n != LM_DEPTH * steps:
+            raise AssertionError(f"LM burst: {tokens} tokens (want {LM_REQUESTS} x "
+                                 f"{LM_NEW_TOKENS}); decode_attention launches {n} != "
+                                 f"{LM_DEPTH} x {steps} decode steps")
+    engine.drain()
+    res = {"phase": "lm_serve", "arch": cfg.MODEL.ARCH, "dtype": "bfloat16",
+           "batch_tiles": engine.batch_tiles, "cache_tiles": engine.cache_tiles,
+           "prompt_tiles": engine.prompt_tiles, "warmed_shapes": engine.n_compiles,
+           "warmup_decode_attention_launches": warm, "engine_build_s": t_build,
+           "requests": LM_REQUESTS, "new_tokens_each": LM_NEW_TOKENS,
+           "first_burst": bursts[0], **bursts[1]}
+    emit(res)
+    return res, launches, engine, prompts
+
+
+def lm_check_phase(torch, da, dev, engine, prompts):
+    """Correctness of the LM path: (1) f32 greedy streams on the card (TF32
+    off) equal the port's CPU f32 engine's on the same weights, a
+    divergence allowed only at a CPU near-tie below LM_F32_GAP_TOL of the
+    logit scale; (2) the served bf16 engine's decoder, teacher-forced over
+    the CPU's streams, gives logits within SLICE_REL_TOL of the CPU f32
+    scale with top-1 agreement >= SLICE_TOP1_MIN; (3) a sampled request
+    replays the same stream; (4) one request through serve_forever and
+    generate_request on loopback."""
+    import threading
+
+    import numpy as np
+
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.lm import service as lm_service
+    from distribuuuu_tpu_torch.lm.generate import GenerateEngine
+    from distribuuuu_tpu_torch.serve import protocol
+
+    cpu = torch.device("cpu")
+    sub = prompts[:LM_F32_PROMPTS]
+    _lm_cfg("float32")
+    streams = []
+    for device in (dev, cpu):
+        eng = GenerateEngine(trainer.build_model_from_cfg(), device=device).start()
+        streams.append([s.result(timeout=300) for s in [eng.submit(p) for p in sub]])
+        cpu_model = eng.model
+        eng.drain()
+    card_streams, cpu_streams = streams
+    gaps, same = [], 0
+    for p, a, b in zip(sub, card_streams, cpu_streams):
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is None:
+            same += 1
+            continue
+        with torch.inference_mode():
+            row = cpu_model(torch.tensor([p + b[:k]]))[0, -1]
+        gap = float((row[b[k]] - row[a[k]]).abs() / row.abs().max())
+        gaps.append({"step": k, "cpu_token": b[k], "card_token": a[k], "rel_logit_gap": gap})
+    # (2) bf16 on the card, teacher-forced over the CPU's f32 streams
+    rels, agree, total, scale = [], 0, 0, 0.0
+    dec = engine.decoder
+    for p, toks in zip(sub, cpu_streams):
+        seq = p + toks
+        with torch.inference_mode():
+            want = cpu_model(torch.tensor([seq]))[0, len(p) - 1:len(seq) - 1]
+            cache = engine._zero_cache(1, engine.cache_tiles[-1])
+            zero = torch.zeros(1, dtype=torch.int32, device=dev)
+            rows = [dec(torch.tensor([p], device=dev), zero, cache)[0, -1]]
+            for i, t in enumerate(toks[:-1]):
+                n = torch.tensor([len(p) + i], dtype=torch.int32, device=dev)
+                rows.append(dec(torch.tensor([[t]], device=dev), n, cache)[0, -1])
+            got = torch.stack(rows).float().cpu()
+        scale = max(scale, float(want.abs().max()))
+        rels.append(float((got - want).abs().max()))
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+        total += len(toks)
+    rel = max(rels) / scale
+    top1 = agree / total
+    # (3) a sampled request, replayed alone
+    sample = {"temperature": 0.8, "top_k": 40, "top_p": 0.95, "seed": 7}
+    _lm_cfg()
+    eng = lm_service.engine_from_cfg().start()
+    replay = [eng.submit(prompts[0], sample=sample).result(timeout=300) for _ in range(2)]
+    greedy = eng.submit(prompts[0]).result(timeout=300)
+    # (4) the socket protocol on loopback
+    listener = protocol.open_listener("127.0.0.1", 0)
+    port = listener.getsockname()[1]
+    stop = threading.Event()
+    t = threading.Thread(target=protocol.serve_forever, args=(eng, listener, stop.is_set),
+                         daemon=True)
+    t.start()
+    try:
+        frames = list(lm_service.generate_request("127.0.0.1", port, tokens=prompts[1],
+                                                  max_new_tokens=16, timeout=120))
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    socket_toks = [f["token"] for f in frames if f.get("stream") == "token"]
+    res = {"phase": "lm_check", "f32_prompts": len(sub), "f32_streams_equal": same,
+           "f32_divergences": gaps, "f32_gap_tol": LM_F32_GAP_TOL,
+           "bf16_teacher_forced_rel_err": rel, "rel_tol": SLICE_REL_TOL,
+           "bf16_top1_agreement": top1, "top1_min": SLICE_TOP1_MIN,
+           "logit_scale": scale, "sampled_replay_equal": replay[0] == replay[1],
+           "sampled_differs_from_greedy": replay[0] != greedy,
+           "socket_tokens": len(socket_toks), "socket_done": frames[-1].get("reason")}
+    emit(res)
+    bad = [g for g in gaps if not g["rel_logit_gap"] <= LM_F32_GAP_TOL]
+    if bad or not (rel <= SLICE_REL_TOL and top1 >= SLICE_TOP1_MIN):
+        raise AssertionError(f"LM card vs CPU: f32 divergences {bad}; bf16 teacher-forced "
+                             f"rel err {rel} (tol {SLICE_REL_TOL}), top-1 {top1}")
+    if replay[0] != replay[1] or len(replay[0]) != LM_NEW_TOKENS:
+        raise AssertionError(f"sampled request did not replay: {replay}")
+    if frames[-1].get("stream") != "done" or frames[-1]["tokens"] != socket_toks \
+            or len(socket_toks) != 16:
+        raise AssertionError(f"generate over the socket: {frames[-1]}")
+
+
+def lm_profile_phase(torch, dev, engine, iters: int = 20):
+    """Where the time of one bf16 GPT-nano decode step at batch 4 goes
+    (cache tile 256, lengths 0/37/128/255): host wall time (synchronised)
+    and, from a torch.profiler trace, device time by kind, launches and the
+    device's idle share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = engine._zero_cache(4, 256)
+    saved, engine._cache = engine._cache, cache
+    tokens = np.asarray([1, 2, 3, 4], np.int32)
+    lengths = np.asarray([0, 37, 128, 255], np.int32)
+    with torch.inference_mode():
+        for _ in range(3):
+            engine._decode(tokens, lengths).cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            engine._decode(tokens, lengths).cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                engine._decode(tokens, lengths).cpu()
+            torch.cuda.synchronize()
+    engine._cache = saved
+    low = str.lower
+    b = _breakdown(torch, prof, iters, lambda n: "decode_attention" if "decode_attn" in n
+                   else "gemm" if any(t in low(n) for t in ("gemm", "nvjet", "cublas", "cutlass"))
+                   else "memcpy" if "memcpy" in low(n) else "layernorm_gelu_elementwise_other")
+    emit({"phase": "profile_decode", "batch": 4, "cache": 256, "iters": iters,
+          "step_wall_ms": wall_ms, "device_ms_per_step_by_kind": b["device_ms_by_kind"],
+          "top_kernels_ms_per_step": b["top_kernels_ms"], "kernels_per_step": b["kernels"],
+          "device_busy_ms_per_step": b["device_busy_ms"],
+          "device_idle_share": b["device_idle_share"],
+          "decode_attention_share_of_busy": b["device_ms_by_kind"].get("decode_attention", 0.0)
+          / b["device_busy_ms"]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one bf16 ResNet-50 forward at batch 8 and one "
-                         "ResNet-50 and one ViT-S/16 train step at batch 32")
+                    help="also trace one bf16 ResNet-50 forward at batch 8, one "
+                         "ResNet-50 and one ViT-S/16 train step at batch 32, and one "
+                         "GPT-nano decode step at batch 4")
     args = ap.parse_args(argv)
 
     import torch
@@ -898,6 +1194,7 @@ def main(argv=None) -> int:
     try:
         from distribuuuu_tpu_torch.ops.cuda import _build
         from distribuuuu_tpu_torch.ops.cuda import conv_epilogue as ce
+        from distribuuuu_tpu_torch.ops.cuda import decode_attn as da
         from distribuuuu_tpu_torch.ops.cuda import flash_attention as fa
         from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
     except ImportError as e:
@@ -915,7 +1212,7 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    _build.build("conv_epilogue", "opt_update", "flash_attention")
+    _build.build("conv_epilogue", "opt_update", "flash_attention", "decode_attn")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(_build.build_seconds)})
 
@@ -932,6 +1229,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"ResNet-50 has {len(shapes)} parameter leaves, not 161")
     opt_rows = opt_kernel_phase(torch, ou, dev, shapes)
     flash_rows = flash_kernel_phase(torch, fa, dev)
+    decode_rows = decode_kernel_phase(torch, da, dev)
 
     launches, model = slice_phase(torch, ce, N_REQUESTS)
     if args.profile:
@@ -956,6 +1254,16 @@ def main(argv=None) -> int:
     if args.profile:
         train_profile_phase(torch, dev, "resnet50", bn_group=32)
         train_profile_phase(torch, dev, "vit_small", classify=_vit_kind, attn_impl="flash")
+
+    lm_res, lm_launches, lm_engine, lm_prompts = lm_serve_phase(torch, da)
+    lm_big, lm_big_launches, _, _ = lm_serve_phase(torch, da, LM_BIG_TILES)
+    if lm_big["batch_tiles"] != LM_BIG_TILES:
+        raise AssertionError(f"batch tiles {lm_big['batch_tiles']} != {LM_BIG_TILES}")
+    tf32_off()
+    lm_check_phase(torch, da, dev, lm_engine, lm_prompts)
+    if args.profile:
+        lm_profile_phase(torch, dev, lm_engine)
+    del lm_engine
 
     # per-forward totals over the 33 sites (sites_per_forward weights)
     def total(key):
@@ -1004,6 +1312,18 @@ def main(argv=None) -> int:
             "max_abs_err": max(rs[kern]["max_abs_err"] for rs in flash_rows.values()),
             **{k: train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    # decode attention at the GPT-nano decode tile, launches from the LM
+    # serving bursts (warm-ups apart)
+    tile = decode_rows[DECODE_SHAPES[0][0]]
+    kernels.append({
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "distribuuuu_tpu_torch/csrc/decode_attn.cu",
+        "replaces": "distribuuuu_tpu/ops/pallas/decode_attn.py:121",
+        "launches": lm_launches + lm_big_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in decode_rows.values()),
+        **{k: tile[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ The port's own copy of the yacs-compatible ``CfgNode`` of
 with the part of the default tree that the image configs and the ported
 slices use. Every shipped image config (``config/resnet*.yaml`` and the
 other CNN and ViT yamls) merges into it unchanged; nodes that only the
-unported planes read (LM, GENERATE, ASYNC, TELEMETRY, ...) are added with
-the slices that port them.
+unported planes read (ASYNC, TELEMETRY, ...) are added with the slices
+that port them. ``config/gpt_nano.yaml`` merges too (LM, GENERATE, the
+decode-attention knobs, DATA.FORMAT).
 """
 
 from __future__ import annotations
@@ -263,6 +264,48 @@ _C.OPTIM.MIN_LR = 0.0
 # half-size trace; utils/optim.py).
 _C.OPTIM.MOMENTUM_DTYPE = "float32"
 
+# ------------------------------- language model -----------------------------
+# The gpt_* archs (models/gpt.py): trained context length, also the size of
+# the learned position table, so a prompt plus its new tokens fit under it.
+_C.LM = CfgNode()
+_C.LM.SEQ_LEN = 256
+
+# -------------------------------- generation --------------------------------
+# Autoregressive serving (lm/generate.py): a paged per-request KV cache,
+# prefill/decode split, continuous batching over (batch, cache-len) tiles,
+# each warmed once at startup.
+_C.GENERATE = CfgNode()
+# Hard cap on generated tokens per request (requests may ask for fewer).
+_C.GENERATE.MAX_NEW_TOKENS = 64
+# Concurrent-sequence capacities; the largest is the slot count.
+# [] = powers of two up to 4.
+_C.GENERATE.BATCH_TILES = []
+# KV-cache length tiles; the largest must hold PROMPT_LEN + MAX_NEW_TOKENS,
+# each must be <= LM.SEQ_LEN. [] = [LM.SEQ_LEN].
+_C.GENERATE.CACHE_TILES = []
+# Longest admissible prompt (tokens); prefill pads to a power-of-two tile.
+_C.GENERATE.PROMPT_LEN = 64
+# Chunked paged prefill: not ported (the port refuses anything but 0).
+_C.GENERATE.CHUNK_PREFILL = 0
+# Token id that ends a sequence early (the byte tokenizer's EOS);
+# -1 = generate exactly max_new_tokens.
+_C.GENERATE.EOS_ID = 256
+# Scheduler admission poll (seconds) while decode slots are free.
+_C.GENERATE.POLL_S = 0.002
+# Decode-time token selection: TEMPERATURE 0 is greedy argmax; a sampled
+# stream replays from its SEED (counter-based uniforms, lm/generate.py).
+_C.GENERATE.SAMPLE = CfgNode()
+_C.GENERATE.SAMPLE.TEMPERATURE = 0.0
+_C.GENERATE.SAMPLE.TOP_K = 0
+_C.GENERATE.SAMPLE.TOP_P = 1.0
+_C.GENERATE.SAMPLE.SEED = 0
+# Draft-model speculative decoding: not ported (the port refuses ENABLED).
+_C.GENERATE.SPECULATE = CfgNode()
+_C.GENERATE.SPECULATE.ENABLED = False
+_C.GENERATE.SPECULATE.DRAFT_ARCH = ""
+_C.GENERATE.SPECULATE.DRAFT_WEIGHTS = ""
+_C.GENERATE.SPECULATE.K = 4
+
 # ------------------------------- kernel tier ---------------------------------
 # Hand-written CUDA kernels (ops/cuda/). "auto" is the only value: the
 # kernel on CUDA tensors, its plain PyTorch version on CPU tensors.
@@ -273,6 +316,13 @@ _C.KERNELS.OPT_UPDATE = "auto"
 # Fused pointwise conv + folded eval BN + activation (ops/cuda/conv_epilogue.py)
 # at every 1x1/s1 ungrouped conv+BN site of the eval/serve forward.
 _C.KERNELS.CONV_EPILOGUE = "auto"
+# Decode attention over the paged KV cache (ops/cuda/decode_attn.py): the
+# T=1 step of lm/generate's cached attention.
+_C.KERNELS.DECODE_ATTN = "auto"
+# Key-block height of the TPU decode kernel, kept so that the same cache
+# tiles take the kernel as there: each GENERATE.CACHE_TILES entry must be a
+# multiple of it or fit in one block, else the step runs the dense region.
+_C.KERNELS.DECODE_BLOCK = 128
 
 # ------------------------------- device / mesh -------------------------------
 _C.DEVICE = CfgNode()
@@ -303,6 +353,9 @@ _C.DATA = CfgNode()
 # Ship uint8 pixels and normalize on the device (data/transforms.
 # normalize_on_device); False sends host-normalized float32.
 _C.DATA.DEVICE_NORMALIZE = True
+# "imagefolder" (or MODEL.DUMMY_INPUT data); "tokens" names the LM's token
+# shards, which serving reads nothing of (training on them is not ported).
+_C.DATA.FORMAT = "imagefolder"
 
 # ------------------------------- checkpoints ---------------------------------
 _C.CHECKPOINT = CfgNode()
@@ -331,6 +384,10 @@ _C.SERVE.HOST = "127.0.0.1"
 _C.SERVE.PORT = 8765
 # Weight-only quantization: not ported (the port refuses anything but "").
 _C.SERVE.QUANTIZE = ""
+# Length-aware LM admission (a long-prompt class with its own queue
+# share): not ported (the port refuses anything but 0).
+_C.SERVE.LONG_PROMPT_THRESHOLD = 0
+_C.SERVE.LONG_MAX_QUEUE = 0
 
 # ------------------------------- misc ---------------------------------------
 _C.OUT_DIR = "./output"

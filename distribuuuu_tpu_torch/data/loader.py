@@ -127,7 +127,7 @@ def _build_dataset(train: bool):
     raise not_ported(
         f"the {split} dataset at {cfg.TRAIN.DATASET if train else cfg.TEST.DATASET!r} "
         "(ImageFolder, shards and token pipelines; pass MODEL.DUMMY_INPUT True to "
-        "train on generated images)", "Slice 4 — training on real data")
+        "train on generated images)", "Real data and many processes")
 
 
 def construct_train_loader() -> Loader:

@@ -1,12 +1,14 @@
 """Model registry of the port (counterpart of distribuuuu_tpu/models/__init__.py).
 
-The ResNet family and the ViTs (vit_tiny, vit_small) are ported; the
-other archs of the JAX zoo raise with the ROADMAP item that ports them.
+The ResNet family, the ViTs (vit_tiny, vit_small) and gpt_nano are
+ported; the other archs of the JAX zoo raise with the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
 
 from distribuuuu_tpu_torch import not_ported
+from distribuuuu_tpu_torch.models.gpt import gpt_nano, gpt_nano_moe
 from distribuuuu_tpu_torch.models.resnet import (
     resnet18,
     resnet34,
@@ -25,7 +27,7 @@ _REGISTRY = {
     for fn in (
         resnet18, resnet34, resnet50, resnet101, resnet152,
         resnext50_32x4d, resnext101_32x8d, wide_resnet50_2, wide_resnet101_2,
-        vit_tiny, vit_small,
+        vit_tiny, vit_small, gpt_nano, gpt_nano_moe,
     )
 }
 
@@ -36,8 +38,6 @@ _UNPORTED = {
         "regnetx_160", "regnety_160", "regnety_320", "efficientnet_b0",
     )},
     "vit_tiny_moe": "Parallel layouts beyond DP",
-    "gpt_nano": "LM plane",
-    "gpt_nano_moe": "LM plane",
 }
 
 

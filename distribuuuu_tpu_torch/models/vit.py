@@ -25,6 +25,11 @@ Attention (``attn_impl``, from ``DEVICE.ATTN_IMPL``):
   * ``ring``/``ulysses`` (sequence-sharded) and the MoE and pipelined
     variants are not ported.
 
+``causal`` (``Attention``, ``Block``) masks keys past the query's position
+under every impl, for the decoder-only LM (``models/gpt.py``): the dense
+region with a ``tril`` mask at −1e30, ``flash`` and ``blockwise`` with
+their own ``causal`` flag.
+
 Dropout is 0 in every shipped config; the port takes 0 only.
 """
 
@@ -111,11 +116,12 @@ class Attention(nn.Module):
     FLASH_MIN_SEQ = 1024
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, attn_impl: str = "xla",
-                 device=None):
+                 device=None, causal: bool = False):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"vit attn_impl must be one of {ATTN_IMPLS}; got {attn_impl!r}")
         self.num_heads, self.dtype, self.attn_impl = num_heads, dtype, attn_impl
+        self.causal = causal
         self.qkv = Linear(dim, 3 * dim, dtype, device)
         self.proj = Linear(dim, dim, dtype, device)
 
@@ -138,11 +144,14 @@ class Attention(nn.Module):
         if impl in ("ring", "ulysses"):
             out = (ra.ring_attention if impl == "ring" else ra.ulysses_attention)(q, k, v)
         elif impl == "flash":
-            out = fa.flash_attention(q, k, v)
+            out = fa.flash_attention(q, k, v, causal=self.causal)
         elif impl == "blockwise":
-            out = ra.blockwise_attention(q, k, v)
+            out = ra.blockwise_attention(q, k, v, causal=self.causal)
         else:  # dense, in fp32 (bf16 logits would lose softmax mass at long S)
             sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (dim // h) ** -0.5
+            if self.causal:
+                tril = torch.ones((s, s), dtype=torch.bool, device=sc.device).tril()
+                sc = torch.where(tril, sc, -1e30)
             w = torch.softmax(sc, dim=-1)
             out = torch.einsum("bhqk,bhkd->bhqd", w, v.float())
         out = out.to(self.dtype).transpose(1, 2).reshape(b, s, dim)
@@ -151,10 +160,10 @@ class Attention(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype: torch.dtype,
-                 attn_impl: str, device=None):
+                 attn_impl: str, device=None, causal: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, dtype, device)
-        self.attn = Attention(dim, num_heads, dtype, attn_impl, device)
+        self.attn = Attention(dim, num_heads, dtype, attn_impl, device, causal)
         self.norm2 = LayerNorm(dim, dtype, device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, device)
 
@@ -163,7 +172,31 @@ class Block(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
-class ViT(nn.Module):
+class CastModel(nn.Module):
+    """A model whose ``_Cast`` layers hold compute-dtype copies of their
+    weights in eval (the ViT and the GPT)."""
+
+    def _cast_modules(self):
+        return [m for m in self.modules() if isinstance(m, _Cast)]
+
+    def train(self, mode: bool = True):
+        """Set the mode and drop the eval weight cache (rebuilt from the
+        current weights at the next eval)."""
+        super().train(mode)
+        for m in self._cast_modules():
+            m._cache = None
+        return self
+
+    def prepare(self):
+        """Cast the Linears' (and the patch conv's) weights to the compute
+        dtype once per entry into eval (the serving engines call this at
+        build; otherwise the first eval forward does)."""
+        for m in self._cast_modules():
+            m.prepare()
+        return self
+
+
+class ViT(CastModel):
     """Patch embed → pre-norm blocks → LN → mean over tokens → head."""
 
     def __init__(self, num_classes: int = 1000, patch: int = 16, dim: int = 192,
@@ -186,25 +219,6 @@ class ViT(nn.Module):
         self.norm = LayerNorm(dim, dtype, device)
         self.head = Dense(dim, num_classes, device=device)
 
-    def _cast_modules(self):
-        return [m for m in self.modules() if isinstance(m, _Cast)]
-
-    def train(self, mode: bool = True) -> "ViT":
-        """Set the mode and drop the eval weight cache (rebuilt from the
-        current weights at the next eval)."""
-        super().train(mode)
-        for m in self._cast_modules():
-            m._cache = None
-        return self
-
-    def prepare(self) -> "ViT":
-        """Cast the patch conv's and the Linears' weights to the compute
-        dtype once per entry into eval (the serving engine calls this at
-        build; otherwise the first eval forward does)."""
-        for m in self._cast_modules():
-            m.prepare()
-        return self
-
     def forward(self, x):
         x = self.patch_embed(x.to(self.dtype)) + self.pos_embed.to(self.dtype)
         for blk in self.blocks:
@@ -218,10 +232,10 @@ class ViT(nn.Module):
 def init_vit(model: ViT, generator: torch.Generator) -> None:
     """Random init from ``generator`` in module order, after the JAX
     model's initializers: the patch conv normal with std sqrt(1/fan_in)
-    (flax's lecun normal, untruncated here), ``pos_embed`` normal(0.02),
-    the Linears and the head U(±1/sqrt(fan_in)), every bias 0, LayerNorm
-    1 and 0. Every value is written, so the model may be built on the meta
-    device."""
+    (flax's lecun normal, untruncated here), ``pos_embed`` and a token
+    embedding (the GPT's) normal(0.02), the Linears and the head
+    U(±1/sqrt(fan_in)), every bias 0, LayerNorm 1 and 0. Every value is
+    written, so the model may be built on the meta device."""
     for m in model.modules():
         if isinstance(m, PatchConv):
             fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
@@ -234,7 +248,9 @@ def init_vit(model: ViT, generator: torch.Generator) -> None:
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        elif isinstance(m, ViT):
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, CastModel):
             m.pos_embed.normal_(0.0, 0.02, generator=generator)
 
 

@@ -9,7 +9,9 @@ Counterpart of ``distribuuuu_tpu/ops/pallas/`` and the Pallas kernels of
   one launch per training step over every parameter;
 * ``flash_attention`` — the flash-attention forward, dQ and dK/dV
   (``csrc/flash_attention.cu``), the ViT's attention under
-  ``DEVICE.ATTN_IMPL flash`` (or ``auto`` at 1024 tokens or more).
+  ``DEVICE.ATTN_IMPL flash`` (or ``auto`` at 1024 tokens or more);
+* ``decode_attn`` — attention of one new token over the paged KV cache
+  (``csrc/decode_attn.cu``), every T=1 step of LM generation.
 
 Which implementation runs is decided in ONE place, :func:`use_kernel`, and
 only by where the tensor lives: a CUDA tensor goes through the kernel or
@@ -17,8 +19,9 @@ the call raises; a CPU tensor goes through the kernel's plain PyTorch
 version (the tests' path). There is no knob that sends a CUDA tensor to
 the plain version and no forced-but-unsupported fallback. A call site that
 does not qualify for a kernel (stride 2, a 3x3, groups, training; dense
-attention under ``DEVICE.ATTN_IMPL xla``) runs the plain layer, as the JAX
-package does; that is the site's shape, not a fallback.
+attention under ``DEVICE.ATTN_IMPL xla``; an LM prefill, or a cache tile
+that ``KERNELS.DECODE_BLOCK`` does not divide) runs the plain layer, as the
+JAX package does; that is the site's shape, not a fallback.
 """
 
 from __future__ import annotations
@@ -28,11 +31,14 @@ import torch
 # KERNELS.* knobs the port keeps. "auto" is the only value: kernel on CUDA
 # tensors, plain version on CPU tensors.
 VALID_IMPLS = ("auto",)
-KNOBS = {"conv_epilogue": "CONV_EPILOGUE", "opt_update": "OPT_UPDATE"}
+KNOBS = {"conv_epilogue": "CONV_EPILOGUE", "opt_update": "OPT_UPDATE",
+         "decode_attn": "DECODE_ATTN"}
 
 
 def validate_kernels_cfg(kcfg) -> None:
-    """Refuse any KERNELS.* value other than ``auto``."""
+    """Refuse any KERNELS.* value other than ``auto``, and a
+    ``KERNELS.DECODE_BLOCK`` that is not a positive multiple of 8 (the JAX
+    package's rule, so a config means the same tiles in both)."""
     for op, knob in KNOBS.items():
         v = kcfg[knob]
         if v not in VALID_IMPLS:
@@ -41,6 +47,13 @@ def validate_kernels_cfg(kcfg) -> None:
                 f"for the {op} kernel (the kernel on CUDA tensors, its plain "
                 "version on CPU tensors); a CUDA tensor never takes the plain path"
             )
+    blk = int(kcfg.DECODE_BLOCK)
+    if blk < 8 or blk % 8:
+        raise ValueError(
+            f"KERNELS.DECODE_BLOCK={blk} must be a positive multiple of 8: "
+            f"{blk} % 8 = {blk % 8} — the block height of the TPU decode "
+            "kernel, kept so that the same GENERATE.CACHE_TILES take the kernel"
+        )
 
 
 def use_kernel(t: torch.Tensor) -> bool:

@@ -36,7 +36,7 @@ def validate_policy(policy: str) -> str:
     if policy not in NONFINITE_POLICIES:
         raise ValueError(f"TRAIN.NONFINITE={policy!r}: must be one of {NONFINITE_POLICIES}")
     if policy == "rollback":
-        raise not_ported("TRAIN.NONFINITE rollback", "Slice 4 — training on real data")
+        raise not_ported("TRAIN.NONFINITE rollback", "Real data and many processes")
     return policy
 
 

@@ -9,7 +9,9 @@ Request payloads, auto-detected:
   val-transformed;
 * anything else — an encoded image file (PIL-decodable);
 * a control frame (``CTRL_MAGIC`` + JSON): ``op="stats"`` answers the
-  engine's stats; ``op="generate"`` answers ``not_a_generation_replica``;
+  engine's stats; ``op="generate"`` streams token frames and a done frame
+  from an LM engine (``lm/service.handle_generate``) and answers
+  ``not_a_generation_replica`` from an image engine;
 * a model envelope (``MODEL_MAGIC``) is stripped — this replica is the
   model; a trace envelope (``TRACE_MAGIC``) is stripped too, or refused as
   ``bad_trace_envelope`` when torn.
@@ -39,6 +41,11 @@ MAX_FRAME = 64 << 20  # refuse absurd frames before allocating for them
 CTRL_MAGIC = b"\x00DTPUCTL1"
 MODEL_MAGIC = b"\x00DTPUMDL1"
 TRACE_MAGIC = b"\x00DTPUTRC1"
+
+
+def ctrl_request(op: str, **fields) -> bytes:
+    """Encode a control request payload (send it with ``send_frame``)."""
+    return CTRL_MAGIC + json.dumps({"op": op, **fields}).encode()
 
 
 def parse_ctrl(payload: bytes) -> dict | None:
@@ -212,6 +219,19 @@ def _handle_conn(engine, conn: socket.socket, transform, topk: int) -> None:
                 except (ValueError, IndexError):
                     resp = {"error": "bad_model_envelope"}
                 else:
+                    ctrl = parse_ctrl(payload)
+                    if (ctrl is not None and ctrl.get("op") == "generate"
+                            and hasattr(engine, "prompt_len")):
+                        # the LM's streaming frames: one per token on this
+                        # connection, a done frame last
+                        from distribuuuu_tpu_torch.lm import service as lm_service
+
+                        try:
+                            lm_service.handle_generate(engine, ctrl,
+                                                       lambda p: send_frame(conn, p))
+                        except OSError:
+                            return
+                        continue
                     resp = _answer(engine, payload, transform, topk)
             try:
                 send_frame(conn, json.dumps(resp).encode())

@@ -1,15 +1,18 @@
-"""Serve a classification model online on the card (the port's twin of the
-top-level ``serve_net.py``).
+"""Serve a classification model or an LM online on the card (the port's
+twin of the top-level ``serve_net.py``).
 
 Builds the configured arch (weights from ``MODEL.WEIGHTS``, a torch
-``.pth``, or made from ``RNG_SEED``), applies the val transform to
-incoming images, and serves predictions through the dynamic
-micro-batching engine over a length-prefixed socket. SIGTERM drains
-gracefully. Runs on ``cuda:{SERVE.DEVICE}`` unless ``DEVICE.PLATFORM cpu``.
+``.pth``, or made from ``RNG_SEED``). An image arch gets the val transform
+and the dynamic micro-batching engine; a ``gpt_*`` arch gets the
+continuous-batching generation engine (``lm/service.py``), driven by
+streaming ``op="generate"`` control frames. Both listen on a
+length-prefixed socket; SIGTERM drains gracefully. Runs on
+``cuda:{SERVE.DEVICE}`` unless ``DEVICE.PLATFORM cpu``.
 
 Usage:
     python -m distribuuuu_tpu_torch.serve_net --cfg config/resnet50.yaml \\
         [MODEL.WEIGHTS path/to/resnet50.pth] [KEY VALUE ...]
+    python -m distribuuuu_tpu_torch.serve_net --cfg config/gpt_nano.yaml
 
     # one-shot batch mode: val-transformed .npy in, logits .npy out
     python -m distribuuuu_tpu_torch.serve_net --cfg config/resnet50.yaml \\
@@ -21,26 +24,13 @@ from __future__ import annotations
 import argparse
 import sys
 
-import yaml
-
 import distribuuuu_tpu_torch.config as config
 from distribuuuu_tpu_torch import not_ported
 from distribuuuu_tpu_torch.config import cfg
 
 
-def _arch_of(cfg_file: str, opts: list[str]) -> str:
-    """MODEL.ARCH as the yaml and the overrides set it, read before the
-    merge (an LM yaml carries nodes the port's config does not have)."""
-    with open(cfg_file) as f:
-        arch = ((yaml.safe_load(f) or {}).get("MODEL") or {}).get("ARCH", cfg.MODEL.ARCH)
-    for k, v in zip(opts[0::2], opts[1::2]):
-        if k == "MODEL.ARCH":
-            arch = v
-    return str(arch)
-
-
 def main(argv=None):
-    parser = argparse.ArgumentParser(description="Serve a classification model.")
+    parser = argparse.ArgumentParser(description="Serve a classification model or an LM.")
     parser.add_argument("--cfg", dest="cfg_file", required=True, type=str,
                         help="Config file location")
     parser.add_argument("--fleet", type=int, default=0, metavar="N",
@@ -55,11 +45,16 @@ def main(argv=None):
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     if args.fleet:
         raise not_ported("--fleet (the serving fleet)", "Serving fleet")
-    if _arch_of(args.cfg_file, args.opts).startswith("gpt"):
-        raise not_ported("serving the gpt_* archs (LM generation)", "LM plane")
     config.merge_from_file(args.cfg_file)
     cfg.merge_from_list(args.opts)
     cfg.freeze()
+    lm = cfg.MODEL.ARCH.startswith("gpt")
+    if lm and args.batch_input is not None:
+        raise SystemExit(
+            "--batch-input is the image engine's one-shot mode; "
+            "drive a gpt_* replica with generate ctrl frames "
+            "(lm/service.generate_request) instead"
+        )
 
     from distribuuuu_tpu_torch import trainer
     from distribuuuu_tpu_torch.serve import admission, engine_from_cfg, protocol
@@ -67,13 +62,24 @@ def main(argv=None):
 
     setup_logger()
     logger = get_logger()
-    engine = engine_from_cfg()
-    logger.info(
-        "serving %s on %s: buckets %s warmed (%d shapes), max_wait %.1f ms, "
-        "queue bound %d",
-        cfg.MODEL.ARCH, engine.device, engine.buckets, engine.n_compiles,
-        cfg.SERVE.MAX_WAIT_MS, cfg.SERVE.MAX_QUEUE,
-    )
+    if lm:
+        from distribuuuu_tpu_torch.lm import service as lm_service
+
+        engine = lm_service.engine_from_cfg()
+        logger.info(
+            "generating with %s on %s: %d tiles warmed (decode tiles %s), %d slots, "
+            "prompt<=%d, max_new=%d",
+            cfg.MODEL.ARCH, engine.device, engine.n_compiles, engine.stats()["buckets"],
+            engine.n_slots, engine.prompt_len, engine.max_new,
+        )
+    else:
+        engine = engine_from_cfg()
+        logger.info(
+            "serving %s on %s: buckets %s warmed (%d shapes), max_wait %.1f ms, "
+            "queue bound %d",
+            cfg.MODEL.ARCH, engine.device, engine.buckets, engine.n_compiles,
+            cfg.SERVE.MAX_WAIT_MS, cfg.SERVE.MAX_QUEUE,
+        )
     engine.start()
 
     if args.batch_input is not None:

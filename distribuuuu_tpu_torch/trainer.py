@@ -56,7 +56,7 @@ from distribuuuu_tpu_torch.utils.schedules import get_epoch_lr
 from distribuuuu_tpu_torch.utils.seed import setup_env, setup_seed
 from distribuuuu_tpu_torch.utils.weights import load_weights, pretrained_refusal
 
-SLICE4 = "Slice 4"
+REAL_DATA = "Real data and many processes"
 
 
 def bn_group_from_cfg() -> int:
@@ -96,10 +96,10 @@ RESNETS = ("resnet", "resnext", "wide_resnet")
 
 
 def attn_impl_from_cfg() -> str:
-    """``DEVICE.ATTN_IMPL`` for the ViT archs, as the JAX trainer routes it:
-    ``auto``/``xla``/``flash``/``blockwise`` on one device; ``ring``/
-    ``ulysses`` need a sequence-sharded mesh (``MESH.SEQ > 1``), which the
-    port does not have yet."""
+    """``DEVICE.ATTN_IMPL`` for the ViT and GPT archs, as the JAX trainer
+    routes it: ``auto``/``xla``/``flash``/``blockwise`` on one device;
+    ``ring``/``ulysses`` need a sequence-sharded mesh (``MESH.SEQ > 1``),
+    which the port does not have yet."""
     impl = cfg.DEVICE.ATTN_IMPL
     if cfg.MESH.SEQ > 1:
         raise not_ported(f"sequence-sharded attention (MESH.SEQ={cfg.MESH.SEQ})",
@@ -110,7 +110,7 @@ def attn_impl_from_cfg() -> str:
     if impl not in ("auto", "xla", "flash", "blockwise"):
         raise ValueError(f"DEVICE.ATTN_IMPL={impl!r}: ViT archs accept 'auto', 'xla' "
                          "(dense), 'flash' (the flash kernels), 'blockwise', or MESH.SEQ>1 "
-                         "for ring attention")
+                         "for ring attention; GPT archs the same")
     return impl
 
 
@@ -118,7 +118,9 @@ def build_model_from_cfg(generator: torch.Generator | None = None):
     """The configured arch on the CPU, in fp32 master weights, filled by
     ``generator`` (default: a ``torch.Generator`` seeded with ``RNG_SEED``,
     0 when unset). The CNNs take their BN regime (``bn_group``); the ViTs,
-    LayerNorm-only, take ``DEVICE.ATTN_IMPL`` and the input size."""
+    LayerNorm-only, take ``DEVICE.ATTN_IMPL`` and the input size; the
+    GPTs take ``LM.SEQ_LEN`` and ``DEVICE.ATTN_IMPL``, where ``auto`` is
+    the dense causal region, as in the JAX trainer."""
     kernel_tier.validate_kernels_cfg(cfg.KERNELS)
     if cfg.DEVICE.S2D_STEM:
         raise not_ported("DEVICE.S2D_STEM (space-to-depth stem)", "S2D stem")
@@ -126,6 +128,10 @@ def build_model_from_cfg(generator: torch.Generator | None = None):
     kwargs = {}
     if arch.startswith("vit"):
         kwargs.update(attn_impl=attn_impl_from_cfg(), img_size=cfg.TRAIN.IM_SIZE)
+    elif arch.startswith("gpt"):
+        impl = attn_impl_from_cfg()
+        kwargs.update(attn_impl="xla" if impl == "auto" else impl,
+                      seq_len=int(cfg.LM.SEQ_LEN))
     else:
         kwargs["bn_group"] = bn_group_from_cfg()
     if cfg.TRAIN.REMAT and not arch.startswith(RESNETS):
@@ -148,6 +154,11 @@ def effective_topk() -> int:
 
 def check_train_cfg(eval_only: bool = False) -> None:
     """Refuse, before any work, what this slice does not run."""
+    if cfg.MODEL.ARCH.startswith("gpt"):
+        raise not_ported(f"training or evaluating {cfg.MODEL.ARCH!r} (token shards, the "
+                         "per-token loss)", "LM plane")
+    if cfg.DATA.FORMAT != "imagefolder":
+        raise not_ported(f"DATA.FORMAT={cfg.DATA.FORMAT!r}", REAL_DATA)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     mesh = cfg.MESH
     refusals = [
@@ -174,7 +185,7 @@ def check_train_cfg(eval_only: bool = False) -> None:
         supervisor.validate_policy(str(cfg.TRAIN.NONFINITE))
     for refused, what in refusals:
         if refused:
-            raise not_ported(what, SLICE4)
+            raise not_ported(what, REAL_DATA)
     if cfg.MODEL.PRETRAINED and not cfg.MODEL.WEIGHTS:
         raise pretrained_refusal(cfg.MODEL.ARCH)
 

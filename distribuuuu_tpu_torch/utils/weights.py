@@ -1,13 +1,14 @@
 """Carrying weights into the port.
 
-* :func:`state_dict_from_jax` maps the JAX ResNet's or ViT's variables
-  (``params`` and ``batch_stats`` as nested dicts of numpy arrays; a ViT
-  has no ``batch_stats``) onto the port's torchvision/timm-named state
-  dict: conv ``[kh, kw, I, O]`` → ``[O, I, kh, kw]``, dense ``[I, O]`` →
+* :func:`state_dict_from_jax` maps the JAX ResNet's, ViT's or GPT's
+  variables (``params`` and ``batch_stats`` as nested dicts of numpy
+  arrays, boxed leaves taken by their ``.value``; a ViT or GPT has no
+  ``batch_stats``) onto the port's torchvision/timm-named state dict:
+  conv ``[kh, kw, I, O]`` → ``[O, I, kh, kw]``, dense ``[I, O]`` →
   ``[O, I]`` (qkv keeps its ``(3, heads, head_dim)`` column order), BN
   ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
   ``running_mean``/``running_var``, LayerNorm ``scale`` → ``weight``,
-  ``pos_embed`` as it is.
+  ``pos_embed`` and the token ``embedding`` ``[vocab, dim]`` as they are.
 * :func:`opt_state_from_jax` maps the optax state of the JAX package's
   ``construct_optimizer()`` onto the port's optimizer state
   (``utils/optim.Optimizer.load_state_dict``): the trace, or mu and nu,
@@ -33,6 +34,8 @@ from distribuuuu_tpu_torch import not_ported
 # flax block module -> the number of its main ConvBNs (a further one is
 # the downsample)
 _BLOCK_CONVS = {"BasicBlock": 2, "Bottleneck": 3}
+# the GPT's token table: [vocab, dim] in both frameworks, not transposed
+EMBEDDING = "tok_embed.weight"
 
 
 def _idx(name: str) -> int:
@@ -47,8 +50,11 @@ def _vit_path_map(params: dict) -> dict[tuple[str, ...], str]:
     """The ViT tree: ``Conv_0`` (patch embed), ``pos_embed``, ``Block_N``
     with ``LayerNorm_0/1``, ``Attention_0/Dense_{0,1}/Dense_0`` (qkv, proj)
     and ``Mlp_0/Dense_{0,1}/Dense_0`` (fc1, fc2), ``LayerNorm_0`` (the
-    final norm) and ``Dense_0/Dense_0`` (the head)."""
+    final norm) and ``Dense_0/Dense_0`` (the head). The GPT tree (told
+    apart by ``tok_embed``) has ``tok_embed/embedding`` in place of the
+    patch conv and ``head/Dense_0`` for the head, the rest alike."""
     out: dict[tuple[str, ...], str] = {("pos_embed",): "pos_embed"}
+    gpt = "tok_embed" in params
 
     def dense(prefix, key):
         out[(*prefix, "Dense_0", "kernel")] = f"{key}.weight"
@@ -58,8 +64,11 @@ def _vit_path_map(params: dict) -> dict[tuple[str, ...], str]:
         out[(*prefix, "scale")] = f"{key}.weight"
         out[(*prefix, "bias")] = f"{key}.bias"
 
-    out[("Conv_0", "kernel")] = "patch_embed.proj.weight"
-    out[("Conv_0", "bias")] = "patch_embed.proj.bias"
+    if gpt:
+        out[("tok_embed", "embedding")] = EMBEDDING
+    else:
+        out[("Conv_0", "kernel")] = "patch_embed.proj.weight"
+        out[("Conv_0", "bias")] = "patch_embed.proj.bias"
     for blk in _sorted(params, "Block"):
         base = f"blocks.{_idx(blk)}"
         norm((blk, "LayerNorm_0"), f"{base}.norm1")
@@ -69,14 +78,14 @@ def _vit_path_map(params: dict) -> dict[tuple[str, ...], str]:
         dense((blk, "Mlp_0", "Dense_0"), f"{base}.mlp.fc1")
         dense((blk, "Mlp_0", "Dense_1"), f"{base}.mlp.fc2")
     norm(("LayerNorm_0",), "norm")
-    dense(("Dense_0",), "head")
+    dense(("head",) if gpt else ("Dense_0",), "head")
     return out
 
 
 def jax_path_map(params: dict) -> dict[tuple[str, ...], str]:
     """``{flax path: port state-dict key}`` for every leaf of a JAX ResNet's
-    ``params`` and ``batch_stats`` trees, or of a JAX ViT's ``params``
-    (told apart by its top-level ``pos_embed``). ResNet stages are found
+    ``params`` and ``batch_stats`` trees, or of a JAX ViT's or GPT's
+    ``params`` (told apart by their top-level ``pos_embed``). ResNet stages are found
     from the tree: a block with a downsample ConvBN opens a new stage
     (stage 1 of the BasicBlock nets has none, and block 0 always opens
     stage 1)."""
@@ -123,29 +132,29 @@ def _leaves(tree: dict, prefix=()):
         if isinstance(v, dict):
             yield from _leaves(v, (*prefix, k))
         else:
-            yield (*prefix, k), v
+            yield (*prefix, k), getattr(v, "value", v)
 
 
-def _port_layout(arr, dtype=np.float32) -> np.ndarray:
+def _port_layout(arr, dtype=np.float32, key: str = "") -> np.ndarray:
     a = np.asarray(arr, dtype)
     if a.ndim == 4:  # conv HWIO -> OIHW
         a = a.transpose(3, 2, 0, 1)
-    elif a.ndim == 2:  # dense [I, O] -> [O, I]
+    elif a.ndim == 2 and key != EMBEDDING:  # dense [I, O] -> [O, I]
         a = a.T
     return np.ascontiguousarray(a)
 
 
 def state_dict_from_jax(params: dict, batch_stats: dict | None = None
                         ) -> dict[str, torch.Tensor]:
-    """The port's state dict for a JAX ResNet's or ViT's variables (numpy
-    leaves; a ViT's ``batch_stats`` is empty or None). Every leaf lands in
-    exactly one tensor; an unmapped leaf raises."""
+    """The port's state dict for a JAX ResNet's, ViT's or GPT's variables
+    (numpy leaves; a ViT's or GPT's ``batch_stats`` is empty or None).
+    Every leaf lands in exactly one tensor; an unmapped leaf raises."""
     paths = jax_path_map(params)
     sd: dict[str, torch.Tensor] = {}
     for path, arr in [*_leaves(params), *_leaves(batch_stats or {})]:
         if path not in paths:
             raise KeyError(f"JAX leaf {'/'.join(path)} has no port tensor")
-        sd[paths[path]] = torch.from_numpy(_port_layout(arr))
+        sd[paths[path]] = torch.from_numpy(_port_layout(arr, key=paths[path]))
     for key in [k for k in sd if k.endswith(".running_var")]:
         sd[key.replace("running_var", "num_batches_tracked")] = torch.zeros((), dtype=torch.long)
     return sd

@@ -53,7 +53,7 @@ def test_overrides_and_freeze():
     with pytest.raises(AttributeError, match="frozen"):
         tcfg.SERVE.MAX_BATCH = 2
     with pytest.raises(KeyError, match="Non-existent"):
-        tcfg.merge_from_list(["LM.SEQ_LEN", "8"])
+        tcfg.merge_from_list(["ASYNC.ENABLED", "True"])
 
 
 def test_kernel_knob_and_platform_refusals():

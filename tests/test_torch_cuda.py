@@ -11,7 +11,10 @@ for each body, and a train step launches it exactly once. The three
 flash-attention kernels are held against their plain versions at ragged
 lengths, causal and not, in bf16 and f32; the gradients through the
 autograd Function on the card against the same Function on the CPU; and
-each launch counter moves once per call.
+each launch counter moves once per call. The decode-attention kernel is
+held against its plain version at head dims 32/64/128 in bf16 and f32, a
+decode step of the generation engine launches it once per block, and the
+engine's f32 greedy streams on the card equal the CPU's.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from distribuuuu_tpu_torch.data.transforms import normalize_on_device
 from distribuuuu_tpu_torch.models import build_model
 from distribuuuu_tpu_torch.ops.cuda import conv_epilogue as ce
+from distribuuuu_tpu_torch.ops.cuda import decode_attn as da
 from distribuuuu_tpu_torch.ops.cuda import flash_attention as fa
 from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
 from distribuuuu_tpu_torch.serve import Engine
@@ -223,3 +227,65 @@ def test_one_opt_update_launch_per_train_step():
     losses = [float(trainer.train_step(model, opt, batch, 5)["loss"]) for _ in range(3)]
     assert ou.update.launches == before + 3 and opt.count == 3
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,c,d", [(3, 4, 256, 32), (2, 6, 256, 64), (2, 2, 384, 128),
+                                     (3, 2, 96, 32)])
+def test_decode_attention_kernel_matches_plain_on_card(dtype, b, h, c, d):
+    """The kernel against its plain version at lengths 0, mid and C − 1
+    (C = 96 lies inside one 128-key block)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(b, h, d, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(b, h, c, d, device=dev, generator=g).to(dtype) for _ in range(2))
+    lens = torch.tensor([0, c // 2, c - 1][:b], dtype=torch.int32, device=dev)
+    before = da.launches
+    got = da.decode_attention(q, k, v, lens, scale=d ** -0.5)
+    want = da.decode_attention_plain(q, k, v, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1
+    _close(got, want, FLASH_TOL[dtype])
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        da.decode_attention(q.half(), k.half(), v.half(), lens, scale=1.0)
+
+
+def _tiny_gpt(dtype):
+    return build_model("gpt_nano", num_classes=320, dtype=dtype, seq_len=32, dim=64,
+                       depth=3, num_heads=2, generator=torch.Generator().manual_seed(0))
+
+
+def test_one_decode_attention_launch_per_block_per_decode_step():
+    from distribuuuu_tpu_torch.lm.generate import GenerateEngine
+
+    dev = _card()
+    eng = GenerateEngine(_tiny_gpt(torch.bfloat16), device=dev, prompt_len=8,
+                         max_new_tokens=4, batch_tiles=[1, 2], cache_tiles=[32], eos_id=-1)
+    warm = da.launches
+    eng.start()
+    da.reset_launch_counts()
+    try:
+        out = eng.submit([1, 2, 3]).result(timeout=120)
+    finally:
+        eng.drain()
+    assert warm >= 3 * 2  # every decode tile warmed once
+    assert len(out) == 4 and eng.stats()["decode_steps"] == 3
+    assert da.launches == 3 * 3  # depth 3, three decode steps after the prefill
+
+
+def test_f32_greedy_streams_on_card_match_the_cpu():
+    from distribuuuu_tpu_torch.lm.generate import GenerateEngine
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (3, 8, 5)]
+    streams = []
+    for device in (dev, torch.device("cpu")):
+        eng = GenerateEngine(_tiny_gpt(torch.float32), device=device, prompt_len=8,
+                             max_new_tokens=12, batch_tiles=[1, 2, 4], cache_tiles=[32],
+                             eos_id=-1).start()
+        try:
+            streams.append([s.result(timeout=120) for s in [eng.submit(p) for p in prompts]])
+        finally:
+            eng.drain()
+    assert streams[0] == streams[1]

@@ -77,14 +77,14 @@ def test_seeded_init_is_deterministic_and_bf16_forward_runs():
 def test_unported_paths_raise_with_roadmap_item():
     from distribuuuu_tpu_torch.data.loader import construct_train_loader
 
-    with pytest.raises(NotImplementedError, match="Slice 4"):
+    with pytest.raises(NotImplementedError, match="Real data and many processes"):
         construct_train_loader()  # real images: only MODEL.DUMMY_INPUT is ported
     tcfg.DEVICE.S2D_STEM = True
     with pytest.raises(NotImplementedError, match="S2D stem"):
         trainer.build_model_from_cfg()
     with pytest.raises(NotImplementedError, match="Image zoo"):
         tmodels.build_model("efficientnet_b0")
-    with pytest.raises(NotImplementedError, match="LM plane"):
-        tmodels.build_model("gpt_nano")
+    with pytest.raises(NotImplementedError, match="Parallel layouts beyond DP"):
+        tmodels.build_model("gpt_nano_moe")
     with pytest.raises(KeyError, match="Unknown arch"):
         tmodels.build_model("alexnet")

@@ -129,14 +129,16 @@ def test_entry_point_refuses_cpu_unless_asked(platform):
         engine_from_cfg()
 
 
-def test_unported_serving_features_raise():
+def test_unported_serving_features_raise(tmp_path):
     tcfg.merge_from_list(["DEVICE.PLATFORM", "cpu", "SERVE.QUANTIZE", "bf16"])
     with pytest.raises(NotImplementedError, match="Serving quantization"):
         engine_from_cfg()
     with pytest.raises(NotImplementedError, match="Serving fleet"):
         serve_net.main(["--cfg", "config/resnet50.yaml", "--fleet", "2"])
-    with pytest.raises(NotImplementedError, match="LM plane"):
-        serve_net.main(["--cfg", "config/gpt_nano.yaml"])
+    tcfg.defrost()
+    with pytest.raises(NotImplementedError, match="LM plane"):  # speculative decoding
+        serve_net.main(["--cfg", "config/gpt_nano.yaml", "GENERATE.SPECULATE.ENABLED", "True",
+                        "OUT_DIR", str(tmp_path)])
 
 
 def test_admission_and_drain_before_start(variables):

@@ -312,14 +312,14 @@ def test_nonfinite_raise_and_skip():
 def test_unported_configurations_raise_with_roadmap_item(tmp_path, key, value, what):
     _toy_cfg(tmp_path, 1)
     tcfg.merge_from_list([key, value])
-    with pytest.raises(NotImplementedError, match=rf"(?s){what}.*Slice 4"):
+    with pytest.raises(NotImplementedError, match=rf"(?s){what}.*Real data and many processes"):
         trainer.train_model()
 
 
 def test_more_processes_and_no_cuda_raise(tmp_path, monkeypatch):
     _toy_cfg(tmp_path, 1)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process.*Slice 4"):
+    with pytest.raises(NotImplementedError, match="more than one process.*Real data and many processes"):
         trainer.train_model()
     monkeypatch.delenv("WORLD_SIZE")
     if not torch.cuda.is_available():

@@ -1,7 +1,7 @@
 """Shared helpers of the tests/test_torch_*.py files: one set of weights,
-made from a seed with numpy, in the JAX ResNet's or ViT's variable tree
-(paths from ``model.init`` under ``jax.eval_shape``), and the port's model
-on the same weights through ``state_dict_from_jax``."""
+made from a seed with numpy, in the JAX ResNet's, ViT's or GPT's variable
+tree (paths from ``model.init`` under ``jax.eval_shape``), and the port's
+model on the same weights through ``state_dict_from_jax``."""
 
 from __future__ import annotations
 
@@ -38,18 +38,46 @@ def jax_vit(arch: str = "vit_small", num_classes: int = 10, im: int = 64, **kw):
     return model, nn.unbox(shapes)
 
 
+def jax_gpt(seq_len: int = 32, vocab: int = 320, dim: int = 32, depth: int = 2,
+            heads: int = 2, **kw):
+    """(flax GPT in f32, its variable tree of ShapeDtypeStructs); ``kw``
+    go to the constructor (``attn_impl``)."""
+    from distribuuuu_tpu.models.gpt import GPT
+
+    model = GPT(vocab_size=vocab, seq_len=seq_len, dim=dim, depth=depth,
+                num_heads=heads, dtype=jnp.float32, **kw)
+    shapes = jax.eval_shape(
+        lambda k: model.init(k, model.dummy_input(), train=False), jax.random.key(0)
+    )
+    return model, nn.unbox(shapes)
+
+
+def port_gpt(jmodel, variables: dict, dtype=torch.float32, attn_impl: str = "xla"):
+    """The port's eval GPT of ``jmodel``'s widths holding ``variables``."""
+    from distribuuuu_tpu_torch.models.gpt import GPT
+
+    model = GPT(vocab_size=jmodel.vocab_size, seq_len=jmodel.seq_len, dim=jmodel.dim,
+                depth=jmodel.depth, num_heads=jmodel.num_heads, dtype=dtype,
+                attn_impl=attn_impl)
+    model.load_state_dict(state_dict_from_jax(variables["params"]))
+    return model.eval()
+
+
 def random_variables(shapes, seed: int = 0) -> dict:
     """Numpy leaves for every leaf of the tree: fan-in-scaled convs and
     dense, and BN scale/bias/mean/var away from their init (1, 0, 0, 1) so
     the eval fold is exercised. BN scales near 0.4 keep the residual sums,
     and so the logits, O(1), where an absolute tolerance means something.
-    LayerNorm scales near 1 and biases near 0, and ``pos_embed`` at 0.1."""
+    LayerNorm scales near 1 and biases near 0, ``pos_embed`` at 0.1 and a
+    token ``embedding`` at 0.5."""
     rng = np.random.default_rng(seed)
 
     def leaf(parent, name, s):
         shape = tuple(s.shape)
         if name == "pos_embed":
             v = 0.1 * rng.standard_normal(shape)
+        elif name == "embedding":
+            v = 0.5 * rng.standard_normal(shape)
         elif parent.startswith("LayerNorm") and name == "scale":
             v = 1.0 + 0.1 * rng.standard_normal(shape)
         elif name == "kernel" and len(shape) == 4:
