@@ -59,12 +59,30 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the port's CPU engine's; bf16 logits teacher-forced over the CPU's
    streams within SLICE_REL_TOL of the CPU's f32 scale; a sampled request
    replays; one request through the socket protocol.
-7. Prints the ``{"kernels": [...]}`` line, the card's name and power
+7. RegNet (``DISTRIBUUUU_GROUP_CONV=pallas``): group_conv3x3 against its
+   plain version at the stage-3 shapes of regnety_160 (batches 8, 64, 200),
+   regnetx_160 and regnety_320 (batch 64), the dx shape (flipped weight),
+   a stride-2 shape, a ResNeXt cg=16 shape and a ragged f32 shape, timed
+   beside its plain version and ``F.conv2d(groups=G)`` (cuDNN, the
+   library); conv1x1_bn_act at regnety_160's and regnety_320's 1x1 shapes
+   (batch 8). Then regnety_160 (config/regnety_160.yaml, bf16) served
+   through ``engine_from_cfg`` as ResNet-50 is (10 group-conv and 36
+   conv-epilogue launches per forward; bf16 logits and f32 card logits
+   against the port's f32 CPU forward) and trained through
+   ``trainer.train_model`` at the yaml's batch 64 (10 forward and 10 dx
+   launches per step, 10 per eval forward; the eval is 4096 images at
+   batch 200); one f32 step card vs CPU at
+   batch 4. Every block's zero-initialised last BN scale is first set to
+   seeded N(1, 0.1) values (``MODEL.WEIGHTS``), or the residual branch,
+   and with it the kernel, would not reach the logits at init; zeroing
+   the grouped weights of the kernel's sites must move the logits.
+8. Prints the ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds torch.profiler breakdowns of a ResNet-50 forward, of a
-ResNet-50 and a ViT-S/16 train step, and of one GPT-nano decode step at
-batch 4. Any failed phase exits
+``--profile`` adds torch.profiler breakdowns of a ResNet-50 and a
+regnety_160 forward at batch 8, of a ResNet-50 and a ViT-S/16 train step at
+batch 32 and a regnety_160 train step at batch 64, and of one GPT-nano
+decode step at batch 4. Any failed phase exits
 non-zero. Exits non-zero, printing no result, without CUDA or outside a
 checkout.
 """
@@ -73,6 +91,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -102,7 +121,10 @@ OPT_HOLD_CYCLES = 400_000_000  # about 0.2 s at the H100's 1.98 GHz boost clock
 STEP_UPDATE_L2_TOL = 0.05
 STEP_F64_RATIO_MAX = 2.0
 TRAIN_STEPS_PER_EPOCH = 64
-EVAL_FORWARDS = 11  # 2048 images at batch 200: 10 full batches and a ragged 48
+# the dummy val split holds 64 batches of TRAIN.BATCH_SIZE, evaluated at
+# TEST.BATCH_SIZE 200: at batch 32, 2048 images in 10 full batches and a
+# ragged 48; at regnety_160's batch 64, 4096 images in 20 and a ragged 96
+EVAL_FORWARDS = 11
 # flash attention against its plain version: max abs error over the
 # reference's scale (max(1, max |ref|)); bf16: four bf16 ulps (p and dS are
 # rounded at the same points, the sums run in other orders); f32: f32 sums
@@ -146,6 +168,25 @@ LM_F32_PROMPTS = 8
 # f32 greedy card vs CPU: a divergence is allowed only at a near-tie whose
 # CPU logit gap is below this share of the logit scale
 LM_F32_GAP_TOL = 1e-5
+# group_conv3x3 against its plain version, of max(1, max |ref|): bf16 is one
+# rounding of the output apart (fp32 sums in another order); f32 sums in
+# another order
+GROUP_TOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
+GROUP_SHAPES = [  # (name, B, H, W, C, G, stride, dtype, flipped weight)
+    ("regnety_160_s3_b8", 8, 14, 14, 1232, 11, 1, "bfloat16", False),
+    ("regnety_160_s3_b64", 64, 14, 14, 1232, 11, 1, "bfloat16", False),
+    ("regnety_160_s3_b200", 200, 14, 14, 1232, 11, 1, "bfloat16", False),
+    ("regnetx_160_s3_b64", 64, 14, 14, 896, 7, 1, "bfloat16", False),
+    ("regnety_320_s3_b64", 64, 14, 14, 1392, 6, 1, "bfloat16", False),
+    ("regnety_160_s3_dx_b64", 64, 14, 14, 1232, 11, 1, "bfloat16", True),
+    ("regnety_160_s3_stride2_b64", 64, 28, 28, 1232, 11, 2, "bfloat16", False),
+    ("resnext50_s3_cg16_b8", 8, 14, 14, 512, 32, 1, "bfloat16", False),
+    ("ragged_f32", 3, 7, 5, 33, 3, 1, "float32", False),
+]
+REGNET_GROUP_SITES = 10  # regnety_160: the stride-1 blocks of stage 3 (11 blocks) at 14²
+REGNET_FUSED_SITES = 36  # conv1 and conv3 of its 18 blocks
+REGNET_EVAL_FORWARDS = 21  # 4096 images at batch 200
+REGNET_F32_REL_TOL = 1e-3  # f32 card vs f32 CPU logits, of the logit scale
 
 
 def emit(obj) -> None:
@@ -204,11 +245,29 @@ def bound(m, k, n, dtype, torch, ce):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes
 
 
-def kernel_phase(torch, ce, dev, batch: int = 8, ragged: bool = True):
+def regnet_sites(arch: str, batch: int, im: int):
+    """(M, K, N, act) of the fused conv-epilogue sites of one RegNet
+    forward, in order: per block conv1 (relu, at the block's input
+    resolution) and conv3 (id, after the stride of conv2)."""
+    from distribuuuu_tpu_torch.models import build_model
+
+    model = build_model(arch, device="meta")
+    sites, res = [], -(-im // 2)  # after the stride-2 stem
+    for stage in model.stages:
+        for blk in stage:
+            c1, c3 = blk.conv1.conv, blk.conv3.conv
+            sites.append((batch * res * res, c1.in_channels, c1.out_channels, "relu"))
+            res = -(-res // blk.conv2.conv.stride[0])
+            sites.append((batch * res * res, c3.in_channels, c3.out_channels, "id"))
+    return sites
+
+
+def kernel_phase(torch, ce, dev, batch: int = 8, ragged: bool = True, sites=None):
     """conv1x1_bn_act against its plain version at every distinct site
     shape of a ResNet-50 forward at ``batch`` (8: serving; 200 and the
-    ragged 48: the trainer's eval), and at a ragged f32 shape."""
-    sites = resnet50_sites(batch, 224)
+    ragged 48: the trainer's eval), or of ``sites``, and at a ragged f32
+    shape."""
+    sites = sites or resnet50_sites(batch, 224)
     shapes = {}
     for s in sites:
         shapes[s] = shapes.get(s, 0) + 1
@@ -490,6 +549,196 @@ def vit_slice_phase(torch, fa, dev, n_requests: int):
     return counts["forward"]
 
 
+def group_kernel_phase(torch, gc, dev):
+    """group_conv3x3 against its plain version at GROUP_SHAPES, each timed
+    beside its plain version and F.conv2d(groups=G) (cuDNN, benchmark
+    mode, never called by the port), with its bound: x read once, the
+    weight read once, the output written once over the memory rate vs
+    2·9·cg operations per output element over the peak of the dtype.
+    Returns {shape name: row}."""
+    F = torch.nn.functional
+    rows = {}
+    for name, b, h, w, c, g, stride, dt, flipped in GROUP_SHAPES:
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(b, h, w, c, device=dev, generator=gen).to(dtype)
+        wt = (torch.randn(c, c // g, 3, 3, device=dev, generator=gen) / (9 * c // g) ** 0.5)
+        wt = wt.to(dtype).contiguous(memory_format=torch.channels_last)
+        if flipped:
+            wt = gc.flipped_weight(wt, g)
+        got, ref = gc.group_conv3x3(x, wt, stride, g), gc.group_conv3x3_plain(x, wt, stride, g)
+        torch.cuda.synchronize()
+        err, scaled = _scaled_err(got, ref)
+        xc = x.permute(0, 3, 1, 2)
+        bench, torch.backends.cudnn.benchmark = torch.backends.cudnn.benchmark, True
+        lib = time_ms(torch, lambda: F.conv2d(xc, wt, None, stride, 1, 1, g))
+        torch.backends.cudnn.benchmark = bench
+        nbytes = gc.pass_bytes(b, h, w, c, c, c // g, stride, dtype)
+        ops = gc.pass_flops(b, h, w, c, c // g, stride)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dt] * 1e3
+        row = {
+            "phase": "kernel", "name": "group_conv3x3", "shape": name, "B": b, "H": h, "W": w,
+            "C": c, "G": g, "cg": c // g, "stride": stride, "dtype": dt, "dx_weight": flipped,
+            "max_abs_err": err, "scaled_err": scaled, "tol": GROUP_TOL[dt],
+            "ms": time_ms(torch, lambda: gc.group_conv3x3(x, wt, stride, g)),
+            "plain_ms": time_ms(torch, lambda: gc.group_conv3x3_plain(x, wt, stride, g),
+                                reps=5, warmup=1, hold_cycles=OPT_HOLD_CYCLES),
+            "library_ms": lib, "library": "F.conv2d(groups=G), cuDNN",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": ops,
+        }
+        row["tflops_per_s"] = ops / row["ms"] / 1e9
+        emit(row)
+        if not scaled <= GROUP_TOL[dt]:
+            raise AssertionError(f"group_conv3x3 {name}: error {scaled} of the scale > "
+                                 f"{GROUP_TOL[dt]}")
+        rows[name] = row
+        del x, wt, got, ref, xc
+    return rows
+
+
+def regnet_last_bn(torch, model, seed: int = 0) -> None:
+    """Set every block's zero-initialised last BN scale (``conv3.bn``) to
+    seeded N(1, 0.1), so the residual branch reaches the logits."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if name.endswith(".conv3"):
+                m.bn.weight.copy_(1.0 + 0.1 * torch.randn(m.bn.weight.shape, generator=gen))
+
+
+def regnet_kernel_weights(model):
+    """The grouped weights of the sites that run the kernel at 224²: the
+    stride-1 blocks of stage 3 (14²; stages 1-2 are larger, stage 4 has
+    one block, of stride 2)."""
+    return [blk.conv2.conv.weight for blk in list(model.s3)[1:]]
+
+
+def regnet_weights(torch, path: str) -> str:
+    """regnety_160 made from RNG_SEED 0 as the trainer makes it, with
+    ``regnet_last_bn``; saved to ``path`` for MODEL.WEIGHTS."""
+    from distribuuuu_tpu_torch.models import build_model
+
+    model = build_model("regnety_160", num_classes=1000,
+                        generator=torch.Generator().manual_seed(0))
+    regnet_last_bn(torch, model)
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def regnet_slice_phase(torch, ce, gc, dev, n_requests: int, weights: str):
+    """regnety_160 serving through the port's engine on cuda:0 (bf16,
+    DISTRIBUUUU_GROUP_CONV=pallas, MODEL.WEIGHTS = ``weights``): 10
+    group-conv and 36 conv-epilogue launches per forward; the bf16 logits
+    and the same weights in f32 on the card held against the port's f32 CPU
+    forward; zeroing the grouped weights of the kernel's sites moves the f32
+    logits. Returns (group-conv launches, conv-epilogue launches, the
+    served model)."""
+    import numpy as np
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.data.transforms import normalize_on_device
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.serve import engine_from_cfg
+
+    config.reset_cfg()
+    config.merge_from_file("config/regnety_160.yaml")
+    cfg.merge_from_list([
+        "DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE", "bfloat16", "RNG_SEED", 0,
+        "SERVE.DEVICE", 0, "SERVE.MAX_BATCH", 8, "SERVE.BUCKET_SIZES", [1, 2, 4, 8],
+        "SERVE.MAX_QUEUE", 2 * n_requests, "SERVE.MAX_WAIT_MS", 2.0, "MODEL.WEIGHTS", weights,
+    ])
+    im = cfg.TRAIN.IM_SIZE
+    images = np.random.default_rng(0).integers(0, 256, (n_requests, im, im, 3), np.uint8)
+    ce.conv1x1_bn_act.launches = gc.group_conv3x3.launches = gc.group_conv3x3.launches_dx = 0
+    engine, t_build, walls, batches, logits = _serve_bursts(engine_from_cfg, images)
+    counts = {"group_conv": gc.group_conv3x3.launches, "group_conv_dx": gc.group_conv3x3.launches_dx,
+              "conv_epilogue": ce.conv1x1_bn_act.launches}
+    stats = engine.stats()
+    forwards = batches + engine.n_compiles
+    fused = sum(u.fused for u in engine.model.conv_units())
+    want = {"group_conv": REGNET_GROUP_SITES * forwards, "group_conv_dx": 0,
+            "conv_epilogue": REGNET_FUSED_SITES * forwards}
+    if fused != REGNET_FUSED_SITES or counts != want:
+        raise AssertionError(f"regnety_160 serving launches {counts} != {want} ({batches} "
+                             f"batches + {engine.n_compiles} warm-ups); {fused} fused sites")
+    sd = {k: t.cpu() for k, t in engine.model.state_dict().items()}
+
+    def f32_logits(device, zero=False):
+        model = build_model("regnety_160", num_classes=cfg.MODEL.NUM_CLASSES,
+                            dtype=torch.float32)
+        model.load_state_dict(sd)
+        model = model.to(device).eval()
+        if zero:
+            with torch.no_grad():
+                for w in regnet_kernel_weights(model):
+                    w.zero_()
+        with torch.inference_mode():
+            return np.concatenate([
+                model(normalize_on_device(torch.from_numpy(images[i:i + 16]).to(device)))
+                .cpu().numpy() for i in range(0, n_requests, 16)])
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu, card32, zeroed = (f32_logits(torch.device("cpu")), f32_logits(dev),
+                           f32_logits(dev, zero=True))
+    if logits.shape != (n_requests, cfg.MODEL.NUM_CLASSES) or not np.isfinite(logits).all():
+        raise AssertionError(f"bad logits: shape {logits.shape}, finite "
+                             f"{bool(np.isfinite(logits).all())}")
+    scale = float(np.abs(cpu).max())
+    rel, rel32, moved = (float(np.abs(x - y).max() / scale)
+                         for x, y in ((logits, cpu), (card32, cpu), (zeroed, card32)))
+    top1 = float((logits.argmax(1) == cpu.argmax(1)).mean())
+    res = {
+        "phase": "slice", "arch": cfg.MODEL.ARCH, "group_conv": "pallas", "dtype": "bfloat16",
+        "im_size": im, "requests": n_requests, "batches": stats["batches"],
+        "forwards": forwards, "warmups": engine.n_compiles, "launches": counts,
+        "engine_build_s": t_build, "first_burst_wall_s": walls[0],
+        "first_burst_img_per_s": n_requests / walls[0],
+        "img_per_s": n_requests / walls[-1], "wall_s": walls[-1],
+        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+        "batch_occupancy": stats["batch_occupancy"], "mean_batch_ms": stats["mean_batch_ms"],
+        "rel_err_vs_cpu_f32": rel, "rel_tol": SLICE_REL_TOL, "top1_agreement": top1,
+        "top1_min": SLICE_TOP1_MIN, "card_f32_rel_err_vs_cpu_f32": rel32,
+        "card_f32_rel_tol": REGNET_F32_REL_TOL, "logits_moved_by_zeroed_kernel_weights": moved,
+        "logit_scale": scale,
+    }
+    emit(res)
+    if not (rel <= SLICE_REL_TOL and top1 >= SLICE_TOP1_MIN and rel32 <= REGNET_F32_REL_TOL
+            and moved > 1e-3):
+        raise AssertionError(f"regnety_160 card vs CPU logits: bf16 rel err {rel} (tol "
+                             f"{SLICE_REL_TOL}), top-1 {top1}; f32 rel err {rel32} (tol "
+                             f"{REGNET_F32_REL_TOL}); zeroed grouped weights moved {moved}")
+    return counts["group_conv"], counts["conv_epilogue"], engine.model
+
+
+def regnet_train_phase(torch, ce, gc, ou, out_dir: str, weights: str):
+    """regnety_160 (config/regnety_160.yaml, batch 64, MODEL.WEIGHTS =
+    ``weights`` as a warm start) under DISTRIBUUUU_GROUP_CONV=pallas: 10
+    forward and 10 dx group-conv launches per step, 10 group-conv and 36
+    conv-epilogue launches per eval forward."""
+    def reset():
+        ou.update.launches = ce.conv1x1_bn_act.launches = 0
+        gc.group_conv3x3.launches = gc.group_conv3x3.launches_dx = 0
+
+    def check(launches, steps, evals):
+        want = {"group_conv": REGNET_GROUP_SITES * (steps + evals),
+                "group_conv_dx": REGNET_GROUP_SITES * steps,
+                "conv_epilogue": REGNET_FUSED_SITES * evals}
+        got = {k: launches[k] for k in want}
+        if evals != REGNET_EVAL_FORWARDS or got != want:
+            raise AssertionError(f"regnety_160 launches {got} != {want} ({steps} steps, "
+                                 f"{evals} eval forwards, want {REGNET_EVAL_FORWARDS})")
+
+    return train_phase(torch, out_dir, "config/regnety_160.yaml",
+                       ["MODEL.PRETRAINED", True, "MODEL.WEIGHTS", weights], reset,
+                       lambda: {"opt_update": ou.update.launches,
+                                "group_conv": gc.group_conv3x3.launches,
+                                "group_conv_dx": gc.group_conv3x3.launches_dx,
+                                "conv_epilogue": ce.conv1x1_bn_act.launches}, check)
+
+
 def resnet50_leaves(torch):
     """The shapes of ResNet-50's parameter leaves, in the model's order."""
     from distribuuuu_tpu_torch.models import build_model
@@ -593,8 +842,8 @@ def train_phase(torch, out_dir: str, yaml: str, opts: list, reset, read, check):
     """train_model with ``yaml`` + ``opts`` on dummy data: MAX_EPOCH 1, then
     MAX_EPOCH 2 (auto-resume). ``reset()`` zeroes the launch counters
     just before each run, ``read()`` returns them just after, and
-    ``check(launches, steps)`` raises on a count the path must not give.
-    Returns the two runs' reports."""
+    ``check(launches, steps, eval_forwards)`` raises on a count the path
+    must not give. Returns the two runs' reports."""
     import math
 
     import distribuuuu_tpu_torch.config as config
@@ -622,11 +871,12 @@ def train_phase(torch, out_dir: str, yaml: str, opts: list, reset, read, check):
                                  f"{[r['epoch'] + 1 for r in recs]}, wanted [{max_epoch}]")
         rec = recs[0]
         losses = rec["losses"]
+        evals = -(-rec["eval_images"] // cfg.TEST.BATCH_SIZE)
         (d0, t_0), (d1, t_1) = rec["flushes"][0], rec["flushes"][-1]
         res = {
             "phase": "train", "arch": cfg.MODEL.ARCH, "max_epoch": max_epoch,
             "epoch_run": rec["epoch"] + 1, "steps": rec["steps"], "launches": launches,
-            "eval_forwards": EVAL_FORWARDS,
+            "eval_forwards": evals,
             "batch": cfg.TRAIN.BATCH_SIZE, "first_loss": losses[0],
             "loss_first8_mean": statistics.mean(losses[:8]),
             "loss_last8_mean": statistics.mean(losses[-8:]),
@@ -640,7 +890,7 @@ def train_phase(torch, out_dir: str, yaml: str, opts: list, reset, read, check):
         if rec["steps"] != TRAIN_STEPS_PER_EPOCH or launches["opt_update"] != rec["steps"]:
             raise AssertionError(f"opt_update launches {launches['opt_update']} != steps "
                                  f"{rec['steps']} (want {TRAIN_STEPS_PER_EPOCH})")
-        check(launches, rec["steps"])
+        check(launches, rec["steps"], evals)
         if len(losses) != rec["steps"] or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"losses not finite or missing: {losses}")
         if max_epoch == 1 and not res["loss_last8_mean"] < res["loss_first8_mean"]:
@@ -654,10 +904,10 @@ def resnet_train_phase(torch, ce, ou, out_dir: str):
     def reset():
         ou.update.launches = ce.conv1x1_bn_act.launches = 0
 
-    def check(launches, steps):
-        if launches["conv_epilogue"] != 33 * EVAL_FORWARDS:
+    def check(launches, steps, evals):
+        if evals != EVAL_FORWARDS or launches["conv_epilogue"] != 33 * evals:
             raise AssertionError(f"conv epilogue launches {launches['conv_epilogue']} != 33 x "
-                                 f"{EVAL_FORWARDS} eval forwards")
+                                 f"{evals} eval forwards (want {EVAL_FORWARDS})")
 
     return train_phase(torch, out_dir, "config/resnet50.yaml", [], reset,
                        lambda: {"opt_update": ou.update.launches,
@@ -671,13 +921,13 @@ def vit_train_phase(torch, fa, ou, out_dir: str):
         ou.update.launches = 0
         fa.reset_launch_counts()
 
-    def check(launches, steps):
-        want = {"forward": VIT_DEPTH * (steps + EVAL_FORWARDS), "dq": VIT_DEPTH * steps,
+    def check(launches, steps, evals):
+        want = {"forward": VIT_DEPTH * (steps + evals), "dq": VIT_DEPTH * steps,
                 "dkdv": VIT_DEPTH * steps}
         got = {k: launches[f"flash_{k}"] for k in want}
-        if got != want:
+        if evals != EVAL_FORWARDS or got != want:
             raise AssertionError(f"flash launches {got} != {want} ({steps} steps, "
-                                 f"{EVAL_FORWARDS} eval forwards, {VIT_DEPTH} blocks)")
+                                 f"{evals} eval forwards, {VIT_DEPTH} blocks)")
 
     return train_phase(torch, out_dir, "config/vit_small.yaml", ["DEVICE.ATTN_IMPL", "flash"],
                        reset, lambda: {"opt_update": ou.update.launches,
@@ -685,13 +935,19 @@ def vit_train_phase(torch, fa, ou, out_dir: str):
                                           for k, n in fa.launch_counts().items()}}, check)
 
 
-def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, **model_kw):
+def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, tweak=None,
+                      reach=None, **model_kw):
     """One f32 train step of ``arch`` (full width, TF32 off) on the card
     and on the port's CPU path, and one f64 step on the CPU, from the same
     weights and batch. The card's update agrees with the CPU's f32 update
     within STEP_UPDATE_L2_TOL, relative in the L2 norm over all
     parameters, and lies within STEP_F64_RATIO_MAX times the CPU f32
-    update's distance from the f64 update."""
+    update's distance from the f64 update. ``tweak(model)`` edits the
+    weights before the step (the same in all three runs); ``reach(model)``
+    names the weights whose zeroing must move the card's train-mode
+    logits (on a copy, before the step)."""
+    import copy
+
     import numpy as np
 
     import distribuuuu_tpu_torch.config as config
@@ -708,8 +964,22 @@ def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, **mode
     deltas, losses = [], []
     for device, dtype in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
         model = build_model(arch, num_classes=1000, dtype=dtype,
-                            generator=torch.Generator().manual_seed(0),
-                            **model_kw).to(device, dtype)
+                            generator=torch.Generator().manual_seed(0), **model_kw)
+        if tweak is not None:
+            tweak(model)
+        model = model.to(device, dtype)
+        if reach is not None and device.type == "cuda":
+            probe, x = copy.deepcopy(model).train(), trainer.prep_images(
+                host["image"].to(device))
+            with torch.no_grad():
+                full = probe(x)
+                for w in reach(probe):
+                    w.zero_()
+                moved = float((probe(x) - full).abs().max() / full.abs().max())
+            if not moved > 1e-3:
+                raise AssertionError(f"{arch}: zeroing the kernel's weights moved the "
+                                     f"logits by {moved} of their scale")
+            del probe
         names = [n for n, _ in model.named_parameters()]
         before = [p.detach().cpu().clone() for p in model.parameters()]
         opt = Optimizer(list(model.named_parameters()),
@@ -731,6 +1001,7 @@ def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, **mode
                   for a, b in zip(card, cpu32)]
     worst = max(range(len(names)), key=per_tensor.__getitem__)
     res = {"phase": "step_vs_cpu", "arch": arch, "batch": batch, "dtype": "float32",
+           "logits_moved_by_zeroed_kernel_weights": moved if reach is not None else None,
            "loss_card": losses[0], "loss_cpu": losses[1], "loss_cpu_f64": losses[2],
            "update_l2_rel_err": upd_l2, "update_l2_tol": STEP_UPDATE_L2_TOL,
            "card_vs_f64_update_l2": card_f64, "cpu_f32_vs_f64_update_l2": cpu_f64,
@@ -777,7 +1048,12 @@ def _is_conv(name: str) -> bool:
     return any(s in name for s in ("conv", "xmma", "cudnn", "implicit", "dgrad", "wgrad"))
 
 
-def profile_phase(torch, model, batch: int, im: int, iters: int = 10):
+def _forward_kind(n: str) -> str:
+    return ("group_conv" if "gconv_" in n else "conv_epilogue" if "epilogue_gemm" in n
+            else "cudnn_conv" if _is_conv(n) else "other")
+
+
+def profile_phase(torch, model, batch: int, im: int, iters: int = 10, classify=_forward_kind):
     """Where the time of one bf16 forward at ``batch`` goes: its host wall
     time (synchronised, no profiler), and from a torch.profiler trace the
     device time by kernel kind and the device's idle share of the traced
@@ -802,11 +1078,11 @@ def profile_phase(torch, model, batch: int, im: int, iters: int = 10):
             for _ in range(iters):
                 model(x)
             torch.cuda.synchronize()
-    b = _breakdown(torch, prof, iters, lambda n: "conv_epilogue" if "epilogue_gemm" in n
-                   else "cudnn_conv" if _is_conv(n) else "other")
-    emit({"phase": "profile", "batch": batch, "iters": iters,
+    b = _breakdown(torch, prof, iters, classify)
+    emit({"phase": "profile", "arch": type(model).__name__, "batch": batch, "iters": iters,
           "forward_wall_ms": wall_ms / iters,
           "device_ms_per_forward_by_kind": b["device_ms_by_kind"],
+          "top_kernels_ms_per_forward": b["top_kernels_ms"],
           "kernels_per_forward": b["kernels"],
           "device_busy_ms_per_forward": b["device_busy_ms"],
           "device_idle_share": b["device_idle_share"]})
@@ -816,6 +1092,10 @@ def _resnet_kind(n: str) -> str:
     return ("opt_update" if "opt_update" in n
             else "cudnn_conv_bwd" if _is_conv(n) and ("dgrad" in n or "wgrad" in n)
             else "cudnn_conv" if _is_conv(n) else "bn_elementwise_other")
+
+
+def _regnet_kind(n: str) -> str:
+    return "group_conv" if "gconv_" in n else _resnet_kind(n)
 
 
 def _vit_kind(n: str) -> str:
@@ -1181,9 +1461,10 @@ def lm_profile_phase(torch, dev, engine, iters: int = 20):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one bf16 ResNet-50 forward at batch 8, one "
-                         "ResNet-50 and one ViT-S/16 train step at batch 32, and one "
-                         "GPT-nano decode step at batch 4")
+                    help="also trace one bf16 ResNet-50 and one regnety_160 forward at "
+                         "batch 8, one ResNet-50 and one ViT-S/16 train step at batch 32, "
+                         "one regnety_160 train step at batch 64, and one GPT-nano decode "
+                         "step at batch 4")
     args = ap.parse_args(argv)
 
     import torch
@@ -1196,6 +1477,7 @@ def main(argv=None) -> int:
         from distribuuuu_tpu_torch.ops.cuda import conv_epilogue as ce
         from distribuuuu_tpu_torch.ops.cuda import decode_attn as da
         from distribuuuu_tpu_torch.ops.cuda import flash_attention as fa
+        from distribuuuu_tpu_torch.ops.cuda import group_conv as gc
         from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
@@ -1212,7 +1494,7 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    _build.build("conv_epilogue", "opt_update", "flash_attention", "decode_attn")
+    _build.build("conv_epilogue", "opt_update", "flash_attention", "decode_attn", "group_conv")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(_build.build_seconds)})
 
@@ -1224,6 +1506,15 @@ def main(argv=None) -> int:
               **{k: sum(r[k] * r["sites_per_forward"] for r in eval_rows)
                  for k in ("ms", "plain_ms", "library_ms")},
               "bound_ms": sum(r["bound_ms"] * r["sites_per_forward"] for r in eval_rows)})
+    for arch in ("regnety_160", "regnety_320"):  # K and N of 224..3712, 232 and 696 among them
+        reg_rows, reg_worst = kernel_phase(torch, ce, dev, 8, ragged=False,
+                                           sites=regnet_sites(arch, 8, 224))
+        worst = max(worst, reg_worst)
+        emit({"phase": "kernel_forward_total", "name": "conv1x1_bn_act", "arch": arch, "batch": 8,
+              **{k: sum(r[k] * r["sites_per_forward"] for r in reg_rows)
+                 for k in ("ms", "plain_ms", "library_ms")},
+              "bound_ms": sum(r["bound_ms"] * r["sites_per_forward"] for r in reg_rows)})
+    group_rows = group_kernel_phase(torch, gc, dev)
     shapes = resnet50_leaves(torch)
     if len(shapes) != 161:
         raise AssertionError(f"ResNet-50 has {len(shapes)} parameter leaves, not 161")
@@ -1255,6 +1546,27 @@ def main(argv=None) -> int:
         train_profile_phase(torch, dev, "resnet50", bn_group=32)
         train_profile_phase(torch, dev, "vit_small", classify=_vit_kind, attn_impl="flash")
 
+    # RegNet: every stride-1 grouped 3x3 at <= 14² through the kernel
+    os.environ["DISTRIBUUUU_GROUP_CONV"] = "pallas"
+    reg_dir = tempfile.mkdtemp(prefix="chip_smoke_regnet_")
+    try:
+        weights = regnet_weights(torch, os.path.join(reg_dir, "regnety_160.pth"))
+        reg_serve_gc, reg_serve_ce, model = regnet_slice_phase(torch, ce, gc, dev, N_REQUESTS,
+                                                               weights)
+        if args.profile:
+            profile_phase(torch, model, 8, 224)
+        del model
+        runs["regnety_160"] = regnet_train_phase(torch, ce, gc, ou,
+                                                 os.path.join(reg_dir, "train"), weights)
+    finally:
+        shutil.rmtree(reg_dir, ignore_errors=True)
+    tf32_off()
+    step_vs_cpu_phase(torch, dev, "regnety_160", bn_group=4,
+                      tweak=lambda m: regnet_last_bn(torch, m), reach=regnet_kernel_weights)
+    if args.profile:
+        train_profile_phase(torch, dev, "regnety_160", batch=64, classify=_regnet_kind,
+                            bn_group=64)
+
     lm_res, lm_launches, lm_engine, lm_prompts = lm_serve_phase(torch, da)
     lm_big, lm_big_launches, _, _ = lm_serve_phase(torch, da, LM_BIG_TILES)
     if lm_big["batch_tiles"] != LM_BIG_TILES:
@@ -1278,7 +1590,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/csrc/conv_epilogue.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/conv_epilogue.py:121",
-        "launches": launches + sum(r["launches"]["conv_epilogue"] for r in runs["resnet50"]),
+        "launches": launches + reg_serve_ce + sum(r["launches"]["conv_epilogue"]
+                                                  for a in ("resnet50", "regnety_160")
+                                                  for r in runs[a]),
         "max_abs_err": worst,
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
@@ -1323,6 +1637,19 @@ def main(argv=None) -> int:
         "launches": lm_launches + lm_big_launches,
         "max_abs_err": max(r["max_abs_err"] for r in decode_rows.values()),
         **{k: tile[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
+    # the grouped conv at regnety_160's stage 3 at the training batch 64,
+    # launches (forward and dx) from the regnety_160 serving and training runs
+    grow = group_rows["regnety_160_s3_b64"]
+    kernels.append({
+        "name": "group_conv3x3",
+        "route": "cuda",
+        "source": "distribuuuu_tpu_torch/csrc/group_conv.cu",
+        "replaces": "distribuuuu_tpu/ops/group_conv.py:170",
+        "launches": reg_serve_gc + sum(r["launches"]["group_conv"] + r["launches"]["group_conv_dx"]
+                                       for r in runs["regnety_160"]),
+        "max_abs_err": max(r["max_abs_err"] for r in group_rows.values()),
+        **{k: grow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -1,7 +1,7 @@
 """Model registry of the port (counterpart of distribuuuu_tpu/models/__init__.py).
 
-The ResNet family, the ViTs (vit_tiny, vit_small) and gpt_nano are
-ported; the other archs of the JAX zoo raise with the ROADMAP item that
+The ResNet family, the RegNets (regnetx_160, regnety_160, regnety_320),
+the ViTs (vit_tiny, vit_small) and gpt_nano are ported; the other archs of the JAX zoo raise with the ROADMAP item that
 ports them.
 """
 
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from distribuuuu_tpu_torch import not_ported
 from distribuuuu_tpu_torch.models.gpt import gpt_nano, gpt_nano_moe
+from distribuuuu_tpu_torch.models.regnet import regnetx_160, regnety_160, regnety_320
 from distribuuuu_tpu_torch.models.resnet import (
     resnet18,
     resnet34,
@@ -27,6 +28,7 @@ _REGISTRY = {
     for fn in (
         resnet18, resnet34, resnet50, resnet101, resnet152,
         resnext50_32x4d, resnext101_32x8d, wide_resnet50_2, wide_resnet101_2,
+        regnetx_160, regnety_160, regnety_320,
         vit_tiny, vit_small, gpt_nano, gpt_nano_moe,
     )
 }
@@ -35,7 +37,7 @@ _REGISTRY = {
 _UNPORTED = {
     **{a: "Image zoo" for a in (
         "densenet121", "densenet161", "densenet169", "densenet201", "botnet50",
-        "regnetx_160", "regnety_160", "regnety_320", "efficientnet_b0",
+        "efficientnet_b0",
     )},
     "vit_tiny_moe": "Parallel layouts beyond DP",
 }

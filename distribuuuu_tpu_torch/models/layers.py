@@ -15,7 +15,9 @@ Conventions kept from the JAX package:
     rides the fused conv epilogue (ops/cuda/conv_epilogue.py);
   - in training every forward casts the fp32 weight (a differentiable
     cast, so the gradient reaches the master) and runs conv → batch-stat
-    BN → act unfused, as ``conv_epilogue.qualifies(train=True)`` decides.
+    BN → act unfused, as ``conv_epilogue.qualifies(train=True)`` decides;
+  - a grouped conv is routed by ``DISTRIBUUUU_GROUP_CONV``, the JAX
+    package's switch (``group_conv_mode``), in training and in eval.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from distribuuuu_tpu_torch import not_ported
-from distribuuuu_tpu_torch.ops.cuda import conv_epilogue
+from distribuuuu_tpu_torch.ops.cuda import conv_epilogue, group_conv
+
+GROUP_CONV_MODES = ("auto", "unrolled", "fused", "blockdiag", "pallas")
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -147,15 +151,51 @@ class BatchNorm(nn.Module):
         return y
 
 
+def group_conv_mode() -> str:
+    """How grouped convs compute, from ``DISTRIBUUUU_GROUP_CONV`` (the JAX
+    package's switch, same values and meaning; ``ConvBN`` reads it when the
+    model is built):
+
+    * ``auto`` (default), ``unrolled``, ``fused``: one ``F.conv2d(...,
+      groups=G)`` (JAX's per-group slicing and ``feature_group_count`` are
+      the same grouped conv; the slicing was a TPU retiling workaround);
+    * ``blockdiag``: one dense conv over the block-diagonal weight;
+    * ``pallas``: the grouped-conv kernel (``ops/cuda/group_conv``) at every
+      site ``group_conv.qualifies`` admits, ``F.conv2d`` elsewhere.
+
+    Any other value raises ``ValueError``, as in JAX."""
+    mode = os.environ.get("DISTRIBUUUU_GROUP_CONV", "auto")
+    if mode not in GROUP_CONV_MODES:
+        raise ValueError(f"DISTRIBUUUU_GROUP_CONV={mode!r}: one of {list(GROUP_CONV_MODES)}")
+    return mode
+
+
+def block_diagonal(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """The dense ``[G·fg, G·cg, kh, kw]`` weight whose diagonal blocks are
+    the grouped weight's and whose other blocks are 0 (differentiable; the
+    zero blocks take no gradient to the grouped weight)."""
+    c_out, cg, kh, kw = w.shape
+    fg = c_out // groups
+    eye = torch.eye(groups, dtype=w.dtype, device=w.device)
+    dense = torch.einsum("gfchw,gk->gfkchw", w.reshape(groups, fg, cg, kh, kw), eye)
+    return dense.reshape(c_out, groups * cg, kh, kw).contiguous(
+        memory_format=torch.channels_last)
+
+
 class ConvBN:
     """Conv (no bias) + BatchNorm + optional activation, the zoo's unit.
 
     Not a module of its own: it pairs a ``nn.Conv2d`` and a
     :class:`BatchNorm` that the block registers under torchvision's names
-    (``conv1``/``bn1``, ``downsample.0``/``downsample.1``). In eval a
-    pointwise, stride-1, ungrouped site with a kernel-known activation runs
-    the fused conv epilogue; every other site, and every site in training
-    (the BN's mode decides), runs ``F.conv2d`` then BN then act.
+    (``conv1``/``bn1``, ``downsample.0``/``downsample.1``) or timm's
+    (``conv1.conv``/``conv1.bn``). In eval a pointwise, stride-1,
+    ungrouped site with a kernel-known activation runs the fused conv
+    epilogue; every other site, and every site in training (the BN's mode
+    decides), runs the conv then BN then act. A grouped conv computes as
+    ``group_conv_mode()`` says, read here at build: under ``pallas`` a site
+    that ``group_conv.qualifies`` for its input's H and W runs
+    ``group_conv.group_conv3x3`` (the kernel on the card, in the forward
+    and the backward's dx).
     """
 
     def __init__(self, conv: nn.Conv2d, bn: BatchNorm, act=None,
@@ -163,10 +203,11 @@ class ConvBN:
         if s2d_stem:
             raise not_ported("DEVICE.S2D_STEM (space-to-depth stem)", "S2D stem")
         self.conv, self.bn, self.act, self.dtype = conv, bn, act, dtype
-        pad = [(p, p) for p in conv.padding]
+        self.pad = [(p, p) for p in conv.padding]
         self.fused, self.reason = conv_epilogue.qualifies(
-            conv.kernel_size, conv.stride, pad, conv.groups, act, train=False
+            conv.kernel_size, conv.stride, self.pad, conv.groups, act, train=False
         )
+        self.group_mode = group_conv_mode() if conv.groups > 1 else None
         self._cache = None
 
     def prepare(self) -> None:
@@ -196,10 +237,22 @@ class ConvBN:
             )
         return self._conv_bn_act(x, self._cache[0])
 
+    def group_kernel(self, h: int, w: int) -> bool:
+        """Whether this site runs the grouped-conv kernel on an H x W input."""
+        c = self.conv
+        return self.group_mode == "pallas" and group_conv.qualifies(
+            c.kernel_size, c.stride, self.pad, h, w)[0]
+
     def _conv_bn_act(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, None,
-                     self.conv.stride, self.conv.padding, 1, self.conv.groups)
-        y = self.bn(y.permute(0, 2, 3, 1), self.dtype)
+        x, c, groups = x.to(self.dtype), self.conv, self.conv.groups
+        if self.group_kernel(x.shape[1], x.shape[2]):
+            y = group_conv.group_conv3x3(x, w, 1, groups)
+        else:
+            if self.group_mode == "blockdiag":
+                w, groups = block_diagonal(w, groups), 1
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, None, c.stride, c.padding, 1,
+                         groups).permute(0, 2, 3, 1)
+        y = self.bn(y, self.dtype)
         return self.act(y) if self.act is not None else y
 
 
@@ -208,6 +261,66 @@ def conv2d(in_ch: int, out_ch: int, k: int, stride: int = 1, groups: int = 1,
     """A bias-free conv with torch-style symmetric "same" padding."""
     return nn.Conv2d(in_ch, out_ch, k, stride, k // 2, groups=groups, bias=False,
                      device=device)
+
+
+class SqueezeExcite(nn.Module):
+    """Squeeze-and-excitation gate on NHWC input (counterpart of
+    ``layers.SqueezeExcite``): the squeeze is a mean over H and W that
+    accumulates in fp32 and is cast to the compute dtype, then a 1x1 conv
+    with bias (``fc1``) → relu → a 1x1 conv with bias (``fc2``) → sigmoid,
+    in the compute dtype with fp32 parameters; returns ``x * gate``. In
+    eval the compute-dtype weights are cast once (``prepare()``)."""
+
+    def __init__(self, channels: int, se_width: int, dtype: torch.dtype = torch.bfloat16,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = nn.Conv2d(channels, se_width, 1, device=device)
+        self.fc2 = nn.Conv2d(se_width, channels, 1, device=device)
+        self._cache = None
+
+    def _weights(self):
+        return [t.reshape(t.shape[0], -1).to(self.dtype) if t.dim() == 4 else t.to(self.dtype)
+                for t in (self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)]
+
+    def prepare(self) -> None:
+        with torch.no_grad():
+            self._cache = self._weights()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            w1, b1, w2, b2 = self._weights()
+        else:
+            if self._cache is None:
+                self.prepare()
+            w1, b1, w2, b2 = self._cache
+        s = x.to(torch.promote_types(torch.float32, x.dtype)).mean(dim=(1, 2)).to(self.dtype)
+        s = torch.sigmoid(F.linear(F.relu(F.linear(s, w1, b1)), w2, b2))
+        return x * s[:, None, None, :]
+
+
+class CNN(nn.Module):
+    """What the CNNs share: ``train()``/``eval()`` drop every eval cache
+    (each is rebuilt from the current weights at the next eval), and
+    ``prepare()`` builds them at once, once per entry into eval (the serving
+    engine calls it at build; otherwise the first eval forward does).
+    Subclasses define ``conv_units()``, every ConvBN of the network."""
+
+    def cached_units(self):
+        """Everything with an eval cache: the ConvBNs and the SE gates."""
+        yield from self.conv_units()
+        yield from (m for m in self.modules() if isinstance(m, SqueezeExcite))
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        for unit in self.cached_units():
+            unit._cache = None
+        return self
+
+    def prepare(self):
+        for unit in self.cached_units():
+            unit.prepare()
+        return self
 
 
 class Dense(nn.Linear):
@@ -259,7 +372,9 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random init from ``generator``, in module definition order: convs
-    kaiming-normal (fan_out, relu), Linear U(±1/sqrt(fan_in)) with zero
+    kaiming-normal (fan_out, relu), a conv with a bias (the SE gate's)
+    flax's default instead, normal with std sqrt(1/fan_in) (lecun normal,
+    untruncated here) and a zero bias, Linear U(±1/sqrt(fan_in)) with zero
     bias, BN weight 1 (or 0 where zero-initialised), bias 0, stats 0/1.
     Every value is written, so the model may be built on the meta device
     and materialised with ``to_empty`` first. Conv weights are stored
@@ -267,9 +382,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     optimizer's moments and the weights share one memory layout."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
-            fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
             m.weight.data = m.weight.data.contiguous(memory_format=torch.channels_last)
-            m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+            taps = m.kernel_size[0] * m.kernel_size[1]
+            if m.bias is None:
+                m.weight.normal_(0.0, math.sqrt(2.0 / (m.out_channels * taps)),
+                                 generator=generator)
+            else:
+                fan_in = m.in_channels // m.groups * taps
+                m.weight.normal_(0.0, math.sqrt(1.0 / fan_in), generator=generator)
+                m.bias.zero_()
         elif isinstance(m, nn.Linear):
             bound = 1.0 / math.sqrt(m.in_features)
             m.weight.uniform_(-bound, bound, generator=generator)

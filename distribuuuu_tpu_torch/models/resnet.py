@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distribuuuu_tpu_torch.models.layers import (
+    CNN,
     BatchNorm,
     ConvBN,
     Dense,
@@ -99,7 +100,7 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(CNN):
     """Stem + 4 stages + head, on NHWC input ``[B, H, W, 3]``."""
 
     stage_features = (64, 128, 256, 512)
@@ -132,14 +133,6 @@ class ResNet(nn.Module):
             if isinstance(m, BatchNorm):
                 m.group_size = bn_group
 
-    def train(self, mode: bool = True) -> "ResNet":
-        """Set the mode of every BatchNorm and drop the eval weight cache
-        (it is rebuilt from the current weights at the next eval)."""
-        super().train(mode)
-        for unit in self.conv_units():
-            unit._cache = None
-        return self
-
     def conv_units(self):
         """Every ConvBN of the network, stem first."""
         yield self.stem
@@ -148,14 +141,6 @@ class ResNet(nn.Module):
                 yield from m.units
                 if m.down is not None:
                     yield m.down
-
-    def prepare(self) -> "ResNet":
-        """Cast the conv weights to the compute dtype and fold the BNs of
-        the fused sites, once per entry into eval (the serving engine calls
-        this at build; otherwise the first eval forward does)."""
-        for unit in self.conv_units():
-            unit.prepare()
-        return self
 
     def forward(self, x):
         x = max_pool_3x3_s2(self.stem(x.to(self.dtype)))

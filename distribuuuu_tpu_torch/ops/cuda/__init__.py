@@ -11,7 +11,11 @@ Counterpart of ``distribuuuu_tpu/ops/pallas/`` and the Pallas kernels of
   (``csrc/flash_attention.cu``), the ViT's attention under
   ``DEVICE.ATTN_IMPL flash`` (or ``auto`` at 1024 tokens or more);
 * ``decode_attn`` — attention of one new token over the paged KV cache
-  (``csrc/decode_attn.cu``), every T=1 step of LM generation.
+  (``csrc/decode_attn.cu``), every T=1 step of LM generation;
+* ``group_conv`` — the grouped 3x3 "same" conv (``csrc/group_conv.cu``),
+  forward and stride-1 dx, at the grouped sites ``DISTRIBUUUU_GROUP_CONV=
+  pallas`` routes to it (3x3, stride 1, at most 14², as in JAX: the
+  RegNets' stage 3 at 224²).
 
 Which implementation runs is decided in ONE place, :func:`use_kernel`, and
 only by where the tensor lives: a CUDA tensor goes through the kernel or
@@ -20,8 +24,9 @@ version (the tests' path). There is no knob that sends a CUDA tensor to
 the plain version and no forced-but-unsupported fallback. A call site that
 does not qualify for a kernel (stride 2, a 3x3, groups, training; dense
 attention under ``DEVICE.ATTN_IMPL xla``; an LM prefill, or a cache tile
-that ``KERNELS.DECODE_BLOCK`` does not divide) runs the plain layer, as the
-JAX package does; that is the site's shape, not a fallback.
+that ``KERNELS.DECODE_BLOCK`` does not divide; a grouped conv under another
+``DISTRIBUUUU_GROUP_CONV`` value, or larger than 14²) runs the plain layer,
+as the JAX package does; that is the site's shape, not a fallback.
 """
 
 from __future__ import annotations

@@ -13,6 +13,8 @@ Usage:
     python -m distribuuuu_tpu_torch.serve_net --cfg config/resnet50.yaml \\
         [MODEL.WEIGHTS path/to/resnet50.pth] [KEY VALUE ...]
     python -m distribuuuu_tpu_torch.serve_net --cfg config/gpt_nano.yaml
+    DISTRIBUUUU_GROUP_CONV=pallas python -m distribuuuu_tpu_torch.serve_net \
+        --cfg config/regnety_160.yaml   # stage 3's grouped convs on the kernel
 
     # one-shot batch mode: val-transformed .npy in, logits .npy out
     python -m distribuuuu_tpu_torch.serve_net --cfg config/resnet50.yaml \\

@@ -4,6 +4,8 @@
 Usage:
     python -m distribuuuu_tpu_torch.train_net --cfg config/resnet50.yaml \\
         MODEL.DUMMY_INPUT True [KEY VALUE ...]
+    DISTRIBUUUU_GROUP_CONV=pallas python -m distribuuuu_tpu_torch.train_net \\
+        --cfg config/regnety_160.yaml MODEL.DUMMY_INPUT True
 """
 
 from __future__ import annotations

@@ -9,10 +9,12 @@ distribuuuu_tpu/parallel/partition/lowering.py).
 * :func:`train_epoch`: epoch-granular learning rate, the device prefetch
   ring, meters and ETA, the preemption check at every step boundary.
 * :func:`validate`: masked sums over the val set (the padded tail counts
-  nothing); on the card every pointwise conv of a ResNet's eval forward
-  runs the conv-epilogue kernel, and a ViT's attention runs the flash
-  kernels under ``DEVICE.ATTN_IMPL flash`` (or ``auto`` at 1024 tokens
-  or more), whose backward kernels also run in every train step.
+  nothing); on the card every pointwise conv of a ResNet's or RegNet's
+  eval forward runs the conv-epilogue kernel, a ViT's attention runs the
+  flash kernels under ``DEVICE.ATTN_IMPL flash`` (or ``auto`` at 1024
+  tokens or more), whose backward kernels also run in every train step,
+  and under ``DISTRIBUUUU_GROUP_CONV=pallas`` a RegNet's stride-1 grouped
+  3x3 convs at ≤ 14² run the grouped-conv kernel, forward and dx.
 * :func:`train_model` / :func:`test_model`: the loops of ``train_net`` and
   ``test_net``, with epoch checkpoints, ``best``, preemption saves and
   auto-resume (``utils/checkpoint.py``).
@@ -117,7 +119,8 @@ def attn_impl_from_cfg() -> str:
 def build_model_from_cfg(generator: torch.Generator | None = None):
     """The configured arch on the CPU, in fp32 master weights, filled by
     ``generator`` (default: a ``torch.Generator`` seeded with ``RNG_SEED``,
-    0 when unset). The CNNs take their BN regime (``bn_group``); the ViTs,
+    0 when unset). The CNNs (ResNets, RegNets) take their BN regime
+    (``bn_group``; ``TRAIN.REMAT`` only the ResNets); the ViTs,
     LayerNorm-only, take ``DEVICE.ATTN_IMPL`` and the input size; the
     GPTs take ``LM.SEQ_LEN`` and ``DEVICE.ATTN_IMPL``, where ``auto`` is
     the dense causal region, as in the JAX trainer."""

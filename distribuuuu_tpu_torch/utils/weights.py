@@ -1,10 +1,11 @@
 """Carrying weights into the port.
 
-* :func:`state_dict_from_jax` maps the JAX ResNet's, ViT's or GPT's
-  variables (``params`` and ``batch_stats`` as nested dicts of numpy
+* :func:`state_dict_from_jax` maps the JAX ResNet's, RegNet's, ViT's or
+  GPT's variables (``params`` and ``batch_stats`` as nested dicts of numpy
   arrays, boxed leaves taken by their ``.value``; a ViT or GPT has no
   ``batch_stats``) onto the port's torchvision/timm-named state dict:
-  conv ``[kh, kw, I, O]`` → ``[O, I, kh, kw]``, dense ``[I, O]`` →
+  conv ``[kh, kw, I, O]`` → ``[O, I, kh, kw]`` (an SE conv's bias as it
+  is), dense ``[I, O]`` →
   ``[O, I]`` (qkv keeps its ``(3, heads, head_dim)`` column order), BN
   ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
   ``running_mean``/``running_var``, LayerNorm ``scale`` → ``weight``,
@@ -82,29 +83,67 @@ def _vit_path_map(params: dict) -> dict[tuple[str, ...], str]:
     return out
 
 
+def _convbn(out: dict, jax_prefix, conv_key: str, bn_key: str) -> None:
+    """One flax ConvBN: ``Conv_0/kernel`` and ``BatchNorm_0/BatchNorm_0``'s
+    scale, bias and running mean and var."""
+    out[(*jax_prefix, "Conv_0", "kernel")] = f"{conv_key}.weight"
+    bn = (*jax_prefix, "BatchNorm_0", "BatchNorm_0")
+    out[(*bn, "scale")] = f"{bn_key}.weight"
+    out[(*bn, "bias")] = f"{bn_key}.bias"
+    out[(*bn, "mean")] = f"{bn_key}.running_mean"
+    out[(*bn, "var")] = f"{bn_key}.running_var"
+
+
+def _regnet_path_map(params: dict) -> dict[tuple[str, ...], str]:
+    """The RegNet tree: ``ConvBN_0`` (the stem), ``RegNetBlock_N`` numbered
+    over the whole net, each with ``ConvBN_0..3`` where it has a downsample
+    (then ``ConvBN_0`` IS the downsample, created first) or ``ConvBN_0..2``,
+    and ``SqueezeExcite_0/Conv_{0,1}/{kernel,bias}`` in a Y block, and
+    ``Dense_0/Dense_0`` (the head). Every stage opens with a downsample
+    block."""
+    out: dict[tuple[str, ...], str] = {}
+
+    def convbn(prefix, key):
+        _convbn(out, prefix, f"{key}.conv", f"{key}.bn")
+
+    convbn(("ConvBN_0",), "stem")
+    stage, pos = 0, 0
+    for blk in _sorted(params, "RegNetBlock"):
+        convs = _sorted(params[blk], "ConvBN")
+        if len(convs) == 4:
+            stage, pos = stage + 1, 0
+            convbn((blk, convs.pop(0)), f"s{stage}.b1.downsample")
+        pos += 1
+        base = f"s{stage}.b{pos}"
+        for i, name in enumerate(convs):
+            convbn((blk, name), f"{base}.conv{i + 1}")
+        if "SqueezeExcite_0" in params[blk]:
+            for i in (0, 1):
+                for leaf in ("kernel", "bias"):
+                    out[(blk, "SqueezeExcite_0", f"Conv_{i}", leaf)] = (
+                        f"{base}.se.fc{i + 1}.{'weight' if leaf == 'kernel' else 'bias'}")
+    out[("Dense_0", "Dense_0", "kernel")] = "head.fc.weight"
+    out[("Dense_0", "Dense_0", "bias")] = "head.fc.bias"
+    return out
+
+
 def jax_path_map(params: dict) -> dict[tuple[str, ...], str]:
     """``{flax path: port state-dict key}`` for every leaf of a JAX ResNet's
-    ``params`` and ``batch_stats`` trees, or of a JAX ViT's or GPT's
-    ``params`` (told apart by their top-level ``pos_embed``). ResNet stages are found
+    or RegNet's ``params`` and ``batch_stats`` trees, or of a JAX ViT's or
+    GPT's ``params`` (told apart by their top-level ``pos_embed``; a RegNet
+    by its ``RegNetBlock_*``). ResNet stages are found
     from the tree: a block with a downsample ConvBN opens a new stage
     (stage 1 of the BasicBlock nets has none, and block 0 always opens
     stage 1)."""
     if "pos_embed" in params:
         return _vit_path_map(params)
+    if _sorted(params, "RegNetBlock"):
+        return _regnet_path_map(params)
     out: dict[tuple[str, ...], str] = {}
-
-    def convbn(jax_prefix, conv_key, bn_key):
-        out[(*jax_prefix, "Conv_0", "kernel")] = f"{conv_key}.weight"
-        bn = (*jax_prefix, "BatchNorm_0", "BatchNorm_0")
-        out[(*bn, "scale")] = f"{bn_key}.weight"
-        out[(*bn, "bias")] = f"{bn_key}.bias"
-        out[(*bn, "mean")] = f"{bn_key}.running_mean"
-        out[(*bn, "var")] = f"{bn_key}.running_var"
-
     stems = _sorted(params, "ConvBN")
     if stems != ["ConvBN_0"]:
         raise ValueError(f"not a JAX ResNet tree: top-level ConvBNs {stems}")
-    convbn(("ConvBN_0",), "conv1", "bn1")
+    _convbn(out, ("ConvBN_0",), "conv1", "bn1")
     kinds = [k for k in _BLOCK_CONVS if _sorted(params, k)]
     if len(kinds) != 1:
         raise ValueError(f"not a JAX ResNet tree: block kinds {kinds}")
@@ -118,9 +157,9 @@ def jax_path_map(params: dict) -> dict[tuple[str, ...], str]:
             stage, pos = stage + 1, 0
         base = f"layer{stage}.{pos}"
         for i, name in enumerate(convs[:n_main]):
-            convbn((blk, name), f"{base}.conv{i + 1}", f"{base}.bn{i + 1}")
+            _convbn(out, (blk, name), f"{base}.conv{i + 1}", f"{base}.bn{i + 1}")
         if down:
-            convbn((blk, convs[-1]), f"{base}.downsample.0", f"{base}.downsample.1")
+            _convbn(out, (blk, convs[-1]), f"{base}.downsample.0", f"{base}.downsample.1")
         pos += 1
     out[("Dense_0", "Dense_0", "kernel")] = "fc.weight"
     out[("Dense_0", "Dense_0", "bias")] = "fc.bias"

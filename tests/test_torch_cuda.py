@@ -14,7 +14,10 @@ autograd Function on the card against the same Function on the CPU; and
 each launch counter moves once per call. The decode-attention kernel is
 held against its plain version at head dims 32/64/128 in bf16 and f32, a
 decode step of the generation engine launches it once per block, and the
-engine's f32 greedy streams on the card equal the CPU's.
+engine's f32 greedy streams on the card equal the CPU's. The grouped 3x3
+conv kernel is held against its plain version at the RegNets' stage-3
+shapes, a ResNeXt shape, a stride-2 shape and a ragged one, in bf16 and
+f32; its autograd dx and dW on the card against the CPU's.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from distribuuuu_tpu_torch.models import build_model
 from distribuuuu_tpu_torch.ops.cuda import conv_epilogue as ce
 from distribuuuu_tpu_torch.ops.cuda import decode_attn as da
 from distribuuuu_tpu_torch.ops.cuda import flash_attention as fa
+from distribuuuu_tpu_torch.ops.cuda import group_conv as gc
 from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
 from distribuuuu_tpu_torch.serve import Engine
 
@@ -289,3 +293,75 @@ def test_f32_greedy_streams_on_card_match_the_cpu():
         finally:
             eng.drain()
     assert streams[0] == streams[1]
+
+
+# of max(1, max |ref|): bf16 is one rounding of the output apart (fp32 sums
+# in another order); f32 sums in another order
+GROUP_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+GROUP_SHAPES = [  # (B, H, W, C, G, stride)
+    (8, 14, 14, 1232, 11, 1),  # regnety_160 stage 3
+    (8, 14, 14, 896, 7, 1),  # regnetx_160 stage 3
+    (8, 14, 14, 1392, 6, 1),  # regnety_320 stage 3 (cg = 232: a ragged K chunk)
+    (8, 14, 14, 512, 32, 1),  # resnext50_32x4d stage 3 (cg = 16)
+    (4, 28, 28, 448, 4, 2),  # a stride-2 site
+    (3, 7, 5, 33, 3, 1),  # ragged everything (cg = 11)
+]
+
+
+def _group_inputs(dev, shape, dtype, seed=0):
+    b, h, w, c, g, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, w, c, device=dev, generator=gen).to(dtype)
+    wt = torch.randn(c, c // g, 3, 3, device=dev, generator=gen) / (9 * c // g) ** 0.5
+    return x, wt.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GROUP_SHAPES, ids=str)
+def test_group_conv_kernel_matches_plain_on_card(dtype, shape):
+    dev = _card()
+    *_, g, s = shape
+    x, w = _group_inputs(dev, shape, dtype)
+    before = gc.group_conv3x3.launches
+    got = gc.group_conv3x3(x, w, s, g)
+    want = gc.group_conv3x3_plain(x, w, s, g)
+    torch.cuda.synchronize()
+    assert gc.group_conv3x3.launches == before + 1
+    _close(got, want, GROUP_TOL[dtype])
+
+
+def test_group_conv_gradients_on_card_match_the_cpu():
+    """dx (the kernel on the flipped weight) and dW through the autograd
+    Function on the card against the same Function on the CPU, f32."""
+    dev = _card()
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((4, 14, 14, 96)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((96, 24, 3, 3))).astype(np.float32)
+    dy = rng.standard_normal((4, 14, 14, 96)).astype(np.float32)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        tx = torch.tensor(x, device=device, requires_grad=True)
+        tw = torch.tensor(w, device=device).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        before = (gc.group_conv3x3.launches, gc.group_conv3x3.launches_dx)
+        out = gc.group_conv3x3(tx, tw, 1, 4)
+        grads.append([t.detach().cpu() for t in (
+            out, *torch.autograd.grad(out, (tx, tw), torch.tensor(dy, device=device)))])
+        moved = (gc.group_conv3x3.launches - before[0], gc.group_conv3x3.launches_dx - before[1])
+        assert moved == ((1, 1) if device.type == "cuda" else (0, 0))
+    for got, want in zip(*grads):
+        _close(got, want, 1e-5)
+
+
+def test_group_conv_refuses_what_it_does_not_take():
+    dev = _card()
+    x, w = _group_inputs(dev, (2, 6, 6, 16, 2, 1), torch.float32)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        gc.group_conv3x3(x.transpose(1, 2), w, 1, 2)
+    with pytest.raises(ValueError, match="channels-last"):
+        gc.group_conv3x3(x, w.contiguous(), 1, 2)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        gc.group_conv3x3(x.half(), w.half(), 1, 2)
+    with pytest.raises(ValueError, match="on cpu"):
+        gc.group_conv3x3(x, w.cpu(), 1, 2)

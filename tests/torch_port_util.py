@@ -1,6 +1,6 @@
 """Shared helpers of the tests/test_torch_*.py files: one set of weights,
-made from a seed with numpy, in the JAX ResNet's, ViT's or GPT's variable
-tree (paths from ``model.init`` under ``jax.eval_shape``), and the port's
+made from a seed with numpy, in the JAX ResNet's, RegNet's, ViT's or GPT's
+variable tree (paths from ``model.init`` under ``jax.eval_shape``), and the port's
 model on the same weights through ``state_dict_from_jax``."""
 
 from __future__ import annotations
@@ -25,6 +25,40 @@ def jax_resnet(arch: str, num_classes: int = 10, im: int = 32):
         jax.random.key(0),
     )
     return model, nn.unbox(shapes)
+
+
+# a toy RegNet: widths [16, 24, 32, 56], depths [1, 2, 2, 1], group width 8
+# (G = 2, 3, 4, 7); at 32² input stages 2 and 3 run at 4² and 2², so it
+# has two stride-1 grouped 3x3 sites (blocks b2), both ≤ 14²
+TOY_REGNET = dict(w_a=6.0, w_0=16, w_m=1.5, depth=6, group_w=8)
+
+
+def jax_regnet(se_ratio: float = 0.25, num_classes: int = 10, im: int = 32, **kw):
+    """(flax toy RegNet in f32, its variable tree of ShapeDtypeStructs);
+    ``se_ratio`` 0 is an X model, 0.25 a Y model; ``kw`` go to the
+    constructor (``bn_group``)."""
+    from distribuuuu_tpu.models.regnet import RegNet
+
+    model = RegNet(**TOY_REGNET, se_ratio=se_ratio, num_classes=num_classes,
+                   dtype=jnp.float32, **kw)
+    shapes = jax.eval_shape(
+        lambda k: model.init(k, jnp.zeros((1, im, im, 3), jnp.float32), train=False),
+        jax.random.key(0),
+    )
+    return model, nn.unbox(shapes)
+
+
+def port_regnet(jmodel, variables: dict, dtype=torch.float32, **kw):
+    """The port's eval RegNet of ``jmodel``'s widths holding ``variables``.
+    ``random_variables`` gives every BN scale, the zero-initialised last
+    BN of each block included, a seeded non-zero value (about 0.4), so
+    the residual branch, the grouped conv and the SE reach the logits."""
+    from distribuuuu_tpu_torch.models.regnet import _regnet
+
+    model = _regnet(jmodel.num_classes, **TOY_REGNET, se_ratio=jmodel.se_ratio,
+                    dtype=dtype, **kw)
+    model.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"]))
+    return model.eval()
 
 
 def jax_vit(arch: str = "vit_small", num_classes: int = 10, im: int = 64, **kw):
