@@ -5,14 +5,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Build: compiles every kernel of the ported paths from csrc/ (sm_90a),
-   one nvcc per source, all at once.
+   one nvcc per source, all at once; beside them one more nvcc reports
+   ``-Xptxas -v`` (registers, spills, static shared memory) of each
+   kernel of csrc/conv_epilogue.cu, and its build seconds are printed.
 3. Kernel phases: each kernel's wrapper at the shapes its path gives it,
    held against its plain PyTorch version on the card, timed (CUDA
    events) beside its plain version and one library call, with its bound
    (bytes over 3.35 TB/s vs operations over the peak rate of their type):
    conv1x1_bn_act at the ResNet-50 serving shapes (batch 8, 224², bf16),
    at the eval shapes of the trainer (batches 200 and 48) and a small
-   ragged f32 shape; opt_update over the 161 ResNet-50
+   ragged f32 shape, each bf16 site with its tile plan, and each model
+   and batch summed over one forward (``kernel_forward_total``: the
+   kernel's, the plain version's, ``torch.matmul``'s and the bound's
+   ms); opt_update over the 161 ResNet-50
    parameter leaves for its four bodies (SGD with an f32 or bf16 trace,
    SGD without momentum, AdamW); the flash-attention forward, dQ and
    dK/dV at the ViT-S/16 shapes [B·6, 196, 64] (train batch 32, serving
@@ -65,7 +70,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    a stride-2 shape, a ResNeXt cg=16 shape and a ragged f32 shape, timed
    beside its plain version and ``F.conv2d(groups=G)`` (cuDNN, the
    library); conv1x1_bn_act at regnety_160's and regnety_320's 1x1 shapes
-   (batch 8). Then regnety_160 (config/regnety_160.yaml, bf16) served
+   (batch 8) and regnety_160's at its eval batch 200 (with the kernel
+   phases of 3). Then regnety_160 (config/regnety_160.yaml, bf16) served
    through ``engine_from_cfg`` as ResNet-50 is (10 group-conv and 36
    conv-epilogue launches per forward; bf16 logits and f32 card logits
    against the port's f32 CPU forward) and trained through
@@ -296,6 +302,8 @@ def kernel_phase(torch, ce, dev, batch: int = 8, ragged: bool = True, sites=None
             "library_ms": time_ms(torch, lambda: torch.matmul(x, w)),
             "bound_ms": bms, "bound_by": by, "bytes": nbytes,
         }
+        if dtype == torch.bfloat16:  # the TMA/wgmma body's tile and split of K
+            row["plan"] = dict(zip(("bm", "bn", "splits", "stages"), ce.plan(m, n, k)))
         emit(row)
         if not err <= tol:
             raise AssertionError(f"conv1x1_bn_act {m}x{k}x{n} {act} {dtype}: "
@@ -303,6 +311,61 @@ def kernel_phase(torch, ce, dev, batch: int = 8, ragged: bool = True, sites=None
         worst = max(worst, err)
         rows.append(row)
     return rows, worst
+
+
+def forward_total(rows, **key) -> dict:
+    """One forward's sum over its sites (``sites_per_forward`` weights) of
+    the kernel's, the plain version's and ``torch.matmul``'s times and of
+    the per-site bounds."""
+    return {"phase": "kernel_forward_total", "name": "conv1x1_bn_act", **key,
+            **{k: sum(r[k] * r["sites_per_forward"] for r in rows)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+
+
+def start_ptxas_report(_build, name: str = "conv_epilogue"):
+    """Compile one source to a cubin with ``-Xptxas -v`` beside the build
+    (its own nvcc process); the returned function waits for it and returns
+    each kernel's registers, spills and static shared memory."""
+    import re
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ptxas_")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.Popen(
+        [_build.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v",
+         "-o", os.path.join(out_dir, f"{name}.cubin"), os.path.join(_build.CSRC, f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish() -> list[dict]:
+        import shutil
+
+        log, _ = proc.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v {name}.cu failed:\n{log}")
+        kernels, cur = [], None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                mangled = m.group(1)
+                tile = re.search(r"epilogue_gemm_wgmmaILi(\d+)ELi(\d+)E", mangled)
+                body = re.search(r"(epilogue_gemm_\w+?)I", mangled)
+                cur = {"kernel": body.group(1) if body else mangled,
+                       **({"bm": int(tile.group(1)), "bn": int(tile.group(2))} if tile else {})}
+                kernels.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(sm.group(1)) if sm else 0
+        return kernels
+
+    return finish
 
 
 def _serve_bursts(engine_from_cfg, images):
@@ -1494,26 +1557,29 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    _build.build("conv_epilogue", "opt_update", "flash_attention", "decode_attn", "group_conv")
+    ptxas = start_ptxas_report(_build)
+    try:
+        _build.build("conv_epilogue", "opt_update", "flash_attention", "decode_attn",
+                     "group_conv")
+    finally:
+        report = ptxas()  # waits for its nvcc either way
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(_build.build_seconds)})
+    emit({"phase": "build_conv_epilogue", "seconds": _build.build_seconds["conv_epilogue"],
+          "ptxas": report})
 
     rows, worst = kernel_phase(torch, ce, dev)
+    emit(forward_total(rows, arch="resnet50", batch=8))
     for eval_batch in (200, 48):  # the trainer's eval: 10 batches of 200, one of 48
         eval_rows, eval_worst = kernel_phase(torch, ce, dev, eval_batch, ragged=False)
         worst = max(worst, eval_worst)
-        emit({"phase": "kernel_forward_total", "name": "conv1x1_bn_act", "batch": eval_batch,
-              **{k: sum(r[k] * r["sites_per_forward"] for r in eval_rows)
-                 for k in ("ms", "plain_ms", "library_ms")},
-              "bound_ms": sum(r["bound_ms"] * r["sites_per_forward"] for r in eval_rows)})
-    for arch in ("regnety_160", "regnety_320"):  # K and N of 224..3712, 232 and 696 among them
-        reg_rows, reg_worst = kernel_phase(torch, ce, dev, 8, ragged=False,
-                                           sites=regnet_sites(arch, 8, 224))
+        emit(forward_total(eval_rows, arch="resnet50", batch=eval_batch))
+    # K and N of 32..3712, 232 and 696 among them; regnety_160's eval at 200
+    for arch, batch in (("regnety_160", 8), ("regnety_320", 8), ("regnety_160", 200)):
+        reg_rows, reg_worst = kernel_phase(torch, ce, dev, batch, ragged=False,
+                                           sites=regnet_sites(arch, batch, 224))
         worst = max(worst, reg_worst)
-        emit({"phase": "kernel_forward_total", "name": "conv1x1_bn_act", "arch": arch, "batch": 8,
-              **{k: sum(r[k] * r["sites_per_forward"] for r in reg_rows)
-                 for k in ("ms", "plain_ms", "library_ms")},
-              "bound_ms": sum(r["bound_ms"] * r["sites_per_forward"] for r in reg_rows)})
+        emit(forward_total(reg_rows, arch=arch, batch=batch))
     group_rows = group_kernel_phase(torch, gc, dev)
     shapes = resnet50_leaves(torch)
     if len(shapes) != 161:

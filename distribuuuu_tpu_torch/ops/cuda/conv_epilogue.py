@@ -9,6 +9,13 @@ the affine and the activation to the fp32 accumulator in registers: one
 read of the activations and the weights, one write of the activated
 output, nothing in between.
 
+The bf16 kernel is a Hopper GEMM (TMA ring, wgmma, optional split-K) whose
+tile and split of K are a :func:`plan` chosen here by the site's shape and
+cached per shape. A split-K plan sums fp32 partials in a workspace that
+this module keeps per (device, stream), allocated at the first call that
+needs it and grown when a later one needs more; the kernel leaves its
+arrival counters at 0, so no call clears it.
+
 On a CUDA tensor :func:`conv1x1_bn_act` launches the kernel or raises; on
 a CPU tensor it runs :func:`conv1x1_bn_act_plain`. Numerics against the
 unfused chain: the accumulator stays fp32 into the affine (the unfused
@@ -19,6 +26,7 @@ agree to bf16 rounding, not bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +71,91 @@ def conv1x1_bn_act_plain(x, w, a, c, act: str = "id", out_dtype=None):
     return _ACTS[act](y).to(out_dtype or x.dtype)
 
 
+SMS = 132  # streaming multiprocessors of the H100 SXM
+BK = 64  # K of one ring stage: one 128-byte swizzle row of bf16
+MIN_SPLIT_STEPS = 2  # K steps a split must keep
+MAX_SMEM = 232448  # dynamic shared memory a block may use
+MAX_STAGES = 5
+# a split plan has at most two waves of units, and only 128 x 64, 128 x 128
+# or 64 x 128 tiles split (128 x 256 tiles are plentiful): the bound on the
+# fp32 partials of one launch
+MAX_WORKSPACE_BYTES = 2 * SMS * 128 * 128 * 4
+
+
+def _tiles(m: int, n: int, bm: int, bn: int) -> int:
+    return -(-m // bm) * -(-n // bn)
+
+
+def _cost(tiles: int, steps: int, splits: int) -> int:
+    """K steps of the busiest SM (one CTA per SM), plus two for a unit's
+    first load and its epilogue and three for writing and summing the
+    partials of a split."""
+    return -(-tiles * splits // SMS) * (steps // splits + 2 + 3 * (splits > 1))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
+    """(bm, bn, splits, stages) of the bf16 kernel for ``[m, k] x [k, n]``.
+
+    * bn covers N up to 256 (64, 128 or 256), so x is read once; wider N
+      takes 256-column tiles, which read the fewest bytes from L2 for each
+      product (the kernel reads x again for each column tile);
+    * where 128 x bn tiles would leave most of the 132 SMs idle, bn 256
+      drops to 128, and then bm to 64 (with bn 128 only: the two consumer
+      warpgroups then split the columns);
+    * K is split (splits divide the K steps of 64, each keeps at least
+      MIN_SPLIT_STEPS) only where the tiles fill at most a quarter of the
+      SMs, into the split that lowers :func:`_cost`, within two waves;
+    * the ring holds up to MAX_STAGES stages, as many as fit in shared
+      memory beside the epilogue's bf16 staging (the kernel is persistent
+      and its ring runs on across tiles, so a stage past a tile's K steps
+      prefetches the next tile).
+    """
+    steps = -(-k // BK)
+    bn = 64 if n <= 64 else 128 if n <= 128 else 256
+    bm = 128
+    if bn == 256 and 2 * _tiles(m, n, 128, bn) <= SMS:
+        bn = 128
+    if bn > 64 and 2 * _tiles(m, n, 128, bn) <= SMS:
+        bm = 64
+    tiles = _tiles(m, n, bm, bn)
+    splits = 1
+    if 4 * tiles <= SMS:
+        for d in range(2, steps // MIN_SPLIT_STEPS + 1):
+            if steps % d == 0 and tiles * d <= 2 * SMS \
+                    and _cost(tiles, steps, d) < _cost(tiles, steps, splits):
+                splits = d
+    return bm, bn, splits, min(MAX_STAGES, _ring_room(bm, bn) // ((bm + bn) * BK * 2 + 16))
+
+
+def _ring_room(bm: int, bn: int) -> int:
+    """Shared memory left for the ring (the kernel's layout, bf16 out):
+    alignment, two consumers' staged rows and affine, the flag."""
+    part = bn if bm == 128 else bn // 2
+    return MAX_SMEM - 1024 - 2 * 64 * part * 2 - 4 * part * 4 - 16
+
+
+def workspace_bytes(m: int, n: int, k: int) -> int:
+    """Bytes of fp32 partials a launch of :func:`plan` needs (0 unsplit)."""
+    bm, bn, splits, _ = plan(m, n, k)
+    return 0 if splits == 1 else _tiles(m, n, bm, bn) * splits * bm * bn * 4
+
+
+# (device index, stream handle) -> (fp32 partials, int32 arrival counters)
+_workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device, stream: int, floats: int, tiles: int):
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < tiles:
+        old_f, old_t = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(floats, old_f), dtype=torch.float32, device=device),
+              torch.zeros(max(tiles, old_t), dtype=torch.int32, device=device))
+        _workspaces[key] = ws
+    return ws
+
+
 def _launch(x, w, a, c, act, out_dtype):
     cin, cout = w.shape
     if x.shape[-1] != cin:
@@ -94,11 +187,18 @@ def _launch(x, w, a, c, act, out_dtype):
         raise ValueError(f"conv epilogue: {m} rows is out of the kernel's range")
     out = torch.empty((*x.shape[:-1], cout), dtype=out_dtype, device=x.device)
     fn = _lib().conv_epilogue_launch
+    bm, bn, splits, stages = plan(m, cout, cin)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        parts = arrivals = None
+        if splits > 1 and x.dtype == torch.bfloat16:
+            parts, arrivals = _workspace(x.device, stream, workspace_bytes(m, cout, cin) // 4,
+                                         _tiles(m, cout, bm, bn))
         err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), c.data_ptr(),
                  out.data_ptr(), m, cout, cin, _DTYPE_CODE[x.dtype],
-                 _DTYPE_CODE[out_dtype], _ACT_CODE[act], stream)
+                 _DTYPE_CODE[out_dtype], _ACT_CODE[act], bm, bn, splits, stages,
+                 parts.data_ptr() if parts is not None else None,
+                 arrivals.data_ptr() if arrivals is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"conv_epilogue_launch failed: CUDA error {err}")
     conv1x1_bn_act.launches += 1
@@ -112,7 +212,7 @@ def _lib():
     fn = lib.conv_epilogue_launch
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, vp, vp, vp]
         fn.restype = ctypes.c_int
     return lib
 

@@ -6,7 +6,9 @@ kernel itself is held against that plain version on the card by
 ``chip_smoke.py`` and tests/test_torch_cuda.py. Tolerances are
 the JAX test's pinned ones (tests/test_pallas_kernels.py): f32 1e-5 and
 bf16 0.0625 max-abs — the fused accumulator stays fp32 into the affine,
-so bf16 outputs agree to bf16 rounding.
+so bf16 outputs agree to bf16 rounding. The bf16 kernel's tile plan is a
+pure function, pinned here at every 1x1 site of ResNet-50, regnety_160
+and regnety_320 at batches 1, 8, 48 and 200.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import chip_smoke  # the site lists of the card's smoke run
 from distribuuuu_tpu.ops.pallas import conv_epilogue as jce
 from distribuuuu_tpu_torch.config import cfg as tcfg
 from distribuuuu_tpu_torch.ops import cuda as kernel_tier
@@ -135,3 +138,84 @@ def test_kernel_knob_accepts_only_auto():
     for bad in ("xla", "pallas", "torch", "cuda"):
         with pytest.raises(ValueError, match="accepts only"):
             kernel_tier.validate_kernels_cfg({"CONV_EPILOGUE": bad})
+
+
+# ---- the bf16 kernel's tile plan (a pure function: pinned here, run on the card)
+
+KERNEL_TILES = {(128, 64), (128, 128), (128, 256), (64, 128)}  # the launcher's tiles
+
+
+def _sites(arch, batch):
+    if arch == "resnet50":
+        return chip_smoke.resnet50_sites(batch, 224)
+    return chip_smoke.regnet_sites(arch, batch, 224)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 48, 200])
+@pytest.mark.parametrize("arch", ["resnet50", "regnety_160", "regnety_320"])
+def test_plan_is_legal_at_every_site(arch, batch):
+    """Every 1x1 site of the three models: a tile the launcher has (BM 64 or
+    128, BN a multiple of 8 up to 256: legal wgmma widths), splits that
+    divide the K steps with at least MIN_SPLIT_STEPS each, a split only
+    where the tiles fill at most a quarter of the SMs and then as far as a
+    wave or the steps allow, a ring that fits beside the staging, and a
+    workspace within its bound."""
+    for m, k, n, _ in set(_sites(arch, batch)):
+        bm, bn, splits, stages = tce.plan(m, n, k)
+        assert (bm, bn) in KERNEL_TILES and bn % 8 == 0 and bn <= 256
+        steps = -(-k // tce.BK)
+        tiles = tce._tiles(m, n, bm, bn)
+        assert steps % splits == 0
+        if splits > 1:
+            assert steps // splits >= tce.MIN_SPLIT_STEPS
+            assert 4 * tiles <= tce.SMS and tiles * splits <= 2 * tce.SMS
+            if tiles * splits < tce.SMS:  # short of a wave: no larger split was allowed
+                assert not any(steps % d == 0 and steps // d >= tce.MIN_SPLIT_STEPS
+                               and tiles * d <= tce.SMS for d in range(splits + 1, steps + 1))
+        assert 1 <= stages <= tce.MAX_STAGES
+        assert stages * ((bm + bn) * tce.BK * 2 + 16) <= tce._ring_room(bm, bn)
+        assert tce.workspace_bytes(m, n, k) <= tce.MAX_WORKSPACE_BYTES
+
+
+@pytest.mark.parametrize("site,want", [
+    # RegNet's stage-3 width at batch 8: 13 x 10 = 130 tiles of 128 x 128
+    ((1568, 1232, 1232), (128, 128, 1)),
+    # a full-width bytes-bound ResNet site: N 256 in one tile, x read once
+    ((25088, 64, 256), (128, 256, 1)),
+    # RegNet's widest stage at the eval batch: 256-column tiles
+    ((39200, 1232, 1232), (128, 256, 1)),
+    # ResNet-50 stage 4 at batch 8: 28 tiles of 64 x 128, K split in four
+    ((392, 2048, 512), (64, 128, 4)),
+    # stage 3 at batch 8: 50 tiles of 64 x 128 fill enough SMs unsplit
+    ((1568, 1024, 256), (64, 128, 1)),
+])
+def test_plan_pins_the_main_sites(site, want):
+    m, k, n = site
+    assert tce.plan(m, n, k)[:3] == want
+
+
+def test_plan_is_cached_per_shape():
+    tce.plan.cache_clear()
+    first = tce.plan(392, 512, 2048)
+    assert tce.plan(392, 512, 2048) is first
+    assert tce.plan.cache_info().hits == 1
+
+
+def test_workspace_is_kept_per_stream_and_grows():
+    """The split-K workspace: one per (device, stream), reused while large
+    enough, replaced by a larger one (counters zeroed) when a plan needs
+    more; never cleared between calls."""
+    dev = torch.device("cpu")
+    saved = dict(tce._workspaces)
+    try:
+        tce._workspaces.clear()
+        p1, c1 = tce._workspace(dev, 7, 100, 3)
+        assert p1.numel() == 100 and c1.numel() == 3 and not c1.any()
+        assert tce._workspace(dev, 7, 50, 2)[0] is p1
+        p2, c2 = tce._workspace(dev, 7, 40, 9)
+        assert p2.numel() == 100 and c2.numel() == 9 and not c2.any()
+        assert tce._workspace(dev, 8, 10, 1)[0] is not p2
+        assert len(tce._workspaces) == 2
+    finally:
+        tce._workspaces.clear()
+        tce._workspaces.update(saved)

@@ -4,7 +4,9 @@ CUDA). No JAX here, so they run on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 The conv-epilogue kernel is held against its plain version (tolerances
-as in tests/test_torch_conv_epilogue.py), and a small ResNet-50 is served
+as in tests/test_torch_conv_epilogue.py) at a shape for every plan of its
+bf16 TMA/wgmma body, at ragged edges and in its mma.sync body; a split-K
+shape gives the same bits twice and on two streams; and a small ResNet-50 is served
 on the card through the engine, every fused site launching the kernel.
 The fused optimizer update is held bit for bit against its plain version
 for each body, and a train step launches it exactly once. The three
@@ -76,6 +78,82 @@ def test_kernel_refuses_what_it_does_not_take():
         ce.conv1x1_bn_act(x.half(), w.half(), a, c)
     with pytest.raises(ValueError, match="on cpu"):
         ce.conv1x1_bn_act(x, w.cpu(), a, c)
+
+
+# (name, M, K, N, act, what the plan must give: (bm, bn, split?) or None for
+# the mma.sync body). One shape for each plan of the bf16 TMA/wgmma body,
+# and the ragged edges: M off the tile, N 232/696/1232, K 32 and 1232.
+TMA_CASES = [
+    ("full_n_bytes", 25088, 64, 256, "relu", (128, 256, False)),
+    ("bn64", 6272, 256, 64, "id", (128, 64, False)),
+    ("bn64_split", 2000, 2048, 64, "relu", (128, 64, True)),
+    ("regnet_128x128", 1568, 1232, 1232, "id", (128, 128, False)),
+    ("bn256_wide", 6272, 448, 1232, "silu", (128, 256, False)),
+    ("bm64", 6272, 512, 128, "relu", (64, 128, False)),
+    ("split_k", 392, 2048, 512, "relu", (64, 128, True)),
+    ("split_ragged", 150, 1232, 232, "relu", (64, 128, True)),
+    ("ragged_m_n232", 1000, 224, 232, "relu", (64, 128, False)),
+    ("ragged_n696", 3001, 448, 696, "silu", (128, 256, False)),
+    ("ragged_k32", 20001, 32, 224, "relu", (128, 256, False)),
+    ("ragged_k32_bm64", 3001, 32, 224, "relu", (64, 128, False)),
+    ("mma_sync_k36", 300, 36, 64, "relu", None),
+    ("mma_sync_n100", 300, 64, 100, "id", None),
+]
+
+
+def _site(dev, m, k, n, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.randn(k, n, device=dev, generator=g) / k ** 0.5).to(torch.bfloat16)
+    a = 1.0 + 0.1 * torch.randn(n, device=dev, generator=g)
+    c = 0.1 * torch.randn(n, device=dev, generator=g)
+    return x, w, a, c
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", TMA_CASES, ids=lambda c: c[0])
+def test_tma_kernel_matches_plain_on_card(case, out_dtype):
+    """bf16 inputs at every plan and ragged edge, bf16 and f32 outputs; the
+    tolerance is the bf16 one (the inputs are bf16, sums run in another
+    order), one launch per call."""
+    dev = _card()
+    _, m, k, n, act, want = case
+    bm, bn, splits, stages = ce.plan(m, n, k)
+    if want is not None:
+        assert (bm, bn, splits > 1) == want
+        assert k % 8 == 0 and n % 8 == 0
+    else:
+        assert k % 8 or n % 8
+    x, w, a, c = _site(dev, m, k, n)
+    before = ce.conv1x1_bn_act.launches
+    got = ce.conv1x1_bn_act(x, w, a, c, act, out_dtype=out_dtype)
+    ref = ce.conv1x1_bn_act_plain(x, w, a, c, act, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ce.conv1x1_bn_act.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert float((got.float() - ref.float()).abs().max()) <= TOL[torch.bfloat16]
+
+
+def test_split_k_is_bitwise_repeatable_across_launches_and_streams():
+    """The last split sums the partials in split order: two launches, and
+    the same launch on two streams at once (each with its own workspace),
+    give the same bits."""
+    dev = _card()
+    m, k, n = 392, 2048, 512
+    assert ce.plan(m, n, k)[2] > 1
+    x, w, a, c = _site(dev, m, k, n, seed=9)
+    first = ce.conv1x1_bn_act(x, w, a, c, "relu")
+    second = ce.conv1x1_bn_act(x, w, a, c, "relu")
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    s1.wait_stream(torch.cuda.current_stream(dev))
+    s2.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(s1):
+        on1 = [ce.conv1x1_bn_act(x, w, a, c, "relu") for _ in range(4)]
+    with torch.cuda.stream(s2):
+        on2 = [ce.conv1x1_bn_act(x, w, a, c, "relu") for _ in range(4)]
+    torch.cuda.synchronize()
+    for out in (second, *on1, *on2):
+        assert torch.equal(out, first)
 
 
 def test_engine_on_card_launches_kernel_at_every_fused_site():
