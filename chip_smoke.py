@@ -5,9 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Build: compiles every kernel of the ported paths from csrc/ (sm_90a),
-   one nvcc per source, all at once; beside them one more nvcc reports
-   ``-Xptxas -v`` (registers, spills, static shared memory) of each
-   kernel of csrc/conv_epilogue.cu, and its build seconds are printed.
+   one nvcc per source, all at once; beside them two more nvcc report
+   ``-Xptxas -v`` (registers, spills, static shared memory, and any wgmma
+   ptxas serialises) of each kernel of csrc/conv_epilogue.cu and
+   csrc/flash_attention.cu, with their build seconds.
 3. Kernel phases: each kernel's wrapper at the shapes its path gives it,
    held against its plain PyTorch version on the card, timed (CUDA
    events) beside its plain version and one library call, with its bound
@@ -23,7 +24,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    dK/dV at the ViT-S/16 shapes [B·6, 196, 64] (train batch 32, serving
    batch 8, eval batch 200, bf16), the ViT-Ti/16 1024² shape
    [4·3, 4096, 64] (bf16, plain and causal) and a ragged f32 shape, with
-   ``F.scaled_dot_product_attention`` (forward; backward) as the library;
+   ``F.scaled_dot_product_attention`` (forward; backward) as the library,
+   each backward row with its ``bwd_plan``, and a ``flash_backward`` row a
+   shape (the fp32 delta reduction, dQ and dK/dV, as the autograd
+   Function runs them) against SDPA's whole backward;
    decode_attention at the GPT-nano decode tiles (4 and 32 slots × 256
    positions × 4 heads × 32, bf16), the TPU-side bench shape, a
    bandwidth probe at [8, 16, 4096, 128] (not a model) and a ragged f32
@@ -322,6 +326,30 @@ def forward_total(rows, **key) -> dict:
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
 
 
+def _kernel_name(mangled: str) -> dict:
+    """A kernel's name and template arguments from its mangled name (the
+    port's kernels sit in an anonymous namespace, ``_ZN<len><namespace>
+    <len><name>I<args>E``): ``{"kernel": name, "targs": [...]}``, types
+    as ``bf16``/``f16``, integers as ints."""
+    import re
+
+    m = re.match(r"_ZN(\d+)", mangled)
+    if m is None:
+        return {"kernel": mangled, "targs": []}
+    rest = mangled[m.end() + int(m.group(1)):]  # past the namespace
+    m = re.match(r"(\d+)", rest)
+    if m is None:
+        return {"kernel": mangled, "targs": []}
+    name = rest[m.end():m.end() + int(m.group(1))]
+    rest = rest[m.end() + int(m.group(1)):]
+    targs = []
+    if rest.startswith("I"):
+        for tok in re.finditer(r"(13__nv_bfloat16|6__half|Li(\d+)E)", rest[:rest.find("EE") + 2]):
+            targs.append("bf16" if tok.group(1).startswith("13") else "f16"
+                         if tok.group(1).startswith("6") else int(tok.group(2)))
+    return {"kernel": name, "targs": targs}
+
+
 def start_ptxas_report(_build, name: str = "conv_epilogue"):
     """Compile one source to a cubin with ``-Xptxas -v`` beside the build
     (its own nvcc process); the returned function waits for it and returns
@@ -342,15 +370,13 @@ def start_ptxas_report(_build, name: str = "conv_epilogue"):
         shutil.rmtree(out_dir, ignore_errors=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc -Xptxas -v {name}.cu failed:\n{log}")
-        kernels, cur = [], None
+        kernels, cur, serialized = [], None, []
         for line in log.splitlines():
+            if "serialized" in line:  # ptxas: wgmma issued one at a time, and why
+                serialized.append(line.strip())
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                mangled = m.group(1)
-                tile = re.search(r"epilogue_gemm_wgmmaILi(\d+)ELi(\d+)E", mangled)
-                body = re.search(r"(epilogue_gemm_\w+?)I", mangled)
-                cur = {"kernel": body.group(1) if body else mangled,
-                       **({"bm": int(tile.group(1)), "bn": int(tile.group(2))} if tile else {})}
+                cur = _kernel_name(m.group(1))
                 kernels.append(cur)
                 continue
             if cur is None:
@@ -363,6 +389,9 @@ def start_ptxas_report(_build, name: str = "conv_epilogue"):
                 cur["registers"] = int(m.group(1))
                 sm = re.search(r"(\d+) bytes smem", line)
                 cur["static_smem"] = int(sm.group(1)) if sm else 0
+        for line in serialized:
+            m = re.search(r"'(_Z\S+)'", line)
+            kernels.append({**(_kernel_name(m.group(1)) if m else {}), "ptxas": line})
         return kernels
 
     return finish
@@ -473,7 +502,10 @@ def flash_kernel_phase(torch, fa, dev):
     """The flash forward, dQ and dK/dV against their plain versions at
     FLASH_SHAPES (the backward kernels on the plain forward's lse and
     delta), each timed beside its plain version and SDPA: forward for the
-    forward, its backward (dQ, dK and dV together) for dQ and dK/dV.
+    forward, its backward (dQ, dK and dV together) for dQ and dK/dV; dQ and
+    dK/dV with the shape's ``bwd_plan``. Then a ``flash_backward`` row a
+    shape: the backward as the autograd Function runs it (the fp32 delta
+    reduction, dQ, dK/dV) against SDPA's whole backward, like for like.
     Returns {shape name: {kernel: row}}."""
     F = torch.nn.functional
     out = {}
@@ -508,6 +540,7 @@ def flash_kernel_phase(torch, fa, dev):
             "dkdv": (lambda: fa.dkdv_kernel(*args), lambda: fa.dkdv_plain(*args), lib_bwd),
         }
         nbytes, ops = fa.pass_bytes(b * h, L, d, dtype), fa.flops(b * h, L, d, causal)
+        plan = fa.bwd_plan(L, d, dtype)._asdict()
         rows = {}
         for kern, (fn, plain, lib) in calls.items():
             t_bytes = nbytes[kern] / HBM_BYTES_PER_S * 1e3
@@ -525,12 +558,30 @@ def flash_kernel_phase(torch, fa, dev):
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes[kern], "flops": ops[kern],
+                **({} if kern == "forward" else {"plan": plan}),
             }
             emit(row)
             if not row["scaled_err"] <= FLASH_TOL[dt]:
                 raise AssertionError(f"flash {kern} {name}: error {row['scaled_err']} of "
                                      f"the scale > {FLASH_TOL[dt]}")
             rows[kern] = row
+
+        def backward():  # as _Flash.backward runs it, lse cotangent aside
+            dl = (do.float() * o.float()).sum(-1)
+            fa.dq_kernel(q, k, v, do, lse, dl, scale, causal)
+            fa.dkdv_kernel(q, k, v, do, lse, dl, scale, causal)
+
+        # delta reads dO and O and writes [BH, L] fp32 beside the two kernels
+        bwd_bytes = nbytes["dq"] + nbytes["dkdv"] + 2 * b * h * L * d * q.element_size() \
+            + b * h * L * 4
+        t_bytes = bwd_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (ops["dq"] + ops["dkdv"]) / PEAK_FLOPS[dt] * 1e3
+        emit({"phase": "kernel", "name": "flash_backward", "shape": name, "L": L, "D": d,
+              "dtype": dt, "causal": causal, "plan": plan, "ms": time_ms(torch, backward),
+              "dq_plus_dkdv_ms": rows["dq"]["ms"] + rows["dkdv"]["ms"],
+              "library_ms": lib_bwd, "library": "sdpa backward (dq, dk, dv)",
+              "bound_ms": max(t_bytes, t_ops),
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
         out[name] = rows
         del q, k, v, do, o, lse, o_ref, lse_ref, delta, args, dq, dk, dv, dq_ref, dk_ref, dv_ref
     return out
@@ -1164,8 +1215,8 @@ def _regnet_kind(n: str) -> str:
 def _vit_kind(n: str) -> str:
     low = n.lower()
     return ("flash_forward" if "fwd_mma" in n
-            else "flash_dq" if "dq_mma" in n
-            else "flash_dkdv" if "dkdv_mma" in n
+            else "flash_dq" if "dq_wgmma" in n
+            else "flash_dkdv" if "dkdv_wgmma" in n
             else "opt_update" if "opt_update" in n
             else "gemm" if any(t in low for t in ("gemm", "nvjet", "cublas", "cutlass"))
             else "patch_conv" if _is_conv(n) else "layernorm_gelu_elementwise_other")
@@ -1557,16 +1608,16 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    ptxas = start_ptxas_report(_build)
+    ptxas = {n: start_ptxas_report(_build, n) for n in ("conv_epilogue", "flash_attention")}
     try:
         _build.build("conv_epilogue", "opt_update", "flash_attention", "decode_attn",
                      "group_conv")
     finally:
-        report = ptxas()  # waits for its nvcc either way
+        reports = {n: fn() for n, fn in ptxas.items()}  # waits for its nvcc either way
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(_build.build_seconds)})
-    emit({"phase": "build_conv_epilogue", "seconds": _build.build_seconds["conv_epilogue"],
-          "ptxas": report})
+    for n, report in reports.items():
+        emit({"phase": f"build_{n}", "seconds": _build.build_seconds[n], "ptxas": report})
 
     rows, worst = kernel_phase(torch, ce, dev)
     emit(forward_total(rows, arch="resnet50", batch=8))

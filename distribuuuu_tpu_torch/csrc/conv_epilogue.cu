@@ -55,6 +55,9 @@
 //    part in shared memory with the 128-byte swizzle (no bank conflicts)
 //    and writes whole rows with 16-byte stores, clipped at M and N.
 //
+// The mbarrier, TMA, tensor-map and wgmma helpers are csrc/hopper.cuh's,
+// shared with the flash-attention backward.
+//
 // A bf16 shape that TMA cannot describe (K or N not a multiple of 8, or a
 // base not 16-byte aligned) takes epilogue_gemm_mma_sync, a 128 x 64 tile
 // of mma.sync.m16n8k16 with masked loads. No site of ResNet, RegNet or
@@ -68,7 +71,11 @@
 
 #include <atomic>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 enum Act { ACT_ID = 0, ACT_RELU = 1, ACT_SILU = 2 };
 enum DType { DT_F32 = 0, DT_BF16 = 1 };
@@ -104,135 +111,6 @@ struct Tile {
   static constexpr int A_BYTES = kBM * HK * 2;
   static constexpr int STAGE_BYTES = A_BYTES + HK * kBN * 2;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`. A
-// wait of more than 4 s is a fault of the ring, not a wait: trap, so the
-// launch fails instead of hanging the stream.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t since = 0;
-  for (uint32_t polls = 1;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((polls & 1023) == 0) {
-      const uint64_t now = global_ns();
-      if (since == 0) since = now;
-      else if (now - since > 4000000000ull) __trap();
-    }
-  }
-}
-
-// One 2-D box of a tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand (the
-// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B). Offsets in bytes:
-// K-major A: sbo = 1024 between 8-row groups (lbo unused);
-// MN-major B: lbo = 8 KB between 64-column boxes, sbo = 1024 between
-// 8-row (k) groups.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from reading an accumulator before wgmma_wait
-__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// d[0 .. N/2) += A (64 x 16, K-major) * B (16 x N, MN-major), fp32 accumulate
-__device__ __forceinline__ void wgmma_m64n64(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <int WN>
-__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da, uint64_t db) {
-  if constexpr (WN == 64)
-    wgmma_m64n64(d, da, db);
-  else
-    wgmma_m64n128(d, da, db);
-}
 
 __device__ __forceinline__ void store_pair(float* p, float y0, float y1) {
   *reinterpret_cast<float2*>(p) = make_float2(y0, y1);
@@ -344,7 +222,7 @@ __global__ void __launch_bounds__(HTHREADS, 1)
       mbar_init(smem_u32(&full[s]), 1);
       mbar_init(smem_u32(&empty[s]), 2);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -352,10 +230,8 @@ __global__ void __launch_bounds__(HTHREADS, 1)
     // ---- producer: one thread keeps the ring full
     if constexpr (T::SN == 256) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_x))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_w))
-                   : "memory");
+      prefetch_map(&tm_x);
+      prefetch_map(&tm_w);
       const uint32_t base = smem_u32(smem);
       int stage = 0;
       uint32_t phase = 0;
@@ -427,8 +303,9 @@ __global__ void __launch_bounds__(HTHREADS, 1)
           const uint64_t da = sw128_desc(sA + kk * 32, 16, 1024);
 #pragma unroll
           for (int j = 0; j < T::SN / T::WN; ++j)
-            wgmma_bf16<T::WN>(acc + j * (T::WN / 2), da,
-                              sw128_desc(sB + kk * 2048 + j * (T::WN / 64) * ATOM, ATOM, 1024));
+            wgmma_ss<T::WN, 1, __nv_bfloat16>(
+                acc + j * (T::WN / 2), da,
+                sw128_desc(sB + kk * 2048 + j * (T::WN / 64) * ATOM, ATOM, 1024));
         }
         wgmma_commit();
         if (stages > 1) {
@@ -498,45 +375,14 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, found through the runtime so that the library
-// does not link against libcuda (-lcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A row-major bf16 [outer, inner] tensor in boxes of [box_outer, box_inner]
 // with the 128-byte swizzle; loads past the edge fill zeros.
 bool bf16_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
               uint32_t box_inner, uint32_t box_outer) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {inner * 2};
   const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return swizzled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, strides, box);
 }
 
 int sm_count(int dev) {
@@ -565,15 +411,9 @@ int launch_wgmma(const void* x, const void* w, const float* a, const float* c, v
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  // the dynamic shared memory limit, raised once per device for this tile
-  static std::atomic<unsigned> raised{0};
-  const unsigned bit = 1u << (dev & 31);
-  if (!(raised.load() & bit)) {
-    e = cudaFuncSetAttribute(epilogue_gemm_wgmma<kBM, kBN>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    raised.fetch_or(bit);
-  }
+  static std::atomic<unsigned> raised{0};  // for this tile
+  e = raise_smem_once(epilogue_gemm_wgmma<kBM, kBN>, MAX_SMEM, dev, raised);
+  if (e != cudaSuccess) return (int)e;
   const long long units =
       (long long)((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN) * splits;
   if (units >= (1ll << 31)) return (int)cudaErrorInvalidValue;

@@ -4,8 +4,9 @@
 //   * _fwd_kernel  (reached through _flash_forward, :315)  -> flash_fwd_launch
 //   * _dq_kernel   (reached through _flash_backward, :359) -> flash_dq_launch
 //   * _dkdv_kernel (reached through _flash_backward, :372) -> flash_dkdv_launch
-// on q, k, v, dO of [BH, L, D] (contiguous, D in {32, 64, 128}; the wrapper
-// zero-pads any other D <= 128), lse and delta of [BH, L] in fp32.
+// on q, k, v, dO of [BH, L, D] (contiguous; D in {32, 64, 128} for the
+// forward and the fp32 backward, {64, 128} for the 16-bit backward; the
+// wrapper zero-pads any other D <= 128), lse and delta of [BH, L] in fp32.
 //
 //   forward:  o = softmax(q k^T * scale) v,  lse = m + log(l)   (online softmax)
 //   dQ:       p = exp(s - lse), ds = p (dO v^T - delta) scale,  dq = ds k
@@ -18,27 +19,58 @@
 // What bounds it on the H100: at the ViT-S/16 training shape [32*6, 196, 64]
 // a call does about 2 GFLOP over 20-30 MB, under the ~295 operations per
 // byte the tensor cores need, so it is bound by bytes (about 6-9 us at
-// 3.35 TB/s). At ViT-Ti/16 on 1024^2 inputs ([4*3, 4096, 64]) a call does
-// 51-103 GFLOP over a few MB: bound by the tensor cores (50-100 us at 989
-// TFLOP/s). The design keeps the L x L scores and probabilities out of
-// device memory entirely (each lives in registers for one 64 x 64 tile),
-// which is what both regimes need; reaching the tensor-core rate needs
-// wgmma, TMA and warp specialisation, which are a later change.
+// 3.35 TB/s); its 768 small blocks make it a matter of latency first. At
+// ViT-Ti/16 on 1024^2 inputs ([4*3, 4096, 64]) a call does 51-103 GFLOP
+// over a few MB: bound by the tensor cores (50-100 us at 989 TFLOP/s),
+// which only wgmma fed from shared memory reaches. Every design keeps the
+// L x L scores and probabilities out of device memory (they live in
+// registers for one tile).
 //
-// Design (right and simple first):
-//  * a block of 4 warps owns 64 query rows (forward, dQ) or 64 keys
-//    (dK/dV) of one (batch, head); each warp 16 of them. The other side is
-//    streamed from device memory through shared memory in tiles of 64, so
-//    any L runs (the TPU kernels kept whole-sequence K/V in VMEM);
-//  * bf16/f16: S = Q.K^T and the other products on mma.sync.m16n8k16 with
-//    fp32 accumulators; the accumulator layout of one product is the A
-//    operand layout of the next, so P and dS never leave registers. B
-//    operands that need the other orientation are stored transposed in
-//    shared memory when the tile is loaded;
-//  * fp32: the same tiling on the CUDA cores (fp32 FMA, no TF32), one thread
-//    per query row (forward, dQ) or key row (dK/dV);
-//  * no atomics: dQ and dK/dV are two kernels, each owning its output rows.
-//    Query rows past L contribute exactly 0 to dK/dV (masked explicitly).
+// The backward's 16-bit bodies at D 64 and 128 (dq_wgmma, dkdv_wgmma):
+//  * a block is one consumer warpgroup of 64 rows (queries for dQ, keys
+//    for dK/dV) and one producer warp: 160 threads, so that two or three
+//    blocks share an SM and their products interleave on the tensor cores
+//    (dQ at D 64 fits 128 registers: three blocks; dK/dV 131 with a query
+//    tile of 32, three blocks, and 166 with 64, two; ptxas then spills 48
+//    bytes and serialises that body's wgmma, which measured faster than
+//    the 178 registers it takes unbounded). The block's own rows
+//    are loaded once (Q and dO, or K and V); the other side streams through
+//    a ring of stages (K, V; or Q, dO with their lse and delta), filled by
+//    TMA and completed on mbarriers while the consumer works on the stages
+//    that arrived;
+//  * every operand is a box of a 3-D tensor map over [BH, L, D] with the
+//    128-byte swizzle, so rows past L of a head read zeros (never the next
+//    head's), and each product reads it in that layout: K-major for
+//    S = Q.K^T, dP = dO.V^T, S^T = K.Q^T and dP^T = V.dO^T, MN-major through
+//    wgmma's transpose bit for dS.K, P^T.dO and dS^T.Q, whose A operand is
+//    the previous product's fp32 accumulator rounded to T in registers. No
+//    tile is transposed in shared memory;
+//  * wgmma.mma_async m64nNk16 with fp32 accumulators, each tile's products
+//    in commit groups so that the exp of S runs while dP is computed, and
+//    dS^T while dV's product runs; the dK/dV query tile (32 or 64) and the
+//    dK/dV ring's stages are the wrapper's per-shape plan (ops/cuda/
+//    flash_attention.py `bwd_plan`); dQ's ring holds two stages;
+//  * masks (keys or queries past L, causal) are applied only in the tiles
+//    that hold masked pairs; causal: wholly masked tiles are skipped (dQ's
+//    last key tiles, dK/dV's first query tiles), and dQ launches its
+//    longest rows first.
+// A 16-bit backward at D 32 comes here zero-padded to D 64 by the wrapper
+// (exact: the padded columns add 0 to every product).
+//
+// The forward and the fp32 backward (right and simple first):
+//  * a block owns 64 query rows (forward, dQ) or 64 keys (dK/dV) of one
+//    (batch, head). The other side is streamed from device memory through
+//    shared memory in tiles of 64, so any L runs (the TPU kernels kept
+//    whole-sequence K/V in VMEM);
+//  * bf16/f16 forward: 4 warps of 16 rows; S = Q.K^T and P.V on
+//    mma.sync.m16n8k16 with fp32 accumulators; the accumulator layout of
+//    S is the A operand layout of P.V, so P never leaves registers. V is
+//    stored transposed in shared memory when its tile is loaded;
+//  * fp32: the CUDA cores (fp32 FMA, no TF32), one thread per query row
+//    (forward, dQ) or key row (dK/dV);
+//  * no atomics: dQ and dK/dV are two kernels, each owning its output rows,
+//    so the bits do not depend on scheduling. Query rows past L contribute
+//    exactly 0 to dK/dV (masked explicitly).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -46,10 +78,16 @@
 #include <float.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr int BT = 64;  // rows of a block's own tile, and of a streamed tile
-constexpr int THREADS = 128;  // 4 warps x 16 rows (mma path)
+constexpr int THREADS = 128;  // 4 warps x 16 rows (the 16-bit forward)
 constexpr int PAD = 8;  // 16-byte row padding of 16-bit tiles: conflict-free fragments
 constexpr int TLD = BT + PAD;  // row stride of a transposed [D][64] tile
 constexpr float NEG_BIG = -0.7f * FLT_MAX;
@@ -285,192 +323,427 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ------------------------------------------------------------ dQ, mma path
+// ------------------------------------------- backward, TMA + wgmma path
+// bf16/f16 at D 64 and 128. A block is one consumer warpgroup (64 rows)
+// and one producer warp. The block's own rows stay resident in
+// shared memory: Q and dO for dQ, K and V for dK/dV; the other side streams
+// through a ring of `stages` stages. Every operand is a TMA box of
+// [1, rows, 64] from a 3-D map over [BH, L, D] with the 128-byte swizzle:
+// rows past L of a head read zeros, never the next head's. Each product
+// reads its shared-memory operands in that one layout: K-major for
+// S = Q.K^T, dP = dO.V^T (and S^T = K.Q^T, dP^T = V.dO^T), MN-major through
+// the transpose bit for dS.K (and P^T.dO, dS^T.Q), with dS, P^T and dS^T
+// fed from registers: the fp32 accumulator of one product is the A
+// fragment of the next once rounded to T, so no tile is ever transposed.
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, T* __restrict__ dq, int L, int causal, float scale) {
-  constexpr int LD = D + PAD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);  // [64][LD]
-  T* Ds = Qs + BT * LD;                // dO [64][LD]
-  T* Ks = Ds + BT * LD;                // [64][LD]
-  T* Vs = Ks + BT * LD;                // [64][LD]
-  T* Kt = Vs + BT * LD;                // [D][TLD]
+constexpr int BOX = 64;  // 16-bit columns of one TMA box: one 128-byte swizzled row
+constexpr int BKV = 64;  // keys of a dQ ring stage
+constexpr int MAX_SMEM = 232448;
+constexpr float LOG2E = 1.4426950408889634f;
 
-  const size_t base = (size_t)blockIdx.y * L * D;
-  q += base, k += base, v += base, dout += base, dq += base;
-  lse += (size_t)blockIdx.y * L;
-  delta += (size_t)blockIdx.y * L;
-  const int q0 = blockIdx.x * BT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-  const float lse_r[2] = {row0 < L ? lse[row0] : 0.0f, row1 < L ? lse[row1] : 0.0f};
-  const float del_r[2] = {row0 < L ? delta[row0] : 0.0f, row1 < L ? delta[row1] : 0.0f};
+constexpr int BWD_THREADS = 160;  // a consumer warpgroup and the producer warp
 
-  load_tile<T, D, true, false>(Qs, nullptr, q, q0, L);
-  load_tile<T, D, true, false>(Ds, nullptr, dout, q0, L);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
-
-  const int nk = (L + BT - 1) / BT;
-  const int nk_hi = causal ? min(nk, (q0 + 2 * BT - 1) / BT) : nk;
-  for (int kt = 0; kt < nk_hi; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();
-    load_tile<T, D, true, true>(Ks, Kt, k, k0, L);
-    load_tile<T, D, true, false>(Vs, nullptr, v, k0, L);
-    __syncthreads();
-
-    float s[BT / 8][4], dp[BT / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t qa[4], da[4];
-      frag_a(qa, Qs, LD, wr, kc * 16, g, t);
-      frag_a(da, Ds, LD, wr, kc * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < BT / 8; ++nt) {
-        uint32_t b[2];
-        frag_b(b, Ks, LD, nt * 8, kc * 16, g, t);
-        Ops<T>::mma(s[nt], qa, b);
-        frag_b(b, Vs, LD, nt * 8, kc * 16, g, t);
-        Ops<T>::mma(dp[nt], da, b);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const int row = (e < 2) ? row0 : row1;
-        const bool keep = col < L && !(causal && col > row);
-        const float p = keep ? expf(s[nt][e] * scale - lse_r[e >> 1]) : 0.0f;
-        s[nt][e] = p * (dp[nt][e] - del_r[e >> 1]) * scale;  // ds
-      }
-#pragma unroll
-    for (int kc = 0; kc < BT / 16; ++kc) {
-      uint32_t dsa[4];
-      acc_to_a<T>(dsa, s, kc);  // ds rounded to the input dtype
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        uint32_t b[2];
-        frag_b(b, Kt, TLD, nd * 8, kc * 16, g, t);
-        Ops<T>::mma(acc[nd], dsa, b);
-      }
-    }
+template <int D>
+struct DqTile {
+  static constexpr int BM = 64;                      // query rows of a block
+  static constexpr int RES_BYTES = BM * D * 2;       // Q (and dO), resident
+  static constexpr int TILE_BYTES = BKV * D * 2;     // K (and V) of a stage
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static size_t smem(int stages) {
+    return 1024 + 2 * RES_BYTES + (size_t)stages * STAGE_BYTES + (2 * stages + 1) * 8;
   }
-  store_rows<T, D>(dq, acc, row0, L, t, 1.0f, 1.0f);
+};
+
+template <int D, int BQ>
+struct DkdvTile {
+  static constexpr int BK = 64;                      // keys of a block
+  static constexpr int RES_BYTES = BK * D * 2;       // K (and V), resident
+  static constexpr int TILE_BYTES = BQ * D * 2;      // Q (and dO) of a stage
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static size_t smem(int stages) {
+    return 1024 + 2 * RES_BYTES + (size_t)stages * (STAGE_BYTES + 2 * BQ * 4) +
+           (2 * stages + 1) * 8;
+  }
+};
+
+// 2^x on the SFU (ex2.approx, subnormal results flushed to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// --------------------------------------------------------- dK/dV, mma path
+// the 128-byte-swizzled descriptor of the k16 step kk of a K-major operand
+// whose boxes hold `rows` rows each
+__device__ __forceinline__ uint64_t kmajor(uint32_t base, int rows, int kk) {
+  return sw128_desc(base + (kk >> 2) * (rows * 128) + (kk & 3) * 32, 16, 1024);
+}
+// ... and of an MN-major operand: k16 step kc is 16 rows down, the next 64
+// columns one box (rows x 128 bytes) on
+__device__ __forceinline__ uint64_t mnmajor(uint32_t base, int rows, int kc) {
+  return sw128_desc(base + kc * 2048, rows * 128, 1024);
+}
 
+// The fp32 wgmma accumulator (m64nN) of a warpgroup: register 4j + e of
+// lane l in warp w holds row 16w + l/4 + 8(e/2), column 8j + 2(l%4) + e%2.
+// Two n8 blocks j = 2kc, 2kc + 1 are the A fragment of k16 step kc.
+template <typename T>
+__device__ __forceinline__ void pack_a(uint32_t (*a)[4], int j, const float* v) {
+  a[j >> 1][(j & 1) * 2] = Ops<T>::pack(v[0], v[1]);
+  a[j >> 1][(j & 1) * 2 + 1] = Ops<T>::pack(v[2], v[3]);
+}
+
+// Store a warpgroup's 64 x D accumulator (rows r0 and r0 + 8 of this
+// thread), rows past L skipped.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const T* __restrict__ dout, const float* __restrict__ lse,
-             const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int L,
-             int causal, float scale) {
-  constexpr int LD = D + PAD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);  // [64][LD]
-  T* Vs = Ks + BT * LD;                // [64][LD]
-  T* Qs = Vs + BT * LD;                // [64][LD]
-  T* Ds = Qs + BT * LD;                // dO [64][LD]
-  T* Qt = Ds + BT * LD;                // [D][TLD]
-  T* Dt = Qt + D * TLD;                // dO^T [D][TLD]
-  float* ls = reinterpret_cast<float*>(Dt + D * TLD);  // lse [64]
-  float* dl = ls + BT;                                 // delta [64]
-
-  const size_t base = (size_t)blockIdx.y * L * D;
-  q += base, k += base, v += base, dout += base, dk += base, dv += base;
-  lse += (size_t)blockIdx.y * L;
-  delta += (size_t)blockIdx.y * L;
-  const int k0 = blockIdx.x * BT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
-  const int key0 = k0 + wr + g, key1 = key0 + 8;
-
-  load_tile<T, D, true, false>(Ks, nullptr, k, k0, L);
-  load_tile<T, D, true, false>(Vs, nullptr, v, k0, L);
-
-  float ak[D / 8][4], av[D / 8][4];
+__device__ __forceinline__ void store_acc(T* out, const float* acc, int r0, int L, int t) {
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[nd][e] = av[nd][e] = 0.0f;
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r0 < L)
+      *reinterpret_cast<uint32_t*>(out + (size_t)r0 * D + col) =
+          Ops<T>::pack(acc[4 * j], acc[4 * j + 1]);
+    if (r0 + 8 < L)
+      *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + 8) * D + col) =
+          Ops<T>::pack(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
 
-  const int nq = (L + BT - 1) / BT;
-  const int qt_lo = causal ? k0 / BT : 0;  // causal: the first q tile that meets this key tile
-  for (int qt = qt_lo; qt < nq; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();
-    load_tile<T, D, true, true>(Qs, Qt, q, q0, L);
-    load_tile<T, D, true, true>(Ds, Dt, dout, q0, L);
-    for (int i = threadIdx.x; i < BT; i += blockDim.x) {
-      ls[i] = q0 + i < L ? lse[q0 + i] : 0.0f;
-      dl[i] = q0 + i < L ? delta[q0 + i] : 0.0f;
+// dQ: the block owns 64 query rows of head blockIdx.x (under `causal` the
+// longest rows launch first); K and V stream in tiles of 64.
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS, D == 64 ? 3 : 2)
+    dq_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+             const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,
+             int L, int causal, float scale, int stages) {
+  using P = DqTile<D>;
+  constexpr int BM = P::BM, NB = D / BOX;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = smem_u32(smem), sDo = sQ + P::RES_BYTES, ring = sDo + P::RES_BYTES;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + 2 * P::RES_BYTES + (size_t)stages * P::STAGE_BYTES);
+  uint64_t* empty = full + stages;
+  uint64_t* resident = empty + stages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;
+  const int nk = (L + BKV - 1) / BKV;
+  const int nk_hi = causal ? min(nk, (q0 + BM - 1) / BKV + 1) : nk;  // causal tile skip
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 4);  // one arrival a consumer warp
     }
-    __syncthreads();
+    mbar_init(smem_u32(resident), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    float st[BT / 8][4], dpt[BT / 8][4];
+  if (warp == 4) {
+    // ---- producer: Q and dO once, then K and V into the ring
+    if (lane == 0) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_do);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      const uint32_t rb = smem_u32(resident);
+      mbar_expect_tx(rb, 2 * P::RES_BYTES);
 #pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
+      for (int c = 0; c < NB; ++c) {
+        tma_load_3d(sQ + c * BM * 128, &tm_q, rb, c * BOX, q0, bh);
+        tma_load_3d(sDo + c * BM * 128, &tm_do, rb, c * BOX, q0, bh);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < nk_hi; ++kt) {
+        mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+        const uint32_t fb = smem_u32(&full[stage]);
+        mbar_expect_tx(fb, P::STAGE_BYTES);
+        const uint32_t sK = ring + stage * P::STAGE_BYTES, sV = sK + P::TILE_BYTES;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.0f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t ka[4], va[4];
-      frag_a(ka, Ks, LD, wr, kc * 16, g, t);
-      frag_a(va, Vs, LD, wr, kc * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < BT / 8; ++nt) {
-        uint32_t b[2];
-        frag_b(b, Qs, LD, nt * 8, kc * 16, g, t);
-        Ops<T>::mma(st[nt], ka, b);  // s^T = k q^T
-        frag_b(b, Ds, LD, nt * 8, kc * 16, g, t);
-        Ops<T>::mma(dpt[nt], va, b);  // dp^T = v dO^T
+        for (int c = 0; c < NB; ++c) {
+          tma_load_3d(sK + c * BKV * 128, &tm_k, fb, c * BOX, kt * BKV, bh);
+          tma_load_3d(sV + c * BKV * 128, &tm_v, fb, c * BOX, kt * BKV, bh);
+        }
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
+    return;
+  }
+
+  // ---- the consumer warpgroup: rows q0 .. q0 + 63
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 16 * warp + g, row1 = row0 + 8;
+  const size_t vb = (size_t)bh * L;
+  const float scale_log2 = scale * LOG2E;
+  const float lse2[2] = {row0 < L ? lse[vb + row0] * LOG2E : 0.0f,
+                         row1 < L ? lse[vb + row1] * LOG2E : 0.0f};
+  const float del[2] = {row0 < L ? delta[vb + row0] : 0.0f, row1 < L ? delta[vb + row1] : 0.0f};
+
+  float acc[D / 2], s[BKV / 2], dp[BKV / 2];
 #pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BKV / 2; ++i) s[i] = dp[i] = 0.0f;
+  mbar_wait(smem_u32(resident), 0);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < nk_hi; ++kt) {
+    const int k0 = kt * BKV;
+    mbar_wait(smem_u32(&full[stage]), phase);
+    const uint32_t sK = ring + stage * P::STAGE_BYTES, sV = sK + P::TILE_BYTES;
+    // S and dP in two commit groups: exp of S runs while dP is computed
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BKV, 0, T>(s, kmajor(sQ, BM, kk), kmajor(sK, BKV, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BKV, 0, T>(dp, kmajor(sDo, BM, kk), kmajor(sV, BKV, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    // p = exp(s scale - lse), masked (keys past L; under `causal`, keys past
+    // the row) only in a tile that has such pairs
+    auto probs = [&](auto masked) {
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          reg_fence(s[4 * j + e]);
+          float p = fast_exp2(fmaf(s[4 * j + e], scale_log2, -lse2[e >> 1]));
+          if constexpr (decltype(masked)::value) {
+            const int col = k0 + 8 * j + 2 * t + (e & 1);
+            if (col >= L || (causal && col > (e < 2 ? row0 : row1))) p = 0.0f;
+          }
+          s[4 * j + e] = p;
+        }
+    };
+    if (k0 + BKV > L || (causal && k0 + BKV - 1 > q0))
+      probs(std::true_type());
+    else
+      probs(std::false_type());
+    wgmma_wait<0>();
+    uint32_t dsa[BKV / 16][4];  // dS rounded to T: the A fragments of dS.K
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+      float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + 2 * t + (e & 1);
-        const int qpos = q0 + qi, key = (e < 2) ? key0 : key1;
-        // padded query rows are masked here, not left to an underflow
-        const bool keep = key < L && qpos < L && !(causal && qpos < key);
-        const float p = keep ? expf(st[nt][e] * scale - ls[qi]) : 0.0f;
-        st[nt][e] = p;
-        dpt[nt][e] = keep ? p * (dpt[nt][e] - dl[qi]) * scale : 0.0f;  // ds^T
+        reg_fence(dp[4 * j + e]);
+        ds[e] = s[4 * j + e] * (dp[4 * j + e] - del[e >> 1]) * scale;
       }
+      pack_a<T>(dsa, j, ds);
+    }
+    // every k16 step, key rows past L too (dS = 0 there): a step skipped
+    // under a branch makes ptxas serialise the kernel's wgmma
+    wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < BT / 16; ++kc) {
-      uint32_t pa[4], dsa[4];
-      acc_to_a<T>(pa, st, kc);
-      acc_to_a<T>(dsa, dpt, kc);
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        uint32_t b[2];
-        frag_b(b, Dt, TLD, nd * 8, kc * 16, g, t);
-        Ops<T>::mma(av[nd], pa, b);  // dv += p^T dO
-        frag_b(b, Qt, TLD, nd * 8, kc * 16, g, t);
-        Ops<T>::mma(ak[nd], dsa, b);  // dk += ds^T q
-      }
+    for (int kc = 0; kc < BKV / 16; ++kc)
+      wgmma_rs<D, 1, T>(acc, dsa[kc], mnmajor(sK, BKV, kc));
+    wgmma_commit();
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[stage]));
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
-  store_rows<T, D>(dk, ak, key0, L, t, 1.0f, 1.0f);
-  store_rows<T, D>(dv, av, key0, L, t, 1.0f, 1.0f);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) reg_fence(acc[i]);
+  store_acc<T, D>(dq + vb * D, acc, row0, L, t);
+}
+
+// dK/dV: the block owns 64 keys of head blockIdx.x (under `causal`
+// the first keys, which meet the most queries, launch first); Q, dO and
+// their lse and delta stream in tiles of BQ queries. The producer warp's
+// lanes copy lse (times log2 e) and delta of a tile into shared memory and
+// arrive on its barrier with the TMA bytes.
+template <typename T, int D, int BQ>
+__global__ void __launch_bounds__(BWD_THREADS, D == 64 ? 2 : 1)
+    dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dk, T* __restrict__ dv, int L, int causal, float scale,
+               int stages) {
+  using P = DkdvTile<D, BQ>;
+  constexpr int BK = P::BK, NB = D / BOX;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sK = smem_u32(smem), sV = sK + P::RES_BYTES, ring = sV + P::RES_BYTES;
+  float* ls = reinterpret_cast<float*>(smem + 2 * P::RES_BYTES + (size_t)stages * P::STAGE_BYTES);
+  float* dl = ls + stages * BQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(dl + stages * BQ);
+  uint64_t* empty = full + stages;
+  uint64_t* resident = empty + stages;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int nq = (L + BQ - 1) / BQ;
+  const int qt_lo = causal ? k0 / BQ : 0;  // causal: the first query tile that meets these keys
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t vb = (size_t)bh * L;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 32);  // the producer warp's lanes, one with the bytes
+      mbar_init(smem_u32(&empty[s]), 4);
+    }
+    mbar_init(smem_u32(resident), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // ---- producer warp: K and V once, then Q, dO, lse, delta into the ring
+    if (lane == 0) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_do);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      const uint32_t rb = smem_u32(resident);
+      mbar_expect_tx(rb, 2 * P::RES_BYTES);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        tma_load_3d(sK + c * BK * 128, &tm_k, rb, c * BOX, k0, bh);
+        tma_load_3d(sV + c * BK * 128, &tm_v, rb, c * BOX, k0, bh);
+      }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int qt = qt_lo; qt < nq; ++qt) {
+      const int q0 = qt * BQ;
+      mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+      for (int i = lane; i < BQ; i += 32) {
+        ls[stage * BQ + i] = q0 + i < L ? lse[vb + q0 + i] * LOG2E : 0.0f;
+        dl[stage * BQ + i] = q0 + i < L ? delta[vb + q0 + i] : 0.0f;
+      }
+      const uint32_t fb = smem_u32(&full[stage]);
+      if (lane == 0) {
+        mbar_expect_tx(fb, P::STAGE_BYTES);
+        const uint32_t sQ = ring + stage * P::STAGE_BYTES, sDo = sQ + P::TILE_BYTES;
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          tma_load_3d(sQ + c * BQ * 128, &tm_q, fb, c * BOX, q0, bh);
+          tma_load_3d(sDo + c * BQ * 128, &tm_do, fb, c * BOX, q0, bh);
+        }
+      } else {
+        mbar_arrive(fb);
+      }
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: keys k0 .. k0 + 63
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + 16 * warp + g, key1 = key0 + 8;
+  const float scale_log2 = scale * LOG2E;
+
+  float ak[D / 2], av[D / 2], st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) ak[i] = av[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.0f;
+  mbar_wait(smem_u32(resident), 0);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int qt = qt_lo; qt < nq; ++qt) {
+    const int q0 = qt * BQ;
+    mbar_wait(smem_u32(&full[stage]), phase);
+    const uint32_t sQ = ring + stage * P::STAGE_BYTES, sDo = sQ + P::TILE_BYTES;
+    // four commit groups, so that the exp of S^T runs under dP^T and dS^T
+    // under dV's product
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ, 0, T>(st, kmajor(sK, BK, kk), kmajor(sQ, BQ, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ, 0, T>(dpt, kmajor(sV, BK, kk), kmajor(sDo, BQ, kk), kk > 0);
+    wgmma_commit();
+    const float* lsv = ls + stage * BQ;
+    const float* dlv = dl + stage * BQ;
+    wgmma_wait<1>();
+    // p^T = exp(s^T scale - lse), masked (keys or queries past L; under
+    // `causal`, queries before the key) only in a tile that has such pairs.
+    // Padded query rows are masked here, not left to an underflow.
+    uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];  // P^T and dS^T rounded to T
+    auto probs = [&](auto masked) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lsv + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          reg_fence(st[4 * j + e]);
+          float p = fast_exp2(fmaf(st[4 * j + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          if constexpr (decltype(masked)::value) {
+            const int qpos = q0 + 8 * j + 2 * t + (e & 1);
+            const int key = e < 2 ? key0 : key1;
+            if (key >= L || qpos >= L || (causal && qpos < key)) p = 0.0f;
+          }
+          st[4 * j + e] = p;
+        }
+        pack_a<T>(pa, j, st + 4 * j);
+      }
+    };
+    if (k0 + BK > L || q0 + BQ > L || (causal && q0 < k0 + BK - 1))
+      probs(std::true_type());
+    else
+      probs(std::false_type());
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BQ / 16; ++kc)
+      wgmma_rs<D, 1, T>(av, pa[kc], mnmajor(sDo, BQ, kc));  // dV += P^T dO
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T
+    // dS^T = p^T (dP^T - delta) scale: 0 wherever p^T was masked (dP^T is
+    // finite there: K, V, Q and dO rows past L read zeros)
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dlv + 8 * j + 2 * t);
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        reg_fence(dpt[4 * j + e]);
+        ds[e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x)) * scale;
+      }
+      pack_a<T>(dsa, j, ds);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BQ / 16; ++kc)
+      wgmma_rs<D, 1, T>(ak, dsa[kc], mnmajor(sQ, BQ, kc));  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[stage]));
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    reg_fence(ak[i]);
+    reg_fence(av[i]);
+  }
+  store_acc<T, D>(dk + vb * D, ak, key0, L, t);
+  store_acc<T, D>(dv + vb * D, av, key0, L, t);
 }
 
 // ------------------------------------------------------------- fp32 path
@@ -698,6 +971,7 @@ struct Args {
   int BH, L, causal;
   float scale;
   cudaStream_t stream;
+  int bq, stages;  // dK/dV's plan (the wrapper's bwd_plan), read by the wgmma body
 };
 
 template <typename T, int D>
@@ -709,33 +983,6 @@ int fwd16(const Args& a) {
   fwd_mma<T, D><<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<T*>(a.o), a.lse, a.L, a.causal, a.scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int dq16(const Args& a) {
-  const size_t smem = 4 * mma_tile_bytes<T, D>() + mma_trans_bytes<T, D>();
-  cudaError_t e = set_smem(dq_mma<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.L + BT - 1) / BT, a.BH);
-  dq_mma<T, D><<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.dq), a.L, a.causal,
-      a.scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int dkdv16(const Args& a) {
-  const size_t smem =
-      4 * mma_tile_bytes<T, D>() + 2 * mma_trans_bytes<T, D>() + 2 * BT * sizeof(float);
-  cudaError_t e = set_smem(dkdv_mma<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.L + BT - 1) / BT, a.BH);
-  dkdv_mma<T, D><<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.L, a.causal, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -777,16 +1024,88 @@ int dkdv32(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+constexpr int DQ_STAGES = 2;  // dQ's K/V ring (fewer where the sequence has fewer tiles)
+
+// [BH, L, D] 16-bit as a 3-D tensor map, read in boxes of [1, rows, 64]
+bool head_map(CUtensorMap* map, const void* base, int dtype, const Args& a, int D, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)a.L, (cuuint64_t)a.BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)a.L * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)BOX, (cuuint32_t)rows, 1};
+  return swizzled_map(map,
+                      dtype == DT_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      3, base, dims, strides, box);
+}
+
+template <typename T, int D>
+int dq_tma(const Args& a, int dtype) {
+  using P = DqTile<D>;
+  static std::atomic<unsigned> raised{0};
+  const int key_tiles = (a.L + BKV - 1) / BKV;
+  const int stages = key_tiles < DQ_STAGES ? key_tiles : DQ_STAGES;
+  const size_t smem = P::smem(stages);
+  const unsigned tiles = (a.L + P::BM - 1) / P::BM;
+  if (stages < 1 || smem > (size_t)MAX_SMEM || tiles > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!head_map(&tq, a.q, dtype, a, D, P::BM) || !head_map(&tdo, a.dout, dtype, a, D, P::BM) ||
+      !head_map(&tk, a.k, dtype, a, D, BKV) || !head_map(&tv, a.v, dtype, a, D, BKV))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = raise_smem_once(dq_wgmma<T, D>, MAX_SMEM, dev, raised);
+  if (e != cudaSuccess) return (int)e;
+  dq_wgmma<T, D><<<dim3(a.BH, tiles), BWD_THREADS, smem, a.stream>>>(
+      tq, tk, tv, tdo, a.lse_in, a.delta, static_cast<T*>(a.dq), a.L, a.causal, a.scale,
+      stages);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D, int BQ>
+int dkdv_tma(const Args& a, int dtype, int stages) {
+  using P = DkdvTile<D, BQ>;
+  static std::atomic<unsigned> raised{0};
+  const size_t smem = P::smem(stages);
+  const unsigned tiles = (a.L + P::BK - 1) / P::BK;
+  if (stages < 1 || smem > (size_t)MAX_SMEM || tiles > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!head_map(&tq, a.q, dtype, a, D, BQ) || !head_map(&tdo, a.dout, dtype, a, D, BQ) ||
+      !head_map(&tk, a.k, dtype, a, D, P::BK) || !head_map(&tv, a.v, dtype, a, D, P::BK))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = raise_smem_once(dkdv_wgmma<T, D, BQ>, MAX_SMEM, dev, raised);
+  if (e != cudaSuccess) return (int)e;
+  dkdv_wgmma<T, D, BQ><<<dim3(a.BH, tiles), BWD_THREADS, smem, a.stream>>>(
+      tq, tk, tv, tdo, a.lse_in, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.L,
+      a.causal, a.scale, stages);
+  return (int)cudaGetLastError();
+}
+
+// The 16-bit backward: the TMA + wgmma kernels at D 64 and 128, dK/dV with
+// the wrapper's plan (bq queries a stage: 32, or 64 at D 64; the ring's
+// stages). D 32 is not taken: the wrapper pads it to 64.
+template <typename T, int D>
+int bwd16(int kind, const Args& a, int dtype) {
+  if constexpr (D == 32) {
+    return -1;
+  } else {
+    if (kind == 1) return dq_tma<T, D>(a, dtype);
+    if (a.bq == 32) return dkdv_tma<T, D, 32>(a, dtype, a.stages);
+    if constexpr (D == 64) {
+      if (a.bq == 64) return dkdv_tma<T, D, 64>(a, dtype, a.stages);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
 // kind: 0 forward, 1 dQ, 2 dK/dV
 template <int D>
 int dispatch_d(int kind, int dtype, const Args& a) {
   switch (dtype) {
     case DT_BF16:
-      return kind == 0   ? fwd16<__nv_bfloat16, D>(a)
-             : kind == 1 ? dq16<__nv_bfloat16, D>(a)
-                         : dkdv16<__nv_bfloat16, D>(a);
+      return kind == 0 ? fwd16<__nv_bfloat16, D>(a) : bwd16<__nv_bfloat16, D>(kind, a, dtype);
     case DT_F16:
-      return kind == 0 ? fwd16<__half, D>(a) : kind == 1 ? dq16<__half, D>(a) : dkdv16<__half, D>(a);
+      return kind == 0 ? fwd16<__half, D>(a) : bwd16<__half, D>(kind, a, dtype);
     case DT_F32:
       return kind == 0 ? fwd32<D>(a) : kind == 1 ? dq32<D>(a) : dkdv32<D>(a);
     default:
@@ -812,7 +1131,10 @@ int dispatch(int kind, int D, int dtype, const Args& a) {
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream`, does
 // not synchronise, allocates nothing, and returns the launch's cudaError_t
-// (0 on success; -1 for a dtype or head dim the kernels do not take).
+// (0 on success; -1 for a dtype or head dim the kernels do not take). The
+// dK/dV entry point takes the wrapper's plan (ops/cuda/flash_attention.py
+// `bwd_plan`): the query tile `bq` and the ring's `stages`, read by the
+// 16-bit body.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                                 int BH, int L, int D, int dtype, int causal, float scale,
                                 void* stream) {
@@ -833,10 +1155,10 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v, cons
 
 extern "C" int flash_dkdv_launch(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dk, void* dv, int BH,
-                                 int L, int D, int dtype, int causal, float scale,
-                                 void* stream) {
+                                 int L, int D, int dtype, int causal, float scale, int bq,
+                                 int stages, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
          nullptr, nullptr, dk, dv, nullptr, BH, L, causal, scale,
-         reinterpret_cast<cudaStream_t>(stream)};
+         reinterpret_cast<cudaStream_t>(stream), bq, stages};
   return dispatch(2, D, dtype, a);
 }

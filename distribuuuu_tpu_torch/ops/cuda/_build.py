@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``. Nothing
 includes PyTorch's headers, so a build takes seconds. The library lands in
 ``distribuuuu_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
-keyed by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads what is there. A missing ``nvcc`` or a failed
+keyed by a hash of the source, the ``csrc/`` headers it includes
+(``#include "…"``, followed through the headers) and the flags, so an
+edited source or header rebuilds and an unchanged one loads what is
+there. A missing ``nvcc`` or a failed
 build raises: there is no fallback.
 """
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,10 +50,30 @@ def nvcc_path() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[str]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header, in the order first met."""
+    todo, seen = [os.path.join(CSRC, f"{name}.cu")], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            todo += [os.path.join(CSRC, inc.decode()) for inc in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def _target(name: str) -> tuple[str, str]:
+    digest = hashlib.sha256()
+    for path in sources(name):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -25,11 +25,19 @@ device memory in 64-row tiles, so they take any length. ``head_dim`` ≤ 128
 stays a hard limit: the kernels are built for 32, 64 and 128, and another
 head dim is zero-padded to the next of those (exact; the scale uses the
 true head dim).
+
+Which body a backward call runs is a fact of its dtype (:func:`bwd_body`):
+bf16/f16 the TMA + ``wgmma`` kernels at head dims 64 and 128 (a head dim
+of 32 or less is zero-padded to 64 for them, :func:`bwd_head_dim`), whose
+dK/dV tiling is :func:`bwd_plan` (pure, cached per shape); f32 the
+CUDA-core kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -112,6 +120,63 @@ def dkdv_plain(q, k, v, do, lse, delta, scale: float, causal: bool):
 
 
 # ---------------------------------------------------------------------------
+# the backward's body and tiling
+# ---------------------------------------------------------------------------
+
+WGMMA_HEAD_DIMS = (64, 128)  # the head dims of the TMA + wgmma backward
+SHORT = 1024  # tokens up to which a sequence's blocks are few and short (ViT at 224²)
+
+
+class BwdPlan(NamedTuple):
+    """The backward's body and, for ``wgmma``, the tiling of dK/dV: its
+    query tile and the stages of its Q/dO ring (the f32 body takes none:
+    zeros). dQ's ring is the kernel's own (two 64-key stages)."""
+
+    body: str
+    dkdv_bq: int
+    dkdv_stages: int
+
+
+def bwd_body(dtype: torch.dtype, d: int) -> str:
+    """``wgmma`` (bf16/f16) or ``f32``, for the kernels' head dim ``d``;
+    a 16-bit head dim the ``wgmma`` bodies are not built for raises (the
+    autograd Function pads it, :func:`bwd_head_dim`)."""
+    if dtype == torch.float32:
+        return "f32"
+    if d not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"the 16-bit flash backward runs at head dims {WGMMA_HEAD_DIMS}, "
+                         f"not {d}: pad to bwd_head_dim")
+    return "wgmma"
+
+
+def bwd_head_dim(dtype: torch.dtype, d: int) -> int:
+    """The head dim the backward kernels run a head dim ``d`` at:
+    :func:`padded_head_dim`, and at least 64 in bf16/f16."""
+    dp = padded_head_dim(d)
+    return dp if dtype == torch.float32 else max(dp, WGMMA_HEAD_DIMS[0])
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(L: int, d: int, dtype: torch.dtype) -> BwdPlan:
+    """The backward of one (length, kernel head dim, dtype), as measured on
+    the H100 (``PERF.md`` §6). Both kernels run blocks of one consumer
+    warpgroup (64 rows) and a producer warp, two or three to an SM (two
+    warpgroups a block were slower at every shape measured). dK/dV
+    streams Q/dO in tiles of 32 queries where the sequence is short
+    (≤ SHORT tokens: three blocks an SM at 131 registers) or the head dim
+    is 128 (the dK and dV accumulators of 64 keys × 128 take the
+    registers), else 64 (fewer, wider products); its ring holds four tiles
+    where the sequence is short (all of ViT-S's 196 tokens in flight at
+    once), else two. Causal shapes take the plans of their length."""
+    body = bwd_body(dtype, d)
+    if body != "wgmma":
+        return BwdPlan(body, 0, 0)
+    short = L <= SHORT
+    bq = 32 if short or d == 128 else 64
+    return BwdPlan(body, bq, min(4 if short else 2, -(-L // bq)))
+
+
+# ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 
@@ -122,10 +187,10 @@ def _lib():
     lib = _build.load("flash_attention")
     if lib.flash_fwd_launch.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [i, i, i, i, i, f, vp]  # BH, L, D, dtype, causal, scale, stream
-        lib.flash_fwd_launch.argtypes = [vp] * 5 + tail
-        lib.flash_dq_launch.argtypes = [vp] * 7 + tail
-        lib.flash_dkdv_launch.argtypes = [vp] * 8 + tail
+        head = [i, i, i, i, i, f]  # BH, L, D, dtype, causal, scale
+        lib.flash_fwd_launch.argtypes = [vp] * 5 + head + [vp]  # stream
+        lib.flash_dq_launch.argtypes = [vp] * 7 + head + [vp]  # stream
+        lib.flash_dkdv_launch.argtypes = [vp] * 8 + head + [i, i, vp]  # bq, stages, stream
         for fn in (lib.flash_fwd_launch, lib.flash_dq_launch, lib.flash_dkdv_launch):
             fn.restype = ctypes.c_int
     return lib
@@ -153,10 +218,10 @@ def _check(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"flash {name} kernel reads contiguous, 16-byte aligned operands")
 
 
-def _call(fn, name: str, *ptrs, bh, L, d, dtype, causal, scale, device):
+def _call(fn, name: str, *ptrs, bh, L, d, dtype, causal, scale, device, plan=()):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*ptrs, bh, L, d, _DTYPE_CODE[dtype], int(causal), float(scale), stream)
+        err = fn(*ptrs, bh, L, d, _DTYPE_CODE[dtype], int(causal), float(scale), *plan, stream)
     if err != 0:
         raise RuntimeError(f"flash_{name}_launch failed: CUDA error {err}")
 
@@ -180,6 +245,7 @@ def dq_kernel(q, k, v, do, lse, delta, scale: float, causal: bool):
     global dq_launches
     _check("dq", q, k, v, do, lse, delta)
     bh, L, d = q.shape
+    bwd_body(q.dtype, d)  # raises at a head dim the 16-bit body is not built for
     dq = torch.empty_like(q)
     _call(_lib().flash_dq_launch, "dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh=bh, L=L, d=d,
@@ -193,10 +259,12 @@ def dkdv_kernel(q, k, v, do, lse, delta, scale: float, causal: bool):
     global dkdv_launches
     _check("dkdv", q, k, v, do, lse, delta)
     bh, L, d = q.shape
+    p = bwd_plan(L, d, q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call(_lib().flash_dkdv_launch, "dkdv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-          bh=bh, L=L, d=d, dtype=q.dtype, causal=causal, scale=scale, device=q.device)
+          bh=bh, L=L, d=d, dtype=q.dtype, causal=causal, scale=scale, device=q.device,
+          plan=(p.dkdv_bq, p.dkdv_stages))
     dkdv_launches += 1
     return dk, dv
 
@@ -263,6 +331,9 @@ class _Flash(torch.autograd.Function):
         delta = (g.float() * o.float()).sum(-1)
         if g_lse is not None:
             delta = delta - g_lse.reshape(b * h, L).float()
+        db = bwd_head_dim(qf.dtype, dp) if kernel_tier.use_kernel(qf) else dp
+        if db != dp:  # zeros add nothing to any product
+            qf, kf, vf, g = (torch.nn.functional.pad(t, (0, db - dp)) for t in (qf, kf, vf, g))
         args = (qf, kf, vf, g, lse, delta.contiguous(), ctx.scale, ctx.causal)
         dq = _dq(*args)
         dk, dv = _dkdv(*args)

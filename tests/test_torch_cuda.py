@@ -11,9 +11,13 @@ on the card through the engine, every fused site launching the kernel.
 The fused optimizer update is held bit for bit against its plain version
 for each body, and a train step launches it exactly once. The three
 flash-attention kernels are held against their plain versions at ragged
-lengths, causal and not, in bf16 and f32; the gradients through the
-autograd Function on the card against the same Function on the CPU; and
-each launch counter moves once per call. The decode-attention kernel is
+lengths (ViT-S's 196, 257, 1100 and 4096 among them), causal and not, in
+bf16, f16 and f32, at head dims 32, 64 and 128 (each backward body: TMA +
+wgmma, its 16-bit d 32 padded to 64, and f32); every dK/dV plan is one the
+launcher takes; the backward reads no other head's rows and gives the
+same bits twice; the gradients through the autograd Function on the
+card against the same Function on the CPU; and each launch counter moves
+once per call. The decode-attention kernel is
 held against its plain version at head dims 32/64/128 in bf16 and f32, a
 decode step of the generation engine launches it once per block, and the
 engine's f32 greedy streams on the card equal the CPU's. The grouped 3x3
@@ -219,7 +223,8 @@ def test_opt_update_refuses_what_it_does_not_take():
         ou.update([p], [gr], [p.half()], None, h, 0.1, 1)
 
 
-FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}  # of the reference's scale
+# of the reference's scale; f16 rounds p and dS as bf16 does, with more bits
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6, torch.float16: 2 ** -6}
 
 
 def _flash_inputs(dev, shape, dtype, seed=0):
@@ -233,12 +238,25 @@ def _close(got, want, tol):
     assert float((got.float() - want.float()).abs().max()) <= tol * scale
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+FLASH_CARD_SHAPES = [  # (BH, L, d): the backward's query tile, ring and ragged last tile
+    (6, 150, 64),  # dK/dV query tile 32, a four-stage ring, ragged
+    (3, 70, 32),  # the forward at d 32; the 16-bit backward padded to 64; two key tiles
+    (2, 200, 128),  # d 128: two boxes a row, query tile 32
+    (4, 196, 64),  # ViT-S's length: every query tile in flight at once
+    (2, 257, 128),  # one query (key) past four tiles: a last tile of one row
+    (2, 1100, 128),  # past SHORT at d 128: query tile 32, a two-stage ring, ragged
+    (2, 4096, 64),  # ViT-Ti at 1024²: query tile 64, a two-stage ring
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("bh,L,d", [(6, 150, 64), (3, 70, 32), (2, 200, 128)])
+@pytest.mark.parametrize("bh,L,d", FLASH_CARD_SHAPES)
 def test_flash_kernels_match_plain_on_card(dtype, causal, bh, L, d):
     """Each of the three kernels against its plain version on the same
-    inputs, at ragged lengths (masked key and query tails)."""
+    inputs, at ragged lengths (masked key and query tails), for both
+    backward bodies: wgmma (bf16/f16 at d 64 and 128, and at 32 padded to
+    64 as the autograd Function pads it) and f32."""
     dev = _card()
     q, k, v, do = _flash_inputs(dev, (bh, L, d), dtype)
     scale = d ** -0.5
@@ -246,6 +264,8 @@ def test_flash_kernels_match_plain_on_card(dtype, causal, bh, L, d):
     o, lse = fa.forward_kernel(q, k, v, scale, causal)
     o_ref, lse_ref = fa.forward_plain(q, k, v, scale, causal)
     delta = (do.float() * o_ref.float()).sum(-1)
+    db = fa.bwd_head_dim(dtype, d)
+    q, k, v, do = (torch.nn.functional.pad(t, (0, db - d)) for t in (q, k, v, do))
     dq = fa.dq_kernel(q, k, v, do, lse_ref, delta, scale, causal)
     dk, dv = fa.dkdv_kernel(q, k, v, do, lse_ref, delta, scale, causal)
     dq_ref = fa.dq_plain(q, k, v, do, lse_ref, delta, scale, causal)
@@ -257,6 +277,70 @@ def test_flash_kernels_match_plain_on_card(dtype, causal, bh, L, d):
     _close(lse, lse_ref, 1e-5)
     for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         _close(got, want, tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", [196, 4096, 150, 197, 4097, 70, 1100])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_backward_launches_every_plan(causal, L, d):
+    """The dK/dV plan of every length and head dim the CPU tests pin is
+    one the launcher takes (its shared-memory check is the only copy of
+    the kernels' layout), and both backward kernels agree with their plain
+    versions there, in bf16 at the backward's head dim."""
+    dev = _card()
+    db = fa.bwd_head_dim(torch.bfloat16, d)
+    q, k, v, do = _flash_inputs(dev, (1, L, db), torch.bfloat16, seed=L)
+    scale = d ** -0.5
+    o, lse = fa.forward_plain(q, k, v, scale, causal)
+    args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1), scale, causal)
+    got = [fa.dq_kernel(*args), *fa.dkdv_kernel(*args)]
+    want = [fa.dq_plain(*args), *fa.dkdv_plain(*args)]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _close(g, w, FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_reads_no_other_head(causal, d):
+    """Head 1 holds NaN everywhere (inputs, lse, delta); heads 0 and 2
+    (L = 197: a ragged last tile, whose rows past L must read zeros, not
+    the next head's) give the same dQ, dK and dV bits as each run alone.
+    A masked pair times a NaN read from head 1 is NaN, so a read across
+    the head boundary cannot hide behind the mask."""
+    dev = _card()
+    L, scale = 197, d ** -0.5
+    q, k, v, do = _flash_inputs(dev, (3, L, d), torch.bfloat16, seed=5)
+    for t in (q, k, v, do):
+        t[1] = float("nan")
+    _, lse = fa.forward_plain(q, k, v, scale, causal)
+    delta = (do.float() * fa.forward_plain(q, k, v, scale, causal)[0].float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    dq, (dk, dv) = fa.dq_kernel(*args, scale, causal), fa.dkdv_kernel(*args, scale, causal)
+    for h in (0, 2):
+        one = [t[h:h + 1].clone() for t in args]
+        dq1, (dk1, dv1) = fa.dq_kernel(*one, scale, causal), fa.dkdv_kernel(*one, scale, causal)
+        torch.cuda.synchronize()
+        for got, alone in ((dq, dq1), (dk, dk1), (dv, dv1)):
+            assert torch.isfinite(alone.float()).all()
+            assert torch.equal(got[h], alone[0])
+
+
+@pytest.mark.parametrize("bh,L,d", [(24, 196, 64), (3, 1100, 64), (2, 300, 128)])
+def test_flash_backward_is_bitwise_repeatable(bh, L, d):
+    """No atomics: each kernel owns its output rows, so two launches give
+    the same bits."""
+    dev = _card()
+    q, k, v, do = _flash_inputs(dev, (bh, L, d), torch.bfloat16, seed=6)
+    scale = d ** -0.5
+    o, lse = fa.forward_kernel(q, k, v, scale, False)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, scale, False)
+    first = [fa.dq_kernel(*args), *fa.dkdv_kernel(*args)]
+    second = [fa.dq_kernel(*args), *fa.dkdv_kernel(*args)]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("causal", [False, True])

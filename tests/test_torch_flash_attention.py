@@ -166,3 +166,146 @@ def test_kernel_accounting():
     f = tfa.flops(12, 4096, 64)
     assert f["forward"] == 4 * 12 * 4096 ** 2 * 64 and f["dkdv"] == 2 * f["forward"]
     assert tfa.flops(1, 4, 8, causal=True)["forward"] == 4 * 10 * 8
+
+
+# ---- the backward's body and tiling (pure functions: pinned here, run on the card)
+
+# (L, d) that the ViT configs and chip_smoke.py's FLASH_SHAPES reach: ViT-Ti/S
+# at 224² (196 tokens) and 1024² (4096), head dims 32/64/128, ragged lengths
+PLAN_SHAPES = [(L, d) for L in (196, 4096, 150, 197, 4097, 70, 1100) for d in (32, 64, 128)]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_bwd_body_is_chosen_by_dtype_and_head_dim(d):
+    """bf16/f16 run the wgmma bodies at 64 and 128, a head dim of 32 padded
+    to 64 for them; f32 runs its own bodies at its own head dim."""
+    for dtype in (torch.bfloat16, torch.float16):
+        assert tfa.bwd_head_dim(dtype, d) == max(d, 64)
+        assert tfa.bwd_body(dtype, tfa.bwd_head_dim(dtype, d)) == "wgmma"
+        if d == 32:
+            with pytest.raises(ValueError, match="head dims"):
+                tfa.bwd_body(dtype, d)
+    assert tfa.bwd_head_dim(torch.float32, d) == d
+    assert tfa.bwd_body(torch.float32, d) == "f32"
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        db = tfa.bwd_head_dim(dtype, d)
+        assert tfa.bwd_plan(196, db, dtype).body == tfa.bwd_body(dtype, db)
+
+
+def _fake_launchers(monkeypatch):
+    """Stand-ins for the C entry points (the card runs them): each call is
+    recorded as (entry point, L, d, dtype, causal, plan); the launch
+    counters are restored after the test."""
+    calls = []
+    for counter in ("dq_launches", "dkdv_launches"):
+        monkeypatch.setattr(tfa, counter, getattr(tfa, counter))
+    monkeypatch.setattr(tfa, "_lib", lambda: type("Lib", (), {
+        "flash_dq_launch": "dq", "flash_dkdv_launch": "dkdv"}))
+    monkeypatch.setattr(tfa, "_call", lambda fn, name, *ptrs, plan=(), **kw: calls.append(
+        (fn, kw["L"], kw["d"], kw["dtype"], kw["causal"], tuple(plan))))
+    return calls
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("L,d", PLAN_SHAPES, ids=lambda v: str(v))
+def test_bwd_plan_is_legal(monkeypatch, L, d, dtype, causal):
+    """At the backward's head dim for ``d``, the wgmma bodies' plan is a
+    dK/dV query tile the kernel is built for (32, or 64 at d 64) and a
+    ring of 1..4 stages, no more than the sequence has tiles; the f32 body
+    takes none. The wrappers hand it, and ``causal``, to the entry points
+    (the launcher checks the plan's shared memory on the card)."""
+    db = tfa.bwd_head_dim(dtype, d)
+    p = tfa.bwd_plan(L, db, dtype)
+    if p.body == "f32":
+        assert p[1:] == (0, 0)
+    else:
+        assert p.dkdv_bq in ((32, 64) if db == 64 else (32,))
+        assert 1 <= p.dkdv_stages <= min(4, -(-L // p.dkdv_bq))
+    calls = _fake_launchers(monkeypatch)
+    q = torch.zeros(1, L, db, dtype=dtype)
+    lse = torch.zeros(1, L)
+    tfa.dq_kernel(q, q, q, q, lse, lse, 0.125, causal)
+    tfa.dkdv_kernel(q, q, q, q, lse, lse, 0.125, causal)
+    assert calls == [("dq", L, db, dtype, causal, ()),
+                     ("dkdv", L, db, dtype, causal, (p.dkdv_bq, p.dkdv_stages))]
+
+
+@pytest.mark.parametrize("L,causal,want", [
+    (196, False, tfa.BwdPlan("wgmma", 32, 4)),  # ViT-S train [192, 196, 64]
+    (196, True, tfa.BwdPlan("wgmma", 32, 4)),
+    (4096, False, tfa.BwdPlan("wgmma", 64, 2)),  # ViT-Ti at 1024² [12, 4096, 64]
+    (4096, True, tfa.BwdPlan("wgmma", 64, 2)),
+])
+def test_bwd_plan_pins_the_main_shapes(monkeypatch, L, causal, want):
+    """The plan at the main path's shapes, and the one the dK/dV wrapper
+    passes there, causal or not."""
+    assert tfa.bwd_plan(L, 64, torch.bfloat16) == want
+    calls = _fake_launchers(monkeypatch)
+    q = torch.zeros(1, L, 64, dtype=torch.bfloat16)
+    tfa.dkdv_kernel(q, q, q, q, torch.zeros(1, L), torch.zeros(1, L), 0.125, causal)
+    assert calls == [("dkdv", L, 64, torch.bfloat16, causal, want[1:])]
+
+
+def test_bwd_plan_is_cached_per_shape():
+    tfa.bwd_plan.cache_clear()
+    first = tfa.bwd_plan(196, 64, torch.bfloat16)
+    assert tfa.bwd_plan(196, 64, torch.bfloat16) is first
+    assert tfa.bwd_plan.cache_info().hits == 1
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.float16, 128),
+                                     (torch.bfloat16, 32), (torch.float32, 64)])
+def test_backward_wrappers_pass_the_plan_to_the_launchers(monkeypatch, dtype, d):
+    """dq_kernel and dkdv_kernel hand the entry points dK/dV's tiling
+    (bq, stages) and count one launch each; a 16-bit head dim the wgmma
+    bodies are not built for raises before any launch. The launch itself
+    is stood in for here (the card runs it)."""
+    calls = _fake_launchers(monkeypatch)
+    q = torch.zeros(2, 197, d, dtype=dtype)
+    lse, delta = torch.zeros(2, 197), torch.zeros(2, 197)
+    before = tfa.launch_counts()
+    if d not in tfa.WGMMA_HEAD_DIMS and dtype != torch.float32:
+        for kernel in (tfa.dq_kernel, tfa.dkdv_kernel):
+            with pytest.raises(ValueError, match="head dims"):
+                kernel(q, q, q, q, lse, delta, 0.125, True)
+        assert calls == [] and tfa.launch_counts() == before
+        q = torch.zeros(2, 197, tfa.bwd_head_dim(dtype, d), dtype=dtype)
+    tfa.dq_kernel(q, q, q, q, lse, delta, 0.125, True)
+    tfa.dkdv_kernel(q, q, q, q, lse, delta, 0.125, True)
+    db = q.shape[-1]
+    p = tfa.bwd_plan(197, db, dtype)
+    assert calls == [("dq", 197, db, dtype, True, ()),
+                     ("dkdv", 197, db, dtype, True, (p.dkdv_bq, p.dkdv_stages))]
+    assert tfa.launch_counts() == {**before, "dq": before["dq"] + 1,
+                                   "dkdv": before["dkdv"] + 1}
+
+
+@pytest.mark.parametrize("d", [24, 32])
+def test_backward_pads_a_small_16bit_head_dim_to_the_wgmma_bodies(monkeypatch, d):
+    """On the card the autograd Function runs a bf16 backward of head dim
+    ≤ 32 at 64: zero columns, which change no gradient. Stood in for on
+    the CPU: the kernel wrappers are the plain versions, with the head dim
+    they are handed recorded; the gradients equal the unpadded run's to
+    a bf16 ulp of their scale (the fp32 sums may block differently)."""
+    rng = np.random.default_rng(7)
+    arrs = [rng.standard_normal((1, 2, 40, d)).astype(np.float32) for _ in range(4)]
+
+    def grads():
+        q, k, v = (torch.tensor(a).to(torch.bfloat16).requires_grad_() for a in arrs[:3])
+        o = tfa.flash_attention(q, k, v, causal=True)
+        return torch.autograd.grad((o.float() * torch.tensor(arrs[3])).sum(), (q, k, v))
+
+    want = grads()
+    seen = []
+    monkeypatch.setattr(tfa.kernel_tier, "use_kernel", lambda t: True)
+    monkeypatch.setattr(tfa, "forward_kernel", tfa.forward_plain)
+    for name, plain in (("dq_kernel", tfa.dq_plain), ("dkdv_kernel", tfa.dkdv_plain)):
+        monkeypatch.setattr(tfa, name, lambda *a, plain=plain: seen.append(a[0].shape[-1])
+                            or plain(*a))
+    got = grads()
+    assert seen == [64, 64]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = max(float(w.float().abs().max()), 1.0)
+        assert float((g.float() - w.float()).abs().max()) <= 2 ** -7 * scale
