@@ -25,7 +25,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    batch 8, eval batch 200, bf16), the ViT-Ti/16 1024² shape
    [4·3, 4096, 64] (bf16, plain and causal) and a ragged f32 shape, with
    ``F.scaled_dot_product_attention`` (forward; backward) as the library,
-   each backward row with its ``bwd_plan``, and a ``flash_backward`` row a
+   each forward row with its ``fwd_plan``, each backward row with its
+   ``bwd_plan``, and a ``flash_backward`` row a
    shape (the fp32 delta reduction, dQ and dK/dV, as the autograd
    Function runs them) against SDPA's whole backward;
    decode_attention at the GPT-nano decode tiles (4 and 32 slots × 256
@@ -502,8 +503,9 @@ def flash_kernel_phase(torch, fa, dev):
     """The flash forward, dQ and dK/dV against their plain versions at
     FLASH_SHAPES (the backward kernels on the plain forward's lse and
     delta), each timed beside its plain version and SDPA: forward for the
-    forward, its backward (dQ, dK and dV together) for dQ and dK/dV; dQ and
-    dK/dV with the shape's ``bwd_plan``. Then a ``flash_backward`` row a
+    forward, its backward (dQ, dK and dV together) for dQ and dK/dV; the
+    forward with the shape's ``fwd_plan``, dQ and dK/dV with its
+    ``bwd_plan``. Then a ``flash_backward`` row a
     shape: the backward as the autograd Function runs it (the fp32 delta
     reduction, dQ, dK/dV) against SDPA's whole backward, like for like.
     Returns {shape name: {kernel: row}}."""
@@ -541,6 +543,7 @@ def flash_kernel_phase(torch, fa, dev):
         }
         nbytes, ops = fa.pass_bytes(b * h, L, d, dtype), fa.flops(b * h, L, d, causal)
         plan = fa.bwd_plan(L, d, dtype)._asdict()
+        plans = {"forward": fa.fwd_plan(b * h, L, d, dtype)._asdict(), "dq": plan, "dkdv": plan}
         rows = {}
         for kern, (fn, plain, lib) in calls.items():
             t_bytes = nbytes[kern] / HBM_BYTES_PER_S * 1e3
@@ -558,7 +561,7 @@ def flash_kernel_phase(torch, fa, dev):
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes[kern], "flops": ops[kern],
-                **({} if kern == "forward" else {"plan": plan}),
+                "plan": plans[kern],
             }
             emit(row)
             if not row["scaled_err"] <= FLASH_TOL[dt]:
@@ -1214,7 +1217,7 @@ def _regnet_kind(n: str) -> str:
 
 def _vit_kind(n: str) -> str:
     low = n.lower()
-    return ("flash_forward" if "fwd_mma" in n
+    return ("flash_forward" if "fwd_wgmma" in n
             else "flash_dq" if "dq_wgmma" in n
             else "flash_dkdv" if "dkdv_wgmma" in n
             else "opt_update" if "opt_update" in n

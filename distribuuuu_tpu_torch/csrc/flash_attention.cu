@@ -4,9 +4,9 @@
 //   * _fwd_kernel  (reached through _flash_forward, :315)  -> flash_fwd_launch
 //   * _dq_kernel   (reached through _flash_backward, :359) -> flash_dq_launch
 //   * _dkdv_kernel (reached through _flash_backward, :372) -> flash_dkdv_launch
-// on q, k, v, dO of [BH, L, D] (contiguous; D in {32, 64, 128} for the
-// forward and the fp32 backward, {64, 128} for the 16-bit backward; the
-// wrapper zero-pads any other D <= 128), lse and delta of [BH, L] in fp32.
+// on q, k, v, dO of [BH, L, D] (contiguous; D in {64, 128} in bf16/f16,
+// {32, 64, 128} in fp32; the wrapper zero-pads any other D <= 128, a 16-bit
+// D <= 32 to 64), lse and delta of [BH, L] in fp32.
 //
 //   forward:  o = softmax(q k^T * scale) v,  lse = m + log(l)   (online softmax)
 //   dQ:       p = exp(s - lse), ds = p (dO v^T - delta) scale,  dq = ds k
@@ -14,63 +14,57 @@
 //
 // with keys past L masked, and under `causal` keys past the query row. The
 // rounding points are the Pallas bodies': p is rounded to the input dtype
-// before p.v and p^T.dO, ds before ds.k and ds^T.q; everything else is fp32.
+// before p.v and p^T.dO, ds before ds.k and ds^T.q; everything else is fp32
+// (the forward's row sum l adds the fp32 p).
 //
 // What bounds it on the H100: at the ViT-S/16 training shape [32*6, 196, 64]
-// a call does about 2 GFLOP over 20-30 MB, under the ~295 operations per
-// byte the tensor cores need, so it is bound by bytes (about 6-9 us at
-// 3.35 TB/s); its 768 small blocks make it a matter of latency first. At
-// ViT-Ti/16 on 1024^2 inputs ([4*3, 4096, 64]) a call does 51-103 GFLOP
+// a call does 1-2 GFLOP over 20-30 MB, under the ~295 operations per byte
+// the tensor cores need, so it is bound by bytes (about 6-9 us at
+// 3.35 TB/s); its 384-768 small blocks make it a matter of latency first.
+// At ViT-Ti/16 on 1024^2 inputs ([4*3, 4096, 64]) a call does 51-103 GFLOP
 // over a few MB: bound by the tensor cores (50-100 us at 989 TFLOP/s),
 // which only wgmma fed from shared memory reaches. Every design keeps the
 // L x L scores and probabilities out of device memory (they live in
 // registers for one tile).
 //
-// The backward's 16-bit bodies at D 64 and 128 (dq_wgmma, dkdv_wgmma):
-//  * a block is one consumer warpgroup of 64 rows (queries for dQ, keys
-//    for dK/dV) and one producer warp: 160 threads, so that two or three
-//    blocks share an SM and their products interleave on the tensor cores
-//    (dQ at D 64 fits 128 registers: three blocks; dK/dV 131 with a query
-//    tile of 32, three blocks, and 166 with 64, two; ptxas then spills 48
-//    bytes and serialises that body's wgmma, which measured faster than
-//    the 178 registers it takes unbounded). The block's own rows
-//    are loaded once (Q and dO, or K and V); the other side streams through
-//    a ring of stages (K, V; or Q, dO with their lse and delta), filled by
-//    TMA and completed on mbarriers while the consumer works on the stages
-//    that arrived;
+// The 16-bit bodies (fwd_wgmma, dq_wgmma, dkdv_wgmma) at D 64 and 128:
+//  * a block is one or two consumer warpgroups of 64 rows (queries for the
+//    forward and dQ, keys for dK/dV) and one producer warp, so that two to
+//    four blocks share an SM and their products interleave on the tensor
+//    cores. The block's own rows are loaded once (Q; Q and dO; or K and V);
+//    the other side streams through a ring of stages (K and V; or Q, dO
+//    with their lse and delta), filled by TMA and completed on mbarriers
+//    while the consumers work on the stages that arrived;
 //  * every operand is a box of a 3-D tensor map over [BH, L, D] with the
 //    128-byte swizzle, so rows past L of a head read zeros (never the next
 //    head's), and each product reads it in that layout: K-major for
 //    S = Q.K^T, dP = dO.V^T, S^T = K.Q^T and dP^T = V.dO^T, MN-major through
-//    wgmma's transpose bit for dS.K, P^T.dO and dS^T.Q, whose A operand is
-//    the previous product's fp32 accumulator rounded to T in registers. No
-//    tile is transposed in shared memory;
-//  * wgmma.mma_async m64nNk16 with fp32 accumulators, each tile's products
-//    in commit groups so that the exp of S runs while dP is computed, and
-//    dS^T while dV's product runs; the dK/dV query tile (32 or 64) and the
-//    dK/dV ring's stages are the wrapper's per-shape plan (ops/cuda/
-//    flash_attention.py `bwd_plan`); dQ's ring holds two stages;
+//    wgmma's transpose bit for P.V, dS.K, P^T.dO and dS^T.Q, whose A operand
+//    is the previous product's fp32 accumulator rounded to T in registers.
+//    No tile is transposed in shared memory;
+//  * wgmma.mma_async m64nNk16 with fp32 accumulators. The forward runs
+//    S = Q.K^T, the softmax (exp2 domain, on the SFU) and P.V of a tile in
+//    turn: its overlap is across warpgroups, two to four on an SM, because
+//    issuing the next tile's S before this tile's P.V measured slower (it
+//    holds each stage one tile longer). dQ computes the exp of S under dP
+//    in commit groups, dK/dV dS^T under dV's product;
+//  * the forward's tiling (consumer warpgroups, key tile, ring stages) and
+//    dK/dV's (query tile, stages) are the wrapper's per-shape plans (ops/
+//    cuda/flash_attention.py `fwd_plan`, `bwd_plan`); dQ's ring holds two
+//    stages. Each launcher checks its plan against its shared memory;
 //  * masks (keys or queries past L, causal) are applied only in the tiles
-//    that hold masked pairs; causal: wholly masked tiles are skipped (dQ's
-//    last key tiles, dK/dV's first query tiles), and dQ launches its
-//    longest rows first.
-// A 16-bit backward at D 32 comes here zero-padded to D 64 by the wrapper
-// (exact: the padded columns add 0 to every product).
+//    that hold masked pairs; causal: wholly masked tiles are skipped (the
+//    forward's and dQ's last key tiles, dK/dV's first query tiles), and
+//    the forward and dQ launch their longest rows first. Key tile 0 is
+//    always the first a query row meets, so its running max is finite from
+//    the first tile on (masked scores never enter it).
 //
-// The forward and the fp32 backward (right and simple first):
-//  * a block owns 64 query rows (forward, dQ) or 64 keys (dK/dV) of one
-//    (batch, head). The other side is streamed from device memory through
-//    shared memory in tiles of 64, so any L runs (the TPU kernels kept
-//    whole-sequence K/V in VMEM);
-//  * bf16/f16 forward: 4 warps of 16 rows; S = Q.K^T and P.V on
-//    mma.sync.m16n8k16 with fp32 accumulators; the accumulator layout of
-//    S is the A operand layout of P.V, so P never leaves registers. V is
-//    stored transposed in shared memory when its tile is loaded;
-//  * fp32: the CUDA cores (fp32 FMA, no TF32), one thread per query row
-//    (forward, dQ) or key row (dK/dV);
-//  * no atomics: dQ and dK/dV are two kernels, each owning its output rows,
-//    so the bits do not depend on scheduling. Query rows past L contribute
-//    exactly 0 to dK/dV (masked explicitly).
+// The fp32 bodies (right and simple first): the CUDA cores (fp32 FMA, no
+// TF32), one thread per query row (forward, dQ) or key row (dK/dV) of a
+// block's 64, the other side streamed through shared memory in tiles of 64;
+// no atomics: dQ and dK/dV are two kernels, each owning its output rows, so
+// the bits do not depend on scheduling. Query rows past L contribute
+// exactly 0 to dK/dV (masked explicitly).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -86,10 +80,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr int BT = 64;  // rows of a block's own tile, and of a streamed tile
-constexpr int THREADS = 128;  // 4 warps x 16 rows (the 16-bit forward)
-constexpr int PAD = 8;  // 16-byte row padding of 16-bit tiles: conflict-free fragments
-constexpr int TLD = BT + PAD;  // row stride of a transposed [D][64] tile
+constexpr int BT = 64;  // rows of a block's own tile, and of a streamed tile (fp32)
 constexpr float NEG_BIG = -0.7f * FLT_MAX;
 
 enum DType { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
@@ -101,13 +92,6 @@ struct Ops;
 
 template <>
 struct Ops<__nv_bfloat16> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
   // two floats rounded to the type, `lo` in the low 16 bits
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -117,89 +101,13 @@ struct Ops<__nv_bfloat16> {
 
 template <>
 struct Ops<__half> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
 };
 
-template <typename T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy rows r0..r0+63 of a row-major [L, D] slab into shared memory, as a
-// row-major [64][D + PAD] tile (ROW) and/or a transposed [D][TLD] tile
-// (TRANS); rows past L are zero.
-template <typename T, int D, bool ROW, bool TRANS>
-__device__ __forceinline__ void load_tile(T* row, T* tr, const T* src, int r0, int L) {
-  constexpr int CH = D / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < BT * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L) v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    if (ROW) *reinterpret_cast<uint4*>(row + r * (D + PAD) + c) = v;
-    if (TRANS) {
-      const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) tr[(c + j) * TLD + r] = e[j];
-    }
-  }
-}
-
-// mma.m16n8k16 fragments (PTX ISA, g = lane / 4, t = lane % 4).
-// A (16 x 16, row-major in shared memory at rows m0.., columns k0..).
-template <typename T>
-__device__ __forceinline__ void frag_a(uint32_t* a, const T* s, int ld, int m0, int k0, int g,
-                                       int t) {
-  a[0] = ld32(s + (m0 + g) * ld + k0 + 2 * t);
-  a[1] = ld32(s + (m0 + g + 8) * ld + k0 + 2 * t);
-  a[2] = ld32(s + (m0 + g) * ld + k0 + 2 * t + 8);
-  a[3] = ld32(s + (m0 + g + 8) * ld + k0 + 2 * t + 8);
-}
-
-// B (16 x 8) from a tile stored [n][k]: B[k][n] = s[(n0 + n) * ld + k0 + k].
-template <typename T>
-__device__ __forceinline__ void frag_b(uint32_t* b, const T* s, int ld, int n0, int k0, int g,
-                                       int t) {
-  b[0] = ld32(s + (n0 + g) * ld + k0 + 2 * t);
-  b[1] = ld32(s + (n0 + g) * ld + k0 + 2 * t + 8);
-}
-
-// The A fragment of columns 16*kc.. of a 16 x 64 accumulator held as eight
-// 16 x 8 tiles: c0,c1 at (g, 2t..2t+1), c2,c3 at (g + 8, 2t..2t+1).
-template <typename T>
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*c)[4], int kc) {
-  a[0] = Ops<T>::pack(c[2 * kc][0], c[2 * kc][1]);
-  a[1] = Ops<T>::pack(c[2 * kc][2], c[2 * kc][3]);
-  a[2] = Ops<T>::pack(c[2 * kc + 1][0], c[2 * kc + 1][1]);
-  a[3] = Ops<T>::pack(c[2 * kc + 1][2], c[2 * kc + 1][3]);
-}
-
-// Store a warp's 16 x D fp32 accumulator (rows row0 and row0 + 8 of this
-// thread) as T, rows past L skipped.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, const float (*acc)[4], int row0, int L, int t,
-                                           float div0, float div1) {
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (row0 < L)
-      *reinterpret_cast<uint32_t*>(out + (size_t)row0 * D + col) =
-          Ops<T>::pack(acc[nd][0] / div0, acc[nd][1] / div0);
-    if (row0 + 8 < L)
-      *reinterpret_cast<uint32_t*>(out + (size_t)(row0 + 8) * D + col) =
-          Ops<T>::pack(acc[nd][2] / div1, acc[nd][3] / div1);
-  }
-}
-
+// the max and sum over the four lanes that hold one accumulator row
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -210,138 +118,38 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ------------------------------------------------------- forward, mma path
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            T* __restrict__ o, float* __restrict__ lse, int L, int causal, float scale) {
-  constexpr int LD = D + PAD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);  // [64][LD]
-  T* Ks = Qs + BT * LD;                // [64][LD]
-  T* Vt = Ks + BT * LD;                // [D][TLD]
-
-  const size_t base = (size_t)blockIdx.y * L * D;
-  q += base, k += base, v += base, o += base;
-  lse += (size_t)blockIdx.y * L;
-  const int q0 = blockIdx.x * BT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-
-  load_tile<T, D, true, false>(Qs, nullptr, q, q0, L);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) frag_a(qa[kc], Qs, LD, wr, kc * 16, g, t);
-
-  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.0f, 0.0f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
-
-  const int nk = (L + BT - 1) / BT;
-  const int nk_hi = causal ? min(nk, (q0 + 2 * BT - 1) / BT) : nk;  // causal block skip
-  for (int kt = 0; kt < nk_hi; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D, true, false>(Ks, nullptr, k, k0, L);
-    load_tile<T, D, false, true>(nullptr, Vt, v, k0, L);
-    __syncthreads();
-
-    float s[BT / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-#pragma unroll
-      for (int nt = 0; nt < BT / 8; ++nt) {
-        uint32_t b[2];
-        frag_b(b, Ks, LD, nt * 8, kc * 16, g, t);
-        Ops<T>::mma(s[nt], qa[kc], b);
-      }
-
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const int row = (e < 2) ? row0 : row1;
-        float x = s[nt][e] * scale;
-        if (col >= L || (causal && col > row)) x = NEG_BIG;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float corr[2], rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      corr[r] = expf(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        rs[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = corr[r] * l[r] + rs[r];  // this thread's share of the row
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      acc[nd][0] *= corr[0];
-      acc[nd][1] *= corr[0];
-      acc[nd][2] *= corr[1];
-      acc[nd][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kc = 0; kc < BT / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a<T>(pa, s, kc);  // p rounded to the input dtype, as the Pallas body
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        uint32_t b[2];
-        frag_b(b, Vt, TLD, nd * 8, kc * 16, g, t);
-        Ops<T>::mma(acc[nd], pa, b);
-      }
-    }
-  }
-
-  const float ls0 = fmaxf(quad_sum(l[0]), 1e-30f), ls1 = fmaxf(quad_sum(l[1]), 1e-30f);
-  store_rows<T, D>(o, acc, row0, L, t, ls0, ls1);
-  if (t == 0) {
-    if (row0 < L) lse[row0] = m[0] + logf(ls0);
-    if (row1 < L) lse[row1] = m[1] + logf(ls1);
-  }
-}
-
-// ------------------------------------------- backward, TMA + wgmma path
-// bf16/f16 at D 64 and 128. A block is one consumer warpgroup (64 rows)
-// and one producer warp. The block's own rows stay resident in
-// shared memory: Q and dO for dQ, K and V for dK/dV; the other side streams
-// through a ring of `stages` stages. Every operand is a TMA box of
-// [1, rows, 64] from a 3-D map over [BH, L, D] with the 128-byte swizzle:
-// rows past L of a head read zeros, never the next head's. Each product
-// reads its shared-memory operands in that one layout: K-major for
-// S = Q.K^T, dP = dO.V^T (and S^T = K.Q^T, dP^T = V.dO^T), MN-major through
-// the transpose bit for dS.K (and P^T.dO, dS^T.Q), with dS, P^T and dS^T
-// fed from registers: the fp32 accumulator of one product is the A
+// ------------------------------------------------ TMA + wgmma bodies
+// bf16/f16 at D 64 and 128. Every operand is a TMA box of [1, rows, 64]
+// from a 3-D map over [BH, L, D] with the 128-byte swizzle: rows past L of
+// a head read zeros, never the next head's. Each product reads its
+// shared-memory operands in that one layout: K-major for S = Q.K^T,
+// dP = dO.V^T (and S^T = K.Q^T, dP^T = V.dO^T), MN-major through the
+// transpose bit for P.V, dS.K (and P^T.dO, dS^T.Q), with P, dS, P^T and
+// dS^T fed from registers: the fp32 accumulator of one product is the A
 // fragment of the next once rounded to T, so no tile is ever transposed.
 
 constexpr int BOX = 64;  // 16-bit columns of one TMA box: one 128-byte swizzled row
 constexpr int BKV = 64;  // keys of a dQ ring stage
 constexpr int MAX_SMEM = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 constexpr int BWD_THREADS = 160;  // a consumer warpgroup and the producer warp
+
+template <int D, int NWG, int KT>
+struct FwdTile {
+  static constexpr int BM = 64 * NWG;             // query rows of a block
+  static constexpr int THREADS = 128 * NWG + 32;  // the consumer warpgroups and the producer warp
+  static constexpr int WG_BYTES = 64 * D * 2;     // Q of one warpgroup, resident
+  static constexpr int TILE_BYTES = KT * D * 2;   // K (and V) of a stage
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  // blocks an SM the registers are bounded for: at D 64 with 64-key tiles
+  // ptxas takes 96 (four blocks of one warpgroup, two of two), else 128
+  static constexpr int MIN_BLOCKS = D == 64 && KT == 64 ? 4 / NWG : 2 / NWG;
+  static size_t smem(int stages) {
+    return 1024 + NWG * WG_BYTES + (size_t)stages * STAGE_BYTES + (2 * stages + 1) * 8;
+  }
+};
 
 template <int D>
 struct DqTile {
@@ -407,6 +215,206 @@ __device__ __forceinline__ void store_acc(T* out, const float* acc, int r0, int 
       *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + 8) * D + col) =
           Ops<T>::pack(acc[4 * j + 2], acc[4 * j + 3]);
   }
+}
+
+// Forward: the block owns 64 NWG query rows of head blockIdx.x (under
+// `causal` the longest rows launch first); K and V stream through the
+// ring in tiles of KT keys, which every consumer warpgroup reads for its
+// own 64 rows. A warpgroup runs S = Q.K^T, the softmax and P.V (P in
+// registers) of a tile in turn and releases its stage; the products of
+// one warpgroup run under the softmax of the others on the SM (two or
+// three blocks an SM, or two warpgroups a block), and the producer keeps
+// the next tiles in flight. The softmax runs in the exp2 domain: m2 is the
+// row max of s * scale * log2(e) (scale >= 0, which the wrapper
+// guarantees, so it is the scaled max of the raw scores), and
+// p = 2^(s * scale * log2(e) - m2).
+template <typename T, int D, int NWG, int KT>
+__global__ void __launch_bounds__(FwdTile<D, NWG, KT>::THREADS, FwdTile<D, NWG, KT>::MIN_BLOCKS)
+    fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,
+              float* __restrict__ lse, int L, int causal, float scale, int stages) {
+  using P = FwdTile<D, NWG, KT>;
+  constexpr int NB = D / BOX;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = smem_u32(smem), ring = sQ + NWG * P::WG_BYTES;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + NWG * P::WG_BYTES + (size_t)stages * P::STAGE_BYTES);
+  uint64_t* empty = full + stages;
+  uint64_t* resident = empty + stages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * P::BM;
+  const int nk = (L + KT - 1) / KT;
+  const int nk_hi = causal ? min(nk, (q0 + P::BM - 1) / KT + 1) : nk;  // causal tile skip
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 4 * NWG);  // one arrival a consumer warp
+    }
+    mbar_init(smem_u32(resident), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {
+    // ---- producer: Q once, then K and V into the ring
+    if (lane == 0) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      const uint32_t rb = smem_u32(resident);
+      mbar_expect_tx(rb, NWG * P::WG_BYTES);
+#pragma unroll
+      for (int w = 0; w < NWG; ++w)
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          tma_load_3d(sQ + w * P::WG_BYTES + c * 64 * 128, &tm_q, rb, c * BOX, q0 + 64 * w, bh);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < nk_hi; ++kt) {
+        mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+        const uint32_t fb = smem_u32(&full[stage]);
+        mbar_expect_tx(fb, P::STAGE_BYTES);
+        const uint32_t sK = ring + stage * P::STAGE_BYTES, sV = sK + P::TILE_BYTES;
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          tma_load_3d(sK + c * KT * 128, &tm_k, fb, c * BOX, kt * KT, bh);
+          tma_load_3d(sV + c * KT * 128, &tm_v, fb, c * BOX, kt * KT, bh);
+        }
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: rows r0 .. r0 + 63
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;
+  const int row0 = r0 + 16 * (warp & 3) + g, row1 = row0 + 8;
+  // the key tiles these rows meet: under `causal` the first of two
+  // warpgroups meets fewer, and releases the other's last stages unread
+  const int nk_w = causal ? min(nk, (r0 + 63) / KT + 1) : nk;
+  const uint32_t sQw = sQ + wg * P::WG_BYTES;
+  const float c2 = scale * LOG2E;
+
+  float acc[D / 2], s[KT / 2];
+  uint32_t pa[KT / 16][4];  // P rounded to T: the A fragments of P.V
+  // each row's max in the exp2 domain, and this thread's share of its sum
+  float m2[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.0f, 0.0f}, corr[2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[st]));
+  };
+  // p = 2^(s c2 - m2) in place, masked pairs (keys past L; under `causal`,
+  // keys past the row) 0 and out of the max, only in a tile that has such
+  // pairs; the row max and sum move on, and corr is what O is rescaled by
+  auto probs = [&](auto masked, int k0) {
+    auto keep = [&](int j, int e) {
+      if constexpr (decltype(masked)::value) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        return col < L && !(causal && col > (e < 2 ? row0 : row1));
+      } else {
+        return true;
+      }
+    };
+    float mx[2] = {NEG_BIG, NEG_BIG}, rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        reg_fence(s[4 * j + e]);
+        if (keep(j, e)) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m2[r], quad_max(mx[r]) * c2);
+      corr[r] = fast_exp2(m2[r] - m_new);
+      m2[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = keep(j, e) ? fast_exp2(fmaf(s[4 * j + e], c2, -m2[e >> 1])) : 0.0f;
+        s[4 * j + e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+  };
+
+  mbar_wait(smem_u32(resident), 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < nk_w; ++kt) {
+    const int k0 = kt * KT;
+    mbar_wait(smem_u32(&full[stage]), phase);
+    const uint32_t sK = ring + stage * P::STAGE_BYTES, sV = sK + P::TILE_BYTES;
+    // S = Q.K^T, K read K-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<KT, 0, T>(s, kmajor(sQw, 64, kk), kmajor(sK, KT, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (k0 + KT > L || (causal && k0 + KT - 1 > r0))
+      probs(std::true_type(), k0);
+    else
+      probs(std::false_type(), k0);
+    // O rescaled (0 times 0 on the first tile), then O += P.V with P
+    // rounded to T in registers and V read MN-major
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      reg_fence(acc[i]);
+      acc[i] *= corr[(i >> 1) & 1];
+    }
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) pack_a<T>(pa, j, s + 4 * j);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < KT / 16; ++kc) wgmma_rs<D, 1, T>(acc, pa[kc], mnmajor(sV, KT, kc));
+    wgmma_commit();
+    wgmma_wait<0>();
+    release(stage);
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  for (int kt = nk_w; kt < nk_hi; ++kt) {  // the other warpgroup's last tiles
+    mbar_wait(smem_u32(&full[stage]), phase);
+    release(stage);
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // o = acc / l, lse = (m2 + log2 l) ln 2
+  float inv[2];
+  const size_t vb = (size_t)bh * L;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float ls = fmaxf(quad_sum(l[r]), 1e-30f);
+    inv[r] = 1.0f / ls;
+    const int row = r ? row1 : row0;
+    if (t == 0 && row < L) lse[vb + row] = (m2[r] + log2f(ls)) * LN2;
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    reg_fence(acc[i]);
+    acc[i] *= inv[(i >> 1) & 1];
+  }
+  store_acc<T, D>(o + vb * D, acc, row0, L, t);
 }
 
 // dQ: the block owns 64 query rows of head blockIdx.x (under `causal` the
@@ -946,14 +954,6 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
-constexpr size_t mma_tile_bytes() {
-  return (size_t)BT * (D + PAD) * sizeof(T);
-}
-template <typename T, int D>
-constexpr size_t mma_trans_bytes() {
-  return (size_t)D * TLD * sizeof(T);
-}
 template <int D>
 constexpr size_t f32_own_bytes() {
   return (size_t)BT * (D + 1) * sizeof(float);
@@ -971,20 +971,9 @@ struct Args {
   int BH, L, causal;
   float scale;
   cudaStream_t stream;
-  int bq, stages;  // dK/dV's plan (the wrapper's bwd_plan), read by the wgmma body
+  int bq, stages;  // dK/dV's plan (the wrapper's bwd_plan), or the forward's ring stages
+  int wg, kt;      // the forward's consumer warpgroups and key tile (the wrapper's fwd_plan)
 };
-
-template <typename T, int D>
-int fwd16(const Args& a) {
-  const size_t smem = 2 * mma_tile_bytes<T, D>() + mma_trans_bytes<T, D>();
-  cudaError_t e = set_smem(fwd_mma<T, D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.L + BT - 1) / BT, a.BH);
-  fwd_mma<T, D><<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), a.lse, a.L, a.causal, a.scale);
-  return (int)cudaGetLastError();
-}
 
 template <int D>
 int fwd32(const Args& a) {
@@ -1035,6 +1024,43 @@ bool head_map(CUtensorMap* map, const void* base, int dtype, const Args& a, int 
                       dtype == DT_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                       3, base, dims, strides, box);
+}
+
+template <typename T, int D, int NWG, int KT>
+int fwd_tma(const Args& a, int dtype) {
+  using P = FwdTile<D, NWG, KT>;
+  static std::atomic<unsigned> raised{0};
+  const size_t smem = P::smem(a.stages);
+  const unsigned tiles = (a.L + P::BM - 1) / P::BM;
+  if (a.stages < 1 || smem > (size_t)MAX_SMEM || tiles > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!head_map(&tq, a.q, dtype, a, D, 64) || !head_map(&tk, a.k, dtype, a, D, KT) ||
+      !head_map(&tv, a.v, dtype, a, D, KT))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = raise_smem_once(fwd_wgmma<T, D, NWG, KT>, MAX_SMEM, dev, raised);
+  if (e != cudaSuccess) return (int)e;
+  fwd_wgmma<T, D, NWG, KT><<<dim3(a.BH, tiles), P::THREADS, smem, a.stream>>>(
+      tq, tk, tv, static_cast<T*>(a.o), a.lse, a.L, a.causal, a.scale, a.stages);
+  return (int)cudaGetLastError();
+}
+
+// The 16-bit forward with the wrapper's plan: one or two consumer
+// warpgroups with key tiles of 64, or one with 128 at D 64; the ring's
+// stages. D 32 is not taken: the wrapper pads it to 64.
+template <typename T, int D>
+int fwd16(const Args& a, int dtype) {
+  if constexpr (D == 32) {
+    return -1;
+  } else {
+    if (a.kt == 64 && a.wg == 1) return fwd_tma<T, D, 1, 64>(a, dtype);
+    if (a.kt == 64 && a.wg == 2) return fwd_tma<T, D, 2, 64>(a, dtype);
+    if constexpr (D == 64) {
+      if (a.kt == 128 && a.wg == 1) return fwd_tma<T, D, 1, 128>(a, dtype);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int D>
@@ -1103,9 +1129,9 @@ template <int D>
 int dispatch_d(int kind, int dtype, const Args& a) {
   switch (dtype) {
     case DT_BF16:
-      return kind == 0 ? fwd16<__nv_bfloat16, D>(a) : bwd16<__nv_bfloat16, D>(kind, a, dtype);
+      return kind == 0 ? fwd16<__nv_bfloat16, D>(a, dtype) : bwd16<__nv_bfloat16, D>(kind, a, dtype);
     case DT_F16:
-      return kind == 0 ? fwd16<__half, D>(a) : bwd16<__half, D>(kind, a, dtype);
+      return kind == 0 ? fwd16<__half, D>(a, dtype) : bwd16<__half, D>(kind, a, dtype);
     case DT_F32:
       return kind == 0 ? fwd32<D>(a) : kind == 1 ? dq32<D>(a) : dkdv32<D>(a);
     default:
@@ -1132,15 +1158,18 @@ int dispatch(int kind, int D, int dtype, const Args& a) {
 // Plain C entry points, loaded with ctypes. Each launches on `stream`, does
 // not synchronise, allocates nothing, and returns the launch's cudaError_t
 // (0 on success; -1 for a dtype or head dim the kernels do not take). The
-// dK/dV entry point takes the wrapper's plan (ops/cuda/flash_attention.py
-// `bwd_plan`): the query tile `bq` and the ring's `stages`, read by the
-// 16-bit body.
+// forward and dK/dV entry points take the wrapper's plans (ops/cuda/
+// flash_attention.py `fwd_plan`, `bwd_plan`), read by the 16-bit bodies:
+// the forward's consumer warpgroups `wg`, key tile `kt` and ring `stages`
+// (the 16-bit forward takes scale >= 0 only); dK/dV's query tile `bq` and
+// ring `stages`.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                                int BH, int L, int D, int dtype, int causal, float scale,
-                                void* stream) {
+                                int BH, int L, int D, int dtype, int causal, float scale, int wg,
+                                int kt, int stages, void* stream) {
+  if (dtype != DT_F32 && scale < 0.0f) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, nullptr, nullptr,
          static_cast<float*>(lse), BH, L, causal, scale,
-         reinterpret_cast<cudaStream_t>(stream)};
+         reinterpret_cast<cudaStream_t>(stream), 0, stages, wg, kt};
   return dispatch(0, D, dtype, a);
 }
 

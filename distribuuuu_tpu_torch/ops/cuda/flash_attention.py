@@ -26,10 +26,11 @@ stays a hard limit: the kernels are built for 32, 64 and 128, and another
 head dim is zero-padded to the next of those (exact; the scale uses the
 true head dim).
 
-Which body a backward call runs is a fact of its dtype (:func:`bwd_body`):
-bf16/f16 the TMA + ``wgmma`` kernels at head dims 64 and 128 (a head dim
-of 32 or less is zero-padded to 64 for them, :func:`bwd_head_dim`), whose
-dK/dV tiling is :func:`bwd_plan` (pure, cached per shape); f32 the
+Which body a call runs is a fact of its dtype (:func:`kernel_body`):
+bf16/f16 the TMA + ``wgmma`` kernels at head dims 64 and 128 (the
+autograd Function zero-pads a head dim of 32 or less to 64 once, for the
+forward and the backward: :func:`kernel_head_dim`), whose tilings are
+:func:`fwd_plan` and :func:`bwd_plan` (pure, cached per shape); f32 the
 CUDA-core kernels.
 """
 
@@ -120,11 +121,22 @@ def dkdv_plain(q, k, v, do, lse, delta, scale: float, causal: bool):
 
 
 # ---------------------------------------------------------------------------
-# the backward's body and tiling
+# the kernels' bodies and tilings
 # ---------------------------------------------------------------------------
 
-WGMMA_HEAD_DIMS = (64, 128)  # the head dims of the TMA + wgmma backward
+WGMMA_HEAD_DIMS = (64, 128)  # the head dims of the 16-bit TMA + wgmma bodies
 SHORT = 1024  # tokens up to which a sequence's blocks are few and short (ViT at 224²)
+
+
+class FwdPlan(NamedTuple):
+    """The forward's body and, for ``wgmma``, its tiling: the consumer
+    warpgroups of a block (64 query rows each), the keys of a K/V tile and
+    the stages of the K/V ring (the f32 body takes none: zeros)."""
+
+    body: str
+    warpgroups: int
+    key_tile: int
+    stages: int
 
 
 class BwdPlan(NamedTuple):
@@ -137,23 +149,53 @@ class BwdPlan(NamedTuple):
     dkdv_stages: int
 
 
-def bwd_body(dtype: torch.dtype, d: int) -> str:
+def kernel_body(dtype: torch.dtype, d: int) -> str:
     """``wgmma`` (bf16/f16) or ``f32``, for the kernels' head dim ``d``;
     a 16-bit head dim the ``wgmma`` bodies are not built for raises (the
-    autograd Function pads it, :func:`bwd_head_dim`)."""
+    autograd Function pads it, :func:`kernel_head_dim`)."""
     if dtype == torch.float32:
         return "f32"
     if d not in WGMMA_HEAD_DIMS:
-        raise ValueError(f"the 16-bit flash backward runs at head dims {WGMMA_HEAD_DIMS}, "
-                         f"not {d}: pad to bwd_head_dim")
+        raise ValueError(f"the 16-bit flash kernels run at head dims {WGMMA_HEAD_DIMS}, "
+                         f"not {d}: pad to kernel_head_dim")
     return "wgmma"
 
 
-def bwd_head_dim(dtype: torch.dtype, d: int) -> int:
-    """The head dim the backward kernels run a head dim ``d`` at:
-    :func:`padded_head_dim`, and at least 64 in bf16/f16."""
+def kernel_head_dim(dtype: torch.dtype, d: int) -> int:
+    """The head dim the kernels run a head dim ``d`` at, forward and
+    backward: :func:`padded_head_dim`, and at least 64 in bf16/f16."""
     dp = padded_head_dim(d)
     return dp if dtype == torch.float32 else max(dp, WGMMA_HEAD_DIMS[0])
+
+
+ONE_WG_SLOTS = 4 * 132  # one-warpgroup forward blocks the H100 holds at once (4 an SM)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(bh: int, L: int, d: int, dtype: torch.dtype) -> FwdPlan:
+    """The forward of one (batch·heads, length, kernel head dim, dtype),
+    as measured on the H100 (``PERF.md`` §6, ``flash_fwd_sweep.py``).
+    Each warpgroup runs S, the softmax and P·V of a tile in turn; the
+    overlap comes from the other warpgroups on the SM. Long sequences
+    take key tiles of 128 at d 64 (one warpgroup a block, three blocks an
+    SM at 128 registers) and two warpgroups sharing 64-key tiles at d 128.
+    Short ones (≤ SHORT tokens) take blocks of one warpgroup and 64-key
+    tiles, four an SM at 96 registers, unless the query tiles fill more
+    than four waves of those (ViT-S eval at batch 200): then two
+    warpgroups share each K/V tile, halving the loads from L2. The ring
+    holds two stages (one at d 128, short: three blocks an SM instead of
+    two), four for two warpgroups on short sequences; never more than the
+    sequence has key tiles. Causal shapes take the plans of the same shape."""
+    body = kernel_body(dtype, d)
+    if body != "wgmma":
+        return FwdPlan(body, 0, 0, 0)
+    if L > SHORT:
+        wg, kt, stages = (1, 128, 2) if d == 64 else (2, 64, 2)
+    elif bh * -(-L // BLOCK) > 4 * ONE_WG_SLOTS:
+        wg, kt, stages = 2, 64, 4
+    else:
+        wg, kt, stages = 1, 64, 2 if d == 64 else 1
+    return FwdPlan(body, wg, kt, min(stages, -(-L // kt)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,7 +210,7 @@ def bwd_plan(L: int, d: int, dtype: torch.dtype) -> BwdPlan:
     registers), else 64 (fewer, wider products); its ring holds four tiles
     where the sequence is short (all of ViT-S's 196 tokens in flight at
     once), else two. Causal shapes take the plans of their length."""
-    body = bwd_body(dtype, d)
+    body = kernel_body(dtype, d)
     if body != "wgmma":
         return BwdPlan(body, 0, 0)
     short = L <= SHORT
@@ -188,7 +230,7 @@ def _lib():
     if lib.flash_fwd_launch.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         head = [i, i, i, i, i, f]  # BH, L, D, dtype, causal, scale
-        lib.flash_fwd_launch.argtypes = [vp] * 5 + head + [vp]  # stream
+        lib.flash_fwd_launch.argtypes = [vp] * 5 + head + [i, i, i, vp]  # wg, kt, stages, stream
         lib.flash_dq_launch.argtypes = [vp] * 7 + head + [vp]  # stream
         lib.flash_dkdv_launch.argtypes = [vp] * 8 + head + [i, i, vp]  # bq, stages, stream
         for fn in (lib.flash_fwd_launch, lib.flash_dq_launch, lib.flash_dkdv_launch):
@@ -231,11 +273,14 @@ def forward_kernel(q, k, v, scale: float, causal: bool):
     global fwd_launches
     _check("forward", q, k, v)
     bh, L, d = q.shape
+    p = fwd_plan(bh, L, d, q.dtype)  # raises at a head dim the 16-bit body is not built for
+    if p.body == "wgmma" and scale < 0:  # the body takes scale ≥ 0: (−q)·k·(−scale), exact
+        q, scale = -q, -scale
     o = torch.empty_like(v)
     lse = torch.empty((bh, L), dtype=torch.float32, device=q.device)
     _call(_lib().flash_fwd_launch, "fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
           o.data_ptr(), lse.data_ptr(), bh=bh, L=L, d=d, dtype=q.dtype, causal=causal,
-          scale=scale, device=q.device)
+          scale=scale, device=q.device, plan=(p.warpgroups, p.key_tile, p.stages))
     fwd_launches += 1
     return o, lse
 
@@ -245,7 +290,7 @@ def dq_kernel(q, k, v, do, lse, delta, scale: float, causal: bool):
     global dq_launches
     _check("dq", q, k, v, do, lse, delta)
     bh, L, d = q.shape
-    bwd_body(q.dtype, d)  # raises at a head dim the 16-bit body is not built for
+    kernel_body(q.dtype, d)  # raises at a head dim the 16-bit body is not built for
     dq = torch.empty_like(q)
     _call(_lib().flash_dq_launch, "dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh=bh, L=L, d=d,
@@ -314,7 +359,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale: float, causal: bool):
         b, h, L, d = q.shape
-        dp = padded_head_dim(d) if kernel_tier.use_kernel(q) else d
+        dp = kernel_head_dim(q.dtype, d) if kernel_tier.use_kernel(q) else d
         qf, kf, vf = (_flat(t, dp) for t in (q, k, v))
         o, lse = _forward(qf, kf, vf, scale, causal)
         ctx.save_for_backward(qf, kf, vf, o, lse)
@@ -331,9 +376,6 @@ class _Flash(torch.autograd.Function):
         delta = (g.float() * o.float()).sum(-1)
         if g_lse is not None:
             delta = delta - g_lse.reshape(b * h, L).float()
-        db = bwd_head_dim(qf.dtype, dp) if kernel_tier.use_kernel(qf) else dp
-        if db != dp:  # zeros add nothing to any product
-            qf, kf, vf, g = (torch.nn.functional.pad(t, (0, db - dp)) for t in (qf, kf, vf, g))
         args = (qf, kf, vf, g, lse, delta.contiguous(), ctx.scale, ctx.causal)
         dq = _dq(*args)
         dk, dv = _dkdv(*args)

@@ -180,29 +180,34 @@ def test_bwd_body_is_chosen_by_dtype_and_head_dim(d):
     """bf16/f16 run the wgmma bodies at 64 and 128, a head dim of 32 padded
     to 64 for them; f32 runs its own bodies at its own head dim."""
     for dtype in (torch.bfloat16, torch.float16):
-        assert tfa.bwd_head_dim(dtype, d) == max(d, 64)
-        assert tfa.bwd_body(dtype, tfa.bwd_head_dim(dtype, d)) == "wgmma"
+        assert tfa.kernel_head_dim(dtype, d) == max(d, 64)
+        assert tfa.kernel_body(dtype, tfa.kernel_head_dim(dtype, d)) == "wgmma"
         if d == 32:
             with pytest.raises(ValueError, match="head dims"):
-                tfa.bwd_body(dtype, d)
-    assert tfa.bwd_head_dim(torch.float32, d) == d
-    assert tfa.bwd_body(torch.float32, d) == "f32"
+                tfa.kernel_body(dtype, d)
+    assert tfa.kernel_head_dim(torch.float32, d) == d
+    assert tfa.kernel_body(torch.float32, d) == "f32"
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
-        db = tfa.bwd_head_dim(dtype, d)
-        assert tfa.bwd_plan(196, db, dtype).body == tfa.bwd_body(dtype, db)
+        db = tfa.kernel_head_dim(dtype, d)
+        assert tfa.bwd_plan(196, db, dtype).body == tfa.kernel_body(dtype, db)
 
 
-def _fake_launchers(monkeypatch):
+def _fake_launchers(monkeypatch, scales=None):
     """Stand-ins for the C entry points (the card runs them): each call is
-    recorded as (entry point, L, d, dtype, causal, plan); the launch
-    counters are restored after the test."""
+    recorded as (entry point, L, d, dtype, causal, plan), and its scale in
+    ``scales`` if given; the launch counters are restored after the test."""
     calls = []
-    for counter in ("dq_launches", "dkdv_launches"):
+    for counter in ("fwd_launches", "dq_launches", "dkdv_launches"):
         monkeypatch.setattr(tfa, counter, getattr(tfa, counter))
     monkeypatch.setattr(tfa, "_lib", lambda: type("Lib", (), {
-        "flash_dq_launch": "dq", "flash_dkdv_launch": "dkdv"}))
-    monkeypatch.setattr(tfa, "_call", lambda fn, name, *ptrs, plan=(), **kw: calls.append(
-        (fn, kw["L"], kw["d"], kw["dtype"], kw["causal"], tuple(plan))))
+        "flash_fwd_launch": "fwd", "flash_dq_launch": "dq", "flash_dkdv_launch": "dkdv"}))
+
+    def call(fn, name, *ptrs, plan=(), **kw):
+        calls.append((fn, kw["L"], kw["d"], kw["dtype"], kw["causal"], tuple(plan)))
+        if scales is not None:
+            scales.append(kw["scale"])
+
+    monkeypatch.setattr(tfa, "_call", call)
     return calls
 
 
@@ -215,7 +220,7 @@ def test_bwd_plan_is_legal(monkeypatch, L, d, dtype, causal):
     ring of 1..4 stages, no more than the sequence has tiles; the f32 body
     takes none. The wrappers hand it, and ``causal``, to the entry points
     (the launcher checks the plan's shared memory on the card)."""
-    db = tfa.bwd_head_dim(dtype, d)
+    db = tfa.kernel_head_dim(dtype, d)
     p = tfa.bwd_plan(L, db, dtype)
     if p.body == "f32":
         assert p[1:] == (0, 0)
@@ -270,7 +275,7 @@ def test_backward_wrappers_pass_the_plan_to_the_launchers(monkeypatch, dtype, d)
             with pytest.raises(ValueError, match="head dims"):
                 kernel(q, q, q, q, lse, delta, 0.125, True)
         assert calls == [] and tfa.launch_counts() == before
-        q = torch.zeros(2, 197, tfa.bwd_head_dim(dtype, d), dtype=dtype)
+        q = torch.zeros(2, 197, tfa.kernel_head_dim(dtype, d), dtype=dtype)
     tfa.dq_kernel(q, q, q, q, lse, delta, 0.125, True)
     tfa.dkdv_kernel(q, q, q, q, lse, delta, 0.125, True)
     db = q.shape[-1]
@@ -309,3 +314,139 @@ def test_backward_pads_a_small_16bit_head_dim_to_the_wgmma_bodies(monkeypatch, d
         assert g.shape == w.shape and g.dtype == w.dtype
         scale = max(float(w.float().abs().max()), 1.0)
         assert float((g.float() - w.float()).abs().max()) <= 2 ** -7 * scale
+
+
+# ---- the forward's tiling and the shared 16-bit head-dim padding
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("L,d", PLAN_SHAPES, ids=lambda v: str(v))
+def test_fwd_plan_is_legal(monkeypatch, L, d, dtype, causal):
+    """At the kernels' head dim for ``d``, with many heads or one, the
+    wgmma body's plan is a tiling the kernel is built for (one or two
+    consumer warpgroups with 64-key tiles, or one with 128 at d 64) and a
+    ring of 1..4 stages, no more than the sequence has key tiles; the f32
+    body takes none. forward_kernel hands it, ``causal`` and the head dim
+    to the entry point (the launcher checks the plan's
+    shared memory on the card) and counts one launch."""
+    dk = tfa.kernel_head_dim(dtype, d)
+    for bh in (4096, 1):  # many query tiles (two warpgroups a block where short), few
+        p = tfa.fwd_plan(bh, L, dk, dtype)
+        if p.body == "f32":
+            assert p[1:] == (0, 0, 0)
+        else:
+            assert (p.warpgroups, p.key_tile) in (((1, 64), (2, 64), (1, 128)) if dk == 64
+                                                  else ((1, 64), (2, 64)))
+            assert 1 <= p.stages <= min(4, -(-L // p.key_tile))
+    calls = _fake_launchers(monkeypatch)
+    before = tfa.launch_counts()
+    q = torch.zeros(1, L, dk, dtype=dtype)
+    tfa.forward_kernel(q, q, q, 0.125, causal)
+    assert calls == [("fwd", L, dk, dtype, causal, tuple(p[1:]))]
+    assert tfa.launch_counts() == {**before, "forward": before["forward"] + 1}
+
+
+W = tfa.FwdPlan  # (body, consumer warpgroups, key tile, ring stages)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,L,d,want", [
+    (192, 196, 64, W("wgmma", 1, 64, 2)),  # ViT-S train b32 [192, 196, 64]
+    (48, 196, 64, W("wgmma", 1, 64, 2)),  # ViT-S serve b8
+    (1200, 196, 64, W("wgmma", 2, 64, 4)),  # ViT-S eval b200: over four waves of tiles
+    (12, 4096, 64, W("wgmma", 1, 128, 2)),  # ViT-Ti at 1024² [12, 4096, 64]
+    (192, 196, 32, W("wgmma", 1, 64, 2)),  # a bf16 d 32 runs at 64
+    (96, 196, 128, W("wgmma", 1, 64, 1)),
+    (12, 4096, 128, W("wgmma", 2, 64, 2)),
+], ids=str)
+def test_fwd_plan_pins_the_main_shapes(monkeypatch, bh, L, d, want, causal):
+    """The forward's plan at the main path's shapes, at the kernels' head
+    dim, and the one forward_kernel passes there, causal or not."""
+    dk = tfa.kernel_head_dim(torch.bfloat16, d)
+    assert tfa.fwd_plan(bh, L, dk, torch.bfloat16) == want
+    calls = _fake_launchers(monkeypatch)
+    q = torch.zeros(bh, L, dk, dtype=torch.bfloat16)
+    tfa.forward_kernel(q, q, q, 0.125, causal)
+    assert calls == [("fwd", L, dk, torch.bfloat16, causal, tuple(want[1:]))]
+
+
+def test_fwd_plan_is_cached_per_shape():
+    tfa.fwd_plan.cache_clear()
+    first = tfa.fwd_plan(192, 196, 64, torch.bfloat16)
+    assert tfa.fwd_plan(192, 196, 64, torch.bfloat16) is first
+    assert tfa.fwd_plan(12, 4096, 64, torch.bfloat16) is not first
+    assert tfa.fwd_plan.cache_info().hits == 1
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.float16, 128),
+                                     (torch.bfloat16, 32), (torch.float32, 32)])
+@pytest.mark.parametrize("scale", [0.125, -0.125])
+def test_forward_wrapper_passes_the_plan_to_the_launcher(monkeypatch, dtype, d, scale):
+    """forward_kernel hands the entry point its plan and a scale ≥ 0 to
+    the 16-bit body (a negative scale runs as (−q)·k·(−scale)); f32 takes
+    any scale; a 16-bit head dim the wgmma body is not built for raises
+    before any launch."""
+    scales = []
+    calls = _fake_launchers(monkeypatch, scales)
+    q = torch.zeros(2, 197, d, dtype=dtype)
+    before = tfa.launch_counts()
+    if d not in tfa.WGMMA_HEAD_DIMS and dtype != torch.float32:
+        with pytest.raises(ValueError, match="head dims"):
+            tfa.forward_kernel(q, q, q, scale, True)
+        assert calls == [] and tfa.launch_counts() == before
+        return
+    tfa.forward_kernel(q, q, q, scale, True)
+    p = tfa.fwd_plan(2, 197, d, dtype)
+    assert calls == [("fwd", 197, d, dtype, True, tuple(p[1:]))]
+    assert scales == [abs(scale) if dtype != torch.float32 else scale]
+    assert tfa.launch_counts() == {**before, "forward": before["forward"] + 1}
+
+
+@pytest.mark.parametrize("d", [24, 32])
+def test_flash_pads_a_small_16bit_head_dim_once_for_both_passes(monkeypatch, d):
+    """On the card the autograd Function zero-pads a bf16 head dim ≤ 32 to
+    64 once, in the forward: the forward kernel runs at 64 and the
+    backward kernels take the very tensors it saved, not a second padded
+    copy. Stood in for on the CPU (the kernel wrappers are the plain
+    versions, recording what they are handed); o and the gradients equal
+    the unpadded run's."""
+    rng = np.random.default_rng(8)
+    arrs = [rng.standard_normal((1, 2, 40, d)).astype(np.float32) for _ in range(4)]
+
+    def run():
+        q, k, v = (torch.tensor(a).to(torch.bfloat16).requires_grad_() for a in arrs[:3])
+        o = tfa.flash_attention(q, k, v, causal=True)
+        return [o, *torch.autograd.grad((o.float() * torch.tensor(arrs[3])).sum(), (q, k, v))]
+
+    want = run()
+    seen = []
+    monkeypatch.setattr(tfa.kernel_tier, "use_kernel", lambda t: True)
+    for name, plain in (("forward_kernel", tfa.forward_plain), ("dq_kernel", tfa.dq_plain),
+                        ("dkdv_kernel", tfa.dkdv_plain)):
+        monkeypatch.setattr(tfa, name, lambda *a, plain=plain, name=name: seen.append(
+            (name, a[0])) or plain(*a))
+    got = run()
+    assert [n for n, _ in seen] == ["forward_kernel", "dq_kernel", "dkdv_kernel"]
+    assert all(q.shape[-1] == 64 for _, q in seen)
+    assert seen[1][1] is seen[0][1] and seen[2][1] is seen[0][1]  # padded once
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = max(float(w.float().abs().max()), 1.0)
+        assert float((g.float() - w.float()).abs().max()) <= 2 ** -7 * scale
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,L", [(32, 200), (24, 150), (40, 97)])
+def test_padded_plain_forward_equals_unpadded(d, L, dtype, causal):
+    """Zero columns added to q, k and v change neither o's first d columns
+    nor lse, bit for bit: the padding the kernels run at is exact."""
+    q, k, v = (torch.tensor(a).to(dtype) for a in _inputs((3, L, d), 9))
+    dp = tfa.kernel_head_dim(torch.bfloat16, d)
+    o, lse = tfa.forward_plain(q, k, v, d ** -0.5, causal)
+    op, lsep = tfa.forward_plain(*(torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v)),
+                                 d ** -0.5, causal)
+    assert torch.equal(op[..., :d], o) and torch.equal(lsep, lse)
+    assert not op[..., d:].any()

@@ -1,7 +1,8 @@
-"""The port stands alone: distribuuuu_tpu_torch and chip_smoke.py import
-neither JAX (jax, jaxlib, flax, optax, orbax) nor anything of the JAX
-package distribuuuu_tpu — checked both by importing every module in a
-fresh interpreter and by scanning the source."""
+"""The port stands alone: distribuuuu_tpu_torch, chip_smoke.py and
+flash_fwd_sweep.py import neither JAX (jax, jaxlib, flax, optax, orbax)
+nor anything of the JAX package distribuuuu_tpu — checked both by
+importing every module in a fresh interpreter and by scanning the
+source."""
 
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "flash_fwd_sweep.py")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -31,7 +33,7 @@ def test_importing_every_module_loads_no_jax():
         "import distribuuuu_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, flash_fwd_sweep\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(len(mods), bad)\n"
         "assert not bad, bad\n"
