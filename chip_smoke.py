@@ -5,10 +5,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Build: compiles every kernel of the ported paths from csrc/ (sm_90a),
-   one nvcc per source, all at once; beside them two more nvcc report
+   one nvcc per source, all at once; beside them three more nvcc report
    ``-Xptxas -v`` (registers, spills, static shared memory, and any wgmma
-   ptxas serialises) of each kernel of csrc/conv_epilogue.cu and
-   csrc/flash_attention.cu, with their build seconds.
+   ptxas serialises) of each kernel of csrc/conv_epilogue.cu,
+   csrc/flash_attention.cu and csrc/group_conv.cu, with their build
+   seconds.
 3. Kernel phases: each kernel's wrapper at the shapes its path gives it,
    held against its plain PyTorch version on the card, timed (CUDA
    events) beside its plain version and one library call, with its bound
@@ -74,9 +75,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    regnetx_160 and regnety_320 (batch 64), the dx shape (flipped weight),
    a stride-2 shape, a ResNeXt cg=16 shape and a ragged f32 shape, timed
    beside its plain version and ``F.conv2d(groups=G)`` (cuDNN, the
-   library); conv1x1_bn_act at regnety_160's and regnety_320's 1x1 shapes
-   (batch 8) and regnety_160's at its eval batch 200 (with the kernel
-   phases of 3). Then regnety_160 (config/regnety_160.yaml, bf16) served
+   library), each bf16 row with the wgmma body's tiling (``plan``) and
+   its share of the bound; conv1x1_bn_act at regnety_160's and
+   regnety_320's 1x1 shapes (batch 8) and regnety_160's at its eval batch
+   200 (with the kernel phases of 3). Then regnety_160 (config/regnety_160.yaml, bf16) served
    through ``engine_from_cfg`` as ResNet-50 is (10 group-conv and 36
    conv-epilogue launches per forward; bf16 logits and f32 card logits
    against the port's f32 CPU forward) and trained through
@@ -671,7 +673,9 @@ def group_kernel_phase(torch, gc, dev):
     beside its plain version and F.conv2d(groups=G) (cuDNN, benchmark
     mode, never called by the port), with its bound: x read once, the
     weight read once, the output written once over the memory rate vs
-    2·9·cg operations per output element over the peak of the dtype.
+    2·9·cg operations per output element over the peak of the dtype. Each
+    row names the body that ran (every bf16 row must run ``wgmma``), its
+    tiling (``plan``) and the share of the bound it reaches.
     Returns {shape name: row}."""
     F = torch.nn.functional
     rows = {}
@@ -683,6 +687,9 @@ def group_kernel_phase(torch, gc, dev):
         wt = wt.to(dtype).contiguous(memory_format=torch.channels_last)
         if flipped:
             wt = gc.flipped_weight(wt, g)
+        body = gc.kernel_body(x, wt, g)
+        if dt == "bfloat16" and body != "wgmma":  # every bf16 row is a RegNet or ResNeXt site
+            raise AssertionError(f"group_conv3x3 {name}: bf16 runs the {body} body, not wgmma")
         got, ref = gc.group_conv3x3(x, wt, stride, g), gc.group_conv3x3_plain(x, wt, stride, g)
         torch.cuda.synchronize()
         err, scaled = _scaled_err(got, ref)
@@ -703,9 +710,12 @@ def group_kernel_phase(torch, gc, dev):
             "library_ms": lib, "library": "F.conv2d(groups=G), cuDNN",
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": ops,
+            "bytes": nbytes, "flops": ops, "body": body,
+            "tiling": gc.plan(b * -(-h // stride) * -(-w // stride), g, c // g, c // g,
+                              stride)._asdict() if body == "wgmma" else None,
         }
         row["tflops_per_s"] = ops / row["ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         emit(row)
         if not scaled <= GROUP_TOL[dt]:
             raise AssertionError(f"group_conv3x3 {name}: error {scaled} of the scale > "
@@ -1611,7 +1621,8 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    ptxas = {n: start_ptxas_report(_build, n) for n in ("conv_epilogue", "flash_attention")}
+    ptxas = {n: start_ptxas_report(_build, n)
+             for n in ("conv_epilogue", "flash_attention", "group_conv")}
     try:
         _build.build("conv_epilogue", "opt_update", "flash_attention", "decode_attn",
                      "group_conv")

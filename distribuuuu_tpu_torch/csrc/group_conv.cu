@@ -12,40 +12,87 @@
 // with zero padding of one pixel, stride s of 1 or 2, an fp32 accumulator
 // and the output written NHWC [B, Ho, Wo, C_out] in x's dtype.
 //
-// The design is an implicit GEMM per group: M = B*Ho*Wo output pixels,
-// N = fg output channels, K = 9*cg taken tap by tap, cg input channels a
-// tap. The grid is (M tiles, G x N tiles). A block stages its A tile for
-// one (tap, K chunk) straight from the NHWC input into shared memory: the
-// padding is a predicate that loads zero (no padded copy, where the TPU
-// kernel padded with jnp.pad), and the stride only enters the index
-// arithmetic. B rows are contiguous in the weight's memory order, so the
-// weight is read as it is stored. The TPU kernel's static loop over all G
-// groups and its VMEM batch tile (_pick_bb) were Mosaic workarounds and
-// are not carried over: here a group is a grid coordinate.
+// It is an implicit GEMM per group: M = B*Ho*Wo output pixels, N = fg
+// output channels, K = 9*cg, with k = tap*cg + c, the order in which the
+// weight is stored. So a group's B is a plain K-major [fg, 9*cg] matrix,
+// read as it is stored, and an A row (one output pixel) is nine runs of
+// cg channels, one a tap, from the NHWC input. The padding is a predicate
+// that loads zero (where the TPU kernel padded with jnp.pad), the stride
+// only enters the index arithmetic, and a group is a grid coordinate (the
+// TPU kernel's static loop over groups and its VMEM batch tile were
+// Mosaic workarounds).
 //
-//  * bf16: a 128 x 64 output tile per 256-thread block, eight warps of
-//    32 x 32, mma.sync.m16n8k16 into fp32 registers (tensor cores), the
-//    tile stepped through shared memory 32 deep;
-//  * f32: the same tile on the CUDA cores (fp32 FMA, 8 x 4 outputs a
-//    thread), 16 deep, so f32 stays f32 (no TF32 rounding);
-//  * ragged K chunks (cg = 232 of regnety_320, the 11 or 4 channels of
-//    the test shapes), ragged M and ragged N (fg = 112 in two tiles of 64)
-//    are masked with zero on load and skipped on store.
+// The bf16 design (gconv_wgmma):
+//  * a block is BM = 64 or 128 output pixels (one or two consumer
+//    warpgroups of 64 rows) by BN output channels of one group: BN = fg
+//    at the group widths of ResNeXt, regnety_160/regnetx_160 and
+//    regnety_320 (16, 112, 128, 232), else tiles of 64. The grid is
+//    (M tiles, G x N tiles);
+//  * a ring of `stages` shared-memory stages, each BM x 64 k of A and
+//    BN x 64 k of B, both with the 128-byte swizzle;
+//  * B: one TMA load a stage from a 2-D map over the weight seen as
+//    [C_out, 9*cg]; TMA's zero fill past 9*cg covers the last chunk of K
+//    (K is 9*cg rounded up to 64: 1024 at cg 112, where the tap-by-tap
+//    walk of 32 channels took 1152);
+//  * A: a producer warpgroup gathers it straight into the ring. cg is a
+//    multiple of 8, so each 16-byte piece (8 channels) lies inside one
+//    tap: a thread steps its (tap, c) by 64 channels a stage and finds
+//    the input pixel (b, i*s + dy - 1, j*s + dx - 1), and copies 16
+//    bytes with cp.async.cg to the swizzled address (piece ^ row % 8),
+//    with a source size of 0 (zero fill) for taps in the padding, rows
+//    past M and k past 9*cg. It never reads another group's channels
+//    (TMA's im2col mode would, at cg 112 and 232, and a NaN there times a
+//    zero weight is NaN). Each thread then hands its copies to the stage's
+//    full barrier (cp.async.mbarrier.arrive.noinc: the barrier counts the
+//    128 producer threads and the TMA thread's expect-tx) and goes on to
+//    the next stage without waiting for them;
+//  * the consumers wait for a stage, fence the gathered A from the
+//    generic proxy it landed through to the async proxy wgmma reads
+//    through (fence.proxy.async), run wgmma m64nBNk16 (A and B from
+//    shared memory, B K-major, fp32 accumulators in registers) and free
+//    the stage one step later on its empty barrier; the bf16 outputs are
+//    written from the registers, masked at M's tail and at fg;
+//  * the tiling (warpgroups, stages) is ops/cuda/group_conv.plan, from
+//    group_conv_sweep.py.
 //
 // What bounds it on the H100: at regnety_160's stage 3 ([B, 14, 14, 1232],
 // G = 11, cg = fg = 112) one site does 2*B*196*9*112*1232 operations over
 // about 2*B*196*1232*2 bytes, some 500 operations a byte, above the ~295
 // the card needs before its bf16 tensor cores are the limit: the site is
 // bound by operations (3.9 us at batch 8, 31.5 us at 64, 98 us at 200).
-// This first kernel loads each tile synchronously with no overlap of copy
-// and compute; a later PR would move it to wgmma with TMA loads into a
-// pipelined shared-memory ring and larger M tiles.
+// Inside the card the gather is the cost: each input pixel is read from
+// L2 once a tap (9 times), and each block reads its group's whole weight
+// (225 KB at cg 112), some 520 MB of L2 reads a site at batch 64. A
+// variant without the products runs nearly as long as the kernel, one
+// without the gather about half as long (PERF.md §6): the producers'
+// L2 reads are the limit, and a halo tile (each input row staged once per
+// M tile) is the next step.
+//
+// Tried and taken out (PERF.md §6): a producer that waited for its copies
+// (cp.async.wait_group) and fenced them itself before arriving (up to a
+// fifth slower); two blocks of a cluster sharing each weight stage by TMA
+// multicast, freed by both blocks' consumers (faster at N = 232 only,
+// slower at 112 and 128); blocks of 192 or 256 rows (three consumers, or
+// two 64-row sub-tiles a consumer: no faster on the main path).
+//
+// Shapes the gather cannot take (cg or fg not a multiple of 8, or a base
+// not 16-byte aligned; no RegNet site) run gconv_mma_sync, the first
+// design: a 128 x 64 tile of mma.sync.m16n8k16 stepped 32 channels deep
+// with masked loads. The launcher routes by shape. fp32 runs gconv_f32 on
+// the CUDA cores (no TF32 rounding).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 128;
 constexpr int BN = 64;
@@ -104,7 +151,166 @@ __device__ __forceinline__ long long tap_offset(const Geom& g,
   return ((long long)(r.bh + hi) * g.W + wi) * g.C;
 }
 
-// ---------------------------------------------------------------- bf16 path
+// ------------------------------------ bf16: gathered A, TMA B, wgmma (the rule)
+
+constexpr int KC = 64;            // k of one ring stage: one 128-byte swizzle row
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may use
+
+template <int kWG, int kBN>
+struct Ring {
+  static constexpr int BM = 64 * kWG;              // output pixels of a block
+  static constexpr int THREADS = 128 * (kWG + 1);  // producer warpgroup + consumers
+  static constexpr int ROWS = BM / 16;             // A rows one producer thread gathers
+  static constexpr int A_BYTES = BM * 128;
+  static constexpr int B_BYTES = kBN * 128;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // two blocks an SM where the accumulators leave room (128 registers a thread)
+  static constexpr int MIN_BLOCKS = kWG == 1 && kBN <= 128 ? 2 : 1;
+};
+
+// 16 bytes from global to shared memory, bypassing L1; `bytes` = 0 reads
+// nothing and writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// One arrival on `bar` when this thread's cp.async copies so far have
+// landed (the barrier's count includes it: noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// A block computes BM output pixels x kBN channels of one group.
+template <int kWG, int kBN>
+__global__ void __launch_bounds__(Ring<kWG, kBN>::THREADS, Ring<kWG, kBN>::MIN_BLOCKS)
+    gconv_wgmma(const __grid_constant__ CUtensorMap tm_w, const __nv_bfloat16* __restrict__ x,
+                __nv_bfloat16* __restrict__ out, Geom g, int stages) {
+  using R = Ring<kWG, kBN>;
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * R::STAGE_BYTES);
+  uint64_t* empty = full + stages;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int n_tiles = (g.fg + kBN - 1) / kBN;
+  const int grp = blockIdx.y / n_tiles, n0 = (blockIdx.y % n_tiles) * kBN;
+  const int m0 = blockIdx.x * R::BM;
+  const int K = 9 * g.cg, k_steps = (K + KC - 1) / KC;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 128 + 1);  // the producer's threads + expect-tx
+      mbar_init(smem_u32(&empty[s]), kWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const uint32_t base = smem_u32(smem);
+
+  if (wg == 0) {
+    // ---- producer: thread t gathers 16-byte piece t % 8 of rows t / 8 + 16 j
+    const int q = tid & 7, r0 = tid >> 3;
+    const uint32_t a_off = r0 * 128 + ((q ^ (r0 & 7)) << 4);  // (r0 + 16 j) % 8 == r0 % 8
+    int h0[R::ROWS], w0[R::ROWS], pix[R::ROWS];
+    const int hw = g.Ho * g.Wo;
+#pragma unroll
+    for (int j = 0; j < R::ROWS; ++j) {
+      const int m = m0 + r0 + 16 * j;
+      const int b = m / hw, rem = m - b * hw, i = rem / g.Wo;
+      const bool ok = m < g.M;
+      h0[j] = ok ? i * g.stride - 1 : -4;  // a row past M reads only padding
+      w0[j] = (rem - i * g.Wo) * g.stride - 1;
+      pix[j] = ok ? (b * g.H + h0[j]) * g.W + w0[j] : 0;  // pixel of tap (0, 0)
+    }
+    const __nv_bfloat16* xg = x + (size_t)grp * g.cg;
+    // this thread's channel run: k = kt * 64 + 8 q is channel c of tap `tap`
+    int tap = (q * 8) / g.cg, c = q * 8 - tap * g.cg;
+    if (tid == 0) prefetch_map(&tm_w);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < k_steps; ++kt) {
+      mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+      const uint32_t sA = base + stage * R::STAGE_BYTES, fb = smem_u32(&full[stage]);
+      if (tid == 0) {
+        mbar_expect_tx(fb, R::B_BYTES);
+        tma_load_2d(sA + R::A_BYTES, &tm_w, fb, kt * KC, grp * g.fg + n0);
+      }
+      const int dy = tap / 3, dx = tap - 3 * dy;  // tap 9 and on: past K
+      const int shift = dy * g.W + dx;
+#pragma unroll
+      for (int j = 0; j < R::ROWS; ++j) {
+        const bool ok = tap < 9 && (unsigned)(h0[j] + dy) < (unsigned)g.H &&
+                        (unsigned)(w0[j] + dx) < (unsigned)g.W;
+        const __nv_bfloat16* src = ok ? xg + (long long)(pix[j] + shift) * g.C + c : x;
+        cp_async16(sA + a_off + j * 16 * 128, src, ok ? 16 : 0);
+      }
+      cp_async_arrive(fb);
+      for (c += KC; c >= g.cg && tap < 9; c -= g.cg) ++tap;
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // exit with no copy in flight
+  } else {
+    // ---- consumers: rows 64 (wg - 1) .. + 63 of the tile, all kBN columns
+    const int cw = wg - 1, wtid = tid & 127;
+    float acc[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.0f;
+    int stage = 0, prev = -1;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < k_steps; ++kt) {
+      mbar_wait(smem_u32(&full[stage]), phase);
+      // the gathered A landed through the generic proxy; wgmma reads
+      // through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const uint32_t sA = base + stage * R::STAGE_BYTES + cw * 64 * 128;
+      const uint32_t sB = base + stage * R::STAGE_BYTES + R::A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)  // k16 slice: 32 bytes along both swizzled tiles
+        wgmma_ss<kBN, 0, __nv_bfloat16>(acc, sw128_desc(sA + kk * 32, 16, 1024),
+                                        sw128_desc(sB + kk * 32, 16, 1024));
+      wgmma_commit();
+      if (stages > 1) {
+        wgmma_wait<1>();  // the previous stage's products are done: free it
+        if (prev >= 0 && wtid == 0) mbar_arrive(smem_u32(&empty[prev]));
+        prev = stage;
+      } else {  // a ring of one stage: free it before the next load
+        wgmma_wait<0>();
+        if (wtid == 0) mbar_arrive(smem_u32(&empty[stage]));
+      }
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) reg_fence(acc[i]);
+
+    // wgmma's accumulator layout: register i of lane l in warp w holds row
+    // w*16 + l/4 (+8 for the odd pairs), column 8*(i/4) + 2*(l%4) + i%2;
+    // fg is even, so a pair lies wholly inside or outside the group
+    const int w = wtid >> 5, l = wtid & 31;
+    const int row0 = m0 + cw * 64 + w * 16 + (l >> 2);
+    __nv_bfloat16* og = out + (size_t)grp * g.fg;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; i += 2) {
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      const int col = n0 + (i >> 2) * 8 + (l & 3) * 2;
+      if (row < g.M && col < g.fg)
+        *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row * g.Cout + col) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+}
+
+// ------------------------------ bf16 for shapes the gather cannot take
 
 constexpr int BK16 = 32;
 constexpr int PAD16 = 8;  // row stride 40 bf16 = 80 B: fragment loads hit 32 banks
@@ -135,9 +341,9 @@ __device__ __forceinline__ void load8(__nv_bfloat16* dst,
 }
 
 __global__ void __launch_bounds__(THREADS)
-    gconv_bf16(const __nv_bfloat16* __restrict__ x,
-               const __nv_bfloat16* __restrict__ w,
-               __nv_bfloat16* __restrict__ out, Geom g, int vec) {
+    gconv_mma_sync(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ w,
+                   __nv_bfloat16* __restrict__ out, Geom g, int vec) {
   // A tile row-major [m][k]; B tile [n][k] (the weight's own order), so the
   // two k-adjacent bf16 values of a fragment register are adjacent.
   __shared__ __align__(16) __nv_bfloat16 As[BM][BK16 + PAD16];
@@ -305,31 +511,88 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// The N tile of the wgmma body: one tile at the group widths it is built
+// for, else tiles of 64 (the columns past fg are computed and not stored).
+int n_tile(int fg) { return fg == 16 || fg == 112 || fg == 128 || fg == 232 ? fg : 64; }
+
+template <int kWG, int kBN>
+int launch_wgmma(const void* x, const void* w, void* out, const Geom& g, int stages,
+                 cudaStream_t s) {
+  using R = Ring<kWG, kBN>;
+  const int smem = 1024 + stages * (R::STAGE_BYTES + 16);
+  if (stages < 1 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  // the weight [C_out, 3, 3, cg] as a K-major [C_out, 9 cg] matrix
+  CUtensorMap tw;
+  const cuuint64_t dims[2] = {(cuuint64_t)9 * g.cg, (cuuint64_t)g.Cout};
+  const cuuint64_t strides[1] = {(cuuint64_t)9 * g.cg * 2};
+  const cuuint32_t box[2] = {KC, kBN};
+  if (!swizzled_map(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, dims, strides, box))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  static std::atomic<unsigned> raised{0};  // for this tiling
+  e = raise_smem_once(gconv_wgmma<kWG, kBN>, MAX_SMEM, dev, raised);
+  if (e != cudaSuccess) return (int)e;
+  const long long y = (long long)(g.C / g.cg) * ((g.fg + kBN - 1) / kBN);
+  if (y > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((g.M + R::BM - 1) / R::BM, (unsigned)y);
+  gconv_wgmma<kWG, kBN><<<grid, R::THREADS, smem, s>>>(
+      tw, static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), g, stages);
+  return (int)cudaGetLastError();
+}
+
+int launch_tiling(const void* x, const void* w, void* out, const Geom& g, int warpgroups,
+                  int stages, cudaStream_t s) {
+  const int bn = n_tile(g.fg);
+#define GC_TILE(wg, n) \
+  if (warpgroups == wg && bn == n) return launch_wgmma<wg, n>(x, w, out, g, stages, s);
+  GC_TILE(1, 16)
+  GC_TILE(2, 16)
+  GC_TILE(1, 64)
+  GC_TILE(2, 64)
+  GC_TILE(1, 112)
+  GC_TILE(2, 112)
+  GC_TILE(1, 128)
+  GC_TILE(2, 128)
+  GC_TILE(1, 232)
+  GC_TILE(2, 232)
+#undef GC_TILE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. x [B, H, W, G*cg], w [G*fg, 3,
 // 3, cg] (the channels-last memory order of [C_out, cg, 3, 3]), out
-// [B, Ho, Wo, G*fg] with Ho = ceil(H / stride); all in one dtype. Launches
-// on `stream`, does not synchronise, allocates nothing, and returns the
-// launch's cudaError_t (0 on success; -1 for a dtype it does not take).
+// [B, Ho, Wo, G*fg] with Ho = ceil(H / stride); all in one dtype.
+// (warpgroups, stages) is the wrapper's plan for the bf16 wgmma body,
+// which takes cg and fg that are multiples of 8 and 16-byte aligned bases;
+// other bf16 calls run the mma.sync body. Launches on `stream`, does not
+// synchronise, allocates nothing, and returns the launch's cudaError_t (0
+// on success; -1 for a dtype it does not take).
 extern "C" int group_conv3x3_launch(const void* x, const void* w, void* out,
                                     int B, int H, int W, int G, int cg, int fg,
-                                    int stride, int dtype, void* stream) {
+                                    int stride, int dtype, int warpgroups, int stages,
+                                    void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || G <= 0 || cg <= 0 || fg <= 0 ||
-      (stride != 1 && stride != 2))
+      (stride != 1 && stride != 2) || (long long)B * H * W >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   Geom g;
   g.B = B, g.H = H, g.W = W, g.C = G * cg;
   g.Ho = (H + stride - 1) / stride, g.Wo = (W + stride - 1) / stride;
   g.Cout = G * fg, g.cg = cg, g.fg = fg, g.stride = stride;
   g.M = B * g.Ho * g.Wo;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16 && cg % 8 == 0 && fg % 8 == 0 && aligned16(x) && aligned16(w) &&
+      aligned16(out))
+    return launch_tiling(x, w, out, g, warpgroups, stages, s);
   const int n_tiles = (fg + BN - 1) / BN;
   if ((long long)G * n_tiles > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((g.M + BM - 1) / BM, G * n_tiles);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16) {
     const int vec = (cg % 8 == 0) && aligned16(x) && aligned16(w);
-    gconv_bf16<<<grid, THREADS, 0, s>>>(
+    gconv_mma_sync<<<grid, THREADS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(w),
         static_cast<__nv_bfloat16*>(out), g, vec);

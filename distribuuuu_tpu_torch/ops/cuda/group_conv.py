@@ -9,7 +9,12 @@ x's dtype, ``[B, ceil(H/s), ceil(W/s), C_out]``.
 
 On a CUDA tensor :func:`group_conv3x3` launches the kernel
 (``csrc/group_conv.cu``, bf16 or f32) or raises; on a CPU tensor it runs
-:func:`group_conv3x3_plain`, the tap accumulation of the TPU kernel. The
+:func:`group_conv3x3_plain`, the tap accumulation of the TPU kernel. A
+bf16 call whose cg and fg are multiples of 8 and whose bases are 16-byte
+aligned (every RegNet and ResNeXt site) runs the Hopper body: A gathered
+into a swizzled shared-memory ring, the weight loaded by TMA as it is
+stored, ``wgmma``, tiled by :func:`plan`; any other bf16 call runs the
+first design's ``mma.sync`` body (:func:`kernel_body` says which). The
 backward mirrors ``_bwd`` of the JAX package: dx of a stride-1 conv is the
 same kernel on the cotangent with the spatially flipped, per-group
 transposed weight (counted in ``group_conv3x3.launches_dx``); dx of a
@@ -20,6 +25,8 @@ package leaves them to XLA.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -64,6 +71,85 @@ def group_conv3x3_plain(x, weight, stride: int = 1, groups: int = 1):
     return acc.reshape(b, ho, wo, groups * fg).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# the bf16 wgmma body's tiling
+# ---------------------------------------------------------------------------
+
+SMS = 132  # streaming multiprocessors of the H100 SXM
+KC = 64  # k of one ring stage: one 128-byte swizzle row of bf16
+MAX_SMEM = 232448  # dynamic shared memory a block may use
+SM_SMEM = 233472  # shared memory of an SM, 1 KB of it reserved for each block
+WGMMA_N = (16, 112, 128, 232)  # group widths the wgmma body runs as one N tile
+
+
+class GroupPlan(NamedTuple):
+    """The wgmma body's tiling: consumer warpgroups of a block (64 output
+    pixels each) and the stages of its shared-memory ring."""
+
+    warpgroups: int
+    stages: int
+
+
+def kernel_body(x, weight, groups: int) -> str:
+    """The body the launcher runs for this call on the card: ``wgmma``
+    (bf16, cg and fg multiples of 8, 16-byte aligned bases), ``mma_sync``
+    (any other bf16 call) or ``f32``."""
+    if x.dtype != torch.bfloat16:
+        return "f32"
+    c_out, cg = weight.shape[:2]
+    aligned = x.data_ptr() % 16 == 0 and weight.data_ptr() % 16 == 0
+    return "wgmma" if cg % 8 == 0 and (c_out // groups) % 8 == 0 and aligned else "mma_sync"
+
+
+def n_tile(fg: int) -> int:
+    """The N tile of the wgmma body: fg at the widths it is built for
+    (:data:`WGMMA_N`), else tiles of 64 (the launcher's ``n_tile``)."""
+    return fg if fg in WGMMA_N else 64
+
+
+def blocks_per_sm(warpgroups: int, fg: int) -> int:
+    """Blocks of a tiling an SM holds by registers: two of one warpgroup
+    at N ≤ 128 (the kernel's ``MIN_BLOCKS``), else one."""
+    return 2 if warpgroups == 1 and n_tile(fg) <= 128 else 1
+
+
+def max_stages(warpgroups: int, fg: int, per_sm: int = 1) -> int:
+    """The most ring stages a block of this tiling takes when ``per_sm``
+    blocks share an SM's shared memory (a stage is 128 bytes for each of
+    its 64·warpgroups rows of A and N rows of B, and 16 of barriers; 1 KB
+    aligns the ring)."""
+    budget = MAX_SMEM if per_sm == 1 else SM_SMEM // per_sm - 1024
+    return (budget - 1024) // ((64 * warpgroups + n_tile(fg)) * 128 + 16)
+
+
+TWO_WG_N = (112, 232)  # N tiles measured faster with two consumer warpgroups
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, groups: int, cg: int, fg: int, stride: int) -> GroupPlan:
+    """The wgmma body's tiling of ``m`` output pixels of ``groups`` groups,
+    ``cg`` channels in and ``fg`` out a group, at ``stride`` (1 or 2: the
+    gather takes both alike), as measured on the H100 (``PERF.md`` §6,
+    ``group_conv_sweep.py``).
+
+    * two consumer warpgroups (128-pixel tiles, one block an SM) where
+      128-pixel tiles make two waves or more of the 132 SMs and the N tile
+      is one of :data:`TWO_WG_N` (regnety_160 and regnety_320: each
+      weight stage read from L2 feeds twice the rows); else one (64
+      pixels, two blocks an SM, two producers gathering): at regnety_160's
+      serving batch 8 (143 blocks of 128 would fill 1.08 waves), and at
+      regnetx_160's fg 128 (batch 64) and ResNeXt's 16 (batch 8), where
+      it measured faster;
+    * as many ring stages as fit in the shared memory of the blocks an SM
+      holds (:func:`blocks_per_sm`), no more than the K steps of 64.
+    """
+    bn = n_tile(fg)
+    tiles_128 = -(-m // 128) * groups * -(-fg // bn)
+    wg = 2 if tiles_128 >= 2 * SMS and bn in TWO_WG_N else 1
+    k_steps = -(-9 * cg // KC)
+    return GroupPlan(wg, min(k_steps, max_stages(wg, fg, blocks_per_sm(wg, fg))))
+
+
 def _lib():
     from distribuuuu_tpu_torch.ops.cuda import _build
 
@@ -71,15 +157,16 @@ def _lib():
     fn = lib.group_conv3x3_launch
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, i, i, i, vp]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(x, weight, stride: int, groups: int):
-    """One launch of the kernel on CUDA tensors; raises on what it does not
-    take (no silent copy: x must be contiguous NHWC and the weight in
-    channels-last memory order)."""
+def _launch(x, weight, stride: int, groups: int, tiling: GroupPlan | None = None):
+    """One launch of the kernel on CUDA tensors, the wgmma body tiled by
+    ``tiling`` (default :func:`plan`); raises on what it does not take (no
+    silent copy: x must be contiguous NHWC and the weight in channels-last
+    memory order)."""
     b, h, w, cg, fg, ho, wo = _geometry(x, weight, stride, groups)
     if weight.device != x.device:
         raise ValueError(f"group conv: weight on {weight.device}, x on {x.device}")
@@ -93,12 +180,15 @@ def _launch(x, weight, stride: int, groups: int):
                          "channels-last memory order ([C_out, 3, 3, cg])")
     if b * ho * wo >= 2**31 or x.numel() >= 2**62:
         raise ValueError(f"group conv: {b}x{ho}x{wo} output pixels is out of the kernel's range")
+    if b * h * w >= 2**31:
+        raise ValueError(f"group conv: {b}x{h}x{w} input pixels is out of the kernel's range")
+    tiling = tiling or plan(b * ho * wo, groups, cg, fg, stride)
     out = torch.empty((b, ho, wo, groups * fg), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().group_conv3x3_launch(x.data_ptr(), weight.data_ptr(), out.data_ptr(),
                                           b, h, w, groups, cg, fg, stride,
-                                          _DTYPE_CODE[x.dtype], stream)
+                                          _DTYPE_CODE[x.dtype], *tiling, stream)
     if err != 0:
         raise RuntimeError(f"group_conv3x3_launch failed: CUDA error {err}")
     return out

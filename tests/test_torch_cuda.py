@@ -24,7 +24,12 @@ decode step of the generation engine launches it once per block, and the
 engine's f32 greedy streams on the card equal the CPU's. The grouped 3x3
 conv kernel is held against its plain version at the RegNets' stage-3
 shapes, a ResNeXt shape, a stride-2 shape and a ragged one, in bf16 and
-f32; its autograd dx and dW on the card against the CPU's.
+f32; its autograd dx and dW on the card against the CPU's. Its bf16
+wgmma body reads no other group's channels (NaN and inf in one group
+leave the others equal to the plain version), agrees at every tiling
+its launcher takes (ragged M, K and N) and with a one-stage ring; a
+base off 16-byte alignment runs the mma.sync body; and its dx at
+regnety_160's width agrees with the CPU's autograd.
 """
 
 from __future__ import annotations
@@ -678,3 +683,119 @@ def test_group_conv_refuses_what_it_does_not_take():
         gc.group_conv3x3(x.half(), w.half(), 1, 2)
     with pytest.raises(ValueError, match="on cpu"):
         gc.group_conv3x3(x, w.cpu(), 1, 2)
+
+
+@pytest.mark.parametrize("shape", [(2, 14, 14, 1232, 11, 1), (2, 14, 14, 1392, 6, 1),
+                                   (2, 28, 28, 1232, 11, 2)], ids=str)
+def test_group_conv_reads_no_other_group(shape):
+    """NaN and inf in one group's input channels: every other group's
+    output stays finite and equal to the plain version. The wgmma body
+    gathers only its group's channels (cg 112 and 232 are not multiples
+    of a 64-channel box, so a box-wide load would reach the neighbours)."""
+    dev = _card()
+    *_, g, s = shape
+    x, w = _group_inputs(dev, shape, torch.bfloat16, seed=3)
+    cg, bad = shape[3] // g, g // 2
+    x[..., bad * cg:(bad + 1) * cg:2] = float("nan")
+    x[..., bad * cg + 1:(bad + 1) * cg:2] = float("inf")
+    assert gc.kernel_body(x, w, g) == "wgmma"
+    got, want = gc.group_conv3x3(x, w, s, g), gc.group_conv3x3_plain(x, w, s, g)
+    torch.cuda.synchronize()
+    fg = w.shape[0] // g
+    keep = torch.ones(g * fg, dtype=torch.bool, device=dev)
+    keep[bad * fg:(bad + 1) * fg] = False
+    assert bool(torch.isfinite(got[..., keep]).all())
+    _close(got[..., keep], want[..., keep], GROUP_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("shape", [
+    (3, 14, 14, 1392, 6, 1),  # cg 232: M 588 and K 2088 ragged in tiles of 64 and 128
+    (3, 7, 5, 448, 4, 1),  # cg 112: M 105, K 1008 ragged
+    (2, 9, 9, 192, 4, 1),  # cg 48: fg in N tiles of 64, the last one past the group
+], ids=str)
+def test_group_conv_takes_every_tiling(shape):
+    """Every tiling the wgmma body's launcher takes (one or two consumer
+    warpgroups, 1 to the most stages that fit) agrees with the plain
+    version at ragged edges, not only the one ``plan`` picks."""
+    import group_conv_sweep as sweep
+
+    dev = _card()
+    *_, g, s = shape
+    x, w = _group_inputs(dev, shape, torch.bfloat16, seed=5)
+    want = gc.group_conv3x3_plain(x, w, s, g)
+    cg = shape[3] // g
+    plans = list(sweep.tilings(cg, cg))
+    assert {p.warpgroups for p in plans} == {1, 2} and min(p.stages for p in plans) == 1
+    for plan in plans:
+        got = gc._launch(x, w, s, g, plan)
+        torch.cuda.synchronize()
+        _close(got, want, GROUP_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("warpgroups", [1, 2])
+def test_group_conv_one_stage_ring(warpgroups):
+    """A ring of one stage at regnety_160's stage-3 width: the producer
+    waits for the consumers to free the only stage before each load (a
+    fault there deadlocks the ring, which traps after 4 s)."""
+    dev = _card()
+    shape = (4, 14, 14, 1232, 11, 1)
+    x, w = _group_inputs(dev, shape, torch.bfloat16, seed=6)
+    got = gc._launch(x, w, 1, 11, gc.GroupPlan(warpgroups, 1))
+    want = gc.group_conv3x3_plain(x, w, 1, 11)
+    torch.cuda.synchronize()
+    _close(got, want, GROUP_TOL[torch.bfloat16])
+
+
+def _unaligned(t: torch.Tensor, channels_last: bool) -> torch.Tensor:
+    """A copy of ``t`` at a storage offset of one element (2 bytes past
+    16-byte alignment), contiguous (NHWC) or in channels-last order."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    if channels_last:
+        n, c, h, w = t.shape
+        out = buf[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+    else:
+        out = buf[1:].view(t.shape)
+    return out.copy_(t)
+
+
+@pytest.mark.parametrize("which", ["x", "weight"])
+def test_group_conv_unaligned_base_runs_the_mma_sync_body(which):
+    """A bf16 base that is not 16-byte aligned cannot feed cp.async or TMA:
+    the launcher routes it to the mma.sync body, which agrees with the
+    plain version."""
+    dev = _card()
+    shape = (2, 14, 14, 1232, 11, 1)
+    x, w = _group_inputs(dev, shape, torch.bfloat16, seed=8)
+    if which == "x":
+        x = _unaligned(x, channels_last=False)
+    else:
+        w = _unaligned(w, channels_last=True)
+    assert gc.kernel_body(x, w, 11) == "mma_sync"
+    before = gc.group_conv3x3.launches
+    got = gc.group_conv3x3(x, w, 1, 11)
+    want = gc.group_conv3x3_plain(x, w, 1, 11)
+    torch.cuda.synchronize()
+    assert gc.group_conv3x3.launches == before + 1
+    _close(got, want, GROUP_TOL[torch.bfloat16])
+
+
+def test_group_conv_dx_at_regnety_160_width_matches_cpu_autograd():
+    """dx of a bf16 stride-1 site at regnety_160's stage-3 width (the
+    wgmma body on the flipped weight) against the same Function on the
+    CPU in f32 from the same bf16 values: one bf16 rounding apart."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    b, hw, c, g = 2, 14, 1232, 11
+    x = torch.tensor(rng.standard_normal((b, hw, hw, c)), dtype=torch.bfloat16)
+    w = torch.tensor(rng.standard_normal((c, c // g, 3, 3)) / (9 * c // g) ** 0.5,
+                     dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dy = torch.tensor(rng.standard_normal((b, hw, hw, c)), dtype=torch.bfloat16)
+    tx, tw = x.to(dev).requires_grad_(), w.to(dev)
+    assert gc.kernel_body(dy.to(dev), gc.flipped_weight(tw, g), g) == "wgmma"
+    before = gc.group_conv3x3.launches_dx
+    (dx,) = torch.autograd.grad(gc.group_conv3x3(tx, tw, 1, g), (tx,), dy.to(dev))
+    torch.cuda.synchronize()
+    assert gc.group_conv3x3.launches_dx == before + 1
+    cx = x.float().requires_grad_()
+    (want,) = torch.autograd.grad(gc.group_conv3x3(cx, w.float(), 1, g), (cx,), dy.float())
+    _close(dx.float().cpu(), want, GROUP_TOL[torch.bfloat16])

@@ -10,6 +10,11 @@ tests/test_group_conv.py runs it, and the site routing of ``ConvBN`` under
   Pallas kernel to 1e-4, the JAX test's own tolerance.
 * The Function's stride-1 dx is the flipped-weight identity: it equals
   autograd through the plain version.
+* The bf16 wgmma body's tiling (``plan``) is pinned at every RegNet
+  stage-3 site (regnety_160, regnetx_160, regnety_320 at batches 8, 64,
+  200; forward, dx and the stride-2 block), its ring fits the shared
+  memory of the blocks an SM holds, and ``kernel_body`` routes by dtype,
+  group width and alignment.
 * Routing: under ``pallas`` a 3x3, stride-1, padding-1 site at ≤ 14² runs
   the kernel's entry point (its plain version here, on CPU tensors);
   stride 2 and 16² do not; every other mode is the library conv (or the
@@ -145,6 +150,71 @@ def test_bound_counts_at_regnety_160_stage_3():
     nbytes = gc.pass_bytes(8, 14, 14, 1232, 1232, 112, 1, torch.bfloat16)
     assert flops == 2 * 8 * 196 * 9 * 112 * 1232 and round(flops / 1e9, 2) == 3.89
     assert round(nbytes / 1e6, 1) == 10.2
+
+
+# (arch, batch) -> the plan at its stage-3 grouped 3x3 (14² out, the sites
+# DISTRIBUUUU_GROUP_CONV=pallas sends to the kernel), as measured on the
+# H100 with group_conv_sweep.py: (warpgroups, stages)
+STAGE3_PLANS = {
+    ("regnety_160", 8): (1, 5), ("regnety_160", 64): (2, 7), ("regnety_160", 200): (2, 7),
+    ("regnetx_160", 8): (1, 4), ("regnetx_160", 64): (1, 4), ("regnetx_160", 200): (1, 4),
+    ("regnety_320", 8): (1, 6), ("regnety_320", 64): (2, 5), ("regnety_320", 200): (2, 5),
+}
+
+
+@pytest.mark.parametrize("arch,batch", list(STAGE3_PLANS), ids=str)
+def test_plan_is_pinned_at_every_regnet_stage_3_site(arch, batch):
+    """The wgmma body's tiling at each RegNet's stage 3, read off the model:
+    the stride-1 blocks (forward, and dx on the flipped weight, whose cg
+    and fg trade places) and the stride-2 first block (28² in, 14² out)."""
+    from distribuuuu_tpu_torch.models import build_model
+
+    stage = build_model(arch, device="meta").stages[2]
+    want = gc.GroupPlan(*STAGE3_PLANS[(arch, batch)])
+    seen = set()
+    for blk in stage:
+        conv = blk.conv2.conv
+        g, s = conv.groups, conv.stride[0]
+        cg, fg = conv.in_channels // g, conv.out_channels // g
+        seen.add(s)
+        assert gc.plan(batch * 14 * 14, g, cg, fg, s) == want
+        if s == 1:
+            assert gc.plan(batch * 14 * 14, g, fg, cg, 1) == want  # the dx conv
+    assert seen == {1, 2}
+
+
+@pytest.mark.parametrize("wg", [1, 2])
+@pytest.mark.parametrize("fg", [16, 48, 112, 128, 232])
+def test_plan_stages_fit_the_blocks_an_sm_holds(wg, fg):
+    """The ring a plan takes fits in shared memory as the launcher lays it
+    out (1 KB of alignment, then a stage of A and B rows of 128 bytes and
+    16 bytes of barriers each), for the blocks an SM holds; one stage more
+    would not."""
+    per_sm = gc.blocks_per_sm(wg, fg)
+    n = gc.max_stages(wg, fg, per_sm)
+    stage = (64 * wg + gc.n_tile(fg)) * 128 + 16
+    budget = gc.MAX_SMEM if per_sm == 1 else gc.SM_SMEM // per_sm - 1024
+    assert n >= 1 and 1024 + n * stage <= budget < 1024 + (n + 1) * stage
+    assert gc.n_tile(fg) == (fg if fg != 48 else 64)
+
+
+def test_plan_takes_no_more_stages_than_k_steps():
+    assert gc.plan(8 * 196, 32, 16, 16, 1) == gc.GroupPlan(1, 3)  # ResNeXt: 9·16 = 3 steps of 64
+
+
+def test_kernel_body_routes_by_dtype_width_and_alignment():
+    """bf16 with cg and fg multiples of 8 and 16-byte aligned bases takes
+    the wgmma body; cg 11 or a base one element off alignment takes the
+    mma.sync body; f32 its own."""
+    x = torch.zeros(2, 6, 6, 32, dtype=torch.bfloat16)
+    w = torch.zeros(32, 8, 3, 3, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    assert gc.kernel_body(x, w, 4) == "wgmma"
+    assert gc.kernel_body(x.float(), w.float(), 4) == "f32"
+    assert gc.kernel_body(x[..., :22], torch.zeros(22, 11, 3, 3, dtype=torch.bfloat16),
+                          2) == "mma_sync"
+    off = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(x.shape)
+    assert gc.kernel_body(off, w, 4) == "mma_sync"
 
 
 def _unit(groups=4, stride=1, c=16):
