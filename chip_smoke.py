@@ -5,11 +5,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Build: compiles every kernel of the ported paths from csrc/ (sm_90a),
-   one nvcc per source, all at once; beside them three more nvcc report
+   one nvcc per source, all at once; beside them four more nvcc report
    ``-Xptxas -v`` (registers, spills, static shared memory, and any wgmma
    ptxas serialises) of each kernel of csrc/conv_epilogue.cu,
-   csrc/flash_attention.cu and csrc/group_conv.cu, with their build
-   seconds.
+   csrc/flash_attention.cu, csrc/group_conv.cu and csrc/decode_attn.cu,
+   with their build seconds.
 3. Kernel phases: each kernel's wrapper at the shapes its path gives it,
    held against its plain PyTorch version on the card, timed (CUDA
    events) beside its plain version and one library call, with its bound
@@ -33,7 +33,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    decode_attention at the GPT-nano decode tiles (4 and 32 slots × 256
    positions × 4 heads × 32, bf16), the TPU-side bench shape, a
    bandwidth probe at [8, 16, 4096, 128] (not a model) and a ragged f32
-   tile, with SDPA over a length mask as the library.
+   tile, with SDPA over a length mask as the library, each row with the
+   body and plan it ran, the first design's time (``simple_ms``) and the
+   launch floors of an empty block and of an empty kernel over the plan's
+   clusters.
 4. Serving slices, through ``engine_from_cfg`` on cuda:0 with buckets
    [1, 2, 4, 8] and two bursts of 64 seeded uint8 requests through
    ``submit`` (img/s and latency are the second burst's; the first is
@@ -347,9 +350,10 @@ def _kernel_name(mangled: str) -> dict:
     rest = rest[m.end() + int(m.group(1)):]
     targs = []
     if rest.startswith("I"):
-        for tok in re.finditer(r"(13__nv_bfloat16|6__half|Li(\d+)E)", rest[:rest.find("EE") + 2]):
-            targs.append("bf16" if tok.group(1).startswith("13") else "f16"
-                         if tok.group(1).startswith("6") else int(tok.group(2)))
+        for tok in re.finditer(r"(^If|13__nv_bfloat16|6__half|Li(\d+)E)",
+                               rest[:rest.find("EE") + 2]):
+            targs.append("f32" if tok.group(1) == "If" else "bf16" if tok.group(1).startswith("13")
+                         else "f16" if tok.group(1).startswith("6") else int(tok.group(2)))
     return {"kernel": name, "targs": targs}
 
 
@@ -1324,12 +1328,17 @@ def vit_auto_phase(torch, fa, dev, batch: int = 4):
 
 def decode_kernel_phase(torch, da, dev):
     """decode_attention against its plain version at DECODE_SHAPES, timed
-    beside its plain version and SDPA over the same length mask, with its
+    beside its plain version, its first design (``decode_simple``, the
+    ``simple_ms`` of every row) and SDPA over the same length mask, with its
     bound: the live bytes (K and V rows 0..length once, q and lengths read,
-    the fp32 out written) over the memory rate. Returns {shape name: row}."""
+    the fp32 out written) over the memory rate, and two launch floors timed
+    the same way: an empty block (``floor_ms``) and an empty kernel over the
+    plan's grid and clusters (``cluster_floor_ms``). Each row names the body
+    and the plan it ran. Returns {shape name: row}."""
     import numpy as np
 
     F = torch.nn.functional
+    SIMPLE = da.DecodePlan("simple", 1, 0, 0)
     out = {}
     for name, b, h, c, d, dt, lengths in DECODE_SHAPES:
         dtype = getattr(torch, dt)
@@ -1362,6 +1371,12 @@ def decode_kernel_phase(torch, da, dev):
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
             else "operations", "live_bytes": nbytes,
             "tile_bytes": da.pass_bytes(b, h, c, d, dtype),
+            "body": da.kernel_body(q, k, v), "plan": da.plan(b, h, c, d, dtype)._asdict(),
+            "simple_ms": time_ms(torch, lambda: da.decode_attention_kernel(
+                q, k, v, lens, scale, tiling=SIMPLE)),
+            "floor_ms": time_ms(torch, lambda: da.launch_floor(dev, 1, 1)),
+            "cluster_floor_ms": time_ms(torch, lambda: da.launch_floor(
+                dev, b, h, da.plan(b, h, c, d, dtype).splits)),
         }
         row["achieved_gb_per_s"] = nbytes / row["ms"] / 1e6
         emit(row)
@@ -1573,7 +1588,8 @@ def lm_profile_phase(torch, dev, engine, iters: int = 20):
             torch.cuda.synchronize()
     engine._cache = saved
     low = str.lower
-    b = _breakdown(torch, prof, iters, lambda n: "decode_attention" if "decode_attn" in n
+    b = _breakdown(torch, prof, iters, lambda n: "decode_attention"
+                   if "decode_split" in n or "decode_simple" in n
                    else "gemm" if any(t in low(n) for t in ("gemm", "nvjet", "cublas", "cutlass"))
                    else "memcpy" if "memcpy" in low(n) else "layernorm_gelu_elementwise_other")
     emit({"phase": "profile_decode", "batch": 4, "cache": 256, "iters": iters,
@@ -1622,7 +1638,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     ptxas = {n: start_ptxas_report(_build, n)
-             for n in ("conv_epilogue", "flash_attention", "group_conv")}
+             for n in ("conv_epilogue", "flash_attention", "group_conv", "decode_attn")}
     try:
         _build.build("conv_epilogue", "opt_update", "flash_attention", "decode_attn",
                      "group_conv")

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (conv_epilogue.cu, flash_attention.cu, group_conv.cu): mbarriers, TMA
-// loads and tensor maps, the wgmma descriptors of 128-byte-swizzled shared
-// memory, and the wgmma instructions themselves.
+// (conv_epilogue.cu, flash_attention.cu, group_conv.cu) and the decode
+// kernel (decode_attn.cu): mbarriers, TMA loads and tensor maps, 1-D bulk
+// copies, the wgmma descriptors of 128-byte-swizzled shared memory, and
+// the wgmma instructions themselves.
 //
 // Everything a TMA load writes here uses the 128-byte swizzle: a box is
 // 64 16-bit values wide (one 128-byte row), and rows repeat the swizzle
@@ -102,6 +103,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory, completing on `bar`:
+// a 1-D bulk async copy, no tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

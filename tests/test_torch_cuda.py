@@ -19,9 +19,14 @@ the backward read no other head's rows and give the same bits twice; the
 forward takes a negative scale; the gradients through the autograd Function on the
 card against the same Function on the CPU; and each launch counter moves
 once per call. The decode-attention kernel is
-held against its plain version at head dims 32/64/128 in bf16 and f32, a
-decode step of the generation engine launches it once per block, and the
-engine's f32 greedy streams on the card equal the CPU's. The grouped 3x3
+held against its plain version at head dims 32/64/128 in bf16 and f32:
+its cluster body at every plan of a set of shapes (lengths −1, 0, 1,
+C − 1 and past C, blocks with no live key among them) and at every
+tiling the sweep times; the first design at an
+unaligned base and an odd head dim; two calls give the same bits and
+each call is one launch; a decode step of the generation engine launches
+it once per block, and the engine's f32 greedy streams on the card equal
+the CPU's. The grouped 3x3
 conv kernel is held against its plain version at the RegNets' stage-3
 shapes, a ResNeXt shape, a stride-2 shape and a ragged one, in bf16 and
 f32; its autograd dx and dW on the card against the CPU's. Its bf16
@@ -570,6 +575,105 @@ def test_decode_attention_kernel_matches_plain_on_card(dtype, b, h, c, d):
     _close(got, want, FLASH_TOL[dtype])
     with pytest.raises(TypeError, match="f32 or bf16"):
         da.decode_attention(q.half(), k.half(), v.half(), lens, scale=1.0)
+
+
+DECODE_CARD_SHAPES = [  # (B, H, C): plans of 1, 2, 3, 4, 6 and 8 splits, one or two stages
+    (5, 4, 256),  # GPT-nano's tile with one more row
+    (5, 8, 1024),  # a longer cache: eight blocks a row
+    (5, 2, 96),  # a tile inside one TPU block
+    (5, 1, 40),  # fewer keys than two key groups: one block a row
+    (5, 3, 2000),  # long rows: several stages a block
+    (5, 16, 4096),  # the bandwidth probe's rows
+]
+
+
+def _decode_inputs(dev, b, h, c, d, dtype, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, d, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(b, h, c, d, device=dev, generator=g).to(dtype) for _ in range(2))
+    lens = torch.tensor([-1, 0, 1, c - 1, c + 5][:b], dtype=torch.int32, device=dev)
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("b,h,c", DECODE_CARD_SHAPES, ids=str)
+def test_decode_split_body_matches_plain_at_every_plan(dtype, d, b, h, c):
+    """The cluster body at the plan of each shape: a negative length gives
+    0, a length past C reads all C keys, one launch a call."""
+    dev = _card()
+    q, k, v, lens = _decode_inputs(dev, b, h, c, d, dtype)
+    assert da.kernel_body(q, k, v) == "split"
+    before = da.launches
+    got = da.decode_attention(q, k, v, lens, scale=d ** -0.5, blk_k=c)
+    want = da.decode_attention_plain(q, k, v, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1
+    assert float(got[0].abs().max()) == 0.0  # length -1
+    _close(got, want, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_decode_split_body_takes_every_tiling(d, dtype):
+    """Every tiling the sweep times (splits 1–8, stages of 4–32 KB, 1–4
+    stages) at a ragged cache of 300 keys."""
+    from distribuuuu_tpu_torch.ops.cuda import decode_sweep
+
+    dev = _card()
+    b, h, c = 5, 2, 300
+    q, k, v, lens = _decode_inputs(dev, b, h, c, d, dtype, seed=5)
+    want = da.decode_attention_plain(q, k, v, lens, d ** -0.5)
+    for t in decode_sweep.tilings(b, h, c, d, dtype):
+        got = da.decode_attention_kernel(q, k, v, lens, d ** -0.5, tiling=t)
+        torch.cuda.synchronize()
+        _close(got, want, FLASH_TOL[dtype])
+
+
+def _offset(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["q", "k", "v", "odd_d"])
+def test_decode_simple_body_takes_what_the_bulk_copy_cannot(dtype, case):
+    """A base off 16-byte alignment, or a head dim that is not a whole
+    number of 16-byte pieces, runs the first design, which agrees with the
+    plain version."""
+    dev = _card()
+    d = 33 if case == "odd_d" else 64
+    q, k, v, lens = _decode_inputs(dev, 5, 4, 256, d, dtype, seed=7)
+    if case == "q":
+        q = _offset(q)
+    elif case == "k":
+        k = _offset(k)
+    elif case == "v":
+        v = _offset(v)
+    assert da.kernel_body(q, k, v) == "simple"
+    before = da.launches
+    got = da.decode_attention(q, k, v, lens, scale=d ** -0.5)
+    want = da.decode_attention_plain(q, k, v, lens, d ** -0.5)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1
+    _close(got, want, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,c,d", [(4, 4, 256, 32), (32, 4, 256, 32), (8, 16, 4096, 128)])
+def test_decode_attention_is_bitwise_repeatable(b, h, c, d):
+    """The cluster merges its blocks in rank order: two calls, one launch
+    each, give the same bits."""
+    dev = _card()
+    q, k, v, _ = _decode_inputs(dev, b, h, c, d, torch.bfloat16, seed=9)
+    lens = torch.randint(0, c, (b,), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    before = da.launches
+    first = da.decode_attention(q, k, v, lens, scale=d ** -0.5, blk_k=c)
+    second = da.decode_attention(q, k, v, lens, scale=d ** -0.5, blk_k=c)
+    torch.cuda.synchronize()
+    assert da.launches == before + 2
+    assert torch.equal(first, second)
 
 
 def _tiny_gpt(dtype):
