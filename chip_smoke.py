@@ -92,7 +92,35 @@ Run from the root of a checkout:  python3 chip_smoke.py
    seeded N(1, 0.1) values (``MODEL.WEIGHTS``), or the residual branch,
    and with it the kernel, would not reach the logits at init; zeroing
    the grouped weights of the kernel's sites must move the logits.
-8. Prints the ``{"kernels": [...]}`` line, the card's name and power
+8. Real images and process groups:
+   * ``syncbn_world1``: one f32 ResNet-50 step (batch 8, TF32 off, cuDNN
+     deterministic) with ``BN_GROUP 0`` and no process group, then with
+     ``MODEL.SYNCBN`` in a one-process NCCL group (``MASTER_ADDR``
+     127.0.0.1, a free port): every BatchNorm all-reduces its sums, the
+     gradients and metrics are all-reduced, and the two steps must be
+     bitwise equal;
+   * ``realdata_train``: an ImageFolder of 8 classes, 96 train and 25 val
+     JPEGs each (quality 90, sides 300-500, colours by class, seed 0),
+     trained through ``trainer.train_model`` with config/resnet50.yaml at
+     full width (bf16, batch 32) in that group, ``DATA.BACKEND auto``,
+     ``TRAIN.WORKERS`` = the host's cores: 24 steps, then the eval of the
+     200 val images. Prints the decode backend, train img/s over steps
+     8-24, the share of that window spent waiting for the loader, eval
+     img/s, the loader's img/s alone, the dummy-data train img/s of phase
+     5 beside them, and the launches of opt_update (one a step) and
+     conv1x1_bn_act (33 a forward); with the native decoder built, its
+     uint8 batches against PIL's on the same files (at most
+     NATIVE_U8_BOUND counts apart);
+   * ``two_ranks_one_card``: two processes share cuda:0 over gloo (this
+     script with ``--two-ranks-worker``): ResNet-50, TF32 off, BN params
+     seeded away from their init, 16 images a rank, SyncBN and then ghost
+     groups of 16, against one process at batch 32 on the card: in f64
+     the gradients (all-reduced) and running stats within
+     TWO_RANK_F64_TOL of each tensor's largest magnitude; two f32 train
+     steps with the ranks bitwise equal and the first loss within
+     TWO_RANK_LOSS_RTOL (the updates' L2 and per-tensor differences are
+     printed).
+9. Prints the ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds torch.profiler breakdowns of a ResNet-50 and a
@@ -1145,6 +1173,425 @@ def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, tweak=
                              f"{cpu_f64} (ratio max {STEP_F64_RATIO_MAX})")
 
 
+# the real-data phase's ImageFolder: ImageNet-like JPEGs (quality 90, sides
+# drawn in 300-500) of 8 classes, 96 train and 25 val a class, made from
+# seed 0 with colours separable by class; trained at resnet50.yaml's batch
+# 32 (24 steps) and evaluated at its batch 200 (one forward)
+REAL_CLASSES, REAL_TRAIN, REAL_VAL = 8, 96, 25
+REAL_STEPS = REAL_CLASSES * REAL_TRAIN // 32
+REAL_WINDOW = (8, 24)  # train img/s and the loader's share between these flushes
+# the native decoder against PIL on the same files: the resampler's
+# bound in uint8 counts (the port's tests hold 3/255 / min(std) normalized)
+NATIVE_U8_BOUND = 3
+# two ranks on one card against one process at the global batch. In f64
+# (one forward and backward: the gradients after the all-reduce and the
+# running stats) each tensor within TWO_RANK_F64_TOL of its largest
+# magnitude, the bound of tests/test_torch_ddp.py. In f32 (two train steps
+# through the fused update) the ranks are bitwise equal and the first
+# step's loss is within f32 rounding of the one process's; the updated
+# weights are reported, not bounded: after two f32 steps two ranks and
+# one process differ by about 0.15 in the L2 norm of the update and up
+# to 0.31 of a tensor's largest magnitude, and one process's own f32
+# steps and a CPU f64 run of them by up to 0.30 (ReLU and max-pool
+# decisions flip on rounding at random init, and the second step carries
+# the first's differences), so no f32 bound separates a fault from
+# rounding there
+TWO_RANK_F64_TOL = 1e-7
+TWO_RANK_LOSS_RTOL = 1e-6
+TWO_RANK_BATCH, TWO_RANK_STEPS, TWO_RANK_GHOST = 16, 2, 16
+
+
+def make_image_tree(root: str, seed: int = 0) -> str:
+    """``root/{train,val}/cNN/*.jpg``: REAL_CLASSES classes of REAL_TRAIN
+    and REAL_VAL JPEGs. Each image is a smooth random field (an 8x8 draw
+    resized) blended with its class's colour plus fine noise, so it
+    compresses like a photograph and its class shows in its colour."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(0, 256, (REAL_CLASSES, 3))
+    jobs = []
+    for split, n in (("train", REAL_TRAIN), ("val", REAL_VAL)):
+        for c in range(REAL_CLASSES):
+            os.makedirs(os.path.join(root, split, f"c{c:02d}"))
+            for i in range(n):
+                w, h = (int(v) for v in rng.integers(300, 501, 2))
+                jobs.append((os.path.join(root, split, f"c{c:02d}", f"{i:04d}.jpg"), w, h,
+                             colours[c], rng.integers(0, 256, (8, 8, 3), dtype=np.uint8),
+                             int(rng.integers(1 << 30))))
+
+    def write(job):
+        path, w, h, colour, field, noise_seed = job
+        smooth = np.asarray(Image.fromarray(field).resize((w, h), Image.BILINEAR), np.float32)
+        noise = np.random.default_rng(noise_seed).normal(0, 8, (h, w, 3))
+        arr = 0.5 * smooth + 0.5 * colour + noise
+        Image.fromarray(arr.clip(0, 255).astype(np.uint8)).save(path, "JPEG", quality=90)
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(write, jobs))
+    return root
+
+
+def world1_env() -> None:
+    """The environment of a one-process launch, as ``torchrun
+    --nproc_per_node 1`` sets it: ``setup_distributed`` joins a group of one."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+
+
+def leave_world1(dist) -> None:
+    dist.shutdown_distributed()
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        os.environ.pop(k, None)
+
+
+def syncbn_world1_phase(torch, dev, batch: int = 8):
+    """One f32 ResNet-50 step (full width, TF32 off, cuDNN deterministic)
+    with ``BN_GROUP 0`` and no process group, then with ``MODEL.SYNCBN``
+    in a one-process NCCL group, whose BatchNorm all-reduces its sums
+    and whose gradients and metrics are all-reduced: the two must be
+    bitwise equal (the collective runs and is the identity). Leaves the
+    group up for the real-data phase."""
+    import numpy as np
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
+    from distribuuuu_tpu_torch.parallel import dist
+    from distribuuuu_tpu_torch.utils.optim import Optimizer
+
+    rng = np.random.default_rng(3)
+    host = {"image": torch.from_numpy(rng.integers(0, 256, (batch, 224, 224, 3), np.uint8)),
+            "label": torch.from_numpy(rng.integers(0, 1000, batch).astype(np.int32))}
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def step(opts):
+        config.reset_cfg()
+        config.merge_from_file("config/resnet50.yaml")
+        cfg.merge_from_list(["DEVICE.COMPUTE_DTYPE", "float32", "RNG_SEED", 0,
+                             "TRAIN.BATCH_SIZE", batch, *opts])
+        model = trainer.build_model_from_cfg().to(dev).train()
+        opt = Optimizer(list(model.named_parameters()),
+                        ou.Hyper(kind="sgd", wd=5e-5, mom=0.9, nesterov=True), 0.1)
+        m = trainer.train_step(model, opt, {k: v.to(dev) for k, v in host.items()}, 5)
+        return float(m["loss"]), {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    calls = {"n": 0}
+    real = torch.distributed.all_reduce
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return real(*a, **k)
+
+    try:
+        alone = step(["MODEL.BN_GROUP", 0])
+        world1_env()
+        torch.cuda.set_device(dev)
+        dist.setup_distributed("nccl")
+        torch.distributed.all_reduce = counted
+        try:
+            synced = step(["MODEL.SYNCBN", True])
+        finally:
+            torch.distributed.all_reduce = real
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    differ = [k for k in alone[1] if not torch.equal(alone[1][k], synced[1][k])]
+    res = {"phase": "syncbn_world1", "arch": "resnet50", "batch": batch, "dtype": "float32",
+           "backend": torch.distributed.get_backend(), "world": dist.get_world_size(),
+           "all_reduces_in_step": calls["n"], "loss_alone": alone[0], "loss_syncbn": synced[0],
+           "tensors": len(alone[1]), "tensors_not_bitwise_equal": len(differ),
+           "bitwise_equal": not differ and alone[0] == synced[0]}
+    emit(res)
+    if calls["n"] < 53 or not res["bitwise_equal"]:  # 53 BatchNorms, each all-reduces
+        raise AssertionError(f"SyncBN at world 1: {calls['n']} all-reduces, not bitwise "
+                             f"equal in {differ[:5]} (loss {alone[0]} vs {synced[0]})")
+    return res
+
+
+def realdata_phase(torch, ce, ou, root: str, out_dir: str, dummy_img_per_s: float):
+    """``trainer.train_model`` on the ImageFolder at ``root``:
+    config/resnet50.yaml at full width (bf16, batch 32), DATA.BACKEND auto,
+    TRAIN.WORKERS = the host's cores, in the process group the environment
+    names, one epoch of REAL_STEPS steps and the eval of the val split.
+    Then the train loader alone, and, when the native decoder builds, its
+    uint8 batches against PIL's on the same files."""
+    import math
+
+    import numpy as np
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import native, trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.data import loader as dl
+    from distribuuuu_tpu_torch.data.imagefolder import ImageFolderDataset
+    from distribuuuu_tpu_torch.parallel import dist
+
+    config.reset_cfg()
+    config.merge_from_file("config/resnet50.yaml")
+    cfg.merge_from_list([
+        "TRAIN.DATASET", root, "TEST.DATASET", root, "DEVICE.PLATFORM", "auto",
+        "DEVICE.COMPUTE_DTYPE", "bfloat16", "RNG_SEED", 0, "OPTIM.MAX_EPOCH", 1,
+        "OUT_DIR", out_dir, "DATA.BACKEND", "auto", "TRAIN.WORKERS", os.cpu_count(),
+        "TRAIN.PRINT_FREQ", REAL_WINDOW[0],
+    ])
+    recs = []
+    ou.update.launches = ce.conv1x1_bn_act.launches = 0
+    t0 = time.perf_counter()
+    trainer.train_model(recs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"opt_update": ou.update.launches, "conv_epilogue": ce.conv1x1_bn_act.launches}
+    rec = recs[0]
+    flush = dict(rec["flushes"])
+    (d0, d1) = REAL_WINDOW
+    window = flush[d1] - flush[d0]
+    evals = -(-rec["eval_images"] // cfg.TEST.BATCH_SIZE)
+
+    loader = dl.construct_train_loader()
+    loader.set_epoch(0)
+    t0 = time.perf_counter()
+    n = sum(b["image"].shape[0] for b in loader)
+    loader_s = time.perf_counter() - t0
+
+    res = {
+        "phase": "realdata_train", "arch": "resnet50", "world": dist.get_world_size(),
+        "dist_backend": torch.distributed.get_backend() if dist.is_initialized() else None,
+        "decode_backend": rec["backend"], "workers": cfg.TRAIN.WORKERS,
+        "classes": REAL_CLASSES, "train_images": REAL_CLASSES * REAL_TRAIN,
+        "val_images": rec["eval_images"], "batch": cfg.TRAIN.BATCH_SIZE, "steps": rec["steps"],
+        "window_steps": list(REAL_WINDOW),
+        "train_img_per_s": (d1 - d0) * cfg.TRAIN.BATCH_SIZE * dist.get_world_size() / window,
+        "mean_step_ms": window / (d1 - d0) * 1e3,
+        "loader_wait_share": sum(rec["data_wait_s"][d0:d1]) / window,
+        "eval_img_per_s": rec["eval_images"] / rec["eval_wall_s"],
+        "loader_img_per_s": n / loader_s, "loader_images": n,
+        "dummy_train_img_per_s": dummy_img_per_s,
+        "launches": launches, "eval_forwards": evals,
+        "first_loss": rec["losses"][0], "last_loss": rec["losses"][-1],
+        "acc1": rec["acc1"], "wall_s": wall,
+    }
+    if native.available():
+        worst = []
+        for train in (True, False):
+            split, im = ("train", 224) if train else ("val", 256)
+            kw = dict(im_size=im, train=train, crop_size=None if train else 224, raw_u8=True)
+            a, _ = ImageFolderDataset(root, split, backend="native", **kw).load_batch(range(32))
+            b, _ = ImageFolderDataset(root, split, backend="pil", **kw).load_batch(range(32))
+            d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+            worst.append({"split": split, "max_abs": int(d.max()), "mean_abs": float(d.mean())})
+        res["native_vs_pil_u8"] = worst
+    else:
+        res["native_build_error"] = native.build_error()
+    emit(res)
+    if not all(math.isfinite(x) for x in rec["losses"]) or len(rec["losses"]) != rec["steps"]:
+        raise AssertionError(f"real-data losses not finite or missing: {rec['losses']}")
+    if rec["steps"] != REAL_STEPS or launches["opt_update"] != REAL_STEPS:
+        raise AssertionError(f"{rec['steps']} steps, {launches['opt_update']} opt_update "
+                             f"launches (want {REAL_STEPS} each)")
+    if launches["conv_epilogue"] != 33 * evals or not evals:
+        raise AssertionError(f"conv epilogue launches {launches['conv_epilogue']} != 33 x "
+                             f"{evals} eval forwards")
+    if any(w["max_abs"] > NATIVE_U8_BOUND for w in res.get("native_vs_pil_u8", [])):
+        raise AssertionError(f"native decoder vs PIL past {NATIVE_U8_BOUND} counts: "
+                             f"{res['native_vs_pil_u8']}")
+    return res
+
+
+def seeded_bn(torch, model, seed: int = 0) -> None:
+    """Every BatchNorm away from its init, as tests/torch_port_util.
+    random_variables sets them (scale about 0.4, bias and mean about
+    0.1, variance in 0.5-1.5): at scale 1 / bias 0, and with the
+    zero-initialised last BN of each block, a random ResNet-50's f32
+    gradient cancels in its deep BN biases, and the comparison would
+    measure that cancellation, not the two ranks."""
+    from distribuuuu_tpu_torch.models.layers import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                c = m.weight.shape[0]
+                m.weight.copy_(0.4 + 0.1 * torch.randn(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+
+
+def _two_rank_batches(seed: int = 4):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = 2 * TWO_RANK_BATCH
+    return [(rng.integers(0, 256, (n, 224, 224, 3), np.uint8),
+             rng.integers(0, 1000, n).astype(np.int32)) for _ in range(TWO_RANK_STEPS)]
+
+
+def _two_rank_train(torch, dev, bn_group: int, part: slice, steps: int = TWO_RANK_STEPS):
+    """``steps`` f32 ResNet-50 train steps on ``part`` of each batch; the
+    losses and the state after them on the CPU."""
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
+    from distribuuuu_tpu_torch.utils.optim import Optimizer
+
+    model = build_model("resnet50", num_classes=1000, dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(0), bn_group=bn_group)
+    seeded_bn(torch, model)
+    model = model.to(dev).train()
+    opt = Optimizer(list(model.named_parameters()),
+                    ou.Hyper(kind="sgd", wd=5e-5, mom=0.9, nesterov=True), 0.1)
+    losses = []
+    for images, labels in _two_rank_batches()[:steps]:
+        batch = {"image": torch.from_numpy(images[part]).to(dev),
+                 "label": torch.from_numpy(labels[part]).to(dev)}
+        losses.append(float(trainer.train_step(model, opt, batch, 5)["loss"]))
+    return losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def _two_rank_grads(torch, dev, bn_group: int, part: slice):
+    """One f64 forward and backward of ResNet-50 on ``part`` of the first
+    batch, the gradients averaged over the process group (when there is
+    one), and the running stats; all on the CPU."""
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.parallel import dist
+    from distribuuuu_tpu_torch.utils.metrics import cross_entropy
+
+    model = build_model("resnet50", num_classes=1000, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(0), bn_group=bn_group)
+    seeded_bn(torch, model)
+    model = model.to(dev, torch.float64).train()
+    images, labels = _two_rank_batches()[0]
+    logits = model(trainer.prep_images(torch.from_numpy(images[part]).to(dev)))
+    loss = cross_entropy(logits, torch.from_numpy(labels[part]).to(dev))
+    names = [n for n, _ in model.named_parameters()]
+    grads = list(torch.autograd.grad(loss, [p for _, p in model.named_parameters()]))
+    dist.all_reduce_grads(grads)
+    out = {f"grad:{n}": g.detach().cpu() for n, g in zip(names, grads)}
+    out.update({f"buffer:{n}": b.detach().cpu() for n, b in model.named_buffers()})
+    return out
+
+
+def two_ranks_worker(out_dir: str) -> int:
+    """One rank of ``two_ranks_one_card_phase`` (``--two-ranks-worker``):
+    gloo on ``cuda:0``, SyncBN then ghost groups of TWO_RANK_GHOST, each
+    in f32 (train steps) and f64 (gradients)."""
+    import torch
+
+    from distribuuuu_tpu_torch.parallel import dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.setup_distributed("gloo", timeout_s=600)
+    r = dist.get_rank()
+    part = slice(r * TWO_RANK_BATCH, (r + 1) * TWO_RANK_BATCH)
+    for group in (0, TWO_RANK_GHOST):
+        torch.save(_two_rank_train(torch, dev, group, part),
+                   os.path.join(out_dir, f"rank{r}_g{group}.pt"))
+        torch.save(_two_rank_grads(torch, dev, group, part),
+                   os.path.join(out_dir, f"rank{r}_g{group}_f64.pt"))
+    dist.shutdown_distributed()
+    return 0
+
+
+def _worst_rel(torch, got: dict, want: dict):
+    """(largest |got − want| / max |want| over the floating tensors, its key)."""
+    worst, key = 0.0, None
+    for k, w in want.items():
+        if w.is_floating_point():
+            err = float((got[k].double() - w.double()).abs().max()
+                        / w.double().abs().max().clamp_min(1e-30))
+            if err > worst:
+                worst, key = err, k
+    return worst, key
+
+
+def two_ranks_one_card_phase(torch, dev):
+    """Two processes share ``cuda:0`` over gloo (NCCL refuses two ranks on
+    one card): ResNet-50 with BN params seeded away from their init,
+    TWO_RANK_BATCH a rank, SyncBN and then ghost groups of TWO_RANK_GHOST
+    (a rank's batch), against one process at the global batch on the card:
+    f64 gradients and running stats within TWO_RANK_F64_TOL of each
+    tensor's largest magnitude; TWO_RANK_STEPS f32 train steps with the
+    two ranks bitwise equal and the first loss within TWO_RANK_LOSS_RTOL
+    (the updates' L2 and per-tensor differences are reported)."""
+    import shutil
+    import socket
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_two_ranks_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": "2"}
+    procs = []
+    try:
+        for r in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--two-ranks-worker", out_dir],
+                cwd=here, env={**env, "RANK": str(r), "LOCAL_RANK": "0"}))
+        t0 = time.perf_counter()
+        full = slice(0, 2 * TWO_RANK_BATCH)
+        ref = {g: (_two_rank_train(torch, dev, g, full), _two_rank_grads(torch, dev, g, full))
+               for g in (0, TWO_RANK_GHOST)}
+        for p in procs:
+            if p.wait(timeout=900):
+                raise AssertionError(f"two-rank worker exited {p.returncode}")
+        wall = time.perf_counter() - t0
+        init = _two_rank_train(torch, dev, 0, slice(0, 0), steps=0)[1]
+        rows = {}
+        for g, ((ref_losses, ref_state), ref_grads) in ref.items():
+            (l0, s0), (l1, s1) = (torch.load(os.path.join(out_dir, f"rank{r}_g{g}.pt"),
+                                             weights_only=True) for r in range(2))
+            g0, g1 = (torch.load(os.path.join(out_dir, f"rank{r}_g{g}_f64.pt"),
+                                 weights_only=True) for r in range(2))
+            keys = [k for k in ref_state if ref_state[k].is_floating_point()]
+            upd = [(s0[k].double() - init[k].double(), ref_state[k].double() - init[k].double())
+                   for k in keys]
+            f64_worst, f64_key = _worst_rel(torch, g0, ref_grads)
+            f32_worst, f32_key = _worst_rel(torch, s0, ref_state)
+            rows["syncbn" if g == 0 else f"ghost{g}"] = {
+                "f64_worst_rel_err": f64_worst, "f64_worst": f64_key,
+                "f64_ranks_not_bitwise_equal": sum(not torch.equal(g0[k], g1[k]) for k in g0),
+                "losses_ranks": l0, "losses_one_process": ref_losses,
+                "update_l2_rel_err": float(torch.sqrt(sum(((a - b) ** 2).sum() for a, b in upd)
+                                                      / sum((b ** 2).sum() for _, b in upd))),
+                "f32_worst_tensor_rel_err": f32_worst, "f32_worst_tensor": f32_key,
+                "ranks_not_bitwise_equal": sum(not torch.equal(s0[k], s1[k]) for k in s0),
+                "losses_rank1": l1}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res = {"phase": "two_ranks_one_card", "arch": "resnet50", "dist_backend": "gloo",
+           "ranks": 2, "batch_per_rank": TWO_RANK_BATCH, "steps": TWO_RANK_STEPS,
+           "f64_tol": TWO_RANK_F64_TOL, "loss_rtol": TWO_RANK_LOSS_RTOL, "wall_s": wall,
+           **rows}
+    emit(res)
+    for name, row in rows.items():
+        first = abs(row["losses_ranks"][0] - row["losses_one_process"][0])
+        if (row["f64_worst_rel_err"] > TWO_RANK_F64_TOL or row["f64_ranks_not_bitwise_equal"]
+                or row["ranks_not_bitwise_equal"] or row["losses_rank1"] != row["losses_ranks"]
+                or first > TWO_RANK_LOSS_RTOL * abs(row["losses_one_process"][0])):
+            raise AssertionError(f"two ranks on one card, {name}: {row}")
+    return res
+
+
 def _breakdown(torch, prof, iters: int, classify) -> dict:
     """Device time by kind per iteration, kernels per iteration, busy time
     and idle share of the traced window, from a torch.profiler trace."""
@@ -1608,7 +2055,10 @@ def main(argv=None) -> int:
                          "batch 8, one ResNet-50 and one ViT-S/16 train step at batch 32, "
                          "one regnety_160 train step at batch 64, and one GPT-nano decode "
                          "step at batch 4")
+    ap.add_argument("--two-ranks-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.two_ranks_worker:
+        return two_ranks_worker(args.two_ranks_worker)
 
     import torch
 
@@ -1724,6 +2174,27 @@ def main(argv=None) -> int:
         lm_profile_phase(torch, dev, lm_engine)
     del lm_engine
 
+    # real images and process groups: SyncBN in a group of one, the
+    # ImageFolder path in that group, then two ranks sharing the card
+    from distribuuuu_tpu_torch.parallel import dist
+
+    tf32_off()
+    real_dir = tempfile.mkdtemp(prefix="chip_smoke_realdata_")
+    try:
+        t0 = time.perf_counter()
+        root = make_image_tree(os.path.join(real_dir, "tree"))
+        emit({"phase": "realdata_tree", "seconds": time.perf_counter() - t0,
+              "classes": REAL_CLASSES, "train": REAL_CLASSES * REAL_TRAIN,
+              "val": REAL_CLASSES * REAL_VAL})
+        syncbn_world1_phase(torch, dev)
+        real = realdata_phase(torch, ce, ou, root, os.path.join(real_dir, "out"),
+                              runs["resnet50"][0]["train_img_per_s"])
+    finally:
+        leave_world1(dist)
+        shutil.rmtree(real_dir, ignore_errors=True)
+    tf32_off()
+    two_ranks_one_card_phase(torch, dev)
+
     # per-forward totals over the 33 sites (sites_per_forward weights)
     def total(key):
         return sum(r[key] * r["sites_per_forward"] for r in rows)
@@ -1737,9 +2208,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/csrc/conv_epilogue.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/conv_epilogue.py:121",
-        "launches": launches + reg_serve_ce + sum(r["launches"]["conv_epilogue"]
-                                                  for a in ("resnet50", "regnety_160")
-                                                  for r in runs[a]),
+        "launches": launches + reg_serve_ce + real["launches"]["conv_epilogue"]
+        + sum(r["launches"]["conv_epilogue"] for a in ("resnet50", "regnety_160")
+              for r in runs[a]),
         "max_abs_err": worst,
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
@@ -1751,7 +2222,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/csrc/opt_update.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/opt_update.py:75",
-        "launches": sum(r["launches"]["opt_update"] for rs in runs.values() for r in rs),
+        "launches": real["launches"]["opt_update"]
+        + sum(r["launches"]["opt_update"] for rs in runs.values() for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in opt_rows.values()),
         "ms": main_body["ms"],
         "plain_ms": main_body["plain_ms"],

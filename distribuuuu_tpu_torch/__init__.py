@@ -4,9 +4,11 @@ The JAX package ``distribuuuu_tpu`` is the reference; this package mirrors
 its layout module for module and imports nothing of it (nor of JAX). Its
 kernels are hand-written CUDA C++ for ``sm_90a`` under ``csrc/``, built at
 first use (``ops/cuda/_build.py``). What is ported so far: serving and
-training on one card of the ResNet family and of ViT-Ti/ViT-S
-(``python -m distribuuuu_tpu_torch.serve_net`` / ``train_net --cfg
-config/<arch>.yaml``; training on ``MODEL.DUMMY_INPUT`` data).
+training of the ResNet family, the RegNets and ViT-Ti/ViT-S, on dummy
+data or ImageFolder trees, in one process or several (``torchrun``,
+Slurm), and GPT-nano generation serving (``python -m
+distribuuuu_tpu_torch.serve_net`` / ``train_net --cfg
+config/<arch>.yaml``).
 """
 
 

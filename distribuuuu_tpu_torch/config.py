@@ -353,9 +353,21 @@ _C.DATA = CfgNode()
 # Ship uint8 pixels and normalize on the device (data/transforms.
 # normalize_on_device); False sends host-normalized float32.
 _C.DATA.DEVICE_NORMALIZE = True
-# "imagefolder" (or MODEL.DUMMY_INPUT data); "tokens" names the LM's token
-# shards, which serving reads nothing of (training on them is not ported).
+# "imagefolder" (TRAIN.DATASET/TEST.DATASET hold <split>/<class>/*.jpg, or
+# MODEL.DUMMY_INPUT data); "shards" and "tokens" (the LM's token shards,
+# which serving reads nothing of) are not ported to training yet.
 _C.DATA.FORMAT = "imagefolder"
+# Decode backend: "auto" uses the C++ decoder (native/decode.cc) when it
+# builds, else PIL; "native" requires it; "pil" forces pure Python.
+_C.DATA.BACKEND = "auto"
+# Loader-level resilience (data/loader.py): a failed sample/batch decode
+# is retried RETRIES times with exponential backoff starting at
+# RETRY_BACKOFF_S (transient filesystem hiccups), then, with SKIP_CORRUPT,
+# the corrupt sample is replaced by a good sample from the same batch and
+# logged instead of aborting the whole epoch. False restores fail-stop.
+_C.DATA.RETRIES = 2
+_C.DATA.RETRY_BACKOFF_S = 0.05
+_C.DATA.SKIP_CORRUPT = True
 
 # ------------------------------- checkpoints ---------------------------------
 _C.CHECKPOINT = CfgNode()

@@ -1,1 +1,2 @@
-"""Data path of the port: the val transforms of the serving path."""
+"""Data path of the port: ImageFolder datasets, transforms, the sharded
+loader and the device prefetch."""

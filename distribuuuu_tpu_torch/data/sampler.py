@@ -1,8 +1,8 @@
 """Distributed sampling with torch-DistributedSampler semantics
 (counterpart of distribuuuu_tpu/data/sampler.py): a per-epoch seeded
 global shuffle, round-robin rank assignment, padding by repeating the head
-so every rank sees as many items, ``set_epoch`` to reshuffle. The port
-trains one process, so world size 1 is what runs."""
+so every rank sees as many items, ``set_epoch`` to reshuffle. The loader
+passes the process group's ``(rank, world)``."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import numpy as np
 
 
 class DistributedSampler:
-    def __init__(self, dataset_len: int, num_replicas: int = 1, rank: int = 0,
+    def __init__(self, dataset_len: int, num_replicas: int, rank: int,
                  shuffle: bool = True, seed: int = 0, drop_last: bool = False):
         if rank >= num_replicas:
             raise ValueError(f"rank {rank} >= num_replicas {num_replicas}")

@@ -31,6 +31,7 @@ from torch import nn
 
 from distribuuuu_tpu_torch import not_ported
 from distribuuuu_tpu_torch.ops.cuda import conv_epilogue, group_conv
+from distribuuuu_tpu_torch.parallel import dist
 
 GROUP_CONV_MODES = ("auto", "unrolled", "fused", "blockdiag", "pallas")
 
@@ -58,17 +59,24 @@ class BatchNorm(nn.Module):
     Training computes the batch statistics as ``_BNCore`` of the JAX
     package does (distribuuuu_tpu/models/layers.py):
 
-    * ghost groups of ``group_size`` samples (0 = the whole batch); a batch
-      of ``n <= group_size`` is one group, an indivisible one raises;
+    * ghost groups of ``group_size`` samples (0 = the whole batch) over
+      the GLOBAL batch, every process's batch in rank order: a global
+      batch of ``N <= group_size`` is one group, an indivisible one
+      raises. Under a process group (``parallel/dist.py``) a group inside
+      a process's batch is computed there; a group of k whole per-process
+      batches (the whole global batch included: SyncBN) all-reduces its
+      sums over those k ranks, with a gradient; a group that would cut a
+      process's batch is refused;
     * statistics in fp32, promoted to f64 on f64 input;
     * the one-pass shifted variance ``E[d²] − E[d]²`` with ``d = x − m̂``
       and the running mean as the constant shift ``m̂``, clamped at 0;
       ``DISTRIBUUUU_BN_VARIANCE`` = ``centered`` (two-pass) or
       ``uncentered`` (shift 0) selects the other formulations;
     * the running variance is the mean of the per-group UNBIASED
-      variances; running stats move as ``m·ra + (1−m)·upd`` with flax's
-      m = 0.9 (``DISTRIBUUUU_BN_MOMENTUM`` overrides), stored in their
-      own dtype.
+      variances over every group of the global batch (averaged across
+      processes, so the running stats stay replicated); running stats
+      move as ``m·ra + (1−m)·upd`` with flax's m = 0.9
+      (``DISTRIBUUUU_BN_MOMENTUM`` overrides), stored in their own dtype.
     """
 
     momentum = 0.9  # flax's decay (torch's momentum 0.1)
@@ -107,30 +115,47 @@ class BatchNorm(nn.Module):
         y = (x.to(stats_dtype) - self.running_mean.to(stats_dtype)) * inv
         return (y + self.bias.to(stats_dtype)).to(dtype)
 
-    def _moments(self, v: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    def _moments(self, v: torch.Tensor, dims, group=None, span: int = 1):
         """(mean, biased var) of ``v`` over ``dims``, by the formulation
-        ``DISTRIBUUUU_BN_VARIANCE`` names."""
+        ``DISTRIBUUUU_BN_VARIANCE`` names. With ``group`` the samples of
+        ``span`` processes (equal counts) make one group: the local means
+        are summed over them in one collective, with a gradient, and
+        divided by ``span``."""
         mode = os.environ.get("DISTRIBUUUU_BN_VARIANCE", "shifted")
         if mode not in ("shifted", "centered", "uncentered"):
             raise ValueError(f"DISTRIBUUUU_BN_VARIANCE={mode!r}")
+
+        def means(*ts):
+            ms = [t.mean(dims, keepdim=True) for t in ts]
+            if group is None:
+                return ms
+            return (dist.synced_sum(torch.stack(ms), group) / span).unbind(0)
+
         if mode == "centered":
-            m = v.mean(dims, keepdim=True)
-            return m.squeeze(dims), torch.square(v - m).mean(dims)
+            (m,) = means(v)
+            (var,) = means(torch.square(v - m))
+            return m.squeeze(dims), var.squeeze(dims)
         shift = self.running_mean.detach() if mode == "shifted" else 0.0
         d = v - shift
-        s1 = d.mean(dims)
-        s2 = torch.square(d).mean(dims)
+        s1, s2 = (t.squeeze(dims) for t in means(d, torch.square(d)))
         return s1 + shift, torch.clamp_min(s2 - torch.square(s1), 0.0)
 
     def _train(self, xf: torch.Tensor) -> torch.Tensor:
         n, feat, gs = xf.shape[0], xf.shape[-1], self.group_size
         spatial = math.prod(xf.shape[1:-1])
-        if gs > 0 and n > gs:
-            if n % gs:
+        world = dist.get_world_size()
+        total = n * world  # the global batch, as JAX groups it
+        if gs > 0 and total > gs:
+            if total % gs:
                 raise ValueError(
-                    f"ghost BN group_size={gs} does not divide batch {n}; "
+                    f"ghost BN group_size={gs} does not divide batch {total}; "
                     "set MODEL.BN_GROUP to a divisor of the batch"
                 )
+            if n % gs and gs % n:
+                raise not_ported(f"ghost BN groups of {gs} over per-process batches of "
+                                 f"{n} (a group that cuts a process's batch)",
+                                 "Real data and many processes")
+        if gs > 0 and n > gs:
             xg = xf.reshape(n // gs, gs, *xf.shape[1:])
             dims = tuple(range(1, xg.dim() - 1))
             bshape = (n // gs,) + (1,) * (xg.dim() - 2) + (feat,)
@@ -140,14 +165,23 @@ class BatchNorm(nn.Module):
             count = gs * spatial
             mean_upd, var_upd = gmean.mean(0), gvar.mean(0) * count / max(count - 1, 1)
         else:
-            mean, var = self._moments(xf, tuple(range(xf.dim() - 1)))
+            # one group: this batch, k whole per-process batches, or the
+            # global batch (SyncBN); a process group runs SyncBN's
+            # collective even at one process
+            span = world if gs == 0 or gs >= total else gs // n
+            synced = dist.is_initialized() and (span > 1 or gs == 0)
+            mean, var = self._moments(xf, tuple(range(xf.dim() - 1)),
+                                      dist.rank_group(span) if synced else None, span)
             y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-            count = n * spatial
+            count = n * span * spatial
             mean_upd, var_upd = mean, var * count / max(count - 1, 1)
         m = float(os.environ.get("DISTRIBUUUU_BN_MOMENTUM", self.momentum))
         with torch.no_grad():
-            for buf, upd in ((self.running_mean, mean_upd), (self.running_var, var_upd)):
-                buf.copy_((m * buf + (1.0 - m) * upd.detach()).to(buf.dtype))
+            upd = [mean_upd.detach(), var_upd.detach()]
+            if world > 1:  # the mean over every group of the global batch
+                upd = dist.scaled_all_reduce(upd)
+            for buf, u in zip((self.running_mean, self.running_var), upd):
+                buf.copy_((m * buf + (1.0 - m) * u).to(buf.dtype))
         return y
 
 

@@ -1,0 +1,489 @@
+// Host input pipeline of the port: JPEG/PNG decode + resample + normalize
+// (the port's own copy of distribuuuu_tpu/native/decode.cc, ABI 4).
+//
+// The whole decode -> augment -> (normalize) chain of a batch runs in one
+// call that holds no Python lock, fanned out over an internal std::thread
+// pool. The augmentation geometry (RandomResizedCrop box, flip coin) is
+// drawn in Python from the same numpy stream as the PIL path
+// (data/transforms.train_geom), so switching backends does not change the
+// augmentation sequence; C++ only executes the resample. The resampler is
+// PIL's convolution algorithm (triangle filter, window renormalized at the
+// edges, a uint8 intermediate between the horizontal and the vertical
+// pass), so outputs match the PIL path within 2/255.
+//
+// Plain C ABI for ctypes (native/__init__.py). The in-memory entry points
+// of the JAX package's copy serve its shards format, which the port does
+// not read yet, and are not here.
+
+#include <algorithm>
+#include <atomic>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+#include <csetjmp>
+#include <jpeglib.h>
+#include <png.h>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// Image buffer
+// ---------------------------------------------------------------------------
+
+struct ImageU8 {
+  int w = 0, h = 0;           // pixels
+  std::vector<uint8_t> rgb;   // h*w*3, row-major
+};
+
+// ---------------------------------------------------------------------------
+// JPEG decode (libjpeg, error-trampoline via setjmp)
+// ---------------------------------------------------------------------------
+
+struct JpegErr {
+  jpeg_error_mgr mgr;
+  jmp_buf jump;
+};
+
+void jpeg_err_exit(j_common_ptr cinfo) {
+  JpegErr* err = reinterpret_cast<JpegErr*>(cinfo->err);
+  longjmp(err->jump, 1);
+}
+
+bool decode_jpeg(const uint8_t* data, size_t len, ImageU8* out) {
+  jpeg_decompress_struct cinfo;
+  JpegErr jerr;
+  cinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = jpeg_err_exit;
+  if (setjmp(jerr.jump)) {
+    jpeg_destroy_decompress(&cinfo);
+    return false;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<uint8_t*>(data),
+               static_cast<unsigned long>(len));
+  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
+    jpeg_destroy_decompress(&cinfo);
+    return false;
+  }
+  // Grayscale→RGB and YCbCr→RGB both handled by libjpeg itself, matching
+  // PIL's convert("RGB") for those spaces. CMYK/YCCK are left to the Python
+  // fallback (rare, and PIL applies an inverted-Adobe heuristic).
+  if (cinfo.jpeg_color_space == JCS_CMYK ||
+      cinfo.jpeg_color_space == JCS_YCCK) {
+    jpeg_destroy_decompress(&cinfo);
+    return false;
+  }
+  cinfo.out_color_space = JCS_RGB;
+  jpeg_start_decompress(&cinfo);
+  out->w = static_cast<int>(cinfo.output_width);
+  out->h = static_cast<int>(cinfo.output_height);
+  out->rgb.resize(static_cast<size_t>(out->w) * out->h * 3);
+  const size_t stride = static_cast<size_t>(out->w) * 3;
+  while (cinfo.output_scanline < cinfo.output_height) {
+    uint8_t* row = out->rgb.data() + stride * cinfo.output_scanline;
+    jpeg_read_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  return true;
+}
+
+bool jpeg_dims(const uint8_t* data, size_t len, int* w, int* h) {
+  jpeg_decompress_struct cinfo;
+  JpegErr jerr;
+  cinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = jpeg_err_exit;
+  if (setjmp(jerr.jump)) {
+    jpeg_destroy_decompress(&cinfo);
+    return false;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<uint8_t*>(data),
+               static_cast<unsigned long>(len));
+  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
+    jpeg_destroy_decompress(&cinfo);
+    return false;
+  }
+  *w = static_cast<int>(cinfo.image_width);
+  *h = static_cast<int>(cinfo.image_height);
+  jpeg_destroy_decompress(&cinfo);
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// PNG decode (libpng simplified API; palette/gray/alpha → RGB)
+// ---------------------------------------------------------------------------
+
+bool decode_png(const uint8_t* data, size_t len, ImageU8* out) {
+  png_image image;
+  std::memset(&image, 0, sizeof(image));
+  image.version = PNG_IMAGE_VERSION;
+  if (!png_image_begin_read_from_memory(&image, data, len)) return false;
+  // Alpha (incl. palette tRNS): libpng would COMPOSITE it away, while the
+  // PIL path's convert("RGB") drops the band — different pixels. Punt those
+  // to the PIL fallback so both backends agree (same treatment as CMYK JPEG).
+  if (image.format & PNG_FORMAT_FLAG_ALPHA) {
+    png_image_free(&image);
+    return false;
+  }
+  image.format = PNG_FORMAT_RGB;
+  out->w = static_cast<int>(image.width);
+  out->h = static_cast<int>(image.height);
+  out->rgb.resize(PNG_IMAGE_SIZE(image));
+  if (!png_image_finish_read(&image, nullptr, out->rgb.data(), 0, nullptr)) {
+    png_image_free(&image);
+    return false;
+  }
+  return true;
+}
+
+bool png_dims(const uint8_t* data, size_t len, int* w, int* h) {
+  png_image image;
+  std::memset(&image, 0, sizeof(image));
+  image.version = PNG_IMAGE_VERSION;
+  if (!png_image_begin_read_from_memory(&image, data, len)) return false;
+  *w = static_cast<int>(image.width);
+  *h = static_cast<int>(image.height);
+  png_image_free(&image);
+  return true;
+}
+
+bool is_png(const uint8_t* d, size_t n) {
+  static const uint8_t sig[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
+  return n >= 8 && std::memcmp(d, sig, 8) == 0;
+}
+
+bool is_jpeg(const uint8_t* d, size_t n) {
+  return n >= 3 && d[0] == 0xFF && d[1] == 0xD8 && d[2] == 0xFF;
+}
+
+bool read_file(const char* path, std::vector<uint8_t>* out) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return false;
+  std::fseek(f, 0, SEEK_END);
+  long n = std::ftell(f);
+  if (n <= 0) {
+    std::fclose(f);
+    return false;
+  }
+  std::fseek(f, 0, SEEK_SET);
+  out->resize(static_cast<size_t>(n));
+  size_t got = std::fread(out->data(), 1, static_cast<size_t>(n), f);
+  std::fclose(f);
+  return got == static_cast<size_t>(n);
+}
+
+// Bounded prefix read for header probes — dims live in the first few KB, so
+// the dims pass must not read whole files (the batch decode reads them once).
+bool read_prefix(const char* path, size_t cap, std::vector<uint8_t>* out) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return false;
+  out->resize(cap);
+  size_t got = std::fread(out->data(), 1, cap, f);
+  std::fclose(f);
+  if (got == 0) return false;
+  out->resize(got);
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// PIL-compatible separable resampler (triangle/bilinear filter)
+// ---------------------------------------------------------------------------
+//
+// For each output index xx along an axis, PIL computes
+//   center = box0 + (xx + 0.5) * scale
+//   support = filterscale,  filterscale = max(scale, 1)
+//   window  = [floor(center - support + 0.5), floor(center + support + 0.5))
+//             clipped to [0, in_size)
+//   weight(x) = triangle((x + 0.5 - center) / filterscale), renormalized over
+//               the clipped window (this is the edge behavior — renormalize,
+//               not zero-pad).
+// The uint8 pipeline rounds to uint8 between the horizontal and vertical
+// passes; we do the same so outputs track PIL within quantization error.
+
+struct AxisCoeffs {
+  std::vector<int> xmin;       // per-out-pixel window start
+  std::vector<int> xlen;       // per-out-pixel window length
+  std::vector<double> weights; // flattened, ksize per out pixel
+  int ksize = 0;
+};
+
+AxisCoeffs precompute_coeffs(int in_size, double box0, double scale,
+                             int out0, int out_n) {
+  AxisCoeffs c;
+  const double filterscale = std::max(scale, 1.0);
+  const double support = filterscale;  // bilinear filter support = 1.0
+  c.ksize = static_cast<int>(std::ceil(support)) * 2 + 1;
+  c.xmin.resize(out_n);
+  c.xlen.resize(out_n);
+  c.weights.assign(static_cast<size_t>(out_n) * c.ksize, 0.0);
+  for (int xx = 0; xx < out_n; ++xx) {
+    const double center = box0 + (out0 + xx + 0.5) * scale;
+    int xmin = static_cast<int>(center - support + 0.5);
+    if (xmin < 0) xmin = 0;
+    int xmax = static_cast<int>(center + support + 0.5);
+    if (xmax > in_size) xmax = in_size;
+    double* k = &c.weights[static_cast<size_t>(xx) * c.ksize];
+    double total = 0.0;
+    for (int x = xmin; x < xmax; ++x) {
+      double arg = std::abs((x + 0.5 - center) / filterscale);
+      double w = arg < 1.0 ? 1.0 - arg : 0.0;  // triangle filter
+      k[x - xmin] = w;
+      total += w;
+    }
+    if (total > 0.0)
+      for (int x = 0; x < xmax - xmin; ++x) k[x] /= total;
+    c.xmin[xx] = xmin;
+    c.xlen[xx] = xmax - xmin;
+  }
+  return c;
+}
+
+inline uint8_t clip_round_u8(double v) {
+  v = std::round(v);
+  if (v < 0.0) return 0;
+  if (v > 255.0) return 255;
+  return static_cast<uint8_t>(v);
+}
+
+// Resample src into a (out_h, out_w) RGB uint8 image. Output pixel (x, y)
+// corresponds to position (box_x + (out_x0+x+0.5)*scale_x,
+//                          box_y + (out_y0+y+0.5)*scale_y) in src — this one
+// geometry expresses both train (crop-box resize: box≠0, out0=0) and val
+// (full resize then center-crop: box=0, out0=crop offset) paths.
+void resample(const ImageU8& src, double box_x, double box_y, double scale_x,
+              double scale_y, int out_x0, int out_y0, int out_w, int out_h,
+              std::vector<uint8_t>* out) {
+  AxisCoeffs cx = precompute_coeffs(src.w, box_x, scale_x, out_x0, out_w);
+  AxisCoeffs cy = precompute_coeffs(src.h, box_y, scale_y, out_y0, out_h);
+
+  // Horizontal pass over only the source rows the vertical pass will touch.
+  int row_lo = src.h, row_hi = 0;
+  for (int yy = 0; yy < out_h; ++yy) {
+    row_lo = std::min(row_lo, cy.xmin[yy]);
+    row_hi = std::max(row_hi, cy.xmin[yy] + cy.xlen[yy]);
+  }
+  if (row_lo >= row_hi) {
+    out->assign(static_cast<size_t>(out_h) * out_w * 3, 0);
+    return;
+  }
+  const int n_rows = row_hi - row_lo;
+  std::vector<uint8_t> mid(static_cast<size_t>(n_rows) * out_w * 3);
+  for (int y = 0; y < n_rows; ++y) {
+    const uint8_t* srow =
+        src.rgb.data() + static_cast<size_t>(row_lo + y) * src.w * 3;
+    uint8_t* drow = mid.data() + static_cast<size_t>(y) * out_w * 3;
+    for (int xx = 0; xx < out_w; ++xx) {
+      const double* k = &cx.weights[static_cast<size_t>(xx) * cx.ksize];
+      const int xmin = cx.xmin[xx], xlen = cx.xlen[xx];
+      double r = 0, g = 0, b = 0;
+      for (int x = 0; x < xlen; ++x) {
+        const uint8_t* p = srow + static_cast<size_t>(xmin + x) * 3;
+        r += p[0] * k[x];
+        g += p[1] * k[x];
+        b += p[2] * k[x];
+      }
+      drow[xx * 3 + 0] = clip_round_u8(r);
+      drow[xx * 3 + 1] = clip_round_u8(g);
+      drow[xx * 3 + 2] = clip_round_u8(b);
+    }
+  }
+
+  // Vertical pass.
+  out->resize(static_cast<size_t>(out_h) * out_w * 3);
+  for (int yy = 0; yy < out_h; ++yy) {
+    const double* k = &cy.weights[static_cast<size_t>(yy) * cy.ksize];
+    const int ymin = cy.xmin[yy] - row_lo, ylen = cy.xlen[yy];
+    uint8_t* drow = out->data() + static_cast<size_t>(yy) * out_w * 3;
+    for (int xx = 0; xx < out_w * 3; ++xx) {
+      double acc = 0;
+      for (int y = 0; y < ylen; ++y)
+        acc += mid[static_cast<size_t>(ymin + y) * out_w * 3 + xx] * k[y];
+      drow[xx] = clip_round_u8(acc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Batch task plumbing
+// ---------------------------------------------------------------------------
+
+struct Geom {
+  double box_x, box_y;     // crop-box origin in source pixels
+  double scale_x, scale_y; // source pixels per output pixel
+  int32_t out_x0, out_y0;  // crop offset within the virtual resized image
+  int32_t flip;            // horizontal flip after resample
+};
+
+bool decode_any(const std::vector<uint8_t>& bytes, ImageU8* img) {
+  if (is_jpeg(bytes.data(), bytes.size()))
+    return decode_jpeg(bytes.data(), bytes.size(), img);
+  if (is_png(bytes.data(), bytes.size()))
+    return decode_png(bytes.data(), bytes.size(), img);
+  return false;  // other formats → Python fallback
+}
+
+// Shared front half: path → decode → resample. Fills `res` (out_h rows
+// of out_w RGB u8, pre-flip).
+bool load_resampled(const char* path, const Geom& g, int out_w, int out_h,
+                    std::vector<uint8_t>* res) {
+  std::vector<uint8_t> bytes;
+  if (!read_file(path, &bytes)) return false;
+  ImageU8 img;
+  if (!decode_any(bytes, &img)) return false;
+  resample(img, g.box_x, g.box_y, g.scale_x, g.scale_y, g.out_x0, g.out_y0,
+           out_w, out_h, res);
+  return true;
+}
+
+// Post-resample back halves.
+void finish_one(const std::vector<uint8_t>& res, const Geom& g, int out_w,
+                int out_h, const float* mean, const float* stdv, float* out) {
+  const float inv255 = 1.0f / 255.0f;
+  float inv_std[3] = {1.0f / stdv[0], 1.0f / stdv[1], 1.0f / stdv[2]};
+  for (int y = 0; y < out_h; ++y) {
+    const uint8_t* srow = res.data() + static_cast<size_t>(y) * out_w * 3;
+    float* drow = out + static_cast<size_t>(y) * out_w * 3;
+    for (int x = 0; x < out_w; ++x) {
+      const int sx = g.flip ? (out_w - 1 - x) : x;
+      const uint8_t* p = srow + sx * 3;
+      float* q = drow + x * 3;
+      for (int c = 0; c < 3; ++c)
+        q[c] = (p[c] * inv255 - mean[c]) * inv_std[c];
+    }
+  }
+}
+
+void finish_one_u8(const std::vector<uint8_t>& res, const Geom& g, int out_w,
+                   int out_h, uint8_t* out) {
+  for (int y = 0; y < out_h; ++y) {
+    const uint8_t* srow = res.data() + static_cast<size_t>(y) * out_w * 3;
+    uint8_t* drow = out + static_cast<size_t>(y) * out_w * 3;
+    if (!g.flip) {
+      std::memcpy(drow, srow, static_cast<size_t>(out_w) * 3);
+      continue;
+    }
+    for (int x = 0; x < out_w; ++x) {
+      const uint8_t* p = srow + (out_w - 1 - x) * 3;
+      uint8_t* q = drow + x * 3;
+      q[0] = p[0];
+      q[1] = p[1];
+      q[2] = p[2];
+    }
+  }
+}
+
+// Load path → decode → resample → (flip) → normalize into out[HWC].
+bool load_one(const char* path, const Geom& g, int out_w, int out_h,
+              const float* mean, const float* stdv, float* out) {
+  std::vector<uint8_t> res;
+  if (!load_resampled(path, g, out_w, out_h, &res)) return false;
+  finish_one(res, g, out_w, out_h, mean, stdv, out);
+  return true;
+}
+
+// Raw-u8 variant (DATA.DEVICE_NORMALIZE): same decode/resample/flip, no
+// normalize: the trainer normalizes on the device, and the host ships 4x
+// fewer bytes.
+bool load_one_u8(const char* path, const Geom& g, int out_w, int out_h,
+                 uint8_t* out) {
+  std::vector<uint8_t> res;
+  if (!load_resampled(path, g, out_w, out_h, &res)) return false;
+  finish_one_u8(res, g, out_w, out_h, out);
+  return true;
+}
+
+// Runs fn(i) for i in [0, n) on min(n_threads, n) threads.
+template <class Fn>
+void run_pool(int32_t n, int32_t n_threads, Fn fn) {
+  std::atomic<int32_t> next(0);
+  auto worker = [&]() {
+    for (;;) {
+      const int32_t i = next.fetch_add(1);
+      if (i >= n) return;
+      fn(i);
+    }
+  };
+  int nt = std::max(1, std::min<int>(n_threads, n));
+  if (nt == 1) {
+    worker();
+    return;
+  }
+  std::vector<std::thread> threads;
+  threads.reserve(nt);
+  for (int t = 0; t < nt; ++t) threads.emplace_back(worker);
+  for (auto& th : threads) th.join();
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C ABI
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+// ABI version — bump when struct layouts change; Python checks it.
+int dtpu_abi_version() { return 4; }
+
+// Header-only dims probe. Returns 0 on success. Reads a bounded prefix
+// (enough for any realistic SOF/IHDR placement); retries with the full file
+// only if the prefix parse fails (e.g. giant EXIF before SOF).
+int dtpu_file_dims(const char* path, int32_t* w, int32_t* h) {
+  std::vector<uint8_t> bytes;
+  if (!read_prefix(path, 256 * 1024, &bytes)) return 1;
+  for (int attempt = 0; attempt < 2; ++attempt) {
+    int iw = 0, ih = 0;
+    bool ok = false;
+    if (is_jpeg(bytes.data(), bytes.size()))
+      ok = jpeg_dims(bytes.data(), bytes.size(), &iw, &ih);
+    else if (is_png(bytes.data(), bytes.size()))
+      ok = png_dims(bytes.data(), bytes.size(), &iw, &ih);
+    else
+      return 2;  // unknown magic — no point re-reading
+    if (ok) {
+      *w = iw;
+      *h = ih;
+      return 0;
+    }
+    if (attempt == 0 && !read_file(path, &bytes)) return 1;
+  }
+  return 2;
+}
+
+// Decode+transform a whole batch with an internal thread pool.
+//   paths:    n file paths
+//   geoms:    n Geom records (see struct — layout mirrored in ctypes)
+//   out:      n * out_h * out_w * 3 float32, NHWC
+//   statuses: n int32, 0 = ok, nonzero = fall back to Python for that image
+void dtpu_load_batch(const char** paths, const void* geoms, int32_t n,
+                     int32_t out_w, int32_t out_h, const float* mean,
+                     const float* stdv, int32_t n_threads, float* out,
+                     int32_t* statuses) {
+  const Geom* gs = static_cast<const Geom*>(geoms);
+  const size_t img_elems = static_cast<size_t>(out_h) * out_w * 3;
+  run_pool(n, n_threads, [&](int32_t i) {
+    statuses[i] = load_one(paths[i], gs[i], out_w, out_h, mean, stdv,
+                           out + img_elems * i) ? 0 : 1;
+  });
+}
+
+// Raw-u8 batch (DATA.DEVICE_NORMALIZE): out is n*out_h*out_w*3 uint8 RGB,
+// resampled+flipped but NOT normalized (the device does that).
+void dtpu_load_batch_u8(const char** paths, const void* geoms, int32_t n,
+                        int32_t out_w, int32_t out_h, int32_t n_threads,
+                        uint8_t* out, int32_t* statuses) {
+  const Geom* gs = static_cast<const Geom*>(geoms);
+  const size_t img_elems = static_cast<size_t>(out_h) * out_w * 3;
+  run_pool(n, n_threads, [&](int32_t i) {
+    statuses[i] = load_one_u8(paths[i], gs[i], out_w, out_h,
+                              out + img_elems * i) ? 0 : 1;
+  });
+}
+
+}  // extern "C"

@@ -1,10 +1,11 @@
 """Evaluate a classification model with the port (the twin of the
 top-level ``test_net.py``). Runs on ``cuda:0`` unless ``DEVICE.PLATFORM
-cpu``.
+cpu``; under ``torchrun`` or Slurm each process evaluates its shard of the
+val split on ``cuda:LOCAL_RANK`` and the sums are all-reduced.
 
 Usage:
     python -m distribuuuu_tpu_torch.test_net --cfg config/resnet50.yaml \\
-        MODEL.WEIGHTS path/to/weights.pth [KEY VALUE ...]
+        TEST.DATASET <root> MODEL.WEIGHTS path/to/weights.pth [KEY VALUE ...]
 """
 
 from __future__ import annotations

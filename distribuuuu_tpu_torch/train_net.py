@@ -1,9 +1,15 @@
 """Train a classification model with the port (the twin of the top-level
-``train_net.py``). Runs on ``cuda:0`` unless ``DEVICE.PLATFORM cpu``.
+``train_net.py``). Runs on ``cuda:0`` unless ``DEVICE.PLATFORM cpu``; under
+``torchrun`` or Slurm each process takes ``cuda:LOCAL_RANK`` and joins the
+process group (``parallel/dist.py``).
 
 Usage:
     python -m distribuuuu_tpu_torch.train_net --cfg config/resnet50.yaml \\
-        MODEL.DUMMY_INPUT True [KEY VALUE ...]
+        TRAIN.DATASET <root> TEST.DATASET <root> [KEY VALUE ...]
+    torchrun --nproc_per_node 8 -m distribuuuu_tpu_torch.train_net \\
+        --cfg config/resnet50.yaml TRAIN.DATASET <root> TEST.DATASET <root>
+    python -m distribuuuu_tpu_torch.train_net --cfg config/resnet50.yaml \\
+        MODEL.DUMMY_INPUT True
     DISTRIBUUUU_GROUP_CONV=pallas python -m distribuuuu_tpu_torch.train_net \\
         --cfg config/regnety_160.yaml MODEL.DUMMY_INPUT True
 """

@@ -8,7 +8,11 @@ written mid-epoch on preemption. ``preempt_ep_e`` holds newer progress than
 ``ckpt_ep_{e-1}`` and is superseded by ``ckpt_ep_e``; auto-resume loads the
 newest. A save is written to a temporary file and renamed, so a crash
 leaves no half-written checkpoint under a final name; a load that fails
-raises :class:`CheckpointError` naming the path.
+raises :class:`CheckpointError` naming the path. With several processes
+only the primary writes, every process waits at a barrier after each
+save, and every process loads; the payload is the same as with one
+process (the model's ``state_dict`` keys unchanged), so a checkpoint of
+either resumes the other.
 
 The orbax format, background commits (``CHECKPOINT.ASYNC``), manifests
 and quarantine are not ported.
@@ -22,6 +26,7 @@ import re
 import torch
 
 from distribuuuu_tpu_torch.config import cfg
+from distribuuuu_tpu_torch.parallel import dist
 
 _NAME_PREFIX = "ckpt_ep_"
 _PREEMPT_PREFIX = "preempt_ep_"
@@ -89,7 +94,10 @@ def _cpu(tree):
 
 
 def prune_preempts(upto: int) -> None:
-    """Delete preempt checkpoints numbered ``<= upto`` (superseded)."""
+    """Delete preempt checkpoints numbered ``<= upto`` (superseded), on the
+    primary."""
+    if not dist.is_primary():
+        return
     for e, p in _scan(_PREEMPT_PREFIX).items():
         if e <= upto:
             os.remove(p)
@@ -97,12 +105,16 @@ def prune_preempts(upto: int) -> None:
 
 def save_checkpoint(state: dict, epoch: int, best_acc1: float, is_best: bool) -> str:
     """Save the full state after ``epoch`` (``state``: ``model``, ``opt``,
-    ``step``); side-write the weights-only ``best`` on a new best."""
-    payload = {**_cpu(state), "epoch": epoch, "best_acc1": float(best_acc1)}
-    path = _write(get_checkpoint(epoch), payload)
-    if is_best:
-        _write(get_best_checkpoint(), {"model": payload["model"], "epoch": epoch})
-    prune_preempts(epoch)
+    ``step``); side-write the weights-only ``best`` on a new best. The
+    primary writes; every process returns the path after the barrier."""
+    path = get_checkpoint(epoch)
+    if dist.is_primary():
+        payload = {**_cpu(state), "epoch": epoch, "best_acc1": float(best_acc1)}
+        _write(path, payload)
+        if is_best:
+            _write(get_best_checkpoint(), {"model": payload["model"], "epoch": epoch})
+        prune_preempts(epoch)
+    dist.barrier()
     return path
 
 
@@ -111,11 +123,16 @@ def save_preempt_checkpoint(state: dict, epoch: int, best_acc1: float,
     """Mid-epoch save on preemption. ``epoch`` is the interrupted one; the
     stored cursor is ``epoch - 1`` so the resume re-runs that epoch from
     this newer state. ``pending_eval`` marks a finished epoch whose
-    validation was preempted: the resume validates it first."""
-    payload = {**_cpu(state), "epoch": epoch - 1, "best_acc1": float(best_acc1)}
-    if pending_eval is not None:
-        payload["pending_eval"] = int(pending_eval)
-    return _write(get_preempt_checkpoint(epoch), payload)
+    validation was preempted: the resume validates it first. The primary
+    writes, behind a barrier."""
+    path = get_preempt_checkpoint(epoch)
+    if dist.is_primary():
+        payload = {**_cpu(state), "epoch": epoch - 1, "best_acc1": float(best_acc1)}
+        if pending_eval is not None:
+            payload["pending_eval"] = int(pending_eval)
+        _write(path, payload)
+    dist.barrier()
+    return path
 
 
 def load_checkpoint(path: str) -> dict:

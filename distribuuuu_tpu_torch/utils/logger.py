@@ -1,7 +1,7 @@
 """Logging: stdlib logging with the JAX package's shape (every process to
-stderr tagged with its rank, rank 0 also to ``{OUT_DIR}/{time}.log``).
-The rank comes from ``torch.distributed`` when a process group is up,
-else 0."""
+stderr tagged with its rank; only the primary writes
+``{OUT_DIR}/{time}.log``). The rank comes from the process group
+(``parallel/dist.py``), so set the logger up after joining it."""
 
 from __future__ import annotations
 
@@ -11,15 +11,10 @@ import sys
 import time
 
 from distribuuuu_tpu_torch.config import cfg
+from distribuuuu_tpu_torch.parallel import dist
 
 _LOGGER_NAME = "distribuuuu_tpu_torch"
 _configured = False
-
-
-def _rank() -> int:
-    import torch.distributed as dist
-
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 def setup_logger() -> logging.Logger:
@@ -29,7 +24,7 @@ def setup_logger() -> logging.Logger:
         return logger
     logger.setLevel(logging.INFO)
     logger.propagate = False
-    rank = _rank()
+    rank = dist.get_rank()
     fmt = logging.Formatter(
         fmt=f"%(asctime)s | %(levelname)s | p{rank} | %(message)s",
         datefmt="%Y-%m-%d %H:%M:%S",

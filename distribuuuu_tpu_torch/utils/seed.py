@@ -1,8 +1,12 @@
 """Seeding and environment setup (counterpart of distribuuuu_tpu/utils/seed.py).
 
-The host RNGs (``random``, ``numpy``) are seeded from ``RNG_SEED`` for
-incidental host randomness; the data path draws from per-sample generators
-and the weights from an explicit ``torch.Generator``, never from them.
+The host RNGs (``random``, ``numpy``) are seeded from ``RNG_SEED + rank``
+for incidental host randomness, as the reference seeds each rank; the
+data path draws from per-sample generators seeded by ``(RNG_SEED, epoch,
+index)`` and the weights from an explicit ``torch.Generator`` of the base
+seed, so every rank builds the same weights and augments a sample the
+same way. With ``RNG_SEED`` unset the primary draws the seed and
+broadcasts it.
 """
 
 from __future__ import annotations
@@ -15,20 +19,23 @@ import torch
 
 from distribuuuu_tpu_torch import config
 from distribuuuu_tpu_torch.config import cfg
+from distribuuuu_tpu_torch.parallel import dist
 
 
 def setup_seed() -> torch.Generator:
-    """Seed the host RNGs and return the run's base ``torch.Generator``
-    (``RNG_SEED``, or a fresh random seed when it is unset)."""
+    """Seed the host RNGs rank-offset and return the run's base
+    ``torch.Generator`` (``RNG_SEED``, or a seed the primary draws)."""
     seed = cfg.RNG_SEED
     if seed is None:
-        seed = int.from_bytes(os.urandom(4), "little")
-    np.random.seed(seed)
-    random.seed(seed)
+        seed = dist.broadcast_from_primary(int.from_bytes(os.urandom(4), "little"))
+    rank = dist.get_rank()
+    np.random.seed(seed + rank)
+    random.seed(seed + rank)
     return torch.Generator().manual_seed(int(seed))
 
 
 def setup_env() -> None:
-    """Create ``OUT_DIR`` and dump the merged config there."""
-    os.makedirs(cfg.OUT_DIR, exist_ok=True)
-    config.dump_cfg()
+    """On the primary: create ``OUT_DIR`` and dump the merged config there."""
+    if dist.is_primary():
+        os.makedirs(cfg.OUT_DIR, exist_ok=True)
+        config.dump_cfg()

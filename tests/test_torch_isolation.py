@@ -2,7 +2,9 @@
 flash_fwd_sweep.py import neither JAX (jax, jaxlib, flax, optax, orbax)
 nor anything of the JAX package distribuuuu_tpu — checked both by
 importing every module in a fresh interpreter and by scanning the
-source."""
+source — and load no file of it: the port's decoder is its own copy,
+built into distribuuuu_tpu_torch/_build, never the JAX package's
+_libdtpu_decode.so."""
 
 from __future__ import annotations
 
@@ -58,3 +60,37 @@ def test_source_imports_nothing_of_jax(path):
             continue
         for n in names:
             assert n.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {n}"
+
+
+def test_the_port_loads_no_file_of_the_jax_package(tmp_path):
+    """Build and run the port's decoder in a fresh interpreter, then look
+    at every mapped file and every imported module: none lies under
+    distribuuuu_tpu/."""
+    code = (
+        "import os, sys, numpy as np\n"
+        "from PIL import Image\n"
+        "from distribuuuu_tpu_torch import native\n"
+        "from distribuuuu_tpu_torch.data.imagefolder import ImageFolderDataset\n"
+        "d = os.path.join(sys.argv[1], 'train', 'x'); os.makedirs(d)\n"
+        "Image.fromarray(np.zeros((40, 50, 3), np.uint8)).save(os.path.join(d, 'a.jpg'))\n"
+        "assert native.available(), native.build_error()\n"
+        "ds = ImageFolderDataset(sys.argv[1], 'train', 32, True, backend='native')\n"
+        "assert ds.load_batch([0])[0].shape == (1, 32, 32, 3)\n"
+        "jax_pkg = os.path.join(os.getcwd(), 'distribuuuu_tpu') + os.sep\n"
+        "maps = [l.split()[-1] for l in open('/proc/self/maps') if '/' in l]\n"
+        "files = maps + [getattr(m, '__file__', None) or '' for m in list(sys.modules.values())]\n"
+        "bad = sorted({f for f in files if os.path.realpath(f).startswith(jax_pkg)})\n"
+        "print(native.library_path(), bad)\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert os.path.join("distribuuuu_tpu_torch", "_build", "libdtpu_decode-") in r.stdout
+
+
+@pytest.mark.parametrize("path", list(_sources()), ids=lambda p: os.path.relpath(p, REPO))
+def test_source_names_no_library_of_the_jax_package(path):
+    src = open(path).read()
+    assert "_libdtpu_decode" not in src

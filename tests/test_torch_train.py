@@ -305,23 +305,31 @@ def test_nonfinite_raise_and_skip():
     ("FAULTS.ENABLED", True, "FAULTS"),
     ("CHECKPOINT.ASYNC", True, "CHECKPOINT.ASYNC"),
     ("TRAIN.NONFINITE", "rollback", "rollback"),
-    ("MODEL.SYNCBN", True, "SYNCBN"),
-    ("MESH.DATA", 2, "MESH"),
-    ("MODEL.DUMMY_INPUT", False, "dataset"),
+    ("MESH.MODEL", 2, "MESH"),
+    ("DATA.FORMAT", "shards", "shards"),
+    ("DEVICE.S2D_STEM", True, "S2D"),
 ])
 def test_unported_configurations_raise_with_roadmap_item(tmp_path, key, value, what):
     _toy_cfg(tmp_path, 1)
     tcfg.merge_from_list([key, value])
-    with pytest.raises(NotImplementedError, match=rf"(?s){what}.*Real data and many processes"):
+    item = {"MESH.MODEL": "Parallel layouts beyond DP",
+            "DEVICE.S2D_STEM": "S2D stem"}.get(key, "Real data and many processes")
+    with pytest.raises(NotImplementedError, match=rf"(?s){what}.*{item}"):
         trainer.train_model()
 
 
 def test_more_processes_and_no_cuda_raise(tmp_path, monkeypatch):
+    """A launch of two processes with a data axis of 1 is refused before
+    any process group is joined; without CUDA the card is refused."""
     _toy_cfg(tmp_path, 1)
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process.*Real data and many processes"):
+    tcfg.MESH.DATA = 1
+    for k, v in (("MASTER_ADDR", "127.0.0.1"), ("WORLD_SIZE", "2"), ("RANK", "0")):
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError, match=r"MESH.DATA=1.*number of processes \(2\)"):
         trainer.train_model()
-    monkeypatch.delenv("WORLD_SIZE")
+    for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k)
+    tcfg.MESH.DATA = -1
     if not torch.cuda.is_available():
         tcfg.DEVICE.PLATFORM = "auto"
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
@@ -389,3 +397,19 @@ def test_resume_honours_load_opt_and_a_bad_checkpoint_names_its_path(tmp_path):
         f.write(b"not a checkpoint")
     with pytest.raises(ckpt.CheckpointError, match="ckpt_ep_001.pth"):
         trainer.train_model()
+
+
+@pytest.mark.parametrize("batch,group,world,error", [
+    (4, 6, 3, NotImplementedError),  # a group of 6 cuts the 4-image batches
+    (4, 3, 2, ValueError),  # 3 does not divide the global batch of 8
+    (4, 8, 2, None),  # one group spans both ranks
+    (4, 2, 2, None),  # two groups in each rank's batch
+    (4, 16, 2, None),  # past the global batch: one group, SyncBN
+])
+def test_batch_geometry_is_over_the_global_batch(batch, group, world, error):
+    tcfg.merge_from_list(["TRAIN.BATCH_SIZE", batch, "MODEL.BN_GROUP", group])
+    if error is None:
+        trainer.check_batch_geometry(world)
+    else:
+        with pytest.raises(error, match="cuts a process's batch|does not divide"):
+            trainer.check_batch_geometry(world)
