@@ -120,8 +120,37 @@ Run from the root of a checkout:  python3 chip_smoke.py
      steps with the ranks bitwise equal and the first loss within
      TWO_RANK_LOSS_RTOL (the updates' L2 and per-tensor differences are
      printed).
-9. Prints the ``{"kernels": [...]}`` line, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+9. The rest of the train loop, in one process with no process group:
+   * ``train_loop_accum``: an f64 ResNet-50 step at batch 8 with
+     GRAD_ACCUM_STEPS 2 and BN_GROUP 4 against the step without accum at
+     ghost groups of 4 (parameters and momentum within LOOP_F64_TOL of
+     each tensor's scale; the running stats move twice under accum by
+     design); the bf16 batch-32 step at accum 1 and 2 over the same 32
+     images, step ms and one opt_update launch per optimizer step;
+   * ``train_loop_remat``: an f64 step with stages 1-2 recomputed against
+     the plain step (cuDNN deterministic; within LOOP_F64_TOL, bitwise
+     equality reported), then the bf16 batch-32 step both ways: peak
+     ``max_memory_allocated`` and step ms. The fused update has no f64
+     body: the f64 steps apply its plain version;
+   * ``train_loop_async_save``: a bf16 train state saved synchronously and
+     through the committer: the boundary's blocking time against the
+     synchronous save's wall, the payloads bitwise equal, the manifests
+     verifying, the steps that overlap the commit against those after;
+   * ``train_loop_drills``: ``train_net`` in subprocesses on the
+     ImageFolder of 8, each drill from a copy of one epoch-1 checkpoint,
+     the three at once: the NaN rollback (FAULTS.NAN_STEP in epoch 2,
+     MAX_ROLLBACKS 1: it raises after one rollback, a clean rerun
+     finishes), a truncated ckpt_ep_001 and a SIGKILL between its rename
+     and its manifest (CHECKPOINT.ASYNC), each walked back over;
+   * ``train_loop_concurrent_eval``: two epochs of config/resnet50.yaml
+     on that ImageFolder, after a warm-up run in turns synchronous, with
+     CONCURRENT_EVAL and CHECKPOINT.ASYNC twice, synchronous (cuDNN
+     deterministic): each
+     concurrent run's final state bitwise the synchronous one's beside
+     it, Acc@1 equal, 33 conv-epilogue launches per eval forward, every
+     one of a concurrent run's off the default stream, the walls.
+10. Prints the ``{"kernels": [...]}`` line, the card's name and power
+    limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds torch.profiler breakdowns of a ResNet-50 and a
 regnety_160 forward at batch 8, of a ResNet-50 and a ViT-S/16 train step at
@@ -1592,6 +1621,449 @@ def two_ranks_one_card_phase(torch, dev):
     return res
 
 
+# ------------------------------------------------------------ the train loop
+# an accumulated step against the ghost-group step, and a remat step
+# against the plain one, at f64: each parameter, momentum trace (and, for
+# remat, running stat) within LOOP_F64_TOL of its tensor's largest
+# magnitude. The pairs compute the same means in exact arithmetic; in f64
+# they differ only in the order of the sums (remat: not even that)
+LOOP_F64_TOL = 1e-10
+LOOP_TIMED_STEPS = 12  # bf16 batch-32 steps timed per variant, after 3 warm-up steps
+# the rollback drill's NaN: the 7th step of epoch 2 (REAL_STEPS steps an epoch)
+LOOP_NAN_STEP = REAL_STEPS + 6
+# the train loop's model: its yaml and arch, and overrides after the yaml
+# (none on the card; a CPU rehearsal shrinks the model and images here)
+LOOP_YAML, LOOP_ARCH, LOOP_OPTS = "config/resnet50.yaml", "resnet50", []
+LOOP_IM, LOOP_FUSED_SITES = 224, 33  # the input side; conv-epilogue sites a forward
+
+
+def _loop_batch(torch, batch: int, seed: int) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"image": torch.from_numpy(rng.integers(0, 256, (batch, LOOP_IM, LOOP_IM, 3),
+                                                    np.uint8)),
+            "label": torch.from_numpy(rng.integers(0, 1000, batch).astype(np.int32))}
+
+
+def _f64_step(torch, dev, host: dict, bn_group: int, accum: int = 1, remat: bool = False):
+    """One f64 ResNet-50 step on the card (BN seeded away from its init):
+    ``(loss, parameters, buffers, momentum)`` on the host. The fused
+    update has no f64 body, so this step applies its plain version to the
+    card's tensors; the kernel's own launches are counted in bf16."""
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
+    from distribuuuu_tpu_torch.utils.optim import Optimizer
+
+    class PlainUpdate(Optimizer):
+        def step(self, grads):
+            self.count += 1
+            ou.update_plain(self.params, grads, self.m, self.v, self.hyper, self.lr,
+                            self.count)
+
+    model = build_model(LOOP_ARCH, num_classes=1000, dtype=torch.float64, bn_group=bn_group,
+                        remat=remat, generator=torch.Generator().manual_seed(0))
+    seeded_bn(torch, model)
+    model = model.to(dev, torch.float64).train()
+    opt = PlainUpdate(list(model.named_parameters()),
+                      ou.Hyper(kind="sgd", wd=5e-5, mom=0.9, nesterov=True), 0.1)
+    m = trainer.train_step(model, opt, {k: v.to(dev) for k, v in host.items()}, 5, accum=accum)
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    buffers = {n: b.detach().cpu() for n, b in model.named_buffers()}
+    trace = {n: t.cpu() for n, t in zip(opt.names, opt.m)}
+    return float(m["loss"]), params, buffers, trace
+
+
+def _worst_rel(torch, got: dict, want: dict):
+    """(largest |got − want| / max |want| over the tensors, its name)."""
+    worst = (0.0, None)
+    for k, y in want.items():
+        if y.is_floating_point():
+            d = float((got[k].double() - y.double()).abs().max()
+                      / y.double().abs().max().clamp_min(1e-300))
+            if worst[1] is None or d > worst[0]:
+                worst = (d, k)
+    return worst
+
+
+def _bf16_steps(torch, ou, dev, accum: int = 1, remat: bool = False) -> dict:
+    """config/resnet50.yaml (bf16, batch 32) through ``trainer.train_step``
+    on one seeded batch: 3 warm-up steps, then LOOP_TIMED_STEPS timed on
+    the host clock (one synchronise at the end), the peak memory over them
+    and opt_update's launches."""
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    config.reset_cfg()
+    config.merge_from_file(LOOP_YAML)
+    cfg.merge_from_list(["RNG_SEED", 0, "TRAIN.GRAD_ACCUM_STEPS", accum, "TRAIN.REMAT", remat,
+                         *LOOP_OPTS])
+    trainer.apply_backend_flags()
+    model = trainer.build_model_from_cfg().to(dev).train()
+    opt = construct_optimizer(model)
+    batch = {k: v.to(dev) for k, v in _loop_batch(torch, cfg.TRAIN.BATCH_SIZE, 6).items()}
+    for _ in range(3):
+        trainer.train_step(model, opt, batch, 5, accum=accum)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ou.update.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(LOOP_TIMED_STEPS):
+        m = trainer.train_step(model, opt, batch, 5, accum=accum)
+    torch.cuda.synchronize()
+    res = {"accum": accum, "remat": remat, "batch": cfg.TRAIN.BATCH_SIZE,
+           "step_ms": (time.perf_counter() - t0) / LOOP_TIMED_STEPS * 1e3,
+           "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+           "opt_update_launches": ou.update.launches, "steps": LOOP_TIMED_STEPS,
+           "loss": float(m["loss"])}
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def _deterministic(torch):
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    return flags
+
+
+def loop_accum_phase(torch, ou, dev) -> dict:
+    """``TRAIN.GRAD_ACCUM_STEPS``: one f64 ResNet-50 step at batch 8 with
+    accum 2 and MODEL.BN_GROUP 4 (micro-batches of 4, one group each)
+    against the no-accum step with ghost groups of 4 (the same groups),
+    cuDNN deterministic: parameters and momentum within LOOP_F64_TOL
+    (the running stats move twice under accum, once without, by design);
+    then the bf16 batch-32 step at accum 1 and 2 (the same 32 images a
+    step): step ms and one opt_update launch per optimizer step."""
+    flags = _deterministic(torch)
+    try:
+        host = _loop_batch(torch, 8, 5)
+        loss_g, params_g, _, trace_g = _f64_step(torch, dev, host, 4)
+        loss_a, params_a, _, trace_a = _f64_step(torch, dev, host, 4, accum=2)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    p_err, t_err = _worst_rel(torch, params_a, params_g), _worst_rel(torch, trace_a, trace_g)
+    rows = [_bf16_steps(torch, ou, dev, accum=a) for a in (1, 2)]
+    res = {"phase": "train_loop_accum", "arch": LOOP_ARCH, "f64_batch": 8, "accum": 2,
+           "bn_group": 4, "loss_ghost": loss_g, "loss_accum": loss_a,
+           "param_rel_err": list(p_err), "trace_rel_err": list(t_err), "tol": LOOP_F64_TOL,
+           "bf16": rows}
+    emit(res)
+    if not (max(p_err[0], t_err[0]) <= LOOP_F64_TOL
+            and abs(loss_a - loss_g) <= LOOP_F64_TOL * abs(loss_g)):
+        raise AssertionError(f"accumulated step vs ghost-group step at f64: {res}")
+    for r in rows:
+        if r["opt_update_launches"] != r["steps"]:
+            raise AssertionError(f"opt_update launched {r['opt_update_launches']} times in "
+                                 f"{r['steps']} steps at accum {r['accum']}")
+    return res
+
+
+def loop_remat_phase(torch, ou, dev) -> dict:
+    """``TRAIN.REMAT``: one f64 ResNet-50 step at batch 8 (one BN group)
+    with stages 1-2 recomputed, against the plain step and against the
+    plain step run again (cuDNN deterministic): parameters, running stats
+    and momentum within LOOP_F64_TOL, bitwise equality reported; then the
+    bf16 batch-32 step both ways: step ms and peak memory."""
+    flags = _deterministic(torch)
+    try:
+        host = _loop_batch(torch, 8, 7)
+        runs = [_f64_step(torch, dev, host, 8, remat=r) for r in (False, False, True)]
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+    def merged(run):
+        return {**{f"p/{k}": v for k, v in run[1].items()},
+                **{f"b/{k}": v for k, v in run[2].items()},
+                **{f"m/{k}": v for k, v in run[3].items()}}
+
+    plain, again, remat = (merged(r) for r in runs)
+    err, rerun_err = _worst_rel(torch, remat, plain), _worst_rel(torch, again, plain)
+    bitwise = runs[2][0] == runs[0][0] and all(torch.equal(remat[k], v)
+                                               for k, v in plain.items())
+    rows = [_bf16_steps(torch, ou, dev, remat=r) for r in (False, True)]
+    res = {"phase": "train_loop_remat", "arch": LOOP_ARCH, "f64_batch": 8,
+           "loss_plain": runs[0][0], "loss_remat": runs[2][0], "bitwise_equal": bitwise,
+           "rel_err": list(err), "plain_rerun_rel_err": list(rerun_err),
+           "tol": LOOP_F64_TOL, "bf16": rows,
+           "peak_mem_saved_mb": rows[0]["peak_mem_mb"] - rows[1]["peak_mem_mb"]}
+    emit(res)
+    if err[0] > LOOP_F64_TOL or abs(runs[2][0] - runs[0][0]) > LOOP_F64_TOL * abs(runs[0][0]):
+        raise AssertionError(f"remat step vs plain step at f64: {res}")
+    if not rows[1]["peak_mem_mb"] < rows[0]["peak_mem_mb"]:
+        raise AssertionError(f"remat did not lower the peak memory: {rows}")
+    return res
+
+
+def loop_async_phase(torch, ou, dev, work: str) -> dict:
+    """``CHECKPOINT.ASYNC``: a bf16 ResNet-50 train state (3 steps in) saved
+    synchronously and then through the committer: the boundary's blocking
+    time against the synchronous save's wall, the payloads bitwise equal
+    and both manifests verifying; the steps that overlap the commit (each
+    step synchronised) against the steps after it."""
+    import statistics as st
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.asyncplane import committer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.resilience import manifest
+    from distribuuuu_tpu_torch.utils import checkpoint as ckpt
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    config.reset_cfg()
+    config.merge_from_file(LOOP_YAML)
+    cfg.merge_from_list(["RNG_SEED", 0, *LOOP_OPTS])
+    trainer.apply_backend_flags()
+    model = trainer.build_model_from_cfg().to(dev).train()
+    opt = construct_optimizer(model)
+    batch = {k: v.to(dev) for k, v in _loop_batch(torch, cfg.TRAIN.BATCH_SIZE, 8).items()}
+
+    def step():
+        trainer.train_step(model, opt, batch, 5)
+        torch.cuda.synchronize()
+
+    ou.update.launches = 0
+    for _ in range(3):
+        step()
+
+    def state():
+        return {"model": model.state_dict(), "opt": opt.state_dict(), "step": opt.count}
+
+    paths = {}
+    for mode in (False, True):
+        cfg.OUT_DIR, cfg.CHECKPOINT.ASYNC = os.path.join(work, f"async_{mode}"), mode
+        t0 = time.perf_counter()
+        paths[mode] = ckpt.save_checkpoint(state(), 0, 1.0, is_best=True)
+        paths[f"{mode}_s"] = time.perf_counter() - t0
+    overlap = []
+    while committer.pending_commits() and len(overlap) < 200:
+        t0 = time.perf_counter()
+        step()
+        overlap.append(time.perf_counter() - t0)
+    committer.join_commits()
+    (_, c0, c1), = committer.commit_windows()[-1:]
+    after = []
+    for _ in range(LOOP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        step()
+        after.append(time.perf_counter() - t0)
+    a = torch.load(paths[True], weights_only=True)
+    b = torch.load(paths[False], weights_only=True)
+    tensors = [(a["model"][k], v) for k, v in b["model"].items()]
+    tensors += [(a["opt"]["m"][k], v) for k, v in b["opt"]["m"].items()]
+    differ = sum(not torch.equal(x, y) for x, y in tensors)
+    verified = [manifest.verify_checkpoint(p)[0] for mode in (False, True)
+                for p in (paths[mode], os.path.join(os.path.dirname(paths[mode]), "best.pth"))]
+    res = {"phase": "train_loop_async_save", "arch": LOOP_ARCH,
+           "payload_mb": os.path.getsize(paths[False]) / 2 ** 20,
+           "sync_save_s": paths["False_s"], "async_blocking_s": paths["True_s"],
+           "commit_s": c1 - c0, "steps_overlapping_commit": len(overlap),
+           "overlap_step_ms": st.mean(overlap) * 1e3 if overlap else None,
+           "after_step_ms": st.mean(after) * 1e3, "opt_update_launches": ou.update.launches,
+           "steps": 3 + len(overlap) + len(after), "tensors": len(tensors),
+           "tensors_not_bitwise_equal": differ, "manifests_verify": all(verified),
+           "meta_equal": (a["step"], a["epoch"], a["best_acc1"]) == (b["step"], b["epoch"],
+                                                                     b["best_acc1"])}
+    emit(res)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    if (differ or not res["manifests_verify"] or not res["meta_equal"]
+            or res["opt_update_launches"] != res["steps"]):
+        raise AssertionError(f"async save vs sync save: {res}")
+    return res
+
+
+def _train_net(root: str, out_dir: str, *opts, timeout: int = 600):
+    """``python -m distribuuuu_tpu_torch.train_net`` with config/resnet50.yaml
+    on the ImageFolder at ``root``, one process, no process group:
+    ``(returncode, stderr)``."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    args = [sys.executable, "-m", "distribuuuu_tpu_torch.train_net", "--cfg", LOOP_YAML,
+            "TRAIN.DATASET", root, "TEST.DATASET", root, "RNG_SEED", 0, "TRAIN.WORKERS",
+            max(1, (os.cpu_count() or 3) // 3), "OUT_DIR", out_dir, *LOOP_OPTS, *opts]
+    r = subprocess.run([str(a) for a in args], env=env, capture_output=True, text=True,
+                       timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
+    return r.returncode, r.stderr
+
+
+# drill -> the two runs from a copy of the epoch-1 checkpoint: (options,
+# wanted return code, what its log must say)
+LOOP_DRILLS = {
+    "rollback": [
+        (["TRAIN.NONFINITE", "rollback", "TRAIN.MAX_ROLLBACKS", 1, "FAULTS.ENABLED", True,
+          "FAULTS.NAN_STEP", LOOP_NAN_STEP], 1,
+         ["rolling back to the last intact checkpoint", "rollback budget exhausted",
+          "NonFiniteLossError"]),
+        ([], 0, ["resumed from", "ckpt_ep_000.pth (epoch 1)", "epoch 2 done"]),
+    ],
+    "corrupt_truncate": [
+        (["FAULTS.ENABLED", True, "FAULTS.CORRUPT_EPOCH", 1, "FAULTS.CORRUPT_MODE",
+          "truncate"], 0, ["epoch 2 done"]),
+        ([], 0, ["quarantined corrupt checkpoint", "truncated", "walked back over 1",
+                 "ckpt_ep_000.pth (epoch 1)", "epoch 2 done"]),
+    ],
+    "kill_mid_async_save": [
+        (["CHECKPOINT.ASYNC", True, "FAULTS.ENABLED", True, "FAULTS.KILL_MID_ASYNC_SAVE", 1],
+         -9, []),
+        (["CHECKPOINT.ASYNC", True], 0,
+         ["no committed manifest", "walked back over 1", "ckpt_ep_000.pth (epoch 1)",
+          "epoch 2 done"]),
+    ],
+}
+
+
+def loop_drills_phase(root: str, work: str) -> dict:
+    """The resilience drills of ``train_net`` in subprocesses on the
+    ImageFolder, each from a copy of one epoch-1 checkpoint (MAX_EPOCH 2):
+    the NaN rollback (NAN_STEP in epoch 2, MAX_ROLLBACKS 1: it raises
+    after one rollback, then a clean rerun finishes from ckpt_ep_000), a
+    truncated ckpt_ep_001 walked back over, and a SIGKILL between
+    ckpt_ep_001.pth's rename and its manifest walked back over. The three
+    run at once; each must end with a ckpt_ep_001.pth that verifies."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distribuuuu_tpu_torch.resilience import manifest
+
+    base = os.path.join(work, "drill_base")
+    t0 = time.perf_counter()
+    rc, log = _train_net(root, base, "OPTIM.MAX_EPOCH", 1)
+    if rc != 0:
+        raise AssertionError(f"drill base run exited {rc}: {log[-3000:]}")
+    base_s = time.perf_counter() - t0
+
+    def drill(name):
+        out = os.path.join(work, name)
+        shutil.copytree(base, out)
+        rows = []
+        for opts, want_rc, needles in LOOP_DRILLS[name]:
+            t1 = time.perf_counter()
+            rc, log = _train_net(root, out, "OPTIM.MAX_EPOCH", 2, *opts)
+            missing = [n for n in needles if n not in log]
+            rows.append({"rc": rc, "want_rc": want_rc, "missing": missing,
+                         "seconds": time.perf_counter() - t1})
+            if rc != want_rc or missing:
+                rows[-1]["log_tail"] = log[-2000:]
+                break
+        final = os.path.join(out, "checkpoints", "ckpt_ep_001.pth")
+        return name, {"runs": rows, "final_verifies": manifest.verify_checkpoint(final)[0],
+                      "quarantined": sorted(f for f in os.listdir(os.path.dirname(final))
+                                            if ".corrupt" in f)}
+
+    with ThreadPoolExecutor(len(LOOP_DRILLS)) as pool:
+        drills = dict(pool.map(drill, LOOP_DRILLS))
+    res = {"phase": "train_loop_drills", "arch": LOOP_ARCH, "base_epoch_s": base_s,
+           "nan_step": LOOP_NAN_STEP, "drills": drills}
+    emit(res)
+    for name, d in drills.items():
+        if not d["final_verifies"] or any(r["rc"] != r["want_rc"] or r["missing"]
+                                          for r in d["runs"]):
+            raise AssertionError(f"drill {name} failed: {d}")
+    return res
+
+
+def loop_concurrent_eval_phase(torch, ce, ou, root: str, work: str) -> dict:
+    """``TRAIN.CONCURRENT_EVAL``: two epochs of config/resnet50.yaml on the
+    ImageFolder through ``trainer.train_model``, with cuDNN deterministic:
+    a synchronous run to warm up, then in turns synchronous, concurrent
+    (with async commits), concurrent, synchronous: each concurrent run's
+    final parameters, running stats and
+    momentum bitwise the synchronous run's beside it, each epoch's Acc@1
+    equal; 33 conv-epilogue launches per eval forward, in a concurrent run
+    every one of them off the default stream (the eval's own); one
+    opt_update launch per step; the walls of each mode."""
+    import statistics as st
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.utils import checkpoint as ckpt
+
+    kernel, launch = ce.conv1x1_bn_act, ce._launch
+    side = {"n": 0}
+
+    def counted(x, *a, **k):  # the kernel's launch, off the default stream or on it
+        if torch.cuda.current_stream(x.device) != torch.cuda.default_stream(x.device):
+            side["n"] += 1
+        return launch(x, *a, **k)
+
+    runs = []
+    ce._launch = counted
+    try:
+        for i, concurrent in enumerate((False, False, True, True, False)):
+            config.reset_cfg()
+            config.merge_from_file(LOOP_YAML)
+            cfg.merge_from_list([
+                *LOOP_OPTS, "TRAIN.DATASET", root, "TEST.DATASET", root, "RNG_SEED", 0,
+                "OPTIM.MAX_EPOCH", 2, "OUT_DIR", os.path.join(work, f"conc_{i}"),
+                "DATA.BACKEND", "auto", "TRAIN.WORKERS", os.cpu_count(),
+                "CUDNN.DETERMINISTIC", True, "CUDNN.BENCHMARK", False,
+                "TRAIN.CONCURRENT_EVAL", concurrent, "CHECKPOINT.ASYNC", concurrent])
+            recs = []
+            ou.update.launches = kernel.launches = side["n"] = 0
+            t0 = time.perf_counter()
+            trainer.train_model(recs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append({
+                "concurrent": concurrent, "wall_s": wall, "acc1": [r["acc1"] for r in recs],
+                "eval_wall_s": [r["eval_wall_s"] for r in recs],
+                "save_s": [r.get("save_s") for r in recs],
+                "steps": sum(r["steps"] for r in recs),
+                "eval_forwards": sum(-(-r["eval_images"] // cfg.TEST.BATCH_SIZE) for r in recs),
+                "launches": {"opt_update": ou.update.launches, "conv_epilogue": kernel.launches,
+                             "conv_epilogue_off_default_stream": side["n"]},
+                "state": ckpt.load_checkpoint(ckpt.get_checkpoint(1))})
+    finally:
+        ce._launch = launch
+    states = [r.pop("state") for r in runs]
+    differ = []
+    for c, p in ((2, 1), (3, 4)):  # each concurrent run against the synchronous one beside it
+        a, b = states[c], states[p]
+        pairs = [(f"model/{k}", a["model"][k], v) for k, v in b["model"].items()]
+        pairs += [(f"m/{k}", a["opt"]["m"][k], v) for k, v in b["opt"]["m"].items()]
+        differ += [k for k, x, y in pairs if not torch.equal(x, y)]
+    # the first run warms the process (cuDNN, cuBLAS, the decoder): its wall is left out
+    walls = {m: [r["wall_s"] for r in runs[1:] if r["concurrent"] == m] for m in (False, True)}
+    res = {"phase": "train_loop_concurrent_eval", "arch": LOOP_ARCH, "epochs": 2,
+           "runs": runs, "tensors": len(pairs), "tensors_not_bitwise_equal": len(differ),
+           "first_differing": differ[:5], "sync_wall_s": walls[False],
+           "concurrent_wall_s": walls[True],
+           "wall_saved_s": st.mean(walls[False]) - st.mean(walls[True])}
+    emit(res)
+    for r in runs:
+        if (r["launches"]["conv_epilogue"] != LOOP_FUSED_SITES * r["eval_forwards"]
+                or not r["eval_forwards"]
+                or r["launches"]["opt_update"] != r["steps"] or r["steps"] != 2 * REAL_STEPS
+                or r["launches"]["conv_epilogue_off_default_stream"]
+                != (r["launches"]["conv_epilogue"] if r["concurrent"] else 0)
+                or r["acc1"] != runs[0]["acc1"]):
+            raise AssertionError(f"concurrent eval run {r}")
+    if differ:
+        raise AssertionError(f"concurrent eval vs synchronous: {res}")
+    return res
+
+
+def train_loop_phases(torch, ce, ou, dev, root: str, work: str) -> dict:
+    """The rest of the train loop, each phase in turn; returns the kernel
+    launches its train runs made (the accumulated and remat bf16 steps, the
+    async phase's steps, the five concurrent-eval runs)."""
+    accum = loop_accum_phase(torch, ou, dev)
+    remat = loop_remat_phase(torch, ou, dev)
+    saves = loop_async_phase(torch, ou, dev, work)
+    loop_drills_phase(root, work)
+    conc = loop_concurrent_eval_phase(torch, ce, ou, root, work)
+    return {"opt_update": sum(r["opt_update_launches"] for r in accum["bf16"] + remat["bf16"])
+            + saves["opt_update_launches"]
+            + sum(r["launches"]["opt_update"] for r in conc["runs"]),
+            "conv_epilogue": sum(r["launches"]["conv_epilogue"] for r in conc["runs"])}
+
+
 def _breakdown(torch, prof, iters: int, classify) -> dict:
     """Device time by kind per iteration, kernels per iteration, busy time
     and idle share of the traced window, from a torch.profiler trace."""
@@ -2181,19 +2653,25 @@ def main(argv=None) -> int:
     tf32_off()
     real_dir = tempfile.mkdtemp(prefix="chip_smoke_realdata_")
     try:
-        t0 = time.perf_counter()
-        root = make_image_tree(os.path.join(real_dir, "tree"))
-        emit({"phase": "realdata_tree", "seconds": time.perf_counter() - t0,
-              "classes": REAL_CLASSES, "train": REAL_CLASSES * REAL_TRAIN,
-              "val": REAL_CLASSES * REAL_VAL})
-        syncbn_world1_phase(torch, dev)
-        real = realdata_phase(torch, ce, ou, root, os.path.join(real_dir, "out"),
-                              runs["resnet50"][0]["train_img_per_s"])
+        try:
+            t0 = time.perf_counter()
+            root = make_image_tree(os.path.join(real_dir, "tree"))
+            emit({"phase": "realdata_tree", "seconds": time.perf_counter() - t0,
+                  "classes": REAL_CLASSES, "train": REAL_CLASSES * REAL_TRAIN,
+                  "val": REAL_CLASSES * REAL_VAL})
+            syncbn_world1_phase(torch, dev)
+            real = realdata_phase(torch, ce, ou, root, os.path.join(real_dir, "out"),
+                                  runs["resnet50"][0]["train_img_per_s"])
+        finally:
+            leave_world1(dist)
+        tf32_off()
+        two_ranks_one_card_phase(torch, dev)
+        # the rest of the train loop, in one process with no process group,
+        # on the same ImageFolder
+        tf32_off()
+        loop = train_loop_phases(torch, ce, ou, dev, root, real_dir)
     finally:
-        leave_world1(dist)
         shutil.rmtree(real_dir, ignore_errors=True)
-    tf32_off()
-    two_ranks_one_card_phase(torch, dev)
 
     # per-forward totals over the 33 sites (sites_per_forward weights)
     def total(key):
@@ -2209,7 +2687,7 @@ def main(argv=None) -> int:
         "source": "distribuuuu_tpu_torch/csrc/conv_epilogue.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/conv_epilogue.py:121",
         "launches": launches + reg_serve_ce + real["launches"]["conv_epilogue"]
-        + sum(r["launches"]["conv_epilogue"] for a in ("resnet50", "regnety_160")
+        + loop["conv_epilogue"] + sum(r["launches"]["conv_epilogue"] for a in ("resnet50", "regnety_160")
               for r in runs[a]),
         "max_abs_err": worst,
         "ms": total("ms"),
@@ -2222,7 +2700,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/csrc/opt_update.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/opt_update.py:75",
-        "launches": real["launches"]["opt_update"]
+        "launches": real["launches"]["opt_update"] + loop["opt_update"]
         + sum(r["launches"]["opt_update"] for rs in runs.values() for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in opt_rows.values()),
         "ms": main_body["ms"],

@@ -6,7 +6,9 @@ kernels are hand-written CUDA C++ for ``sm_90a`` under ``csrc/``, built at
 first use (``ops/cuda/_build.py``). What is ported so far: serving and
 training of the ResNet family, the RegNets and ViT-Ti/ViT-S, on dummy
 data or ImageFolder trees, in one process or several (``torchrun``,
-Slurm), and GPT-nano generation serving (``python -m
+Slurm), with the JAX train loop's gradient accumulation, remat, verified
+checkpoints, rollback, background commits, concurrent eval and fault
+injection, and GPT-nano generation serving (``python -m
 distribuuuu_tpu_torch.serve_net`` / ``train_net --cfg
 config/<arch>.yaml``).
 """

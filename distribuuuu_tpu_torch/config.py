@@ -6,8 +6,10 @@ The port's own copy of the yacs-compatible ``CfgNode`` of
 with the part of the default tree that the image configs and the ported
 slices use. Every shipped image config (``config/resnet*.yaml`` and the
 other CNN and ViT yamls) merges into it unchanged; nodes that only the
-unported planes read (ASYNC, TELEMETRY, ...) are added with the slices
-that port them. ``config/gpt_nano.yaml`` merges too (LM, GENERATE, the
+unported planes read (TELEMETRY, ...) are added with the slices that
+port them. The JAX package's ``ASYNC`` node (its dispatch sequencer and
+cross-host ring) has no counterpart: the port's concurrent eval runs on
+its own CUDA stream and its own process group instead. ``config/gpt_nano.yaml`` merges too (LM, GENERATE, the
 decode-attention knobs, DATA.FORMAT).
 """
 
@@ -210,22 +212,38 @@ _C.TRAIN.WORKERS = 4
 _C.TRAIN.PIN_MEMORY = True
 _C.TRAIN.PRINT_FREQ = 30
 _C.TRAIN.TOPK = 5
-# Optimizer steps per dispatched call; the port takes 1 (refuses more).
+# Optimizer steps per dispatched call; the port takes 1 (refuses more:
+# ROADMAP "One graph per step").
 _C.TRAIN.STEPS_PER_CALL = 1
 # Device prefetch depth (data/loader.device_prefetch): batches k+1..k+N
 # are copied host-to-device (pinned, non_blocking) while step k runs.
 _C.TRAIN.PREFETCH_DEVICE = 2
 # Per-batch timeline records: the port writes none yet (logged once).
 _C.TRAIN.TIMELINE = True
-# Rematerialized stages 1-2: not ported (the port refuses True).
+# Rematerialize stages 1-2 of the ResNet family (models/resnet.py):
+# their blocks run under torch.utils.checkpoint and are recomputed in the
+# backward; parameters, state_dict and the step's math are unchanged.
 _C.TRAIN.REMAT = False
-# Micro-batches per optimizer step: the port takes 1 (refuses more).
+# Micro-batches per optimizer step (trainer.train_step): the per-process
+# batch is split into GRAD_ACCUM_STEPS contiguous slices, each a forward
+# and backward (BN running stats carried from micro to micro), the
+# gradients summed and divided by GRAD_ACCUM_STEPS, then one all-reduce
+# and one optimizer update. BN ghost groups are over the global
+# micro-batch.
 _C.TRAIN.GRAD_ACCUM_STEPS = 1
 # Non-finite loss policy (resilience/supervisor.py): "raise" fails at the
 # next metric flush, "skip" discards the poisoned update and keeps the
-# state before the step; "rollback" is not ported.
+# state before the step, "rollback" reloads the last intact checkpoint
+# and re-runs from there (MAX_ROLLBACKS attempts).
 _C.TRAIN.NONFINITE = "raise"
-# Validation overlapped with the next epoch: not ported (refuses True).
+_C.TRAIN.MAX_ROLLBACKS = 2
+# Stall watchdog (resilience/supervisor.Heartbeat): a warning when no
+# step lands within STALL_TIMEOUT seconds, or a checkpoint-commit join
+# blocks that long. 0 = off (no thread).
+_C.TRAIN.STALL_TIMEOUT = 0.0
+# Validation overlapped with the next epoch (asyncplane/evalloop.py): a
+# snapshot of the model on the card, evaluated on a worker thread and its
+# own CUDA stream; the result joins at the next epoch boundary.
 _C.TRAIN.CONCURRENT_EVAL = False
 
 # ------------------------------- testing -----------------------------------
@@ -371,13 +389,65 @@ _C.DATA.SKIP_CORRUPT = True
 
 # ------------------------------- checkpoints ---------------------------------
 _C.CHECKPOINT = CfgNode()
-# Background commit of checkpoints: not ported (the port refuses True).
+# Background commit of checkpoints (asyncplane/committer.py): the trainer
+# blocks for the device-to-host snapshot; the write, the fsync, the
+# rename and the manifest (last) run on one daemon thread.
 _C.CHECKPOINT.ASYNC = False
 
 # ------------------------------- fault injection -----------------------------
-# Deterministic failure injection: not ported (the port refuses True).
+# Deterministic failure injection (utils/faults.py): every hook is one
+# attribute read unless ENABLED. The knobs and defaults of the JAX
+# package; the ones whose mechanism the port does not have (shards,
+# sharded saves, the dispatch sequencer and ring, the cross-host commit
+# barrier, recompiles) are refused by faults.validate_cfg with their
+# ROADMAP item.
 _C.FAULTS = CfgNode()
 _C.FAULTS.ENABLED = False
+# Multiply the loss by NaN at this global optimizer step: loss and
+# gradients go non-finite at exactly that step. -1 = off.
+_C.FAULTS.NAN_STEP = -1
+# Decode of this dataset sample index raises. "once": the first retry
+# succeeds; "always": the loader's skip-and-log path engages. -1 = off.
+_C.FAULTS.DECODE_ERROR_IDX = -1
+_C.FAULTS.DECODE_ERROR_MODE = "once"
+# SIGKILL process KILL_RANK at (KILL_EPOCH, KILL_AT_BATCH). -1 = off.
+_C.FAULTS.KILL_RANK = -1
+_C.FAULTS.KILL_EPOCH = 0
+_C.FAULTS.KILL_AT_BATCH = -1
+# Sleep STALL_S seconds at (STALL_EPOCH, STALL_AT_BATCH). -1 = off.
+_C.FAULTS.STALL_EPOCH = 0
+_C.FAULTS.STALL_AT_BATCH = -1
+_C.FAULTS.STALL_S = 0.0
+# SIGTERM to this process at (PREEMPT_EPOCH, PREEMPT_AT_BATCH), through
+# the installed handler (utils/preempt.py). -1 = off.
+_C.FAULTS.PREEMPT_EPOCH = 0
+_C.FAULTS.PREEMPT_AT_BATCH = -1
+# Refused (ROADMAP "One graph per step"): mid-run recompiles. -1 = off.
+_C.FAULTS.RECOMPILE_EPOCH = 0
+_C.FAULTS.RECOMPILE_AT_BATCH = -1
+_C.FAULTS.RECOMPILE_N = 8
+# Sleep SLOWDOWN_MS at every batch boundary of SLOWDOWN_EPOCH. 0 = off.
+_C.FAULTS.SLOWDOWN_EPOCH = 0
+_C.FAULTS.SLOWDOWN_MS = 0.0
+# SIGKILL between ckpt_ep_{KILL_MID_ASYNC_SAVE}.pth's rename and its
+# manifest: the restart walks back over the manifest-less file. -1 = off.
+_C.FAULTS.KILL_MID_ASYNC_SAVE = -1
+# Refused (the shards format): truncate a record shard. -1 = off.
+_C.FAULTS.TRUNCATE_SHARD = -1
+# After ckpt_ep_{CORRUPT_EPOCH}.pth commits: "truncate" halves the file,
+# "partial" deletes its manifest. -1 = off.
+_C.FAULTS.CORRUPT_EPOCH = -1
+_C.FAULTS.CORRUPT_MODE = "truncate"
+# Refused (the dispatch sequencer and ring, the cross-host commit barrier,
+# sharded saves). -1 = off.
+_C.FAULTS.WEDGE_DISPATCH = -1
+_C.FAULTS.WEDGE_S = 0.0
+_C.FAULTS.KILL_AT_COMMIT_BARRIER = -1
+_C.FAULTS.WEDGE_RING = -1
+_C.FAULTS.WEDGE_RING_S = 0.0
+_C.FAULTS.KILL_AT_SHARD_BARRIER = -1
+_C.FAULTS.DROP_SHARD_FILE = -1
+_C.FAULTS.DROP_SHARD_HOST = 1
 
 # ------------------------------- serving ------------------------------------
 _C.SERVE = CfgNode()

@@ -12,7 +12,9 @@ one call over ``TRAIN.WORKERS`` C++ threads and two batches are in
 flight, with PIL the pool's ``TRAIN.WORKERS`` threads are the parallelism.
 A failed decode is retried with exponential backoff (``DATA.RETRIES``,
 ``DATA.RETRY_BACKOFF_S``), then, under ``DATA.SKIP_CORRUPT``, the corrupt
-sample is replaced by a good one from its batch and logged.
+sample is replaced by a good one from its batch and logged
+(``FAULTS.DECODE_ERROR_IDX`` injects such a failure, at the JAX package's
+two sites).
 :func:`device_prefetch` copies the next ``TRAIN.PREFETCH_DEVICE`` batches
 to the card (pinned host buffers, ``non_blocking``) while the current step
 runs.
@@ -36,6 +38,7 @@ from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.data.dummy import DummyDataset
 from distribuuuu_tpu_torch.data.sampler import DistributedSampler
 from distribuuuu_tpu_torch.parallel import dist
+from distribuuuu_tpu_torch.utils import faults
 from distribuuuu_tpu_torch.utils.logger import get_logger
 
 
@@ -87,7 +90,11 @@ class Loader:
     def _fetch_sample(self, i: int):
         """One sample behind retry-with-backoff; None marks a corrupt
         sample (logged) for the caller to substitute."""
-        sample, err = self._with_retries(lambda: self.dataset[int(i)], f"sample {int(i)}")
+        def fetch():
+            faults.maybe_decode_error(int(i))  # injection hook (FAULTS.DECODE_ERROR_*)
+            return self.dataset[int(i)]
+
+        sample, err = self._with_retries(fetch, f"sample {int(i)}")
         if err is not None:
             get_logger().warning("corrupt sample %d skipped after %d attempts (%s: %s): "
                                  "substituting a good sample from the same batch", int(i),
@@ -100,8 +107,12 @@ class Loader:
         falls back to the per-sample path, which isolates and substitutes
         the corrupt samples instead of ending the epoch."""
         if hasattr(self.dataset, "load_batch"):
-            out, err = self._with_retries(
-                lambda: self.dataset.load_batch(idxs, n_threads=self.workers), "batch")
+            def fetch():
+                for i in idxs:
+                    faults.maybe_decode_error(int(i))
+                return self.dataset.load_batch(idxs, n_threads=self.workers)
+
+            out, err = self._with_retries(fetch, "batch")
             if err is None:
                 return out
             get_logger().warning("batch decode failed after %d attempts (%s: %s): "

@@ -22,8 +22,10 @@ Conventions kept from the JAX package:
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +36,30 @@ from distribuuuu_tpu_torch.ops.cuda import conv_epilogue, group_conv
 from distribuuuu_tpu_torch.parallel import dist
 
 GROUP_CONV_MODES = ("auto", "unrolled", "fused", "blockdiag", "pallas")
+
+# the phase of a rematerialized block this thread is in: None, "forward"
+# or "recompute" (remat_contexts)
+_remat = threading.local()
+
+
+@contextlib.contextmanager
+def _remat_phase(phase: str):
+    prev = getattr(_remat, "phase", None)
+    _remat.phase = phase
+    try:
+        yield
+    finally:
+        _remat.phase = prev
+
+
+def remat_contexts():
+    """``context_fn`` of ``torch.utils.checkpoint`` for a rematerialized
+    block: its forward runs in the "forward" phase, where each
+    :class:`BatchNorm` stashes the shift it used; the backward's recompute
+    in the "recompute" phase, where it reuses that shift and leaves the
+    running stats alone. So the recompute computes what the forward did,
+    and the stats move once a forward, as under JAX's ``nn.remat``."""
+    return _remat_phase("forward"), _remat_phase("recompute")
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -76,7 +102,11 @@ class BatchNorm(nn.Module):
       variances over every group of the global batch (averaged across
       processes, so the running stats stay replicated); running stats
       move as ``m·ra + (1−m)·upd`` with flax's m = 0.9
-      (``DISTRIBUUUU_BN_MOMENTUM`` overrides), stored in their own dtype.
+      (``DISTRIBUUUU_BN_MOMENTUM`` overrides), stored in their own dtype;
+    * inside a rematerialized block (``remat_contexts``) the backward's
+      recompute reuses the forward's shift and does not move the running
+      stats again; a group that all-reduces its sums does so again in
+      the recompute, on every process in the same order.
     """
 
     momentum = 0.9  # flax's decay (torch's momentum 0.1)
@@ -135,10 +165,21 @@ class BatchNorm(nn.Module):
             (m,) = means(v)
             (var,) = means(torch.square(v - m))
             return m.squeeze(dims), var.squeeze(dims)
-        shift = self.running_mean.detach() if mode == "shifted" else 0.0
+        shift = self._shift() if mode == "shifted" else 0.0
         d = v - shift
         s1, s2 = (t.squeeze(dims) for t in means(d, torch.square(d)))
         return s1 + shift, torch.clamp_min(s2 - torch.square(s1), 0.0)
+
+    def _shift(self) -> torch.Tensor:
+        """The running mean as the variance's constant shift: its value
+        before this forward's update, the same in a remat recompute."""
+        phase = getattr(_remat, "phase", None)
+        if phase == "recompute":
+            return self._remat_shift
+        shift = self.running_mean.detach()
+        if phase == "forward":
+            shift = self._remat_shift = shift.clone()
+        return shift
 
     def _train(self, xf: torch.Tensor) -> torch.Tensor:
         n, feat, gs = xf.shape[0], xf.shape[-1], self.group_size
@@ -175,6 +216,8 @@ class BatchNorm(nn.Module):
             y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
             count = n * span * spatial
             mean_upd, var_upd = mean, var * count / max(count - 1, 1)
+        if getattr(_remat, "phase", None) == "recompute":
+            return y
         m = float(os.environ.get("DISTRIBUUUU_BN_MOMENTUM", self.momentum))
         with torch.no_grad():
             upd = [mean_upd.detach(), var_upd.detach()]

@@ -9,7 +9,10 @@ directly; convs, BNs and the Linear are defined in the flax modules' order.
 Activations are NHWC (layers.py). ``model.train()`` reaches every
 BatchNorm (batch statistics in ghost groups of ``bn_group``); switching
 mode drops the eval weight cache, so an eval after training steps sees the
-updated weights.
+updated weights. ``remat`` (``TRAIN.REMAT``) runs each block of stages 1-2
+under ``torch.utils.checkpoint`` in training, recomputed in the backward
+(``layers.remat_contexts`` keeps BatchNorm's shift and running stats as
+without it); the parameters and the ``state_dict`` are the same either way.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distribuuuu_tpu_torch.models.layers import (
     CNN,
@@ -30,6 +34,7 @@ from distribuuuu_tpu_torch.models.layers import (
     head_dtype,
     init_weights,
     max_pool_3x3_s2,
+    remat_contexts,
 )
 
 
@@ -108,10 +113,12 @@ class ResNet(CNN):
     def __init__(self, block, layers: Sequence[int], num_classes: int = 1000,
                  groups: int = 1, width_per_group: int = 64,
                  zero_init_residual: bool = False, dtype=torch.bfloat16,
-                 bn_group: int = 0, s2d_stem: bool = False, device=None):
+                 bn_group: int = 0, s2d_stem: bool = False, remat: bool = False,
+                 device=None):
         super().__init__()
         self.dtype = dtype
         self.bn_group = bn_group  # ghost-BN group size of training (0 = whole batch)
+        self.remat = remat  # recompute stages 1-2 in the backward
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False, device=device)
         self.bn1 = BatchNorm(64, device=device)
         self.stem = ConvBN(self.conv1, self.bn1, F.relu, dtype, s2d_stem=s2d_stem)
@@ -144,8 +151,14 @@ class ResNet(CNN):
 
     def forward(self, x):
         x = max_pool_3x3_s2(self.stem(x.to(self.dtype)))
-        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = stage(x)
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        for i, stage in enumerate((self.layer1, self.layer2, self.layer3, self.layer4)):
+            if remat and i < 2:
+                for block in stage:
+                    x = checkpoint(block, x, use_reentrant=False, context_fn=remat_contexts,
+                                   preserve_rng_state=False)
+            else:
+                x = stage(x)
         x = global_avg_pool(x)
         hd = head_dtype(x.dtype)
         return self.fc(x.to(hd))

@@ -122,10 +122,11 @@ def is_primary() -> bool:
     return get_rank() == 0
 
 
-def collective_device() -> torch.device:
-    """Where a host value goes for a collective: NCCL takes CUDA tensors
-    only (on the device set for this process), gloo the CPU."""
-    if dist.get_backend() == "nccl":
+def collective_device(group=None) -> torch.device:
+    """Where a host value goes for a collective on ``group`` (default: the
+    whole group): NCCL takes CUDA tensors only (on the device set for this
+    process), gloo the CPU."""
+    if dist.get_backend(group) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
@@ -152,15 +153,33 @@ def broadcast_tensors_from_primary(tensors) -> None:
             dist.broadcast(t, src=0)
 
 
-def all_reduce_sum(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """The sum over processes of each tensor (all of one shape, in their
-    common dtype). One collective for the lot."""
+def all_reduce_sum(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """The sum over ``group``'s processes (default: all) of each tensor (all
+    of one shape, in their common dtype). One collective for the lot; on
+    a ``group`` of another device (``side_group``'s CPU) the values go
+    there and come back."""
     if not is_initialized():
         return list(tensors)
     dtype = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
     flat = torch.stack([t.to(dtype) for t in tensors])
-    dist.all_reduce(flat)
+    if group is None:
+        dist.all_reduce(flat)
+    else:
+        moved = flat.to(collective_device(group))
+        dist.all_reduce(moved, group=group)
+        flat = moved.to(flat.device)
     return list(flat.unbind(0))
+
+
+def side_group():
+    """A gloo group of every process, for collectives of a second host
+    thread (concurrent eval's sums): its own communicator, so they never
+    interleave with the training thread's on the default group, and CPU
+    tensors, so they never compete with NCCL's kernels on the card. Every
+    process must create it at the same point. None with no process group."""
+    if not is_initialized():
+        return None
+    return dist.new_group(list(range(get_world_size())), backend="gloo")
 
 
 def scaled_all_reduce(tensors: list[torch.Tensor]) -> list[torch.Tensor]:

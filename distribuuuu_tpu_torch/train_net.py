@@ -24,8 +24,12 @@ def main(argv=None):
     config.load_cfg_from_args("Train a classification model.", argv)
     cfg.freeze()
     from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.parallel import dist
 
-    return trainer.train_model()
+    try:
+        return trainer.train_model()
+    finally:
+        dist.shutdown_distributed()  # leave the group before the interpreter tears down
 
 
 if __name__ == "__main__":

@@ -21,20 +21,24 @@ distribuuuu_tpu/parallel/partition/lowering.py).
   and under ``DISTRIBUUUU_GROUP_CONV=pallas`` a RegNet's stride-1 grouped
   3x3 convs at ≤ 14² run the grouped-conv kernel, forward and dx.
 * :func:`train_model` / :func:`test_model`: the loops of ``train_net`` and
-  ``test_net``, with epoch checkpoints, ``best``, preemption saves and
-  auto-resume (``utils/checkpoint.py``), on ImageFolder trees or
-  ``MODEL.DUMMY_INPUT`` data, in one process or several
-  (``torchrun``, Slurm; ``parallel/dist.setup_distributed``).
+  ``test_net``, with epoch checkpoints under manifests, ``best``,
+  preemption saves and auto-resume that walks back over broken saves
+  (``utils/checkpoint.py``), the ``rollback`` policy, background commits
+  (``CHECKPOINT.ASYNC``), concurrent eval (``TRAIN.CONCURRENT_EVAL``) and
+  fault injection (``utils/faults.py``), on ImageFolder trees or
+  ``MODEL.DUMMY_INPUT`` data, in one process or several (``torchrun``,
+  Slurm; ``parallel/dist.setup_distributed``).
 
 Each process runs on one card: ``cuda:LOCAL_RANK`` under a launch of
 several processes, else ``cuda:{SERVE.DEVICE}``, under ``DEVICE.PLATFORM``
 ``auto``/``cuda`` (raising without CUDA); on the CPU only when asked
 (``cpu``, the tests; gloo between processes). BatchNorm's ghost groups are
-over the global batch (``models/layers.BatchNorm``); ``MODEL.SYNCBN`` is
-one group of the whole global batch. What the port does not run raises
-with its ROADMAP item: mesh axes beyond data, folded steps, gradient
-accumulation, rematerialization, concurrent eval, fault injection,
-asynchronous checkpoints and the ``rollback`` policy.
+over the global micro-batch (``models/layers.BatchNorm``); ``MODEL.SYNCBN``
+is one group of the whole global micro-batch. ``TRAIN.GRAD_ACCUM_STEPS``
+splits each step into micro-batches; ``TRAIN.REMAT`` recomputes the
+ResNets' stages 1-2 in the backward. What the port does not run raises
+with its ROADMAP item: mesh axes beyond data, folded steps, the shards
+format and the fault knobs whose mechanism the port does not have.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from distribuuuu_tpu_torch import not_ported
+from distribuuuu_tpu_torch.asyncplane import committer
+from distribuuuu_tpu_torch.asyncplane.evalloop import ConcurrentEval
 from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.data.loader import (
     construct_train_loader,
@@ -57,9 +63,9 @@ from distribuuuu_tpu_torch.models.layers import head_dtype, resolve_dtype
 from distribuuuu_tpu_torch.ops import cuda as kernel_tier
 from distribuuuu_tpu_torch.ops.cuda import opt_update
 from distribuuuu_tpu_torch.parallel import dist
-from distribuuuu_tpu_torch.resilience import supervisor
+from distribuuuu_tpu_torch.resilience import manifest, supervisor
 from distribuuuu_tpu_torch.utils import checkpoint as ckpt
-from distribuuuu_tpu_torch.utils import preempt
+from distribuuuu_tpu_torch.utils import faults, preempt
 from distribuuuu_tpu_torch.utils.logger import setup_logger
 from distribuuuu_tpu_torch.utils.meters import construct_meters
 from distribuuuu_tpu_torch.utils.metrics import accuracy, count_parameters, cross_entropy
@@ -70,6 +76,7 @@ from distribuuuu_tpu_torch.utils.weights import load_weights, pretrained_refusal
 
 REAL_DATA = "Real data and many processes"
 PARALLEL = "Parallel layouts beyond DP"
+ONE_GRAPH = "One graph per step"
 
 
 def bn_group_from_cfg() -> int:
@@ -155,6 +162,8 @@ def build_model_from_cfg(generator: torch.Generator | None = None):
         raise ValueError(
             f"TRAIN.REMAT targets the resnet/resnext/wide_resnet family (stages 1-2 "
             f"rematerialization); {arch!r} does not take the knob")
+    if cfg.TRAIN.REMAT:
+        kwargs["remat"] = True
     return build_model(
         arch,
         num_classes=cfg.MODEL.NUM_CLASSES,
@@ -184,22 +193,12 @@ def check_train_cfg(eval_only: bool = False) -> None:
     if mesh.DATA not in (-1, world):
         raise ValueError(f"MESH.DATA={mesh.DATA}: the port runs one card a process, so the "
                          f"data axis is -1 or the number of processes ({world})")
-    refusals = [(bool(cfg.FAULTS.ENABLED), "FAULTS.ENABLED (fault injection)")]
     if not eval_only:
-        refusals += [
-            (cfg.TRAIN.STEPS_PER_CALL > 1,
-             f"TRAIN.STEPS_PER_CALL={cfg.TRAIN.STEPS_PER_CALL} (folded steps)"),
-            (cfg.TRAIN.GRAD_ACCUM_STEPS > 1,
-             f"TRAIN.GRAD_ACCUM_STEPS={cfg.TRAIN.GRAD_ACCUM_STEPS} (gradient accumulation)"),
-            (bool(cfg.TRAIN.REMAT) and cfg.MODEL.ARCH.startswith(RESNETS),
-             "TRAIN.REMAT (rematerialized stages)"),
-            (bool(cfg.TRAIN.CONCURRENT_EVAL), "TRAIN.CONCURRENT_EVAL"),
-            (bool(cfg.CHECKPOINT.ASYNC), "CHECKPOINT.ASYNC (background checkpoint commits)"),
-        ]
+        if cfg.TRAIN.STEPS_PER_CALL > 1:
+            raise not_ported(f"TRAIN.STEPS_PER_CALL={cfg.TRAIN.STEPS_PER_CALL} (folded steps)",
+                             ONE_GRAPH)
         supervisor.validate_policy(str(cfg.TRAIN.NONFINITE))
-    for refused, what in refusals:
-        if refused:
-            raise not_ported(what, REAL_DATA)
+    faults.validate_cfg()
     if cfg.MODEL.PRETRAINED and not cfg.MODEL.WEIGHTS:
         raise pretrained_refusal(cfg.MODEL.ARCH)
     if not eval_only:
@@ -207,23 +206,29 @@ def check_train_cfg(eval_only: bool = False) -> None:
 
 
 def check_batch_geometry(world: int) -> None:
-    """The ghost-BN geometry over the global batch (``TRAIN.BATCH_SIZE``
-    a process × ``world``), checked before any work as the JAX package's
-    ``check_batch_geometry`` does. A group must divide the global batch,
-    and in the port it must also divide a process's batch or be whole
-    process batches."""
+    """The batch geometry, checked before any work as the JAX package's
+    ``check_batch_geometry`` does: a process's batch (``TRAIN.BATCH_SIZE``)
+    divides into ``TRAIN.GRAD_ACCUM_STEPS`` micro-batches, and the ghost-BN
+    group divides the global micro-batch (a process's micro-batch ×
+    ``world``). In the port a group must also divide a process's
+    micro-batch or be whole ones."""
+    accum = max(1, int(cfg.TRAIN.GRAD_ACCUM_STEPS))
     n = cfg.TRAIN.BATCH_SIZE
-    total = n * world
+    if n % accum:
+        raise ValueError(f"TRAIN.BATCH_SIZE={n} per process, not divisible by "
+                         f"TRAIN.GRAD_ACCUM_STEPS={accum}")
+    micro = n // accum
+    total = micro * world
     gs = 0 if cfg.MODEL.ARCH.startswith(("vit", "gpt")) else bn_group_from_cfg()
     if gs > 0 and total > gs:
         if total % gs:
             raise ValueError(
                 f"ghost BN group {gs} (MODEL.BN_GROUP, 0 → TRAIN.BATCH_SIZE) does not "
                 f"divide the per-step forward batch {total}; adjust MODEL.BN_GROUP / "
-                "TRAIN.BATCH_SIZE")
-        if n % gs and gs % n:
-            raise not_ported(f"ghost BN groups of {gs} over per-process batches of {n} (a "
-                             "group that cuts a process's batch)", REAL_DATA)
+                "TRAIN.BATCH_SIZE / GRAD_ACCUM_STEPS")
+        if micro % gs and gs % micro:
+            raise not_ported(f"ghost BN groups of {gs} over per-process batches of {micro} "
+                             "(a group that cuts a process's batch)", REAL_DATA)
 
 
 def apply_backend_flags() -> None:
@@ -245,25 +250,46 @@ def prep_images(images: torch.Tensor) -> torch.Tensor:
     return images
 
 
-def train_step(model, optimizer, batch: dict, topk: int, policy: str = "raise") -> dict:
+def train_step(model, optimizer, batch: dict, topk: int, policy: str = "raise",
+               accum: int = 1, poison: bool = False) -> dict:
     """One optimizer step on ``batch`` (device tensors; ``model`` in train
-    mode). Returns the step's metrics as device scalars, means over the
-    processes: ``loss``, ``top1``, ``topk`` and ``nonfinite`` (1.0 when the
-    global loss is NaN/Inf). Under ``policy="skip"`` a non-finite step
-    leaves the parameters, the optimizer state and the BN running stats as
-    they were, on every process."""
-    labels = batch["label"]
+    mode). With ``accum`` > 1 the batch splits into that many contiguous
+    micro-batches (rows ``[i·mb, (i+1)·mb)``), each a forward and backward
+    in turn, the BN running stats carried from one to the next; the
+    gradients are summed and divided by ``accum``, then all-reduced once
+    and applied in ONE fused optimizer update, as the JAX package's
+    ``accum_train_step``. ``poison`` multiplies every micro-batch's loss by
+    NaN (``FAULTS.NAN_STEP``). Returns the step's metrics as device
+    scalars, the means over the micro-batches and the processes: ``loss``,
+    ``top1``, ``topk`` and ``nonfinite`` (1.0 when the global loss is
+    NaN/Inf). Under ``policy="skip"`` a non-finite step leaves the
+    parameters, the optimizer state and the BN running stats as they were
+    before its first micro-batch, on every process."""
+    images, labels = batch["image"], batch["label"]
+    n = labels.shape[0]
+    if n % accum:
+        raise ValueError(f"batch dim {n} not divisible by GRAD_ACCUM_STEPS={accum}")
+    mb = n // accum
     saved = ([b.clone() for b in model.buffers()] if policy == "skip" else None)
-    logits = model(prep_images(batch["image"]))
-    loss = cross_entropy(logits, labels)
+    gsum, micro = None, []
+    for i in range(accum):
+        rows = slice(i * mb, (i + 1) * mb)
+        logits = model(prep_images(images[rows]))
+        loss = cross_entropy(logits, labels[rows])
+        if poison:
+            loss = loss * float("nan")
+        grads = torch.autograd.grad(loss, optimizer.params)
+        gsum = list(grads) if gsum is None else [a + g for a, g in zip(gsum, grads)]
+        micro.append((loss.detach(), *accuracy(logits.detach(), labels[rows], topk=(1, topk))))
+    if accum > 1:
+        gsum = [g / accum for g in gsum]
     # the fused update walks each leaf's memory: a gradient laid out
     # unlike its parameter is copied into the parameter's layout
     grads = [g if opt_update.same_layout(g, p) else torch.empty_like(p).copy_(g)
-             for g, p in zip(torch.autograd.grad(loss, optimizer.params), optimizer.params)]
+             for g, p in zip(gsum, optimizer.params)]
     dist.all_reduce_grads(grads)
-    loss = loss.detach()
-    acc1, acck = accuracy(logits.detach(), labels, topk=(1, topk))
-    loss, acc1, acck = dist.scaled_all_reduce([loss, acc1, acck])
+    metrics = micro[0] if accum == 1 else [torch.stack(m).mean() for m in zip(*micro)]
+    loss, acc1, acck = dist.scaled_all_reduce(list(metrics))
     bad = torch.logical_not(torch.isfinite(loss))
     if saved is not None and bool(bad):
         with torch.no_grad():
@@ -297,10 +323,12 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
     ``TRAIN.PREEMPT_SAVE`` a SIGTERM ends the epoch at a step boundary with
     ``interrupted`` True (the next one with one process; with several,
     every process agrees on the flag every 8 steps, one all-reduce, and
-    all leave at the same step). ``record`` holds the epoch, its steps,
-    the step losses, each step's wait for its host batch (``data_wait_s``)
-    and the (steps done, host time) of each metric flush; every flush
-    waits for the device."""
+    all leave at the same step). Each step beats the stall watchdog
+    (``TRAIN.STALL_TIMEOUT``) and passes the fault hooks (``FAULTS.*``)
+    first. ``record`` holds the epoch, its steps, the step losses, each
+    step's wait for its host batch (``data_wait_s``), the host time at the
+    end of each step (``step_t``) and the (steps done, host time) of each
+    metric flush; every flush waits for the device."""
     lr = get_epoch_lr(epoch)
     set_lr(optimizer, lr)
     loader.set_epoch(epoch)
@@ -309,8 +337,11 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
     batch_time, data_time, losses, top1, topk_m, progress = construct_meters(
         num_batches, f"Epoch[{epoch + 1}/{cfg.OPTIM.MAX_EPOCH}]", topk)
     policy = str(cfg.TRAIN.NONFINITE)
+    accum = max(1, int(cfg.TRAIN.GRAD_ACCUM_STEPS))
+    nan_step = faults.nan_injection_step()
     monitor = supervisor.NonFiniteMonitor(policy, epoch, logger)
-    record = {"epoch": epoch, "steps": 0, "flushes": [], "losses": [], "data_wait_s": []}
+    record = {"epoch": epoch, "steps": 0, "flushes": [], "losses": [], "data_wait_s": [],
+              "step_t": []}
     pending, done = [], 0
     preempt_every = 1 if dist.get_world_size() == 1 else 8
 
@@ -326,37 +357,55 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
         pending.clear()
         record["flushes"].append((done, time.perf_counter()))
 
-    end = time.perf_counter()
-    for _, batch, tl in device_prefetch(loader, device, cfg.TRAIN.PREFETCH_DEVICE,
-                                        cfg.TRAIN.PIN_MEMORY):
-        data_time.update(tl["get1"] - tl["get0"])
-        record["data_wait_s"].append(tl["get1"] - tl["get0"])
-        pending.append(train_step(model, optimizer, batch, topk, policy))
-        state["step"] += 1
-        done += 1
-        record["steps"] = done
-        batch_time.update(time.perf_counter() - end)
+    heartbeat = supervisor.Heartbeat(cfg.TRAIN.STALL_TIMEOUT, logger)
+    try:
         end = time.perf_counter()
-        if done % cfg.TRAIN.PRINT_FREQ == 0 or done == num_batches:
-            flush()
-            eta = progress.get_eta(
-                done, (num_batches - done) + (cfg.OPTIM.MAX_EPOCH - epoch - 1) * num_batches)
-            logger.info("%s  LR %.5f  ETA %s", progress.display(done), lr, eta)
-        if (cfg.TRAIN.PREEMPT_SAVE and done < num_batches and done % preempt_every == 0
-                and preempt.requested_global()):
-            flush()
-            logger.warning("preemption signaled — leaving epoch %d at batch %d/%d",
-                           epoch + 1, done, num_batches)
-            return True, done, record
+        for it, batch, tl in device_prefetch(loader, device, cfg.TRAIN.PREFETCH_DEVICE,
+                                            cfg.TRAIN.PIN_MEMORY):
+            heartbeat.beat(f"epoch {epoch + 1} batch {it}")
+            faults.maybe_stall(epoch, it)  # each a no-op unless FAULTS.ENABLED
+            faults.maybe_kill(epoch, it)
+            faults.maybe_preempt(epoch, it)
+            faults.maybe_slowdown(epoch, it)
+            data_time.update(tl["get1"] - tl["get0"])
+            record["data_wait_s"].append(tl["get1"] - tl["get0"])
+            pending.append(train_step(model, optimizer, batch, topk, policy, accum,
+                                      poison=state["step"] == nan_step))
+            state["step"] += 1
+            done += 1
+            record["steps"] = done
+            if done % cfg.TRAIN.PRINT_FREQ == 0 or done == num_batches:
+                flush()
+                eta = progress.get_eta(
+                    done, (num_batches - done) + (cfg.OPTIM.MAX_EPOCH - epoch - 1) * num_batches)
+                logger.info("%s  LR %.5f  ETA %s", progress.display(done), lr, eta)
+            record["step_t"].append(time.perf_counter())
+            batch_time.update(record["step_t"][-1] - end)
+            end = record["step_t"][-1]
+            if (cfg.TRAIN.PREEMPT_SAVE and done < num_batches and done % preempt_every == 0
+                    and preempt.requested_global()):
+                flush()
+                logger.warning("preemption signaled — leaving epoch %d at batch %d/%d",
+                               epoch + 1, done, num_batches)
+                return True, done, record
+    finally:
+        heartbeat.stop()
     return False, done, record
 
 
+def log_eval_result(logger, epoch: int, top1: float, topk_acc: float, loss: float,
+                    n: int) -> None:
+    logger.info("Eval[%d]  Loss %.4f  Acc@1 %.3f  Acc@%d %.3f  (%d samples)",
+                epoch + 1, loss, top1, effective_topk(), topk_acc, n)
+
+
 def validate(loader, model, epoch: int, logger, device: torch.device,
-             watch_preemption: bool | None = None):
+             watch_preemption: bool | None = None, quiet: bool = False, group=None):
     """The full eval pass over every process's shard: ``(top1, topk, loss,
-    samples)`` from the four sums all-reduced over the processes, or
-    ``None`` when preemption was signaled mid-eval
-    (``TRAIN.PREEMPT_SAVE``)."""
+    samples)`` from the four sums all-reduced over the processes (on
+    ``group``, default all), or ``None`` when preemption was signaled
+    mid-eval (``TRAIN.PREEMPT_SAVE``). ``quiet`` logs nothing: concurrent
+    eval's caller logs the result at the join."""
     if watch_preemption is None:
         watch_preemption = cfg.TRAIN.PREEMPT_SAVE
     model.eval()
@@ -372,26 +421,36 @@ def validate(loader, model, epoch: int, logger, device: torch.device,
                                it + 1, num_batches)
                 return None
             window = time.perf_counter() - end
-            logger.info("Eval[%d][%d/%d]  Time %6.3f (%.3f/batch)  Acc@1 %.3f",
-                        epoch + 1, it + 1, num_batches, window,
-                        window / cfg.TEST.PRINT_FREQ,
-                        float(totals["correct1"]) / max(float(totals["count"]), 1.0) * 100)
+            if not quiet:
+                logger.info("Eval[%d][%d/%d]  Time %6.3f (%.3f/batch)  Acc@1 %.3f",
+                            epoch + 1, it + 1, num_batches, window,
+                            window / cfg.TEST.PRINT_FREQ,
+                            float(totals["correct1"]) / max(float(totals["count"]), 1.0)
+                            * 100)
             end = time.perf_counter()
     keys = sorted(totals)
     totals = dict(zip(keys, (float(v) for v in
-                             dist.all_reduce_sum([totals[k] for k in keys]))))
+                             dist.all_reduce_sum([totals[k] for k in keys], group))))
     n = max(totals["count"], 1.0)
     top1, topk_acc = totals["correct1"] / n * 100.0, totals["correctk"] / n * 100.0
     loss = totals["loss_sum"] / n
-    logger.info("Eval[%d]  Loss %.4f  Acc@1 %.3f  Acc@%d %.3f  (%d samples)",
-                epoch + 1, loss, top1, topk, topk_acc, int(n))
+    if not quiet:
+        log_eval_result(logger, epoch, top1, topk_acc, loss, int(n))
     return top1, topk_acc, loss, int(n)
 
 
 def _resume(model, optimizer, state: dict, logger):
-    """Load the newest checkpoint; returns ``(start_epoch, best_acc1,
+    """Load the newest checkpoint that verifies (walking back over broken
+    ones, ``utils/checkpoint.find_last_valid_checkpoint``); a checkpoint of
+    another arch identity is refused. Returns ``(start_epoch, best_acc1,
     pending_eval)``."""
-    path = ckpt.get_last_checkpoint()
+    path = ckpt.find_last_valid_checkpoint()
+    man = manifest.read_manifest(path)
+    if man is not None and man.get("fingerprint") != manifest.config_fingerprint():
+        raise ckpt.CheckpointError(
+            f"checkpoint {path} cannot feed the configured model: MODEL.ARCH / NUM_CLASSES "
+            "/ MOE differ from the checkpoint's; match the config to the save, or start a "
+            "fresh OUT_DIR")
     payload = ckpt.load_checkpoint(path)
     model.load_state_dict(payload["model"])
     if cfg.TRAIN.LOAD_OPT and "opt" in payload:
@@ -419,9 +478,19 @@ def join_process_group(device: torch.device) -> int:
 
 def train_model(records: list | None = None):
     """End-to-end training (``train_net``). Returns the best Acc@1. Each
-    epoch run appends its record (``train_epoch``, plus the decode backend
-    and the eval's wall time, images and Acc@1) to ``records`` when one is
-    given."""
+    epoch run appends its record (``train_epoch``, plus the decode
+    backend, the boundary save's blocking seconds ``save_s`` and the
+    eval's wall time, images and Acc@1, which under concurrent eval land
+    at its join) to ``records`` when one is given.
+
+    The loop is the JAX package's: under ``TRAIN.NONFINITE rollback`` a
+    :class:`~distribuuuu_tpu_torch.resilience.supervisor.NonFiniteLossError`
+    joins the concurrent eval and the committer, reloads the last valid
+    checkpoint and goes on, ``TRAIN.MAX_ROLLBACKS`` times at most. Under
+    ``TRAIN.CONCURRENT_EVAL`` an epoch boundary joins the previous eval
+    (its best bookkeeping, the ``best`` side-write from its snapshot),
+    saves with ``is_best=False`` and launches this epoch's eval; the last
+    eval joins before return. Every exit joins the eval and the committer."""
     check_train_cfg()
     device = device_from_cfg()
     world = join_process_group(device)
@@ -441,28 +510,47 @@ def train_model(records: list | None = None):
                 "%d and %d a process", train_loader.backend, cfg.DATA.BACKEND,
                 len(train_loader), len(val_loader), train_loader.batch_size,
                 val_loader.batch_size)
+    # concurrent eval's sums run on a group of their own, made by every
+    # process here, in the same order (parallel/dist.side_group)
+    eval_group = dist.side_group() if cfg.TRAIN.CONCURRENT_EVAL else None
 
     state, start_epoch, best_acc1, pending_eval = {"step": 0}, 0, 0.0, None
+    resumed = False
     if cfg.TRAIN.AUTO_RESUME and ckpt.has_checkpoint():
-        start_epoch, best_acc1, pending_eval = _resume(model, optimizer, state, logger)
-    elif cfg.MODEL.PRETRAINED and cfg.MODEL.WEIGHTS:
+        try:
+            start_epoch, best_acc1, pending_eval = _resume(model, optimizer, state, logger)
+            resumed = True
+        except ckpt.NoValidCheckpointError as e:
+            logger.warning("%s — falling through to a fresh start", e)
+    if not resumed and cfg.MODEL.PRETRAINED and cfg.MODEL.WEIGHTS:
         load_weights(model, cfg.MODEL.WEIGHTS)
         logger.info("warm-started from pretrained weights %s", cfg.MODEL.WEIGHTS)
-    elif cfg.MODEL.WEIGHTS:
+    elif not resumed and cfg.MODEL.WEIGHTS:
         logger.warning("MODEL.WEIGHTS is ignored during training unless "
                        "MODEL.PRETRAINED True (evaluation uses test_net)")
     dist.broadcast_tensors_from_primary(model.state_dict().values())
     if cfg.TRAIN.PREEMPT_SAVE:
         preempt.install()
+    by_epoch = {}
 
     def full_state():
         return {"model": model.state_dict(), "opt": optimizer.state_dict(),
                 "step": state["step"]}
 
     def preempt_exit(path, resume_epoch):
+        committer.join_commits(reason="preemption exit")
         logger.warning("preempted: state saved to %s; rerun to resume at epoch %d",
                        path, resume_epoch + 1)
         return best_acc1
+
+    def save(epoch, is_best):
+        t0 = time.perf_counter()
+        path = ckpt.save_checkpoint(full_state(), epoch, best_acc1, is_best)
+        if epoch in by_epoch:
+            by_epoch[epoch]["save_s"] = time.perf_counter() - t0
+        if dist.is_primary():
+            logger.info("saved checkpoint %s%s", path,
+                        " (committing in the background)" if cfg.CHECKPOINT.ASYNC else "")
 
     def finish_epoch(epoch, record):
         """Validate, track the best, save; the preempt path if the eval was
@@ -478,37 +566,117 @@ def train_model(records: list | None = None):
         record["eval_images"], record["acc1"] = result[3], acc1
         is_best = acc1 > best_acc1
         best_acc1 = max(acc1, best_acc1)
-        path = ckpt.save_checkpoint(full_state(), epoch, best_acc1, is_best)
+        save(epoch, is_best)
         logger.info("epoch %d done: Acc@1 %.3f (best %.3f)", epoch + 1, acc1, best_acc1)
-        if dist.is_primary():
-            logger.info("saved checkpoint %s", path)
         return None
 
-    if pending_eval is not None:
-        logger.info("running epoch %d's validation (skipped by the preemption)",
-                    pending_eval + 1)
-        path = finish_epoch(pending_eval, {"epoch": pending_eval, "steps": 0})
-        if path is not None:
-            return preempt_exit(path, pending_eval + 1)
-        ckpt.prune_preempts(pending_eval + 1)
+    def timed_eval(snap, epoch):
+        t0 = time.perf_counter()
+        result = validate(val_loader, snap, epoch, logger, device, watch_preemption=False,
+                          quiet=True, group=eval_group)
+        return result, time.perf_counter() - t0
 
-    for epoch in range(start_epoch, cfg.OPTIM.MAX_EPOCH):
-        interrupted, _, record = train_epoch(train_loader, model, optimizer, state, epoch,
-                                             logger, device)
-        record["backend"] = train_loader.backend
-        if records is not None:
-            records.append(record)
-        if interrupted:
-            return preempt_exit(ckpt.save_preempt_checkpoint(full_state(), epoch,
-                                                             best_acc1), epoch)
-        if cfg.TRAIN.PREEMPT_SAVE and preempt.requested_global():
-            path = ckpt.save_preempt_checkpoint(full_state(), epoch + 1, best_acc1,
-                                                pending_eval=epoch)
-            return preempt_exit(path, epoch + 1)
-        path = finish_epoch(epoch, record)
-        if path is not None:
-            return preempt_exit(path, epoch + 1)
-    return best_acc1
+    conc_eval = None
+    if cfg.TRAIN.CONCURRENT_EVAL:
+        conc_eval = ConcurrentEval(timed_eval)
+        logger.info("concurrent eval: validate() overlaps the next train epoch on %s; "
+                    "results join one boundary later",
+                    "its own CUDA stream" if device.type == "cuda" else "a worker thread")
+
+    def join_concurrent_eval():
+        """Join the in-flight eval, if any: log it, track the best, and
+        side-write ``best`` from the eval's own snapshot."""
+        nonlocal best_acc1
+        joined = conc_eval.join() if conc_eval is not None else None
+        if joined is None:
+            return
+        ep, (result, wall), snap = joined
+        acc1, topk_acc, loss, n = result
+        log_eval_result(logger, ep, acc1, topk_acc, loss, n)
+        if ep in by_epoch:
+            by_epoch[ep].update(eval_wall_s=wall, eval_images=n, acc1=acc1)
+        is_best = acc1 > best_acc1
+        best_acc1 = max(acc1, best_acc1)
+        if is_best:
+            ckpt.save_best_checkpoint(snap.state_dict(), ep)
+        logger.info("epoch %d done: Acc@1 %.3f (best %.3f)", ep + 1, acc1, best_acc1)
+
+    epoch, rollbacks_left = start_epoch, max(0, int(cfg.TRAIN.MAX_ROLLBACKS))
+    try:
+        if pending_eval is not None:
+            logger.info("running epoch %d's validation (skipped by the preemption)",
+                        pending_eval + 1)
+            path = finish_epoch(pending_eval, {"epoch": pending_eval, "steps": 0})
+            if path is not None:
+                return preempt_exit(path, pending_eval + 1)
+            ckpt.prune_preempts(pending_eval + 1)
+        while epoch < cfg.OPTIM.MAX_EPOCH:
+            try:
+                interrupted, _, record = train_epoch(train_loader, model, optimizer, state,
+                                                     epoch, logger, device)
+            except supervisor.NonFiniteLossError as e:
+                if cfg.TRAIN.NONFINITE != "rollback":
+                    raise
+                if rollbacks_left <= 0:
+                    logger.error("rollback budget exhausted (TRAIN.MAX_ROLLBACKS=%d) — the "
+                                 "non-finite loss reproduces from the checkpoint; this is "
+                                 "not transient corruption", cfg.TRAIN.MAX_ROLLBACKS)
+                    raise
+                if not ckpt.has_checkpoint():
+                    logger.error("non-finite loss before any checkpoint exists — nothing "
+                                 "to roll back to")
+                    raise
+                rollbacks_left -= 1
+                logger.warning("non-finite loss at epoch %d batch ~%d — rolling back to the "
+                               "last intact checkpoint (%d attempt(s) left)", e.epoch + 1,
+                               e.batch, rollbacks_left)
+                join_concurrent_eval()
+                epoch, best_acc1, rb_pending = _resume(model, optimizer, state, logger)
+                if rb_pending is not None:
+                    path = finish_epoch(rb_pending, {"epoch": rb_pending, "steps": 0})
+                    if path is not None:
+                        return preempt_exit(path, rb_pending + 1)
+                    ckpt.prune_preempts(rb_pending + 1)
+                continue
+            record["backend"] = train_loader.backend
+            by_epoch[epoch] = record
+            if records is not None:
+                records.append(record)
+            watching = cfg.TRAIN.PREEMPT_SAVE
+            if interrupted:
+                join_concurrent_eval()
+                return preempt_exit(ckpt.save_preempt_checkpoint(full_state(), epoch,
+                                                                 best_acc1), epoch)
+            if watching and preempt.requested_global():
+                join_concurrent_eval()
+                path = ckpt.save_preempt_checkpoint(full_state(), epoch + 1, best_acc1,
+                                                    pending_eval=epoch)
+                return preempt_exit(path, epoch + 1)
+            if conc_eval is not None:
+                join_concurrent_eval()
+                save(epoch, is_best=False)
+                conc_eval.launch(model, epoch)
+            else:
+                path = finish_epoch(epoch, record)
+                if path is not None:
+                    return preempt_exit(path, epoch + 1)
+            if watching and preempt.requested_global():
+                join_concurrent_eval()
+                return preempt_exit(ckpt.get_checkpoint(epoch), epoch + 1)
+            epoch += 1
+        join_concurrent_eval()
+        committer.join_commits(reason="exit")
+        return best_acc1
+    finally:
+        if conc_eval is not None and conc_eval.in_flight:
+            try:
+                conc_eval.join()
+            except Exception as qe:
+                logger.warning("concurrent eval quiesced with error: %s", qe)
+        try:
+            committer.join_commits()
+        except committer.AsyncCommitError as qe:
+            logger.warning("async committer quiesced with error: %s", qe)
 
 
 def test_model():

@@ -32,8 +32,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from PIL import Image
-from torch_port_util import few_threads, jax_resnet, random_variables
+from torch_port_util import (
+    compare_with_jax,
+    few_threads,
+    jax_resnet,
+    make_tree,
+    random_variables,
+    stream_batch,
+)
 
 from distribuuuu_tpu import models as jmodels
 from distribuuuu_tpu import trainer as jtrainer
@@ -43,7 +49,8 @@ from distribuuuu_tpu.parallel import mesh as jmesh
 from distribuuuu_tpu.parallel.partition import lowering as jlowering
 from distribuuuu_tpu.parallel.partition.lowering import TrainState
 from distribuuuu_tpu.utils.optim import construct_optimizer as jax_construct_optimizer
-from distribuuuu_tpu_torch.utils.weights import jax_path_map, state_dict_from_jax
+from distribuuuu_tpu_torch.resilience.manifest import verify_checkpoint
+from distribuuuu_tpu_torch.utils.weights import state_dict_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_ddp_worker.py")
@@ -99,31 +106,6 @@ def finish(procs) -> list[tuple[int, str]]:
 
 def spawn(world: int, argv: list[str], tmp, tag: str) -> list[tuple[int, str]]:
     return finish(launch(world, argv, tmp, tag))
-
-
-def stream_batch(step: int, n: int = GLOBAL):
-    """tests/test_torch_train.py's batches: learnable labels."""
-    rng = np.random.default_rng(10_000 + step)
-    images = rng.standard_normal((n, 32, 32, 3))
-    labels = ((images.mean(axis=(1, 2, 3)) * 40.0).astype(np.int64) % 10).astype(np.int32)
-    images += labels[:, None, None, None] * 0.1
-    return {"image": images, "label": labels, "mask": np.ones((n,), np.float64)}
-
-
-def make_tree(root: str, n_val: int = 5) -> str:
-    """``root/{train,val}/c{0,1}/*.jpg``: 8 train JPEGs a class and
-    ``n_val`` val JPEGs, seeded, colours separable by class."""
-    rng = np.random.default_rng(0)
-    for split, n in (("train", 16), ("val", n_val)):
-        for i in range(n):
-            c = i % 2
-            d = os.path.join(root, split, f"c{c}")
-            os.makedirs(d, exist_ok=True)
-            w, h = (int(v) for v in rng.integers(36, 60, 2))
-            arr = rng.integers(0, 128, (h, w, 3)) + np.asarray([120 * c, 60, 120 * (1 - c)])
-            Image.fromarray(arr.clip(0, 255).astype(np.uint8)).save(
-                os.path.join(d, f"{i:03d}.jpg"), "JPEG", quality=90)
-    return root
 
 
 VAL_CFG = ["TEST.IM_SIZE", 36, "TRAIN.IM_SIZE", 32, "TEST.BATCH_SIZE", 2,
@@ -208,27 +190,6 @@ def runs(tmp_path_factory, weights):
     return out
 
 
-def compare(trees, sd: dict, tol: float) -> int:
-    params, stats = trees
-    paths = jax_path_map(params)
-    n = 0
-    for tree in (params, stats):
-        for path, key in paths.items():
-            node = tree
-            for p in path:
-                node = node.get(p) if isinstance(node, dict) else None
-                if node is None:
-                    break
-            if node is None:
-                continue
-            a = np.asarray(node)
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T if a.ndim == 2 else a
-            np.testing.assert_allclose(sd[key].numpy(), a, rtol=tol,
-                                       atol=tol * np.abs(a).max(), err_msg=key)
-            n += 1
-    return n
-
-
 def assert_ranks_bitwise_equal(results):
     first = results[0]["state"]
     for other in results[1:]:
@@ -248,7 +209,7 @@ def test_steps_across_ranks_match_jax_global_batch(runs, name, group, world):
     for res in results:
         np.testing.assert_allclose(res["losses"], want_losses, rtol=1e-7)
     assert results[0]["losses"][-1] != results[0]["losses"][0]
-    assert compare(want, results[0]["state"], 1e-7) > 100
+    assert compare_with_jax(want, results[0]["state"], 1e-7) > 100
     assert_ranks_bitwise_equal(results)
 
 
@@ -311,8 +272,11 @@ def test_two_process_train_net_writes_from_rank0_and_resumes_on_both(tmp_path):
             "TRAIN.PRINT_FREQ", "1", "OUT_DIR", out]
     first = spawn(2, base + ["OPTIM.MAX_EPOCH", "1"], str(tmp_path), "e1")
     assert len(glob.glob(os.path.join(out, "*.log"))) == 1
-    ckpts = sorted(os.listdir(os.path.join(out, "checkpoints")))
+    ckpts = sorted(f for f in os.listdir(os.path.join(out, "checkpoints"))
+                   if f.endswith(".pth"))
     assert ckpts == ["best.pth", "ckpt_ep_000.pth"]
+    for name in ckpts:  # each committed by its manifest
+        assert verify_checkpoint(os.path.join(out, "checkpoints", name)) == (True, "ok")
     assert "saved checkpoint" in first[0][1] and "saved checkpoint" not in first[1][1]
     assert "decode backend: native" in first[0][1] and "2 process(es)" in first[1][1]
     second = spawn(2, base + ["OPTIM.MAX_EPOCH", "2"], str(tmp_path), "e2")
@@ -323,6 +287,72 @@ def test_two_process_train_net_writes_from_rank0_and_resumes_on_both(tmp_path):
     payload = torch.load(os.path.join(out, "checkpoints", "ckpt_ep_001.pth"),
                          weights_only=True)
     assert payload["step"] == 4  # 16 images, 2 ranks of 4: 2 steps an epoch
+
+
+def test_two_ranks_with_concurrent_eval_async_and_accum_equal_one_process(tmp_path):
+    """Two ranks of 4 images with ``GRAD_ACCUM_STEPS 2``, ``CONCURRENT_EVAL``
+    and ``CHECKPOINT.ASYNC`` (SyncBN, state in f64, two epochs of
+    ``train_model``) against one process at the global batch of 8 with
+    accum 2 and neither feature, run here while the ranks run: each global
+    micro-batch holds the same four images (the sampler deals the order
+    round-robin), so the step losses agree to 1e-7 relative, the last
+    checkpoint's parameters and momentum to 1e-7 of each tensor's largest
+    magnitude, and each epoch's eval (4 val images, no repeats) gives the
+    same Acc@1; the launch ends inside its limit, so nothing hung. The
+    learning rate is 0.01: at this file's 0.05 the toy run diverges from
+    its random init (eval loss near 1e6 after two epochs) and the two
+    layouts' f64 summation orders drift apart past 1e-7 within four steps."""
+    import signal
+
+    from torch_ddp_worker import train_model_f64
+    from torch_port_util import reset_port_cfg
+
+    from distribuuuu_tpu_torch.config import cfg as tcfg
+
+    root = make_tree(str(tmp_path / "tree"), n_val=4)
+    common = ["MODEL.ARCH", "resnet18", "DEVICE.PLATFORM", "cpu",
+              "DEVICE.COMPUTE_DTYPE", "float64", "MODEL.NUM_CLASSES", 10,
+              "MODEL.SYNCBN", True, "TRAIN.DATASET", root, "TEST.DATASET", root,
+              "TRAIN.IM_SIZE", 32, "TEST.IM_SIZE", 36, "TEST.BATCH_SIZE", 2,
+              "TRAIN.WORKERS", 1, "DATA.BACKEND", "pil", "RNG_SEED", 0,
+              "TRAIN.PRINT_FREQ", 1, "OPTIM.MAX_EPOCH", 2, "OPTIM.BASE_LR", 0.01,
+              "TRAIN.GRAD_ACCUM_STEPS", 2]
+    d = str(tmp_path / "two")
+    os.makedirs(d)
+    spec = {"out": d, "scenarios": [{"name": "train", "kind": "train_model", "cfg": common + [
+        "TRAIN.BATCH_SIZE", 4, "TRAIN.CONCURRENT_EVAL", True, "CHECKPOINT.ASYNC", True,
+        "OUT_DIR", os.path.join(d, "out")]}]}
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    procs = launch(2, [WORKER, os.path.join(d, "spec.json")], d, "w")
+    handler = signal.getsignal(signal.SIGTERM)
+    try:
+        reset_port_cfg()
+        tcfg.merge_from_list(common + ["TRAIN.BATCH_SIZE", 8, "OUT_DIR", str(tmp_path / "one")])
+        one = train_model_f64()
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+        reset_port_cfg()
+    out = finish(procs)
+    assert "concurrent eval: validate() overlaps" in out[0][1]
+    two = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)["train"]
+           for r in (0, 1)]
+    for res in two:
+        assert [r["epoch"] for r in res["records"]] == [0, 1]
+        for a, b in zip(res["records"], one["records"]):
+            np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-7)
+            assert a["acc1"] == b["acc1"] and a["eval_images"] == b["eval_images"] == 4
+    a, b = two[0]["ckpt"], one["ckpt"]
+    assert a["step"] == b["step"] == 4 and a["opt"]["count"] == b["opt"]["count"] == 4
+    for part, x, y in (("model", a["model"], b["model"]), ("m", a["opt"]["m"], b["opt"]["m"])):
+        for k, v in y.items():
+            if v.is_floating_point():
+                np.testing.assert_allclose(x[k].numpy(), v.numpy(), rtol=1e-7,
+                                           atol=1e-7 * float(v.abs().max()),
+                                           err_msg=f"{part}/{k}")
+    ckpt_dir = os.path.join(d, "out", "checkpoints")
+    for name in ("ckpt_ep_000.pth", "ckpt_ep_001.pth", "best.pth"):
+        assert verify_checkpoint(os.path.join(ckpt_dir, name))[0], name
 
 
 LAUNCH_ENVS = {

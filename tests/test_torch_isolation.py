@@ -62,6 +62,16 @@ def test_source_imports_nothing_of_jax(path):
             assert n.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {n}"
 
 
+@pytest.mark.parametrize("module", ["asyncplane/__init__.py", "asyncplane/committer.py",
+                                    "asyncplane/evalloop.py", "resilience/manifest.py",
+                                    "resilience/supervisor.py", "utils/faults.py"])
+def test_the_train_loop_modules_are_scanned(module):
+    """The port's own copies of the JAX package's JAX-free train-loop
+    modules are among the scanned sources (so neither test above skips
+    them)."""
+    assert os.path.join(PKG, module) in set(_sources())
+
+
 def test_the_port_loads_no_file_of_the_jax_package(tmp_path):
     """Build and run the port's decoder in a fresh interpreter, then look
     at every mapped file and every imported module: none lies under

@@ -26,7 +26,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_util import few_threads, jax_resnet, random_variables, reset_port_cfg
+from torch_port_util import (
+    compare_with_jax,
+    few_threads,
+    jax_resnet,
+    random_variables,
+    reset_port_cfg,
+    stream_batch,
+)
 
 from distribuuuu_tpu import models as jmodels
 from distribuuuu_tpu import trainer as jtrainer
@@ -40,6 +47,7 @@ from distribuuuu_tpu_torch.data import loader as tloader
 from distribuuuu_tpu_torch.ops.cuda import opt_update
 from distribuuuu_tpu_torch.resilience.supervisor import NonFiniteLossError
 from distribuuuu_tpu_torch.utils import checkpoint as ckpt
+from distribuuuu_tpu_torch.utils import faults
 from distribuuuu_tpu_torch.utils import schedules as tsched
 from distribuuuu_tpu_torch.utils.optim import construct_optimizer
 from distribuuuu_tpu_torch.utils.weights import jax_path_map, state_dict_from_jax
@@ -70,15 +78,6 @@ def x64():
         yield
     finally:
         jax.config.update("jax_enable_x64", False)
-
-
-def stream_batch(step: int, n: int = BATCH):
-    """tests/test_trajectory_x64.py's batches: learnable labels."""
-    rng = np.random.default_rng(10_000 + step)
-    images = rng.standard_normal((n, 32, 32, 3))
-    labels = ((images.mean(axis=(1, 2, 3)) * 40.0).astype(np.int64) % 10).astype(np.int32)
-    images += labels[:, None, None, None] * 0.1
-    return {"image": images, "label": labels, "mask": np.ones((n,), np.float64)}
 
 
 def _lockstep(dtype: str, steps: int):
@@ -115,24 +114,8 @@ def _lockstep(dtype: str, steps: int):
 
 
 def _compare(state, model, tol):
-    sd = model.state_dict()
-    paths = jax_path_map(state.params)
-    n = 0
-    for tree in (state.params, state.batch_stats):
-        for path, key in paths.items():
-            node = tree
-            for p in path:
-                node = node.get(p) if isinstance(node, dict) else None
-                if node is None:
-                    break
-            if node is None:
-                continue
-            a = np.asarray(node)
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T if a.ndim == 2 else a
-            np.testing.assert_allclose(sd[key].numpy(), a, rtol=tol,
-                                       atol=tol * np.abs(a).max(), err_msg=key)
-            n += 1
-    assert n == len(paths)
+    n = compare_with_jax((state.params, state.batch_stats), model.state_dict(), tol)
+    assert n == len(jax_path_map(state.params))
 
 
 def test_f64_three_steps_lockstep_with_jax(x64):
@@ -297,23 +280,20 @@ def test_nonfinite_raise_and_skip():
     assert len(rec["losses"]) == 1 and np.isfinite(rec["losses"][0])
 
 
-@pytest.mark.parametrize("key,value,what", [
-    ("TRAIN.STEPS_PER_CALL", 2, "STEPS_PER_CALL"),
-    ("TRAIN.GRAD_ACCUM_STEPS", 2, "GRAD_ACCUM_STEPS"),
-    ("TRAIN.REMAT", True, "REMAT"),
-    ("TRAIN.CONCURRENT_EVAL", True, "CONCURRENT_EVAL"),
-    ("FAULTS.ENABLED", True, "FAULTS"),
-    ("CHECKPOINT.ASYNC", True, "CHECKPOINT.ASYNC"),
-    ("TRAIN.NONFINITE", "rollback", "rollback"),
-    ("MESH.MODEL", 2, "MESH"),
-    ("DATA.FORMAT", "shards", "shards"),
-    ("DEVICE.S2D_STEM", True, "S2D"),
+@pytest.mark.parametrize("opts,what,item", [
+    (["TRAIN.STEPS_PER_CALL", 2], "STEPS_PER_CALL", "One graph per step"),
+    (["MESH.MODEL", 2], "MESH", "Parallel layouts beyond DP"),
+    (["DATA.FORMAT", "shards"], "shards", "Real data and many processes"),
+    (["DEVICE.S2D_STEM", True], "S2D", "S2D stem"),
+    *[(["FAULTS.ENABLED", True, f"FAULTS.{knob}", 0], f"FAULTS.{knob}", item)
+      for knob, (_, item) in faults.REFUSED.items()],
 ])
-def test_unported_configurations_raise_with_roadmap_item(tmp_path, key, value, what):
+def test_unported_configurations_raise_with_roadmap_item(tmp_path, opts, what, item):
+    """What the port does not run raises before any work, naming its
+    ROADMAP item: folded steps, mesh axes beyond data, the shards format,
+    the S2D stem, and each fault knob whose mechanism the port lacks."""
     _toy_cfg(tmp_path, 1)
-    tcfg.merge_from_list([key, value])
-    item = {"MESH.MODEL": "Parallel layouts beyond DP",
-            "DEVICE.S2D_STEM": "S2D stem"}.get(key, "Real data and many processes")
+    tcfg.merge_from_list(opts)
     with pytest.raises(NotImplementedError, match=rf"(?s){what}.*{item}"):
         trainer.train_model()
 
@@ -377,6 +357,12 @@ def test_preemption_saves_mid_epoch_and_the_resume_finishes(tmp_path, monkeypatc
 
 
 def test_resume_honours_load_opt_and_a_bad_checkpoint_names_its_path(tmp_path):
+    """A garbage newest ``.pth`` (no manifest) is quarantined, its path in
+    the warning, and the run resumes from ``ckpt_ep_000``, as the JAX
+    package walks back; a direct load of the bad file still raises,
+    naming its path."""
+    import logging
+
     from distribuuuu_tpu_torch.utils.logger import get_logger
 
     _toy_cfg(tmp_path, 1)
@@ -395,8 +381,20 @@ def test_resume_honours_load_opt_and_a_bad_checkpoint_names_its_path(tmp_path):
     assert fopt.count == 1 and torch.equal(fopt.m[0], opt.m[0])
     with open(ckpt.get_checkpoint(1), "wb") as f:
         f.write(b"not a checkpoint")
-    with pytest.raises(ckpt.CheckpointError, match="ckpt_ep_001.pth"):
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    get_logger().addHandler(handler)
+    try:
         trainer.train_model()
+    finally:
+        get_logger().removeHandler(handler)
+    bad = ckpt.get_checkpoint(1)
+    assert any("quarantined" in m and bad in m for m in messages), messages
+    assert any("resumed from" in m and "ckpt_ep_000.pth" in m for m in messages), messages
+    assert not os.path.exists(bad) and os.path.exists(bad + ".corrupt")
+    with pytest.raises(ckpt.CheckpointError, match="ckpt_ep_001.pth.corrupt"):
+        ckpt.load_checkpoint(bad + ".corrupt")
 
 
 @pytest.mark.parametrize("batch,group,world,error", [

@@ -37,7 +37,8 @@ def model_from(spec: dict, bn_group: int, dtype=torch.float64):
 
 def lockstep(spec: dict, sc: dict) -> dict:
     """``steps`` train steps at f64 on this rank's slice of each global
-    batch: the losses and the final state."""
+    batch (``accum`` micro-batches a step): the losses and the final
+    state."""
     rank, world = dist.get_rank(), dist.get_world_size()
     model = model_from(spec, sc["bn_group"]).train()
     opt = construct_optimizer(model)
@@ -48,7 +49,8 @@ def lockstep(spec: dict, sc: dict) -> dict:
         part = slice(rank * n, (rank + 1) * n)
         batch = {"image": torch.from_numpy(data[f"image_{i}"][part]),
                  "label": torch.from_numpy(data[f"label_{i}"][part])}
-        losses.append(float(trainer.train_step(model, opt, batch, 5)["loss"]))
+        losses.append(float(trainer.train_step(model, opt, batch, 5,
+                                               accum=sc.get("accum", 1))["loss"]))
     return {"losses": losses, "state": model.state_dict()}
 
 
@@ -98,7 +100,31 @@ def nonfinite(spec: dict, sc: dict) -> dict:
             "state": model.state_dict()}
 
 
-SCENARIOS = {"lockstep": lockstep, "evaluate": evaluate, "nonfinite": nonfinite}
+def run_train_model(spec: dict, sc: dict) -> dict:
+    """``trainer.train_model`` under ``sc["cfg"]`` with the state in f64 (the
+    model cast right after it is built): the epoch records and the last
+    epoch checkpoint."""
+    cfg.merge_from_list(sc["cfg"])
+    return train_model_f64()
+
+
+def train_model_f64() -> dict:
+    build = trainer.build_model_from_cfg
+    trainer.build_model_from_cfg = lambda generator=None: build(generator).to(torch.float64)
+    records = []
+    try:
+        trainer.train_model(records)
+    finally:
+        trainer.build_model_from_cfg = build
+    dist.barrier()  # the primary has joined its last commit
+    last = os.path.join(cfg.OUT_DIR, "checkpoints", f"ckpt_ep_{cfg.OPTIM.MAX_EPOCH - 1:03d}.pth")
+    return {"records": [{k: r.get(k) for k in ("epoch", "losses", "acc1", "eval_images")}
+                        for r in records],
+            "ckpt": torch.load(last, weights_only=True)}
+
+
+SCENARIOS = {"lockstep": lockstep, "evaluate": evaluate, "nonfinite": nonfinite,
+             "train_model": run_train_model}
 
 
 def main(path: str) -> None:

@@ -5,11 +5,14 @@ model on the same weights through ``state_dict_from_jax``."""
 
 from __future__ import annotations
 
+import os
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from PIL import Image
 
 from distribuuuu_tpu import models as jmodels
 from distribuuuu_tpu_torch import config as tconfig
@@ -158,3 +161,69 @@ def few_threads(n: int = 2):
         yield
     finally:
         torch.set_num_threads(before)
+
+
+def stream_batch(step: int, n: int = 8):
+    """tests/test_trajectory_x64.py's batches: learnable labels."""
+    rng = np.random.default_rng(10_000 + step)
+    images = rng.standard_normal((n, 32, 32, 3))
+    labels = ((images.mean(axis=(1, 2, 3)) * 40.0).astype(np.int64) % 10).astype(np.int32)
+    images += labels[:, None, None, None] * 0.1
+    return {"image": images, "label": labels, "mask": np.ones((n,), np.float64)}
+
+
+def jax_trace(opt_state):
+    """The SGD momentum trace (a params-shaped tree) inside an optax state."""
+    if hasattr(opt_state, "trace"):
+        return opt_state.trace
+    children = (opt_state.values() if isinstance(opt_state, dict)
+                else opt_state if isinstance(opt_state, (tuple, list)) else ())
+    if hasattr(opt_state, "inner_state"):
+        children = [opt_state.inner_state]
+    for child in children:
+        found = jax_trace(child)
+        if found is not None:
+            return found
+    return None
+
+
+def compare_with_jax(trees, sd: dict, tol: float) -> int:
+    """Every leaf of the JAX ``trees`` (each a params- or batch_stats-shaped
+    tree, in order) against the port's ``sd`` (the keys ``jax_path_map``
+    gives the first tree), within ``tol`` of the leaf's largest magnitude.
+    Returns the number of leaves compared."""
+    from distribuuuu_tpu_torch.utils.weights import jax_path_map
+
+    paths = jax_path_map(trees[0])
+    n = 0
+    for tree in trees:
+        for path, key in paths.items():
+            node = tree
+            for p in path:
+                node = node.get(p) if isinstance(node, dict) else None
+                if node is None:
+                    break
+            if node is None:
+                continue
+            a = np.asarray(node)
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T if a.ndim == 2 else a
+            np.testing.assert_allclose(sd[key].numpy(), a, rtol=tol,
+                                       atol=tol * np.abs(a).max(), err_msg=key)
+            n += 1
+    return n
+
+
+def make_tree(root: str, n_val: int = 5) -> str:
+    """``root/{train,val}/c{0,1}/*.jpg``: 8 train JPEGs a class and
+    ``n_val`` val JPEGs, seeded, colours separable by class."""
+    rng = np.random.default_rng(0)
+    for split, n in (("train", 16), ("val", n_val)):
+        for i in range(n):
+            c = i % 2
+            d = os.path.join(root, split, f"c{c}")
+            os.makedirs(d, exist_ok=True)
+            w, h = (int(v) for v in rng.integers(36, 60, 2))
+            arr = rng.integers(0, 128, (h, w, 3)) + np.asarray([120 * c, 60, 120 * (1 - c)])
+            Image.fromarray(arr.clip(0, 255).astype(np.uint8)).save(
+                os.path.join(d, f"{i:03d}.jpg"), "JPEG", quality=90)
+    return root
