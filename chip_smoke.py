@@ -111,6 +111,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
      conv1x1_bn_act (33 a forward); with the native decoder built, its
      uint8 batches against PIL's on the same files (at most
      NATIVE_U8_BOUND counts apart);
+   * ``shards_train``: that ImageFolder packed by the port's packer
+     (``data/shards/pack.py``) at 1/SHARDS_PARTS of the train split's bytes
+     a shard (at least SHARDS_MIN_PARTS train shards), ``verify_split`` on
+     each split, then trained and evaluated as ``realdata_train`` with
+     ``DATA.FORMAT shards`` in the same group: train img/s over steps 8-24
+     beside realdata_train's, the loader-wait share, the shard loader's
+     img/s alone, eval img/s, the records and bytes read, the launches
+     (24 opt_update, 33 conv1x1_bn_act an eval forward); the shard
+     loader's first uint8 batch must equal the ImageFolder dataset's batch
+     of the same samples, seed and epoch byte for byte;
+   * ``shards_exact_resume``: ``train_net`` in subprocesses on the pack
+     (this script with ``--counted-train-net``, which counts the launches
+     in the subprocess), cuDNN deterministic, all at once: one
+     uninterrupted epoch; the epoch preempted by FAULTS.PREEMPT_AT_BATCH
+     SHARDS_PREEMPT_AT and rerun, which must log that it continues at the
+     next batch, launch opt_update once a batch left, and end with its
+     parameters, BN buffers and momentum bitwise the uninterrupted run's;
+     FAULTS.TRUNCATE_SHARD on a copy of the pack (the forward-scan recovery
+     logged with its counts, the lost records substituted, the epoch
+     finished), and the same with DATA.SKIP_CORRUPT False, which must exit
+     non-zero. Both phases print their seconds;
    * ``two_ranks_one_card``: two processes share cuda:0 over gloo (this
      script with ``--two-ranks-worker``): ResNet-50, TF32 off, BN params
      seeded away from their init, 16 images a rank, SyncBN and then ghost
@@ -1436,6 +1457,277 @@ def realdata_phase(torch, ce, ou, root: str, out_dir: str, dummy_img_per_s: floa
     return res
 
 
+# the shards phases: the realdata tree packed by the port's packer into
+# about SHARDS_PARTS shards a split (at least SHARDS_MIN_PARTS for train),
+# trained and evaluated as realdata_train is (with LOOP_OPTS after the
+# yaml); then train_net drills on the pack
+SHARDS_PARTS, SHARDS_MIN_PARTS = 6, 4
+# the exact-resume drill: SIGTERM at this batch of epoch 1; the step of
+# that batch still runs (the flag is read at the step boundary, as in the
+# JAX package), so the preempted run trains SHARDS_PREEMPT_AT + 1 batches
+SHARDS_PREEMPT_AT = 10
+SHARDS_TRUNCATE = 1  # the shard FAULTS.TRUNCATE_SHARD cuts
+
+
+def pack_phase(root: str, out: str) -> dict:
+    """Packs the ImageFolder at ``root`` with the port's packer (its
+    command line's ``main``) at a target of 1/SHARDS_PARTS of the train
+    split's bytes, then ``verify_split`` on each split."""
+    from distribuuuu_tpu_torch.data.shards import format as shards_format
+    from distribuuuu_tpu_torch.data.shards import pack
+
+    train_bytes = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(os.path.join(root, "train")) for f in fs)
+    shard_mb = train_bytes / SHARDS_PARTS / (1024 * 1024)
+    t0 = time.perf_counter()
+    if pack.main(["--src", root, "--out", out, "--shard-mb", f"{shard_mb:.6f}"]) != 0:
+        raise AssertionError("the packer failed")
+    pack_s = time.perf_counter() - t0
+    splits = {}
+    for split in ("train", "val"):
+        man = shards_format.read_shard_manifest(os.path.join(out, split))
+        ok, problems = shards_format.verify_split(os.path.join(out, split))
+        splits[split] = {"records": man["num_records"], "shards": len(man["shards"]),
+                         "bytes": sum(s["size"] for s in man["shards"]), "verified": ok,
+                         "problems": problems}
+    res = {"phase": "shards_pack", "target_mb": shard_mb, "pack_s": pack_s, "splits": splits}
+    emit(res)
+    if not all(s["verified"] for s in splits.values()) \
+            or splits["train"]["shards"] < SHARDS_MIN_PARTS:
+        raise AssertionError(f"shards pack: {res}")
+    return res
+
+
+def shards_train_phase(torch, ce, ou, root: str, out_dir: str, real: dict) -> dict:
+    """``trainer.train_model`` on the pack of the realdata tree
+    (``DATA.FORMAT shards``), config/resnet50.yaml at full width (bf16,
+    batch 32), DATA.BACKEND auto, TRAIN.WORKERS = the host's cores, in the
+    process group the environment names: 24 steps, then the eval of the
+    200 val images, measured as realdata_train is and beside its img/s.
+    Then the shard train loader alone, and its first batch as uint8 held
+    byte for byte against the ImageFolder dataset's batch of the same
+    samples, seed and epoch."""
+    import math
+
+    import numpy as np
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.data import loader as dl
+    from distribuuuu_tpu_torch.data.imagefolder import ImageFolderDataset
+    from distribuuuu_tpu_torch.parallel import dist
+
+    t_phase = time.perf_counter()
+    pack_root = os.path.join(out_dir, "pack")
+    packed = pack_phase(root, pack_root)
+    config.reset_cfg()
+    config.merge_from_file("config/resnet50.yaml")
+    cfg.merge_from_list([
+        "DATA.FORMAT", "shards", "TRAIN.DATASET", pack_root, "TEST.DATASET", pack_root,
+        "DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE", "bfloat16", "RNG_SEED", 0,
+        "OPTIM.MAX_EPOCH", 1, "OUT_DIR", os.path.join(out_dir, "out"), "DATA.BACKEND", "auto",
+        "TRAIN.WORKERS", os.cpu_count(), "TRAIN.PRINT_FREQ", REAL_WINDOW[0], *LOOP_OPTS,
+    ])
+    loaders = []
+    build = {name: getattr(trainer, name)
+             for name in ("construct_train_loader", "construct_val_loader")}
+    for name, fn in build.items():  # keep the run's loaders, for their tallies
+        setattr(trainer, name, lambda fn=fn: loaders.append(fn()) or loaders[-1])
+    recs = []
+    ou.update.launches = ce.conv1x1_bn_act.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer.train_model(recs)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in build.items():
+            setattr(trainer, name, fn)
+    wall = time.perf_counter() - t0
+    launches = {"opt_update": ou.update.launches, "conv_epilogue": ce.conv1x1_bn_act.launches}
+    rec = recs[0]
+    flush = dict(rec["flushes"])
+    (d0, d1) = REAL_WINDOW
+    window = flush[d1] - flush[d0]
+    evals = -(-rec["eval_images"] // cfg.TEST.BATCH_SIZE)
+    reads = {split: {"records": ld.dataset.records_read, "bytes": ld.dataset.bytes_read}
+             for split, ld in zip(("train", "val"), loaders)}
+
+    loader = dl.construct_train_loader()
+    loader.set_epoch(0)
+    t0 = time.perf_counter()
+    n = sum(b["image"].shape[0] for b in loader)
+    loader_s = time.perf_counter() - t0
+    loader.set_epoch(0)
+    first = next(iter(loader))
+    idxs = loader.sampler.indices()[:cfg.TRAIN.BATCH_SIZE]
+    folder = ImageFolderDataset(root, "train", im_size=cfg.TRAIN.IM_SIZE, train=True,
+                                base_seed=cfg.RNG_SEED, backend=cfg.DATA.BACKEND, raw_u8=True)
+    folder.set_epoch_seed(0)
+    want, want_labels = folder.load_batch(idxs, n_threads=cfg.TRAIN.WORKERS)
+    same = (first["image"].dtype == np.uint8 and np.array_equal(first["image"], want)
+            and np.array_equal(first["label"], want_labels))
+
+    res = {
+        "phase": "shards_train", "arch": cfg.MODEL.ARCH, "world": dist.get_world_size(),
+        "dist_backend": torch.distributed.get_backend() if dist.is_initialized() else None,
+        "decode_backend": rec["backend"], "workers": cfg.TRAIN.WORKERS,
+        "train_shards": packed["splits"]["train"]["shards"],
+        "val_shards": packed["splits"]["val"]["shards"],
+        "train_images": packed["splits"]["train"]["records"], "val_images": rec["eval_images"],
+        "batch": cfg.TRAIN.BATCH_SIZE, "steps": rec["steps"], "window_steps": list(REAL_WINDOW),
+        "train_img_per_s": (d1 - d0) * cfg.TRAIN.BATCH_SIZE * dist.get_world_size() / window,
+        "realdata_train_img_per_s": real["train_img_per_s"],
+        "mean_step_ms": window / (d1 - d0) * 1e3,
+        "loader_wait_share": sum(rec["data_wait_s"][d0:d1]) / window,
+        "eval_img_per_s": rec["eval_images"] / rec["eval_wall_s"],
+        "loader_img_per_s": n / loader_s, "loader_images": n,
+        "realdata_loader_img_per_s": real["loader_img_per_s"], "reads": reads,
+        "first_batch_equals_imagefolder_u8": same, "launches": launches, "eval_forwards": evals,
+        "first_loss": rec["losses"][0], "last_loss": rec["losses"][-1], "acc1": rec["acc1"],
+        "wall_s": wall,
+    }
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    if not all(math.isfinite(x) for x in rec["losses"]) or len(rec["losses"]) != rec["steps"]:
+        raise AssertionError(f"shards losses not finite or missing: {rec['losses']}")
+    if rec["steps"] != REAL_STEPS or launches["opt_update"] != REAL_STEPS:
+        raise AssertionError(f"{rec['steps']} steps, {launches['opt_update']} opt_update "
+                             f"launches (want {REAL_STEPS} each)")
+    if launches["conv_epilogue"] != LOOP_FUSED_SITES * evals or not evals:
+        raise AssertionError(f"conv epilogue launches {launches['conv_epilogue']} != "
+                             f"{LOOP_FUSED_SITES} x {evals} eval forwards")
+    if reads["train"]["records"] < REAL_STEPS * cfg.TRAIN.BATCH_SIZE \
+            or reads["val"]["records"] != rec["eval_images"]:
+        raise AssertionError(f"records read {reads}")
+    if not same:
+        raise AssertionError("the shard loader's first uint8 batch differs from the "
+                             "ImageFolder's of the same samples")
+    return {**res, "pack_root": pack_root}
+
+
+def counted_train_net(counts_path: str, args: list) -> int:
+    """``train_net``'s main on ``args`` in this process (``--counted-train-net
+    COUNTS ARGS...``), the launch counts set to 0 just before and written
+    to ``COUNTS`` (JSON) after, also when it raises."""
+    from distribuuuu_tpu_torch import train_net
+    from distribuuuu_tpu_torch.ops.cuda import conv_epilogue as ce
+    from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
+
+    ou.update.launches = ce.conv1x1_bn_act.launches = 0
+    try:
+        train_net.main(args)
+    finally:
+        with open(counts_path, "w") as f:
+            json.dump({"opt_update": ou.update.launches,
+                       "conv_epilogue": ce.conv1x1_bn_act.launches}, f)
+    return 0
+
+
+def shards_exact_resume_phase(torch, pack_root: str, work: str) -> dict:
+    """``train_net`` subprocesses on the pack, all at once: one
+    uninterrupted epoch; the same epoch preempted by FAULTS.PREEMPT_AT_BATCH
+    and rerun, which must log that it continues at the next batch, launch
+    opt_update once for each batch left, and end bitwise on the
+    uninterrupted run's parameters, BN buffers and momentum (cuDNN
+    deterministic); FAULTS.TRUNCATE_SHARD on a copy of the pack, whose
+    forward-scan recovery is logged with its counts and whose lost records
+    are substituted (DATA.SKIP_CORRUPT) as the epoch finishes, and the same
+    with DATA.SKIP_CORRUPT False, which must fail-stop."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distribuuuu_tpu_torch.data.shards import format as shards_format
+    from distribuuuu_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    man = shards_format.read_shard_manifest(os.path.join(pack_root, "train"))
+    victim = man["shards"][SHARDS_TRUNCATE]
+    preempt_opts = ["FAULTS.ENABLED", True, "FAULTS.PREEMPT_EPOCH", 0,
+                    "FAULTS.PREEMPT_AT_BATCH", SHARDS_PREEMPT_AT]
+
+    def run(name, *opts, pack=pack_root):
+        t0 = time.perf_counter()
+        rc, log, launches = _train_net(pack, os.path.join(work, name), "DATA.FORMAT",
+                                       "shards", "OPTIM.MAX_EPOCH", 1, "CUDNN.DETERMINISTIC",
+                                       True, "CUDNN.BENCHMARK", False, *opts)
+        return {"rc": rc, "launches": launches, "seconds": time.perf_counter() - t0}, log
+
+    def straight():
+        return run("straight")
+
+    def preempted():
+        first, log1 = run("preempted", *preempt_opts)
+        if first["rc"] != 0:
+            return {"first": first, "log_tail": log1[-3000:]}, ""
+        second, log2 = run("preempted")
+        return {"first": first, "second": second}, log2
+
+    def truncated(skip):
+        copy = os.path.join(work, f"pack_skip{int(skip)}")
+        shutil.copytree(pack_root, copy)
+        return run(f"truncated_skip{int(skip)}", "FAULTS.ENABLED", True,
+                   "FAULTS.TRUNCATE_SHARD", SHARDS_TRUNCATE, "DATA.SKIP_CORRUPT", skip,
+                   pack=copy)
+
+    with ThreadPoolExecutor(4) as pool:
+        jobs = {"straight": pool.submit(straight), "preempted": pool.submit(preempted),
+                "truncated_skip": pool.submit(truncated, True),
+                "truncated_failstop": pool.submit(truncated, False)}
+        out = {k: f.result() for k, f in jobs.items()}
+    runs, logs = {k: v[0] for k, v in out.items()}, {k: v[1] for k, v in out.items()}
+
+    steps = REAL_STEPS
+    done = SHARDS_PREEMPT_AT + 1  # the batch the signal arrives at still trains
+    resume_line = f"continuing epoch 1 at batch {done + 1}/{steps}"
+    recovered = (f"of {victim['records']} records by forward scan")
+    checks = {
+        "straight_ok": runs["straight"]["rc"] == 0
+        and runs["straight"]["launches"]["opt_update"] == steps,
+        "preempted_launches": "second" in runs["preempted"]
+        and runs["preempted"]["first"]["launches"]["opt_update"] == done
+        and runs["preempted"]["second"]["rc"] == 0
+        and runs["preempted"]["second"]["launches"]["opt_update"] == steps - done,
+        "resume_logged": resume_line in logs["preempted"],
+        "truncated_recovery_logged": recovered in logs["truncated_skip"]
+        and "corrupt sample" in logs["truncated_skip"]
+        and "epoch 1 done" in logs["truncated_skip"],
+        "truncated_skip_ok": runs["truncated_skip"]["rc"] == 0
+        and runs["truncated_skip"]["launches"]["opt_update"] == steps,
+        "failstop_nonzero": runs["truncated_failstop"]["rc"] != 0
+        and "fail-stop" in logs["truncated_failstop"],
+    }
+    differ, tensors = [], 0
+    if checks["straight_ok"] and checks["preempted_launches"]:
+        a = torch.load(os.path.join(work, "straight", "checkpoints", "ckpt_ep_000.pth"),
+                       weights_only=True)
+        b = torch.load(os.path.join(work, "preempted", "checkpoints", "ckpt_ep_000.pth"),
+                       weights_only=True)
+        pairs = [(f"model/{k}", v, b["model"][k]) for k, v in a["model"].items()]
+        pairs += [(f"m/{k}", v, b["opt"]["m"][k]) for k, v in a["opt"]["m"].items()]
+        differ = [k for k, x, y in pairs if not torch.equal(x, y)]
+        tensors = len(pairs)
+        checks["bitwise_equal"] = not differ and a["step"] == b["step"] == steps
+    counted = [r for r in (runs["straight"], runs["truncated_skip"],
+                           runs["truncated_failstop"], runs["preempted"].get("first"),
+                           runs["preempted"].get("second")) if r and r["launches"]]
+    launches = {k: sum(r["launches"][k] for r in counted)
+                for k in ("opt_update", "conv_epilogue")}
+    if not all(checks.values()):
+        for k, log in logs.items():
+            runs[k]["log_tail"] = log[-1500:]
+    res = {"phase": "shards_exact_resume", "arch": LOOP_ARCH, "steps": steps,
+           "preempt_at_batch": SHARDS_PREEMPT_AT, "batches_before_preemption": done,
+           "truncated_shard": victim["file"], "truncated_shard_records": victim["records"],
+           "runs": runs, "checks": checks, "tensors": tensors,
+           "tensors_not_bitwise_equal": len(differ), "first_differing": differ[:5],
+           "launches": launches, "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    if not all(checks.values()) or "bitwise_equal" not in checks:
+        raise AssertionError(f"shards exact resume: {checks}")
+    return res
+
+
 def seeded_bn(torch, model, seed: int = 0) -> None:
     """Every BatchNorm away from its init, as tests/torch_port_util.
     random_variables sets them (scale about 0.4, bias and mean about
@@ -1878,17 +2170,26 @@ def loop_async_phase(torch, ou, dev, work: str) -> dict:
 
 
 def _train_net(root: str, out_dir: str, *opts, timeout: int = 600):
-    """``python -m distribuuuu_tpu_torch.train_net`` with config/resnet50.yaml
-    on the ImageFolder at ``root``, one process, no process group:
-    ``(returncode, stderr)``."""
+    """``train_net`` with config/resnet50.yaml on the data at ``root`` (an
+    ImageFolder, or a pack under ``DATA.FORMAT shards``), one process, no
+    process group, through :func:`counted_train_net`: ``(returncode,
+    stderr, launches)``, ``launches`` None when the process died before
+    writing them."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
-    args = [sys.executable, "-m", "distribuuuu_tpu_torch.train_net", "--cfg", LOOP_YAML,
-            "TRAIN.DATASET", root, "TEST.DATASET", root, "RNG_SEED", 0, "TRAIN.WORKERS",
-            max(1, (os.cpu_count() or 3) // 3), "OUT_DIR", out_dir, *LOOP_OPTS, *opts]
+    os.makedirs(out_dir, exist_ok=True)
+    counts = os.path.join(out_dir, f"launches-{time.monotonic_ns()}.json")
+    args = [sys.executable, os.path.abspath(__file__), "--counted-train-net", counts,
+            "--cfg", LOOP_YAML, "TRAIN.DATASET", root, "TEST.DATASET", root, "RNG_SEED", 0,
+            "TRAIN.WORKERS", max(1, (os.cpu_count() or 3) // 3), "OUT_DIR", out_dir,
+            *LOOP_OPTS, *opts]
     r = subprocess.run([str(a) for a in args], env=env, capture_output=True, text=True,
                        timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
-    return r.returncode, r.stderr
+    launches = None
+    if os.path.exists(counts):
+        with open(counts) as f:
+            launches = json.load(f)
+    return r.returncode, r.stderr, launches
 
 
 # drill -> the two runs from a copy of the epoch-1 checkpoint: (options,
@@ -1932,7 +2233,7 @@ def loop_drills_phase(root: str, work: str) -> dict:
 
     base = os.path.join(work, "drill_base")
     t0 = time.perf_counter()
-    rc, log = _train_net(root, base, "OPTIM.MAX_EPOCH", 1)
+    rc, log, _ = _train_net(root, base, "OPTIM.MAX_EPOCH", 1)
     if rc != 0:
         raise AssertionError(f"drill base run exited {rc}: {log[-3000:]}")
     base_s = time.perf_counter() - t0
@@ -1943,7 +2244,7 @@ def loop_drills_phase(root: str, work: str) -> dict:
         rows = []
         for opts, want_rc, needles in LOOP_DRILLS[name]:
             t1 = time.perf_counter()
-            rc, log = _train_net(root, out, "OPTIM.MAX_EPOCH", 2, *opts)
+            rc, log, _ = _train_net(root, out, "OPTIM.MAX_EPOCH", 2, *opts)
             missing = [n for n in needles if n not in log]
             rows.append({"rc": rc, "want_rc": want_rc, "missing": missing,
                          "seconds": time.perf_counter() - t1})
@@ -2528,6 +2829,9 @@ def main(argv=None) -> int:
                          "one regnety_160 train step at batch 64, and one GPT-nano decode "
                          "step at batch 4")
     ap.add_argument("--two-ranks-worker", metavar="DIR", help=argparse.SUPPRESS)
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--counted-train-net"]:  # train_net's own arguments follow
+        return counted_train_net(argv[1], argv[2:])
     args = ap.parse_args(argv)
     if args.two_ranks_worker:
         return two_ranks_worker(args.two_ranks_worker)
@@ -2662,8 +2966,13 @@ def main(argv=None) -> int:
             syncbn_world1_phase(torch, dev)
             real = realdata_phase(torch, ce, ou, root, os.path.join(real_dir, "out"),
                                   runs["resnet50"][0]["train_img_per_s"])
+            shards = shards_train_phase(torch, ce, ou, root, os.path.join(real_dir, "shards"),
+                                        real)
         finally:
             leave_world1(dist)
+        tf32_off()
+        resume = shards_exact_resume_phase(torch, shards["pack_root"],
+                                           os.path.join(real_dir, "shards_resume"))
         tf32_off()
         two_ranks_one_card_phase(torch, dev)
         # the rest of the train loop, in one process with no process group,
@@ -2687,6 +2996,7 @@ def main(argv=None) -> int:
         "source": "distribuuuu_tpu_torch/csrc/conv_epilogue.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/conv_epilogue.py:121",
         "launches": launches + reg_serve_ce + real["launches"]["conv_epilogue"]
+        + shards["launches"]["conv_epilogue"] + resume["launches"]["conv_epilogue"]
         + loop["conv_epilogue"] + sum(r["launches"]["conv_epilogue"] for a in ("resnet50", "regnety_160")
               for r in runs[a]),
         "max_abs_err": worst,
@@ -2700,7 +3010,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/csrc/opt_update.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/opt_update.py:75",
-        "launches": real["launches"]["opt_update"] + loop["opt_update"]
+        "launches": real["launches"]["opt_update"] + shards["launches"]["opt_update"]
+        + resume["launches"]["opt_update"] + loop["opt_update"]
         + sum(r["launches"]["opt_update"] for rs in runs.values() for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in opt_rows.values()),
         "ms": main_body["ms"],

@@ -372,9 +372,24 @@ _C.DATA = CfgNode()
 # normalize_on_device); False sends host-normalized float32.
 _C.DATA.DEVICE_NORMALIZE = True
 # "imagefolder" (TRAIN.DATASET/TEST.DATASET hold <split>/<class>/*.jpg, or
-# MODEL.DUMMY_INPUT data); "shards" and "tokens" (the LM's token shards,
-# which serving reads nothing of) are not ported to training yet.
+# MODEL.DUMMY_INPUT data); "shards" streams record shards packed by
+# `python -m distribuuuu_tpu_torch.data.shards.pack` (data/shards/;
+# TRAIN/TEST.DATASET point at the shards root, the directory holding
+# <split>/MANIFEST.json): sequential reads from a few large files, a
+# (seed, epoch)-only sample order the same at any world size, and exact
+# mid-epoch resume (the preemption checkpoint holds the loader's global
+# cursor, so a restart continues at the next batch instead of re-running
+# the epoch). "tokens" (the LM's token shards) is not ported to training
+# yet.
 _C.DATA.FORMAT = "imagefolder"
+# The shards' order (data/shards/order.py): storage order cut into
+# SHARDS_BLOCK-record sequential runs, the runs permuted, and a
+# SHARDS_WINDOW-sample shuffle buffer mixing neighbours. A bigger block
+# reads more sequentially and mixes less; a bigger window mixes more and
+# scatters the reads. block=1 with window >= the split's size is the
+# uniform shuffle of the imagefolder sampler.
+_C.DATA.SHARDS_BLOCK = 64
+_C.DATA.SHARDS_WINDOW = 1024
 # Decode backend: "auto" uses the C++ decoder (native/decode.cc) when it
 # builds, else PIL; "native" requires it; "pil" forces pure Python.
 _C.DATA.BACKEND = "auto"
@@ -432,7 +447,9 @@ _C.FAULTS.SLOWDOWN_MS = 0.0
 # SIGKILL between ckpt_ep_{KILL_MID_ASYNC_SAVE}.pth's rename and its
 # manifest: the restart walks back over the manifest-less file. -1 = off.
 _C.FAULTS.KILL_MID_ASYNC_SAVE = -1
-# Refused (the shards format): truncate a record shard. -1 = off.
+# Truncate shard file TRUNCATE_SHARD of each split the shards reader opens
+# to 60 % of its size (its footer and tail records lost): the reader's
+# forward-scan recovery and DATA.SKIP_CORRUPT's substitution. -1 = off.
 _C.FAULTS.TRUNCATE_SHARD = -1
 # After ckpt_ep_{CORRUPT_EPOCH}.pth commits: "truncate" halves the file,
 # "partial" deletes its manifest. -1 = off.

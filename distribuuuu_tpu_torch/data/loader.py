@@ -22,6 +22,16 @@ runs.
 Each batch is a dict: ``image`` [B,H,W,3] (uint8 under
 ``DATA.DEVICE_NORMALIZE``, else float32, NHWC), ``label`` [B] int32,
 ``mask`` [B] float32, with B the per-process batch.
+
+A dataset may bring its own sampler (``make_sampler``: the shards'
+window-shuffled order). Either sampler draws the epoch's global order from
+``(seed, epoch)`` alone and strides it by rank, so k global batches
+consume the order's first k × global batch samples at any world size. On
+that rests the exact mid-epoch resume of the shards format:
+:meth:`Loader.state_dict` saves the global cursor and the order's
+identity, :meth:`Loader.load_state_dict` checks them against the live
+pipeline, and the epoch's next iteration skips the batches already
+trained.
 """
 
 from __future__ import annotations
@@ -58,13 +68,90 @@ class Loader:
         self.retries = max(0, int(cfg.DATA.RETRIES))
         self.retry_backoff = float(cfg.DATA.RETRY_BACKOFF_S)
         self.skip_corrupt = bool(cfg.DATA.SKIP_CORRUPT)
-        self.sampler = DistributedSampler(len(dataset), num_replicas=dist.get_world_size(),
-                                          rank=dist.get_rank(), shuffle=shuffle, seed=seed)
+        world, rank = dist.get_world_size(), dist.get_rank()
+        make = getattr(dataset, "make_sampler", None)
+        self.sampler = make(num_replicas=world, rank=rank, shuffle=shuffle, seed=seed) \
+            if make is not None else None
+        if self.sampler is None:
+            self.sampler = DistributedSampler(len(dataset), num_replicas=world, rank=rank,
+                                              shuffle=shuffle, seed=seed)
+        self._epoch = 0
+        self._resume: dict | None = None  # {"epoch", "skip"}, one-shot
 
     def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
         self.sampler.set_epoch(epoch)
         if hasattr(self.dataset, "set_epoch_seed"):
             self.dataset.set_epoch_seed(epoch)
+
+    def can_save_state(self) -> bool:
+        """True when the position is exactly resumable: the shards format
+        with an order whose identity can be saved. ImageFolder keeps the
+        epoch-granular resume."""
+        return (getattr(self.dataset, "FORMAT", "") == "shards"
+                and hasattr(self.sampler, "order_state"))
+
+    def state_dict(self, batches_consumed: int) -> dict:
+        """The iterator's state after ``batches_consumed`` batches of the
+        current epoch: the epoch, the global sample cursor (batches × batch
+        × processes: the same meaning at any world size) and the order's
+        identity with its generator state. JSON-able, as the JAX
+        package's."""
+        sd = {
+            "v": 1,
+            "format": getattr(self.dataset, "FORMAT", "imagefolder"),
+            "epoch": int(self._epoch),
+            "cursor": int(batches_consumed) * self.batch_size * self.sampler.num_replicas,
+            "num_records": len(self.dataset),
+        }
+        if hasattr(self.sampler, "order_state"):
+            sd["order"] = self.sampler.order_state()
+        return sd
+
+    def load_state_dict(self, sd: dict) -> int:
+        """Arms the one-shot skip of a saved :meth:`state_dict`; returns
+        the batches of this process the matching epoch will skip. Raises
+        ``ValueError`` when the cursor cannot be trusted (another format,
+        record count or order identity): the caller re-runs the epoch from
+        batch 0. A global batch that grew past a divisor of the cursor
+        rounds down, with a warning (those samples train twice)."""
+        live_fmt = getattr(self.dataset, "FORMAT", "imagefolder")
+        if sd.get("format") != live_fmt:
+            raise ValueError(f"saved data state is {sd.get('format')!r}, live pipeline "
+                             f"is {live_fmt!r}")
+        if int(sd.get("num_records", -1)) != len(self.dataset):
+            raise ValueError(f"corpus changed: saved {sd.get('num_records')} records, live "
+                             f"dataset has {len(self.dataset)}")
+        saved_order = sd.get("order")
+        if saved_order is not None:
+            if not hasattr(self.sampler, "order_state"):
+                raise ValueError("live sampler has no saveable order")
+            cur = self.sampler.epoch
+            self.sampler.set_epoch(int(sd["epoch"]))
+            live_order = self.sampler.order_state()
+            self.sampler.set_epoch(cur)
+            if live_order != saved_order:
+                diff = [k for k in sorted(set(live_order) | set(saved_order))
+                        if live_order.get(k) != saved_order.get(k)]
+                raise ValueError("shuffle order identity changed since the save (fields: "
+                                 f"{', '.join(diff)}): the cursor would point into another "
+                                 "permutation")
+        cursor = int(sd["cursor"])
+        global_batch = self.batch_size * self.sampler.num_replicas
+        skip, rem = divmod(cursor, global_batch)
+        if rem:
+            get_logger().warning("restored cursor %d is not a multiple of the live global "
+                                 "batch %d: resuming at batch %d (up to %d samples re-run)",
+                                 cursor, global_batch, skip, rem)
+        self._resume = {"epoch": int(sd["epoch"]), "skip": int(skip)}
+        return int(skip)
+
+    def resume_skip(self, epoch: int) -> int:
+        """The batches the next iteration of ``epoch`` skips (armed by
+        :meth:`load_state_dict`, consumed by ``__iter__``)."""
+        if self._resume is not None and self._resume["epoch"] == int(epoch):
+            return self._resume["skip"]
+        return 0
 
     def __len__(self):
         n = self.sampler.num_samples
@@ -150,6 +237,10 @@ class Loader:
         idxs = self.sampler.indices()
         chunks = [idxs[b * self.batch_size:(b + 1) * self.batch_size]
                   for b in range(len(self))]
+        if self._resume is not None and self._resume["epoch"] == self._epoch:
+            # the exact mid-epoch resume: the preempted run trained these
+            chunks = chunks[self._resume["skip"]:]
+            self._resume = None
         depth = self.prefetch_depth
         with ThreadPoolExecutor(max_workers=depth) as pool:
             in_flight: deque = deque(pool.submit(self._assemble, c) for c in chunks[:depth])
@@ -206,14 +297,19 @@ def _build_dataset(train: bool):
         # model-input-sized dummies for both splits, as the JAX package
         return DummyDataset(length=cfg.TRAIN.BATCH_SIZE * 64, size=cfg.TRAIN.IM_SIZE,
                             raw_u8=raw_u8)
-    if cfg.DATA.FORMAT != "imagefolder":
-        raise not_ported(f"DATA.FORMAT={cfg.DATA.FORMAT!r} (the shards and token "
-                         "pipelines)", "Real data and many processes")
-    from distribuuuu_tpu_torch.data.imagefolder import ImageFolderDataset
-
+    if cfg.DATA.FORMAT == "tokens":
+        raise not_ported("DATA.FORMAT='tokens' (the LM's token shards)", "LM plane")
+    if cfg.DATA.FORMAT == "shards":
+        from distribuuuu_tpu_torch.data.shards.reader import ShardDataset as Dataset
+    elif cfg.DATA.FORMAT == "imagefolder":
+        from distribuuuu_tpu_torch.data.imagefolder import ImageFolderDataset as Dataset
+    else:
+        raise ValueError(f"DATA.FORMAT must be imagefolder|shards|tokens, got "
+                         f"{cfg.DATA.FORMAT!r}")
     # train: RandomResizedCrop to TRAIN.IM_SIZE; val: shorter side to
-    # TEST.IM_SIZE, center crop to the model input TRAIN.IM_SIZE
-    return ImageFolderDataset(
+    # TEST.IM_SIZE, center crop to the model input TRAIN.IM_SIZE. A shards
+    # DATASET is the packed root (<split>/MANIFEST.json)
+    return Dataset(
         cfg.TRAIN.DATASET if train else cfg.TEST.DATASET,
         cfg.TRAIN.SPLIT if train else cfg.TEST.SPLIT,
         im_size=cfg.TRAIN.IM_SIZE if train else cfg.TEST.IM_SIZE, train=train,

@@ -8,8 +8,10 @@ first use into ``distribuuuu_tpu_torch/_build/`` under a name keyed by a
 hash of the source, through a per-process temporary file renamed into
 place, so ranks that build at once never load a half-written library.
 Without a toolchain or the libjpeg/libpng headers ``available()`` is
-False and ``build_error()`` says why; ``data/imagefolder.py`` decides
-what that means for ``DATA.BACKEND``.
+False and ``build_error()`` says why; ``data/imagefolder.py`` and
+``data/shards/reader.py`` decide what that means for ``DATA.BACKEND``.
+Files are decoded by path (``load_batch``, ``load_batch_u8``), shard
+records from memory (``load_batch_mem``, ``load_batch_u8_mem``).
 """
 
 from __future__ import annotations
@@ -99,6 +101,23 @@ def _declare(lib) -> None:
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8),
         ctypes.POINTER(ctypes.c_int32),
+    ]
+    # the in-memory entry points (shard records)
+    lib.dtpu_mem_dims.restype = ctypes.c_int
+    lib.dtpu_mem_dims.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                  ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+    lib.dtpu_load_batch_mem.restype = None
+    lib.dtpu_load_batch_mem.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.dtpu_load_batch_u8_mem.restype = None
+    lib.dtpu_load_batch_u8_mem.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32),
     ]
 
 
@@ -191,6 +210,73 @@ def load_batch_u8(paths: list[str], geoms: np.ndarray, out_size: tuple[int, int]
     statuses = np.empty((n,), np.int32)
     lib.dtpu_load_batch_u8(
         c_paths, geoms.ctypes.data_as(ctypes.c_void_p), n, out_w, out_h, n_threads,
+        images.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        statuses.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return images, statuses
+
+
+def has_mem_api() -> bool:
+    """True when the loaded decoder has the in-memory entry points. ABI 4
+    has them and ``_load`` checks the ABI, so this is ``available()``;
+    the shards reader asks it by this name."""
+    return available()
+
+
+def mem_dims(data: bytes) -> tuple[int, int] | None:
+    """``(width, height)`` of an in-memory encoded image, or None."""
+    lib = _load()
+    if lib is None or not data:
+        return None
+    w, h = ctypes.c_int32(), ctypes.c_int32()
+    if lib.dtpu_mem_dims(data, len(data), ctypes.byref(w), ctypes.byref(h)):
+        return None
+    return w.value, h.value
+
+
+def _mem_args(bufs: list[bytes], geoms: np.ndarray):
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native decode unavailable: {_build_error}")
+    n = len(bufs)
+    geoms = np.ascontiguousarray(geoms, GEOM_DTYPE)
+    if geoms.shape != (n,):
+        raise ValueError(f"{geoms.shape[0]} geometries for {n} buffers")
+    c_bufs = (ctypes.c_char_p * n)(*bufs)
+    c_lens = (ctypes.c_int64 * n)(*[len(b) for b in bufs])
+    return lib, n, geoms, c_bufs, c_lens
+
+
+def load_batch_mem(bufs: list[bytes], geoms: np.ndarray, out_size: tuple[int, int],
+                   mean: np.ndarray, std: np.ndarray, n_threads: int):
+    """:func:`load_batch` over in-memory encoded buffers (shard records).
+    An empty buffer fails at once with a nonzero status: the caller's mark
+    for an image it decodes through PIL."""
+    lib, n, geoms, c_bufs, c_lens = _mem_args(bufs, geoms)
+    out_h, out_w = out_size
+    images = np.empty((n, out_h, out_w, 3), np.float32)
+    statuses = np.empty((n,), np.int32)
+    mean32 = np.ascontiguousarray(mean, np.float32)
+    std32 = np.ascontiguousarray(std, np.float32)
+    lib.dtpu_load_batch_mem(
+        c_bufs, c_lens, geoms.ctypes.data_as(ctypes.c_void_p), n, out_w, out_h,
+        mean32.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        std32.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n_threads,
+        images.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        statuses.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return images, statuses
+
+
+def load_batch_u8_mem(bufs: list[bytes], geoms: np.ndarray, out_size: tuple[int, int],
+                      n_threads: int):
+    """:func:`load_batch_u8` over in-memory encoded buffers."""
+    lib, n, geoms, c_bufs, c_lens = _mem_args(bufs, geoms)
+    out_h, out_w = out_size
+    images = np.empty((n, out_h, out_w, 3), np.uint8)
+    statuses = np.empty((n,), np.int32)
+    lib.dtpu_load_batch_u8_mem(
+        c_bufs, c_lens, geoms.ctypes.data_as(ctypes.c_void_p), n, out_w, out_h, n_threads,
         images.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         statuses.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )

@@ -11,9 +11,9 @@
 // edges, a uint8 intermediate between the horizontal and the vertical
 // pass), so outputs match the PIL path within 2/255.
 //
-// Plain C ABI for ctypes (native/__init__.py). The in-memory entry points
-// of the JAX package's copy serve its shards format, which the port does
-// not read yet, and are not here.
+// Plain C ABI for ctypes (native/__init__.py): the path entry points for
+// ImageFolder trees and, as in ABI 4 of the JAX package's copy, the
+// in-memory ones for the records of the shards format (data/shards/).
 
 #include <algorithm>
 #include <atomic>
@@ -341,7 +341,20 @@ bool load_resampled(const char* path, const Geom& g, int out_w, int out_h,
   return true;
 }
 
-// Post-resample back halves.
+// The in-memory front half (a shard record's encoded bytes, no file):
+// buffer -> decode -> resample.
+bool load_resampled_mem(const uint8_t* data, int64_t len, const Geom& g,
+                        int out_w, int out_h, std::vector<uint8_t>* res) {
+  if (data == nullptr || len <= 0) return false;
+  std::vector<uint8_t> bytes(data, data + len);
+  ImageU8 img;
+  if (!decode_any(bytes, &img)) return false;
+  resample(img, g.box_x, g.box_y, g.scale_x, g.scale_y, g.out_x0, g.out_y0,
+           out_w, out_h, res);
+  return true;
+}
+
+// Post-resample back halves, shared by the path and in-memory entry points.
 void finish_one(const std::vector<uint8_t>& res, const Geom& g, int out_w,
                 int out_h, const float* mean, const float* stdv, float* out) {
   const float inv255 = 1.0f / 255.0f;
@@ -394,6 +407,24 @@ bool load_one_u8(const char* path, const Geom& g, int out_w, int out_h,
                  uint8_t* out) {
   std::vector<uint8_t> res;
   if (!load_resampled(path, g, out_w, out_h, &res)) return false;
+  finish_one_u8(res, g, out_w, out_h, out);
+  return true;
+}
+
+// The in-memory variants (shard records).
+bool load_one_mem(const uint8_t* data, int64_t len, const Geom& g, int out_w,
+                  int out_h, const float* mean, const float* stdv,
+                  float* out) {
+  std::vector<uint8_t> res;
+  if (!load_resampled_mem(data, len, g, out_w, out_h, &res)) return false;
+  finish_one(res, g, out_w, out_h, mean, stdv, out);
+  return true;
+}
+
+bool load_one_u8_mem(const uint8_t* data, int64_t len, const Geom& g,
+                     int out_w, int out_h, uint8_t* out) {
+  std::vector<uint8_t> res;
+  if (!load_resampled_mem(data, len, g, out_w, out_h, &res)) return false;
   finish_one_u8(res, g, out_w, out_h, out);
   return true;
 }
@@ -483,6 +514,51 @@ void dtpu_load_batch_u8(const char** paths, const void* geoms, int32_t n,
   run_pool(n, n_threads, [&](int32_t i) {
     statuses[i] = load_one_u8(paths[i], gs[i], out_w, out_h,
                               out + img_elems * i) ? 0 : 1;
+  });
+}
+
+// Header-only dims probe over an in-memory buffer (a shard record).
+int dtpu_mem_dims(const uint8_t* data, int64_t len, int32_t* w, int32_t* h) {
+  if (data == nullptr || len <= 0) return 1;
+  int iw = 0, ih = 0;
+  bool ok = false;
+  const size_t n = static_cast<size_t>(len);
+  if (is_jpeg(data, n))
+    ok = jpeg_dims(data, n, &iw, &ih);
+  else if (is_png(data, n))
+    ok = png_dims(data, n, &iw, &ih);
+  else
+    return 2;  // unknown magic
+  if (!ok) return 2;
+  *w = iw;
+  *h = ih;
+  return 0;
+}
+
+// dtpu_load_batch over in-memory encoded buffers (shard records):
+// (pointer, length) pairs in place of paths, no file opened.
+void dtpu_load_batch_mem(const uint8_t** bufs, const int64_t* lens,
+                         const void* geoms, int32_t n, int32_t out_w,
+                         int32_t out_h, const float* mean, const float* stdv,
+                         int32_t n_threads, float* out, int32_t* statuses) {
+  const Geom* gs = static_cast<const Geom*>(geoms);
+  const size_t img_elems = static_cast<size_t>(out_h) * out_w * 3;
+  run_pool(n, n_threads, [&](int32_t i) {
+    statuses[i] = load_one_mem(bufs[i], lens[i], gs[i], out_w, out_h, mean,
+                               stdv, out + img_elems * i) ? 0 : 1;
+  });
+}
+
+// dtpu_load_batch_u8 over in-memory encoded buffers.
+void dtpu_load_batch_u8_mem(const uint8_t** bufs, const int64_t* lens,
+                            const void* geoms, int32_t n, int32_t out_w,
+                            int32_t out_h, int32_t n_threads, uint8_t* out,
+                            int32_t* statuses) {
+  const Geom* gs = static_cast<const Geom*>(geoms);
+  const size_t img_elems = static_cast<size_t>(out_h) * out_w * 3;
+  run_pool(n, n_threads, [&](int32_t i) {
+    statuses[i] = load_one_u8_mem(bufs[i], lens[i], gs[i], out_w, out_h,
+                                  out + img_elems * i) ? 0 : 1;
   });
 }
 

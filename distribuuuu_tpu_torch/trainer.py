@@ -25,9 +25,11 @@ distribuuuu_tpu/parallel/partition/lowering.py).
   preemption saves and auto-resume that walks back over broken saves
   (``utils/checkpoint.py``), the ``rollback`` policy, background commits
   (``CHECKPOINT.ASYNC``), concurrent eval (``TRAIN.CONCURRENT_EVAL``) and
-  fault injection (``utils/faults.py``), on ImageFolder trees or
-  ``MODEL.DUMMY_INPUT`` data, in one process or several (``torchrun``,
-  Slurm; ``parallel/dist.setup_distributed``).
+  fault injection (``utils/faults.py``), on ImageFolder trees, packed
+  shards (``DATA.FORMAT shards``, whose preemption saves hold the
+  loader's global cursor: the resumed epoch continues at the exact next
+  batch) or ``MODEL.DUMMY_INPUT`` data, in one process or several
+  (``torchrun``, Slurm; ``parallel/dist.setup_distributed``).
 
 Each process runs on one card: ``cuda:LOCAL_RANK`` under a launch of
 several processes, else ``cuda:{SERVE.DEVICE}``, under ``DEVICE.PLATFORM``
@@ -37,8 +39,8 @@ over the global micro-batch (``models/layers.BatchNorm``); ``MODEL.SYNCBN``
 is one group of the whole global micro-batch. ``TRAIN.GRAD_ACCUM_STEPS``
 splits each step into micro-batches; ``TRAIN.REMAT`` recomputes the
 ResNets' stages 1-2 in the backward. What the port does not run raises
-with its ROADMAP item: mesh axes beyond data, folded steps, the shards
-format and the fault knobs whose mechanism the port does not have.
+with its ROADMAP item: mesh axes beyond data, folded steps, the token
+shards and the fault knobs whose mechanism the port does not have.
 """
 
 from __future__ import annotations
@@ -184,8 +186,11 @@ def check_train_cfg(eval_only: bool = False) -> None:
     if cfg.MODEL.ARCH.startswith("gpt"):
         raise not_ported(f"training or evaluating {cfg.MODEL.ARCH!r} (token shards, the "
                          "per-token loss)", "LM plane")
-    if cfg.DATA.FORMAT != "imagefolder":
-        raise not_ported(f"DATA.FORMAT={cfg.DATA.FORMAT!r}", REAL_DATA)
+    if cfg.DATA.FORMAT == "tokens":
+        raise not_ported("DATA.FORMAT='tokens' (the LM's token shards)", "LM plane")
+    if cfg.DATA.FORMAT not in ("imagefolder", "shards"):
+        raise ValueError(f"DATA.FORMAT must be imagefolder|shards|tokens, got "
+                         f"{cfg.DATA.FORMAT!r}")
     world, mesh = dist.env_world_size(), cfg.MESH
     if mesh.MODEL != 1 or mesh.SEQ != 1 or mesh.PIPE != 1:
         raise not_ported(f"MESH axes beyond data (MODEL={mesh.MODEL}, SEQ={mesh.SEQ}, "
@@ -323,26 +328,34 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
     ``TRAIN.PREEMPT_SAVE`` a SIGTERM ends the epoch at a step boundary with
     ``interrupted`` True (the next one with one process; with several,
     every process agrees on the flag every 8 steps, one all-reduce, and
-    all leave at the same step). Each step beats the stall watchdog
-    (``TRAIN.STALL_TIMEOUT``) and passes the fault hooks (``FAULTS.*``)
-    first. ``record`` holds the epoch, its steps, the step losses, each
+    all leave at the same step). ``batches_done`` is the absolute batch
+    cursor: when the loader was armed with a restored shards cursor for
+    this epoch (``Loader.load_state_dict``), the epoch continues at batch
+    ``start_batch`` and the skipped prefix counts. Each step beats the
+    stall watchdog (``TRAIN.STALL_TIMEOUT``) and passes the fault hooks
+    (``FAULTS.*``, at the absolute batch) first. ``record`` holds the
+    epoch, ``start_batch``, the steps this call ran, the step losses, each
     step's wait for its host batch (``data_wait_s``), the host time at the
-    end of each step (``step_t``) and the (steps done, host time) of each
-    metric flush; every flush waits for the device."""
+    end of each step (``step_t``) and the (batches done, host time) of
+    each metric flush; every flush waits for the device."""
     lr = get_epoch_lr(epoch)
     set_lr(optimizer, lr)
     loader.set_epoch(epoch)
     model.train()
     num_batches, topk = len(loader), effective_topk()
+    start_batch = getattr(loader, "resume_skip", lambda e: 0)(epoch)
+    if start_batch and dist.is_primary():
+        logger.info("exact mid-epoch resume: continuing epoch %d at batch %d/%d (restored "
+                    "global cursor)", epoch + 1, start_batch + 1, num_batches)
     batch_time, data_time, losses, top1, topk_m, progress = construct_meters(
         num_batches, f"Epoch[{epoch + 1}/{cfg.OPTIM.MAX_EPOCH}]", topk)
     policy = str(cfg.TRAIN.NONFINITE)
     accum = max(1, int(cfg.TRAIN.GRAD_ACCUM_STEPS))
     nan_step = faults.nan_injection_step()
     monitor = supervisor.NonFiniteMonitor(policy, epoch, logger)
-    record = {"epoch": epoch, "steps": 0, "flushes": [], "losses": [], "data_wait_s": [],
-              "step_t": []}
-    pending, done = [], 0
+    record = {"epoch": epoch, "start_batch": start_batch, "steps": 0, "flushes": [],
+              "losses": [], "data_wait_s": [], "step_t": []}
+    pending, done = [], start_batch
     preempt_every = 1 if dist.get_world_size() == 1 else 8
 
     def flush():
@@ -362,18 +375,19 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
         end = time.perf_counter()
         for it, batch, tl in device_prefetch(loader, device, cfg.TRAIN.PREFETCH_DEVICE,
                                             cfg.TRAIN.PIN_MEMORY):
-            heartbeat.beat(f"epoch {epoch + 1} batch {it}")
-            faults.maybe_stall(epoch, it)  # each a no-op unless FAULTS.ENABLED
-            faults.maybe_kill(epoch, it)
-            faults.maybe_preempt(epoch, it)
-            faults.maybe_slowdown(epoch, it)
+            abs_it = start_batch + it  # the loader skipped the resumed prefix
+            heartbeat.beat(f"epoch {epoch + 1} batch {abs_it}")
+            faults.maybe_stall(epoch, abs_it)  # each a no-op unless FAULTS.ENABLED
+            faults.maybe_kill(epoch, abs_it)
+            faults.maybe_preempt(epoch, abs_it)
+            faults.maybe_slowdown(epoch, abs_it)
             data_time.update(tl["get1"] - tl["get0"])
             record["data_wait_s"].append(tl["get1"] - tl["get0"])
             pending.append(train_step(model, optimizer, batch, topk, policy, accum,
                                       poison=state["step"] == nan_step))
             state["step"] += 1
             done += 1
-            record["steps"] = done
+            record["steps"] = done - start_batch
             if done % cfg.TRAIN.PRINT_FREQ == 0 or done == num_batches:
                 flush()
                 eta = progress.get_eta(
@@ -443,7 +457,8 @@ def _resume(model, optimizer, state: dict, logger):
     """Load the newest checkpoint that verifies (walking back over broken
     ones, ``utils/checkpoint.find_last_valid_checkpoint``); a checkpoint of
     another arch identity is refused. Returns ``(start_epoch, best_acc1,
-    pending_eval)``."""
+    pending_eval, data_state)``: ``data_state`` is the shards cursor a
+    preemption save holds, else None."""
     path = ckpt.find_last_valid_checkpoint()
     man = manifest.read_manifest(path)
     if man is not None and man.get("fingerprint") != manifest.config_fingerprint():
@@ -462,8 +477,34 @@ def _resume(model, optimizer, state: dict, logger):
     start_epoch = int(payload.get("epoch", -1)) + 1
     logger.info("resumed from %s (epoch %d)", path, start_epoch)
     pending = payload.get("pending_eval")
-    return start_epoch, float(payload.get("best_acc1", 0.0)), \
-        None if pending is None else int(pending)
+    ds = payload.get("data_state")
+    return (start_epoch, float(payload.get("best_acc1", 0.0)),
+            None if pending is None else int(pending),
+            None if ds is None else ckpt.decode_data_state(ds))
+
+
+def _arm_exact_resume(train_loader, data_state, start_epoch: int, logger) -> None:
+    """Hand a restored shards cursor (``_resume``'s ``data_state``) to the
+    loader, so epoch ``start_epoch`` continues at the exact next batch. A
+    cursor of another epoch, or one the live loader refuses (format,
+    corpus or order changed), is logged and the epoch re-runs from batch
+    0: the resume itself never fails on a cursor."""
+    if data_state is None:
+        return
+    if int(data_state.get("epoch", -1)) != start_epoch:
+        logger.warning("saved data cursor is for epoch %s but the resume starts at epoch "
+                       "%d: re-running from batch 0", data_state.get("epoch"), start_epoch)
+        return
+    try:
+        skip = train_loader.load_state_dict(data_state)
+    except ValueError as e:
+        logger.warning("mid-epoch data cursor not restored (%s): re-running epoch %d from "
+                       "batch 0", e, start_epoch + 1)
+        return
+    if dist.is_primary():
+        logger.info("restored shards data cursor: epoch %d resumes after %d batches (global "
+                    "sample cursor %d)", start_epoch + 1, skip,
+                    int(data_state.get("cursor", -1)))
 
 
 def join_process_group(device: torch.device) -> int:
@@ -518,7 +559,9 @@ def train_model(records: list | None = None):
     resumed = False
     if cfg.TRAIN.AUTO_RESUME and ckpt.has_checkpoint():
         try:
-            start_epoch, best_acc1, pending_eval = _resume(model, optimizer, state, logger)
+            start_epoch, best_acc1, pending_eval, data_state = _resume(model, optimizer,
+                                                                       state, logger)
+            _arm_exact_resume(train_loader, data_state, start_epoch, logger)
             resumed = True
         except ckpt.NoValidCheckpointError as e:
             logger.warning("%s — falling through to a fresh start", e)
@@ -612,8 +655,8 @@ def train_model(records: list | None = None):
             ckpt.prune_preempts(pending_eval + 1)
         while epoch < cfg.OPTIM.MAX_EPOCH:
             try:
-                interrupted, _, record = train_epoch(train_loader, model, optimizer, state,
-                                                     epoch, logger, device)
+                interrupted, done, record = train_epoch(train_loader, model, optimizer,
+                                                        state, epoch, logger, device)
             except supervisor.NonFiniteLossError as e:
                 if cfg.TRAIN.NONFINITE != "rollback":
                     raise
@@ -631,7 +674,10 @@ def train_model(records: list | None = None):
                                "last intact checkpoint (%d attempt(s) left)", e.epoch + 1,
                                e.batch, rollbacks_left)
                 join_concurrent_eval()
-                epoch, best_acc1, rb_pending = _resume(model, optimizer, state, logger)
+                epoch, best_acc1, rb_pending, rb_ds = _resume(model, optimizer, state,
+                                                              logger)
+                # rolled back onto a preemption save: honour its cursor too
+                _arm_exact_resume(train_loader, rb_ds, epoch, logger)
                 if rb_pending is not None:
                     path = finish_epoch(rb_pending, {"epoch": rb_pending, "steps": 0})
                     if path is not None:
@@ -644,9 +690,13 @@ def train_model(records: list | None = None):
                 records.append(record)
             watching = cfg.TRAIN.PREEMPT_SAVE
             if interrupted:
+                # the shards format also saves the loader's exact cursor:
+                # the rerun continues this epoch at batch `done`
                 join_concurrent_eval()
-                return preempt_exit(ckpt.save_preempt_checkpoint(full_state(), epoch,
-                                                                 best_acc1), epoch)
+                data_state = (train_loader.state_dict(done) if train_loader.can_save_state()
+                              else None)
+                return preempt_exit(ckpt.save_preempt_checkpoint(
+                    full_state(), epoch, best_acc1, data_state=data_state), epoch)
             if watching and preempt.requested_global():
                 join_concurrent_eval()
                 path = ckpt.save_preempt_checkpoint(full_state(), epoch + 1, best_acc1,

@@ -18,7 +18,8 @@ save; :class:`NoValidCheckpointError` when none survives.
 ``CHECKPOINT.ASYNC`` (``asyncplane/committer.py``): the trainer blocks for
 the host snapshot only; the write, fsync, rename and manifest run on the
 committer thread, in the same order. Preemption saves are synchronous and
-join the committer first.
+join the committer first; under the shards format they also hold the
+loader's exact cursor (``data_state``, a uint8 tensor of its JSON).
 
 With several processes only the primary writes and quarantines; every
 process loads. A synchronous save ends at a barrier; the walk-back runs
@@ -30,9 +31,11 @@ the other. The orbax format is not ported (ROADMAP "Orbax weights").
 
 from __future__ import annotations
 
+import json
 import os
 import re
 
+import numpy as np
 import torch
 
 from distribuuuu_tpu_torch.asyncplane import committer
@@ -247,20 +250,45 @@ def save_best_checkpoint(model_sd: dict, epoch: int) -> str:
     return path
 
 
+def encode_data_state(data_state: dict) -> torch.Tensor:
+    """The loader's state (``data/loader.Loader.state_dict``: JSON-able,
+    with the shuffle generator's big ints) as a uint8 tensor of its JSON,
+    as the JAX package stores it as a uint8 array: the payload stays
+    loadable under ``torch.load(weights_only=True)``."""
+    raw = json.dumps(data_state, sort_keys=True).encode()
+    return torch.frombuffer(bytearray(raw), dtype=torch.uint8).clone()
+
+
+def decode_data_state(arr) -> dict | None:
+    """Inverse of :func:`encode_data_state` (a tensor or a uint8 array);
+    None when unreadable: a damaged cursor costs the mid-epoch exactness,
+    never the resume."""
+    raw = arr.numpy() if torch.is_tensor(arr) else arr
+    try:
+        return json.loads(np.asarray(raw, np.uint8).tobytes().decode())
+    except (ValueError, UnicodeDecodeError):
+        return None
+
+
 def save_preempt_checkpoint(state: dict, epoch: int, best_acc1: float,
-                            pending_eval: int | None = None) -> str:
+                            pending_eval: int | None = None,
+                            data_state: dict | None = None) -> str:
     """Mid-epoch save on preemption. ``epoch`` is the interrupted one; the
     stored cursor is ``epoch - 1`` so the resume re-runs that epoch from
     this newer state. ``pending_eval`` marks a finished epoch whose
-    validation was preempted: the resume validates it first. Always
-    synchronous, after joining the committer; the primary writes, behind
-    a barrier."""
+    validation was preempted: the resume validates it first.
+    ``data_state`` (the shards format's ``Loader.state_dict``) is the
+    exact global sample cursor: the resumed epoch continues at the next
+    batch instead of batch 0. Always synchronous, after joining the
+    committer; the primary writes, behind a barrier."""
     committer.join_commits(reason="preemption")
     path = get_preempt_checkpoint(epoch)
     if dist.is_primary():
         payload = {**_cpu(state), "epoch": epoch - 1, "best_acc1": float(best_acc1)}
         if pending_eval is not None:
             payload["pending_eval"] = int(pending_eval)
+        if data_state is not None:
+            payload["data_state"] = encode_data_state(data_state)
         _write(path, payload, "full", epoch - 1)
     dist.barrier()
     return path

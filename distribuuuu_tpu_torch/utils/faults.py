@@ -23,6 +23,9 @@ event here, so the tests drive the real recovery code:
   corrupt checkpoint     ``FAULTS.CORRUPT_EPOCH/MODE``: after
                          ``ckpt_ep_e.pth`` commits, "truncate" halves the
                          file, "partial" deletes its manifest.
+  truncated shard        ``FAULTS.TRUNCATE_SHARD``: shard file k of a
+                         split cut to 60 % of its size (footer and tail
+                         records lost) before the reader opens it.
 
 Every hook is one attribute read unless ``FAULTS.ENABLED``. The knobs whose
 mechanism the port does not have are refused by :func:`validate_cfg`,
@@ -41,8 +44,6 @@ from distribuuuu_tpu_torch.parallel import dist
 
 # knob -> (what it exercises, the ROADMAP item that brings its mechanism)
 REFUSED = {
-    "TRUNCATE_SHARD": ("a truncated record shard (DATA.FORMAT shards)",
-                       "Real data and many processes"),
     "KILL_AT_SHARD_BARRIER": ("a kill inside a sharded checkpoint commit",
                               "Parallel layouts beyond DP"),
     "DROP_SHARD_FILE": ("a lost shard file of a sharded checkpoint",
@@ -61,13 +62,14 @@ class InjectedFault(RuntimeError):
     """An injected failure, distinguishable from organic errors in logs."""
 
 
-_state: dict = {"decode_raised": set(), "preempted": False}
+_state: dict = {"decode_raised": set(), "preempted": False, "truncated_shards": set()}
 
 
 def reset() -> None:
     """Clear the one-shot bookkeeping (tests)."""
     _state["decode_raised"] = set()
     _state["preempted"] = False
+    _state["truncated_shards"] = set()
 
 
 def enabled() -> bool:
@@ -125,6 +127,32 @@ def maybe_preempt(epoch: int, batch: int) -> None:
     if epoch == int(cfg.FAULTS.PREEMPT_EPOCH) and batch == int(cfg.FAULTS.PREEMPT_AT_BATCH):
         _state["preempted"] = True
         os.kill(os.getpid(), signal.SIGTERM)
+
+
+def maybe_truncate_shard(split_dir: str) -> None:
+    """Truncate shard file ``FAULTS.TRUNCATE_SHARD`` of the split to 60 %
+    of its manifest size, destroying its index footer and tail records,
+    before the reader opens it: the reader's forward-scan recovery and the
+    loader's ``DATA.SKIP_CORRUPT`` substitution of the lost records run.
+    Once per (process, split); a shard already cut is left alone."""
+    if not enabled() or cfg.FAULTS.TRUNCATE_SHARD < 0:
+        return
+    if split_dir in _state["truncated_shards"]:
+        return
+    _state["truncated_shards"].add(split_dir)
+    import json
+
+    from distribuuuu_tpu_torch.data.shards.format import MANIFEST_NAME
+
+    try:
+        with open(os.path.join(split_dir, MANIFEST_NAME)) as f:
+            meta = json.load(f)["shards"][int(cfg.FAULTS.TRUNCATE_SHARD)]
+    except (OSError, ValueError, IndexError, KeyError):
+        return  # nothing to damage: the reader reports the split itself
+    path = os.path.join(split_dir, meta["file"])
+    if os.path.isfile(path) and os.path.getsize(path) == meta["size"]:
+        with open(path, "r+b") as f:
+            f.truncate(max(1, int(meta["size"]) * 6 // 10))
 
 
 def maybe_slowdown(epoch: int, batch: int) -> None:

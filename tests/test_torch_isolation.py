@@ -4,7 +4,7 @@ nor anything of the JAX package distribuuuu_tpu — checked both by
 importing every module in a fresh interpreter and by scanning the
 source — and load no file of it: the port's decoder is its own copy,
 built into distribuuuu_tpu_torch/_build, never the JAX package's
-_libdtpu_decode.so."""
+_libdtpu_decode.so, for ImageFolder files and for shard records alike."""
 
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ def test_importing_every_module_loads_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n_mods = int(r.stdout.split()[0])
-    assert n_mods >= 16, r.stdout
+    assert n_mods >= 21, r.stdout
 
 
 @pytest.mark.parametrize("path", list(_sources()), ids=lambda p: os.path.relpath(p, REPO))
@@ -64,11 +64,14 @@ def test_source_imports_nothing_of_jax(path):
 
 @pytest.mark.parametrize("module", ["asyncplane/__init__.py", "asyncplane/committer.py",
                                     "asyncplane/evalloop.py", "resilience/manifest.py",
-                                    "resilience/supervisor.py", "utils/faults.py"])
+                                    "resilience/supervisor.py", "utils/faults.py",
+                                    "data/shards/__init__.py", "data/shards/format.py",
+                                    "data/shards/order.py", "data/shards/reader.py",
+                                    "data/shards/pack.py"])
 def test_the_train_loop_modules_are_scanned(module):
-    """The port's own copies of the JAX package's JAX-free train-loop
-    modules are among the scanned sources (so neither test above skips
-    them)."""
+    """The port's own copies of the JAX package's JAX-free train-loop and
+    shards modules (``data/shards/order.py`` is numpy only in both) are
+    among the scanned sources (so neither test above skips them)."""
     assert os.path.join(PKG, module) in set(_sources())
 
 
@@ -86,6 +89,11 @@ def test_the_port_loads_no_file_of_the_jax_package(tmp_path):
         "assert native.available(), native.build_error()\n"
         "ds = ImageFolderDataset(sys.argv[1], 'train', 32, True, backend='native')\n"
         "assert ds.load_batch([0])[0].shape == (1, 32, 32, 3)\n"
+        "from distribuuuu_tpu_torch.data.shards import ShardDataset, pack_imagefolder\n"
+        "pack_imagefolder(sys.argv[1], os.path.join(sys.argv[1], 'packed'), ('train',))\n"
+        "sd = ShardDataset(os.path.join(sys.argv[1], 'packed'), 'train', 32, True, "
+        "backend='native')\n"
+        "assert sd.load_batch([0])[0].shape == (1, 32, 32, 3)\n"
         "jax_pkg = os.path.join(os.getcwd(), 'distribuuuu_tpu') + os.sep\n"
         "maps = [l.split()[-1] for l in open('/proc/self/maps') if '/' in l]\n"
         "files = maps + [getattr(m, '__file__', None) or '' for m in list(sys.modules.values())]\n"

@@ -77,9 +77,9 @@ def test_seeded_init_is_deterministic_and_bf16_forward_runs():
 def test_unported_paths_raise_with_roadmap_item():
     from distribuuuu_tpu_torch.data.loader import construct_train_loader
 
-    tcfg.DATA.FORMAT = "shards"
-    with pytest.raises(NotImplementedError, match="Real data and many processes"):
-        construct_train_loader()  # image folders are ported, the shards format is not
+    tcfg.DATA.FORMAT = "tokens"
+    with pytest.raises(NotImplementedError, match="LM plane"):
+        construct_train_loader()  # image folders and shards are ported, token shards are not
     tcfg.DEVICE.S2D_STEM = True
     with pytest.raises(NotImplementedError, match="S2D stem"):
         trainer.build_model_from_cfg()

@@ -283,14 +283,14 @@ def test_nonfinite_raise_and_skip():
 @pytest.mark.parametrize("opts,what,item", [
     (["TRAIN.STEPS_PER_CALL", 2], "STEPS_PER_CALL", "One graph per step"),
     (["MESH.MODEL", 2], "MESH", "Parallel layouts beyond DP"),
-    (["DATA.FORMAT", "shards"], "shards", "Real data and many processes"),
+    (["DATA.FORMAT", "tokens"], "tokens", "LM plane"),
     (["DEVICE.S2D_STEM", True], "S2D", "S2D stem"),
     *[(["FAULTS.ENABLED", True, f"FAULTS.{knob}", 0], f"FAULTS.{knob}", item)
       for knob, (_, item) in faults.REFUSED.items()],
 ])
 def test_unported_configurations_raise_with_roadmap_item(tmp_path, opts, what, item):
     """What the port does not run raises before any work, naming its
-    ROADMAP item: folded steps, mesh axes beyond data, the shards format,
+    ROADMAP item: folded steps, mesh axes beyond data, the token shards,
     the S2D stem, and each fault knob whose mechanism the port lacks."""
     _toy_cfg(tmp_path, 1)
     tcfg.merge_from_list(opts)

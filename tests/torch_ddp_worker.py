@@ -4,7 +4,8 @@
 ``RANK``, ``LOCAL_RANK``). It joins a gloo process group and runs each
 scenario of the spec in turn, on the CPU, writing ``{out}/rank{r}.pt``.
 It imports no JAX: the test holds what it writes against the JAX
-package."""
+package. ``tests/test_torch_shards_resume.py`` launches it too (the
+shards format's cursor across a preemption of two ranks)."""
 
 from __future__ import annotations
 
@@ -123,8 +124,41 @@ def train_model_f64() -> dict:
             "ckpt": torch.load(last, weights_only=True)}
 
 
+def train_model_consuming(records: list | None = None) -> list[int]:
+    """``trainer.train_model`` with every train step's sample indices
+    recorded in the order the steps ran (the loader tags each batch with
+    its indices; the step reads them off), the eval's left out."""
+    from distribuuuu_tpu_torch.data.loader import Loader
+
+    consumed: list[int] = []
+    assemble, step = Loader._assemble, trainer.train_step
+
+    def tagged(self, idxs):
+        batch = assemble(self, idxs)
+        batch["idx"] = np.asarray(idxs, np.int64)
+        return batch
+
+    def recording(model, opt, batch, *a, **k):
+        consumed.extend(batch["idx"].tolist())
+        return step(model, opt, batch, *a, **k)
+
+    Loader._assemble, trainer.train_step = tagged, recording
+    try:
+        trainer.train_model(records)
+    finally:
+        Loader._assemble, trainer.train_step = assemble, step
+    return consumed
+
+
+def shards_consumed(spec: dict, sc: dict) -> dict:
+    """``train_model`` under ``sc["cfg"]`` (the shards format, a
+    preemption): the sample indices this rank's steps consumed."""
+    cfg.merge_from_list(sc["cfg"])
+    return {"consumed": train_model_consuming()}
+
+
 SCENARIOS = {"lockstep": lockstep, "evaluate": evaluate, "nonfinite": nonfinite,
-             "train_model": run_train_model}
+             "train_model": run_train_model, "shards_consumed": shards_consumed}
 
 
 def main(path: str) -> None:
