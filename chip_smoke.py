@@ -92,7 +92,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    seeded N(1, 0.1) values (``MODEL.WEIGHTS``), or the residual branch,
    and with it the kernel, would not reach the logits at init; zeroing
    the grouped weights of the kernel's sites must move the logits.
-8. Real images and process groups:
+8. The image zoo, under ``DISTRIBUUUU_GROUP_CONV=pallas`` still (with the
+   kernel phases of 3: conv1x1_bn_act at every distinct site of
+   efficientnet_b0 at batches 8 and 200, K and N of 16 to 1280, M up to
+   2.5M rows, bf16 silu and id, and of botnet50 at batch 8, each forward
+   summed): efficientnet_b0 (config/efficientnet_b0.yaml), botnet50
+   (config/botnet50.yaml) and densenet121 (config/resnet50.yaml with
+   MODEL.ARCH densenet121) served as ResNet-50 is (32, 34 and 0
+   conv-epilogue launches per forward, no grouped-conv launch; bf16 logits
+   against the port's f32 CPU forward; weights from seed 0 with every BN
+   moved off its init stats by ``seeded_bn``; zoo_serve_phase zeroes
+   botnet50's attention value weights, which must move its f32 card
+   logits); one bf16 forward each of densenet161/169/201 at batch 2
+   against the CPU; densenet161's peak
+   memory over a bf16 train step at batch 32; the three served archs
+   trained one epoch and its eval through ``trainer.train_model`` at their
+   yaml's batch (64, 32, 32); one f32 step card vs CPU each,
+   efficientnet_b0 with its dropout 0.2 on (the host-drawn mask is the
+   same on both).
+9. Real images and process groups:
    * ``syncbn_world1``: one f32 ResNet-50 step (batch 8, TF32 off, cuDNN
      deterministic) with ``BN_GROUP 0`` and no process group, then with
      ``MODEL.SYNCBN`` in a one-process NCCL group (``MASTER_ADDR``
@@ -141,7 +159,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
      steps with the ranks bitwise equal and the first loss within
      TWO_RANK_LOSS_RTOL (the updates' L2 and per-tensor differences are
      printed).
-9. The rest of the train loop, in one process with no process group:
+10. The rest of the train loop, in one process with no process group:
    * ``train_loop_accum``: an f64 ResNet-50 step at batch 8 with
      GRAD_ACCUM_STEPS 2 and BN_GROUP 4 against the step without accum at
      ghost groups of 4 (parameters and momentum within LOOP_F64_TOL of
@@ -170,7 +188,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
      concurrent run's final state bitwise the synchronous one's beside
      it, Acc@1 equal, 33 conv-epilogue launches per eval forward, every
      one of a concurrent run's off the default stream, the walls.
-10. Prints the ``{"kernels": [...]}`` line, the card's name and power
+11. Prints the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds torch.profiler breakdowns of a ResNet-50 and a
@@ -1047,9 +1065,11 @@ def opt_kernel_phase(torch, ou, dev, shapes):
     return rows
 
 
-def train_phase(torch, out_dir: str, yaml: str, opts: list, reset, read, check):
+def train_phase(torch, out_dir: str, yaml: str, opts: list, reset, read, check,
+                epochs=(1, 2)):
     """train_model with ``yaml`` + ``opts`` on dummy data: MAX_EPOCH 1, then
-    MAX_EPOCH 2 (auto-resume). ``reset()`` zeroes the launch counters
+    MAX_EPOCH 2 (auto-resume; ``epochs=(1,)`` runs the first epoch and its
+    eval only). ``reset()`` zeroes the launch counters
     just before each run, ``read()`` returns them just after, and
     ``check(launches, steps, eval_forwards)`` raises on a count the path
     must not give. Returns the two runs' reports."""
@@ -1060,7 +1080,7 @@ def train_phase(torch, out_dir: str, yaml: str, opts: list, reset, read, check):
     from distribuuuu_tpu_torch.config import cfg
 
     runs = []
-    for max_epoch in (1, 2):
+    for max_epoch in epochs:
         config.reset_cfg()
         config.merge_from_file(yaml)
         cfg.merge_from_list([
@@ -2821,6 +2841,332 @@ def lm_profile_phase(torch, dev, engine, iters: int = 20):
           / b["device_busy_ms"]})
 
 
+# ---- the image zoo (slice 14) ---------------------------------------------
+ZOO_SERVE = [  # (arch, yaml, extra options, conv-epilogue sites a forward)
+    ("efficientnet_b0", "config/efficientnet_b0.yaml", [], 32),
+    ("botnet50", "config/botnet50.yaml", [], 34),
+    ("densenet121", "config/resnet50.yaml", ["MODEL.ARCH", "densenet121"], 0),
+]
+ZOO_FORWARD_ARCHS = ("densenet161", "densenet169", "densenet201")  # one bf16 forward each
+# batch 2, not 8: with the zoo's phases a run took up to 904 s on the H100
+# host (900 s is the aim, 1200 s the limit); this cut drops no check
+ZOO_FORWARD_BATCH = 2
+ZOO_MEMORY_BATCH = 32  # densenet161's peak memory of a bf16 train step
+
+
+def efficientnet_sites(batch: int, im: int):
+    """(M, K, N, act) of the 32 fused conv-epilogue sites of one
+    efficientnet_b0 forward, in order: per block the expand (silu, at the
+    block's input resolution; none in block 0) and the project (id, after
+    the depthwise conv's stride), then the head (silu)."""
+    from distribuuuu_tpu_torch.models import build_model
+
+    model = build_model("efficientnet_b0", device="meta")
+    sites, res = [], -(-im // 2)  # after the stride-2 stem
+    for stage in model.blocks:
+        for blk in stage:
+            if len(blk.units) == 3:
+                c = blk.units[0].conv
+                sites.append((batch * res * res, c.in_channels, c.out_channels, "silu"))
+            res = -(-res // blk.conv_dw.stride[0])
+            c = blk.units[-1].conv
+            sites.append((batch * res * res, c.in_channels, c.out_channels, "id"))
+    c = model.head.conv
+    sites.append((batch * res * res, c.in_channels, c.out_channels, "silu"))
+    return sites
+
+
+def botnet_sites(batch: int, im: int):
+    """(M, K, N, act) of the 34 fused sites of one botnet50 forward: the
+    27 of ResNet-50's stages 1-3, then the stack at im/16: block 0's ReLU
+    shortcut, and each block's reduce (relu) and last 1x1 (id)."""
+    m = batch * (im // 16) ** 2
+    stack = [(m, 1024, 2048, "relu")]
+    for k in (1024, 2048, 2048):
+        stack += [(m, k, 512, "relu"), (m, 512, 2048, "id")]
+    return resnet50_sites(batch, im)[:27] + stack
+
+
+def zoo_kernel_phase(torch, ce, dev):
+    """conv1x1_bn_act against its plain version at every distinct site
+    of efficientnet_b0 (batches 8 and 200: K and N of 16 to 1280, M up
+    to 2.5M rows, silu and id) and of botnet50 (batch 8), each with its
+    plan, and a per-forward total of each. Returns (rows of the b0 batch-8
+    forward, worst error, the totals)."""
+    worst, totals, first = 0.0, [], None
+    for arch, batch, sites, n in (("efficientnet_b0", 8, efficientnet_sites(8, 224), 32),
+                                  ("efficientnet_b0", 200, efficientnet_sites(200, 224), 32),
+                                  ("botnet50", 8, botnet_sites(8, 224), 34)):
+        if len(sites) != n:
+            raise AssertionError(f"{arch}: {len(sites)} fused sites, not {n}")
+        rows, err = kernel_phase(torch, ce, dev, batch, ragged=False, sites=sites)
+        worst = max(worst, err)
+        totals.append(forward_total(rows, arch=arch, batch=batch))
+        emit(totals[-1])
+        first = first or rows
+        torch.cuda.empty_cache()
+    return first, worst, totals
+
+
+def botnet_values(model):
+    """The attention's value weights: zeroing them cuts the MHSA out."""
+    return [blk.mhsa.to_v.weight for blk in model.layer4]
+
+
+def zoo_serve_phase(torch, ce, gc, dev, arch: str, yaml: str, opts: list, sites: int,
+                    n_requests: int, weights: str):
+    """``arch`` served through the port's engine on cuda:0 (bf16, ``yaml``
+    + ``opts``, buckets [1, 2, 4, 8], MODEL.WEIGHTS = ``weights``: seed 0
+    with ``seeded_bn``) as ``slice_phase`` serves ResNet-50: ``sites``
+    conv-epilogue launches a forward and no grouped-conv launch (the
+    script runs this under DISTRIBUUUU_GROUP_CONV=pallas); the bf16
+    logits against the port's f32 CPU forward. For botnet50 (its
+    zero-initialised last BN scales seeded too) the same weights in f32 on
+    the card with the attention's value weights zeroed must move the
+    logits. Returns
+    (conv-epilogue launches, the report)."""
+    import numpy as np
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.data.transforms import normalize_on_device
+    from distribuuuu_tpu_torch.serve import engine_from_cfg
+
+    config.reset_cfg()
+    config.merge_from_file(yaml)
+    cfg.merge_from_list([
+        "DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE", "bfloat16", "RNG_SEED", 0,
+        "SERVE.DEVICE", 0, "SERVE.MAX_BATCH", 8, "SERVE.BUCKET_SIZES", [1, 2, 4, 8],
+        "SERVE.MAX_QUEUE", 2 * n_requests, "SERVE.MAX_WAIT_MS", 2.0,
+        "MODEL.WEIGHTS", weights, *opts,
+    ])
+    im = cfg.TRAIN.IM_SIZE
+    images = np.random.default_rng(0).integers(0, 256, (n_requests, im, im, 3), np.uint8)
+    ce.conv1x1_bn_act.launches = gc.group_conv3x3.launches = gc.group_conv3x3.launches_dx = 0
+    engine, t_build, walls, batches, logits = _serve_bursts(engine_from_cfg, images)
+    counts = {"conv_epilogue": ce.conv1x1_bn_act.launches,
+              "group_conv": gc.group_conv3x3.launches + gc.group_conv3x3.launches_dx}
+    stats = engine.stats()
+    forwards = batches + engine.n_compiles
+    fused = sum(u.fused for u in engine.model.conv_units())
+    want = {"conv_epilogue": sites * forwards, "group_conv": 0}
+    if fused != sites or counts != want:
+        raise AssertionError(f"{arch} serving launches {counts} != {want} ({batches} batches "
+                             f"+ {engine.n_compiles} warm-ups); {fused} fused sites")
+    sd = {k: t.cpu() for k, t in engine.model.state_dict().items()}
+    del engine
+    cfg.merge_from_list(["DEVICE.COMPUTE_DTYPE", "float32"])
+
+    def f32_logits(device, zero=False):
+        model = trainer.build_model_from_cfg()
+        model.load_state_dict(sd)
+        model = model.to(device).eval()
+        if zero:
+            with torch.no_grad():
+                for w in botnet_values(model):
+                    w.zero_()
+        with torch.inference_mode():
+            return np.concatenate([
+                model(normalize_on_device(torch.from_numpy(images[i:i + 16]).to(device)))
+                .cpu().numpy() for i in range(0, n_requests, 16)])
+
+    cpu = f32_logits(torch.device("cpu"))
+    if logits.shape != (n_requests, cfg.MODEL.NUM_CLASSES) or not np.isfinite(logits).all():
+        raise AssertionError(f"{arch}: bad logits: shape {logits.shape}, finite "
+                             f"{bool(np.isfinite(logits).all())}")
+    scale = float(np.abs(cpu).max())
+    rel = float(np.abs(logits - cpu).max() / scale)
+    top1 = float((logits.argmax(1) == cpu.argmax(1)).mean())
+    moved = None
+    if arch == "botnet50":
+        card32 = f32_logits(dev)
+        moved = float(np.abs(f32_logits(dev, zero=True) - card32).max() / scale)
+    res = {
+        "phase": f"zoo_serve_{arch}", "arch": arch, "dtype": "bfloat16", "im_size": im,
+        "requests": n_requests, "batches": stats["batches"], "forwards": forwards,
+        "warmups": forwards - batches, "launches": counts,
+        "conv_epilogue_per_forward": counts["conv_epilogue"] / forwards,
+        "engine_build_s": t_build, "first_burst_wall_s": walls[0],
+        "first_burst_img_per_s": n_requests / walls[0],
+        "img_per_s": n_requests / walls[-1], "wall_s": walls[-1],
+        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+        "batch_occupancy": stats["batch_occupancy"], "mean_batch_ms": stats["mean_batch_ms"],
+        "rel_err_vs_cpu_f32": rel, "rel_tol": SLICE_REL_TOL, "top1_agreement": top1,
+        "top1_min": SLICE_TOP1_MIN, "logit_scale": scale,
+        "logits_moved_by_zeroed_mhsa_values": moved,
+    }
+    emit(res)
+    if not (rel <= SLICE_REL_TOL and top1 >= SLICE_TOP1_MIN
+            and (moved is None or moved > 1e-3)):
+        raise AssertionError(f"{arch} card vs CPU logits: rel err {rel} (tol {SLICE_REL_TOL}), "
+                             f"top-1 {top1} (min {SLICE_TOP1_MIN}); MHSA values moved {moved}")
+    return counts["conv_epilogue"], res
+
+
+def zoo_forward_phase(torch, ce, dev, arch: str, batch: int = ZOO_FORWARD_BATCH,
+                      im: int = 224):
+    """One bf16 eval forward of ``arch`` at full width on the card (224²,
+    weights from seed 0 with ``seeded_bn``) against the same weights in f32
+    on the CPU,
+    within SLICE_REL_TOL of the logit scale. Returns the conv-epilogue
+    launches."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch.data.transforms import normalize_on_device
+    from distribuuuu_tpu_torch.models import build_model
+
+    model = build_model(arch, num_classes=1000, dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0))
+    seeded_bn(torch, model)
+    ref = build_model(arch, num_classes=1000, dtype=torch.float32)
+    ref.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (batch, im, im, 3),
+                                                           np.uint8))
+    ce.conv1x1_bn_act.launches = 0
+    with torch.inference_mode():
+        got = model.to(dev).eval()(normalize_on_device(x.to(dev))).float().cpu().numpy()
+        cpu = ref.eval()(normalize_on_device(x)).numpy()
+    launches = ce.conv1x1_bn_act.launches
+    scale = float(np.abs(cpu).max())
+    rel = float(np.abs(got - cpu).max() / scale)
+    top1 = float((got.argmax(1) == cpu.argmax(1)).mean())
+    emit({"phase": "zoo_forward", "arch": arch, "batch": batch, "dtype": "bfloat16",
+          "rel_err_vs_cpu_f32": rel, "rel_tol": SLICE_REL_TOL, "top1_agreement": top1,
+          "logit_scale": scale, "conv_epilogue_launches": launches})
+    want = sum(u.fused for u in model.conv_units())
+    if not (np.isfinite(got).all() and rel <= SLICE_REL_TOL and launches == want):
+        raise AssertionError(f"{arch} bf16 card vs f32 CPU: rel err {rel} (tol "
+                             f"{SLICE_REL_TOL}), launches {launches} != {want}")
+    return launches
+
+
+def zoo_memory_phase(torch, ou, dev, arch: str = "densenet161", batch: int = ZOO_MEMORY_BATCH):
+    """Peak ``max_memory_allocated`` of one warm bf16 train step of
+    ``arch`` at ``batch`` (224², ghost BN over the batch), and its ms.
+    The concatenations copy a growing tensor at every dense layer."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.utils.optim import Optimizer
+
+    model = build_model(arch, num_classes=1000, dtype=torch.bfloat16, bn_group=batch,
+                        generator=torch.Generator().manual_seed(0)).to(dev).train()
+    opt = Optimizer(list(model.named_parameters()),
+                    ou.Hyper(kind="sgd", wd=5e-5, mom=0.9, nesterov=True), 0.1)
+    rng = np.random.default_rng(5)
+    host = {"image": torch.from_numpy(rng.integers(0, 256, (batch, 224, 224, 3), np.uint8)),
+            "label": torch.from_numpy(rng.integers(0, 1000, batch).astype(np.int32))}
+    b = {k: v.to(dev) for k, v in host.items()}
+    ou.update.launches = 0
+    trainer.train_step(model, opt, b, 5)  # warm-up: cuDNN's choices, the workspaces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    loss = trainer.train_step(model, opt, b, 5)["loss"]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = {"phase": "zoo_memory", "arch": arch, "batch": batch, "dtype": "bfloat16",
+           "peak_bytes": peak, "peak_gib": peak / 2 ** 30, "resident_bytes": base,
+           "step_ms": ms, "loss": float(loss), "opt_update_launches": ou.update.launches}
+    emit(res)
+    if ou.update.launches != 2 or not np.isfinite(float(loss)):
+        raise AssertionError(f"{arch} memory step: loss {float(loss)}, "
+                             f"{ou.update.launches} opt_update launches (want 2)")
+    del model, opt, b
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_train_phase(torch, ce, gc, ou, out_dir: str, arch: str, yaml: str, opts: list,
+                    sites: int):
+    """``arch`` through ``trainer.train_model`` on dummy data at the yaml's
+    batch, one epoch (64 steps) and its eval (bf16): one opt_update
+    launch a step, ``sites`` conv-epilogue launches an eval forward, no
+    grouped-conv launch (the run is under DISTRIBUUUU_GROUP_CONV=pallas;
+    efficientnet_b0's depthwise convs opt out)."""
+    def reset():
+        ou.update.launches = ce.conv1x1_bn_act.launches = 0
+        gc.group_conv3x3.launches = gc.group_conv3x3.launches_dx = 0
+
+    def check(launches, steps, evals):
+        want = {"conv_epilogue": sites * evals, "group_conv": 0}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{arch} launches {got} != {want} ({steps} steps, "
+                                 f"{evals} eval forwards)")
+
+    return train_phase(torch, out_dir, yaml, opts, reset,
+                       lambda: {"opt_update": ou.update.launches,
+                                "conv_epilogue": ce.conv1x1_bn_act.launches,
+                                "group_conv": gc.group_conv3x3.launches
+                                + gc.group_conv3x3.launches_dx}, check, epochs=(1,))
+
+
+def zoo_weights(torch, arch: str, path: str) -> str:
+    """``arch`` as the trainer makes it from RNG_SEED 0, every BN away from
+    its init (``seeded_bn``), saved to ``path`` for MODEL.WEIGHTS. At the
+    init stats (0 and 1) an eval forward is no network that trains:
+    efficientnet_b0's signal shrinks at every depthwise conv (logits about
+    1e-14), densenet121's grows (about 4e7), and botnet50's stage-3
+    activations of about 100 make its bf16 attention logits round across
+    the softmax's argmax (bf16 logits 13 % of their scale from f32 on the
+    CPU); the seeded stats keep each about 0.1-0.5 and within 0.3 % in
+    bf16. It also makes botnet50's zero-initialised last BN scales
+    non-zero, so the attention reaches the logits."""
+    from distribuuuu_tpu_torch.models import build_model
+
+    model = build_model(arch, num_classes=1000, generator=torch.Generator().manual_seed(0))
+    seeded_bn(torch, model)
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def zoo_phases(torch, ce, gc, ou, dev, n_requests: int) -> dict:
+    """The image zoo on the card, under DISTRIBUUUU_GROUP_CONV=pallas:
+    efficientnet_b0, botnet50 and densenet121 served and trained, the
+    three other DenseNets' forwards, densenet161's peak memory, one f32
+    step card vs CPU each (efficientnet_b0 with its dropout 0.2 on: the
+    host-drawn mask is the same on both). Returns the launches and
+    reports."""
+    import shutil
+
+    out = {"conv_epilogue": 0, "opt_update": 0, "serve": {}, "train": {}}
+    work = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    try:
+        t0 = time.perf_counter()
+        for arch, yaml, opts, sites in ZOO_SERVE:
+            weights = zoo_weights(torch, arch, os.path.join(work, f"{arch}.pth"))
+            launches, out["serve"][arch] = zoo_serve_phase(torch, ce, gc, dev, arch, yaml, opts,
+                                                           sites, n_requests, weights)
+            out["conv_epilogue"] += launches
+        for arch in ZOO_FORWARD_ARCHS:
+            out["conv_epilogue"] += zoo_forward_phase(torch, ce, dev, arch)
+        out["memory"] = zoo_memory_phase(torch, ou, dev)
+        emit({"phase": "zoo_serve_seconds", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        for arch, yaml, opts, sites in ZOO_SERVE:
+            runs = zoo_train_phase(torch, ce, gc, ou, os.path.join(work, f"train_{arch}"), arch,
+                                   yaml, opts, sites)
+            out["train"][arch] = runs
+            out["conv_epilogue"] += sum(r["launches"]["conv_epilogue"] for r in runs)
+            out["opt_update"] += sum(r["launches"]["opt_update"] for r in runs)
+        emit({"phase": "zoo_train_seconds", "seconds": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    for arch in ("efficientnet_b0", "botnet50", "densenet121"):
+        step_vs_cpu_phase(torch, dev, arch, bn_group=4, tweak=lambda m: seeded_bn(torch, m),
+                          reach=botnet_values if arch == "botnet50" else None)
+    emit({"phase": "zoo_step_vs_cpu_seconds", "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2887,6 +3233,9 @@ def main(argv=None) -> int:
                                            sites=regnet_sites(arch, batch, 224))
         worst = max(worst, reg_worst)
         emit(forward_total(reg_rows, arch=arch, batch=batch))
+    # the image zoo's sites: K and N down to 16, bf16 silu, M up to 2.5M rows
+    _, zoo_worst, _ = zoo_kernel_phase(torch, ce, dev)
+    worst = max(worst, zoo_worst)
     group_rows = group_kernel_phase(torch, gc, dev)
     shapes = resnet50_leaves(torch)
     if len(shapes) != 161:
@@ -2939,6 +3288,10 @@ def main(argv=None) -> int:
     if args.profile:
         train_profile_phase(torch, dev, "regnety_160", batch=64, classify=_regnet_kind,
                             bn_group=64)
+
+    # the image zoo, still under DISTRIBUUUU_GROUP_CONV=pallas: EfficientNet's
+    # depthwise convs must not reach the grouped-conv kernel
+    zoo = zoo_phases(torch, ce, gc, ou, dev, N_REQUESTS)
 
     lm_res, lm_launches, lm_engine, lm_prompts = lm_serve_phase(torch, da)
     lm_big, lm_big_launches, _, _ = lm_serve_phase(torch, da, LM_BIG_TILES)
@@ -2997,7 +3350,8 @@ def main(argv=None) -> int:
         "replaces": "distribuuuu_tpu/ops/pallas/conv_epilogue.py:121",
         "launches": launches + reg_serve_ce + real["launches"]["conv_epilogue"]
         + shards["launches"]["conv_epilogue"] + resume["launches"]["conv_epilogue"]
-        + loop["conv_epilogue"] + sum(r["launches"]["conv_epilogue"] for a in ("resnet50", "regnety_160")
+        + loop["conv_epilogue"] + zoo["conv_epilogue"]
+        + sum(r["launches"]["conv_epilogue"] for a in ("resnet50", "regnety_160")
               for r in runs[a]),
         "max_abs_err": worst,
         "ms": total("ms"),
@@ -3011,7 +3365,7 @@ def main(argv=None) -> int:
         "source": "distribuuuu_tpu_torch/csrc/opt_update.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/opt_update.py:75",
         "launches": real["launches"]["opt_update"] + shards["launches"]["opt_update"]
-        + resume["launches"]["opt_update"] + loop["opt_update"]
+        + resume["launches"]["opt_update"] + loop["opt_update"] + zoo["opt_update"]
         + sum(r["launches"]["opt_update"] for rs in runs.values() for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in opt_rows.values()),
         "ms": main_body["ms"],

@@ -4,8 +4,9 @@ The JAX package ``distribuuuu_tpu`` is the reference; this package mirrors
 its layout module for module and imports nothing of it (nor of JAX). Its
 kernels are hand-written CUDA C++ for ``sm_90a`` under ``csrc/``, built at
 first use (``ops/cuda/_build.py``). What is ported so far: serving and
-training of the ResNet family, the RegNets and ViT-Ti/ViT-S, on dummy
-data or ImageFolder trees, in one process or several (``torchrun``,
+training of the ResNet family, the RegNets, DenseNet-121/161/169/201,
+BoTNet-50, EfficientNet-B0 and ViT-Ti/ViT-S, on dummy data, ImageFolder
+trees or image shards, in one process or several (``torchrun``,
 Slurm), with the JAX train loop's gradient accumulation, remat, verified
 checkpoints, rollback, background commits, concurrent eval and fault
 injection, and GPT-nano generation serving (``python -m

@@ -1,13 +1,22 @@
 """Model registry of the port (counterpart of distribuuuu_tpu/models/__init__.py).
 
 The ResNet family, the RegNets (regnetx_160, regnety_160, regnety_320),
-the ViTs (vit_tiny, vit_small) and gpt_nano are ported; the other archs of the JAX zoo raise with the ROADMAP item that
-ports them.
+DenseNet-121/161/169/201, BoTNet-50, EfficientNet-B0, the ViTs (vit_tiny,
+vit_small) and gpt_nano are ported; vit_tiny_moe raises with the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
 
 from distribuuuu_tpu_torch import not_ported
+from distribuuuu_tpu_torch.models.botnet import botnet50
+from distribuuuu_tpu_torch.models.densenet import (
+    densenet121,
+    densenet161,
+    densenet169,
+    densenet201,
+)
+from distribuuuu_tpu_torch.models.efficientnet import efficientnet_b0
 from distribuuuu_tpu_torch.models.gpt import gpt_nano, gpt_nano_moe
 from distribuuuu_tpu_torch.models.regnet import regnetx_160, regnety_160, regnety_320
 from distribuuuu_tpu_torch.models.resnet import (
@@ -29,18 +38,13 @@ _REGISTRY = {
         resnet18, resnet34, resnet50, resnet101, resnet152,
         resnext50_32x4d, resnext101_32x8d, wide_resnet50_2, wide_resnet101_2,
         regnetx_160, regnety_160, regnety_320,
+        densenet121, densenet161, densenet169, densenet201, botnet50, efficientnet_b0,
         vit_tiny, vit_small, gpt_nano, gpt_nano_moe,
     )
 }
 
 # archs of the JAX zoo that later slices port -> their ROADMAP item
-_UNPORTED = {
-    **{a: "Image zoo" for a in (
-        "densenet121", "densenet161", "densenet169", "densenet201", "botnet50",
-        "efficientnet_b0",
-    )},
-    "vit_tiny_moe": "Parallel layouts beyond DP",
-}
+_UNPORTED = {"vit_tiny_moe": "Parallel layouts beyond DP"}
 
 
 def available_models():

@@ -17,7 +17,11 @@ Conventions kept from the JAX package:
     cast, so the gradient reaches the master) and runs conv → batch-stat
     BN → act unfused, as ``conv_epilogue.qualifies(train=True)`` decides;
   - a grouped conv is routed by ``DISTRIBUUUU_GROUP_CONV``, the JAX
-    package's switch (``group_conv_mode``), in training and in eval.
+    package's switch (``group_conv_mode``), in training and in eval,
+    except a depthwise conv that JAX computes as a plain ``nn.Conv``
+    (EfficientNet's), which opts out (``ConvBN(..., switch=False)``);
+  - dropout draws its mask on the host from an explicit generator
+    (:class:`Dropout`), so a run draws the same masks at any world size.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import math
 import os
 import threading
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -109,12 +114,11 @@ class BatchNorm(nn.Module):
       the recompute, on every process in the same order.
     """
 
-    momentum = 0.9  # flax's decay (torch's momentum 0.1)
-
     def __init__(self, features: int, eps: float = 1e-5, zero_init: bool = False,
-                 group_size: int = 0, device=None):
+                 group_size: int = 0, momentum: float = 0.9, device=None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum  # flax's decay of the running stats
         self.zero_init = zero_init
         self.group_size = group_size
         init = torch.zeros if zero_init else torch.ones
@@ -272,11 +276,15 @@ class ConvBN:
     ``group_conv_mode()`` says, read here at build: under ``pallas`` a site
     that ``group_conv.qualifies`` for its input's H and W runs
     ``group_conv.group_conv3x3`` (the kernel on the card, in the forward
-    and the backward's dx).
+    and the backward's dx). ``switch=False`` takes a grouped conv out of
+    the switch: it is one ``F.conv2d(groups=G)`` whatever the variable
+    says, as JAX's plain ``nn.Conv`` sites are (EfficientNet's depthwise
+    convs).
     """
 
     def __init__(self, conv: nn.Conv2d, bn: BatchNorm, act=None,
-                 dtype: torch.dtype = torch.bfloat16, s2d_stem: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, s2d_stem: bool = False,
+                 switch: bool = True):
         if s2d_stem:
             raise not_ported("DEVICE.S2D_STEM (space-to-depth stem)", "S2D stem")
         self.conv, self.bn, self.act, self.dtype = conv, bn, act, dtype
@@ -284,7 +292,7 @@ class ConvBN:
         self.fused, self.reason = conv_epilogue.qualifies(
             conv.kernel_size, conv.stride, self.pad, conv.groups, act, train=False
         )
-        self.group_mode = group_conv_mode() if conv.groups > 1 else None
+        self.group_mode = group_conv_mode() if conv.groups > 1 and switch else None
         self._cache = None
 
     def prepare(self) -> None:
@@ -340,25 +348,99 @@ def conv2d(in_ch: int, out_ch: int, k: int, stride: int = 1, groups: int = 1,
                      device=device)
 
 
+class Conv:
+    """A conv with no BatchNorm after it (DenseNet's pre-activation convs,
+    BN → relu → conv): ``F.conv2d`` on the channels-last view in the
+    compute dtype. Like :class:`ConvBN` it pairs with a registered
+    ``nn.Conv2d`` and keeps an eval cache of the compute-dtype weight
+    (``prepare()``), which the model drops on every mode change; in
+    training each forward casts the fp32 master (the mode is the conv's)."""
+
+    fused = False  # never a conv-epilogue site: no BN to fold
+
+    def __init__(self, conv: nn.Conv2d, dtype: torch.dtype = torch.bfloat16):
+        self.conv, self.dtype = conv, dtype
+        self._cache = None
+
+    def prepare(self) -> None:
+        self._cache = self.conv.weight.detach().to(
+            self.dtype, memory_format=torch.channels_last)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.conv
+        if c.training:
+            w = c.weight.to(self.dtype, memory_format=torch.channels_last)
+        else:
+            if self._cache is None:
+                self.prepare()
+            w = self._cache
+        return F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, None, c.stride, c.padding,
+                        1, c.groups).permute(0, 2, 3, 1)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``'s semantics on a ``[B, ...]`` tensor: in
+    training keep each element with probability 1 − rate and scale the
+    kept ones by 1/(1 − rate) (in the input's dtype), identity in eval.
+
+    The mask is drawn on the host by a ``torch.Generator`` seeded from
+    ``key`` = ``(RNG_SEED, step, micro-batch)`` only (through numpy's
+    ``SeedSequence``; ``trainer.train_step`` hands the key to the model
+    per micro-batch), for
+    the GLOBAL batch (this process's batch times the world size), of
+    which each process takes its own rows; it is copied to the device
+    from pinned memory with ``non_blocking``, so the draw adds no device
+    sync. A run so draws the same masks at any world size, on the card
+    and on the CPU, and after a resume, as JAX's ``fold_in(key, step)``
+    then ``fold_in(step_key, micro)`` does. The bits are not JAX's: a
+    torch Generator is not threefry, so a mask equals JAX's only in
+    distribution."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate {rate} not in [0, 1)")
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if key is None:
+            raise ValueError("a training forward with dropout needs its key "
+                             "(RNG_SEED, step, micro-batch): trainer.train_step sets it")
+        seed = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
+        gen = torch.Generator().manual_seed(int(seed))
+        n, world, rank = x.shape[0], dist.get_world_size(), dist.get_rank()
+        rows = torch.rand((n * world, *x.shape[1:]), generator=gen)[rank * n:(rank + 1) * n]
+        keep = rows < 1.0 - self.rate
+        if x.device.type == "cuda":
+            keep = keep.pin_memory().to(x.device, non_blocking=True)
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
 class SqueezeExcite(nn.Module):
     """Squeeze-and-excitation gate on NHWC input (counterpart of
     ``layers.SqueezeExcite``): the squeeze is a mean over H and W that
     accumulates in fp32 and is cast to the compute dtype, then a 1x1 conv
-    with bias (``fc1``) → relu → a 1x1 conv with bias (``fc2``) → sigmoid,
-    in the compute dtype with fp32 parameters; returns ``x * gate``. In
-    eval the compute-dtype weights are cast once (``prepare()``)."""
+    with bias → ``act`` (relu, RegNet's; EfficientNet passes silu) → a 1x1
+    conv with bias → sigmoid, in the compute dtype with fp32 parameters;
+    returns ``x * gate``. The two convs are ``names`` (timm's RegNet
+    ``fc1``/``fc2`` by default, its EfficientNet ``conv_reduce``/
+    ``conv_expand``). In eval the compute-dtype weights are cast once
+    (``prepare()``)."""
 
     def __init__(self, channels: int, se_width: int, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 act=F.relu, names: tuple[str, str] = ("fc1", "fc2"), device=None):
         super().__init__()
-        self.dtype = dtype
-        self.fc1 = nn.Conv2d(channels, se_width, 1, device=device)
-        self.fc2 = nn.Conv2d(se_width, channels, 1, device=device)
+        self.dtype, self.act, self.names = dtype, act, names
+        setattr(self, names[0], nn.Conv2d(channels, se_width, 1, device=device))
+        setattr(self, names[1], nn.Conv2d(se_width, channels, 1, device=device))
         self._cache = None
 
     def _weights(self):
+        reduce, expand = (getattr(self, n) for n in self.names)
         return [t.reshape(t.shape[0], -1).to(self.dtype) if t.dim() == 4 else t.to(self.dtype)
-                for t in (self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)]
+                for t in (reduce.weight, reduce.bias, expand.weight, expand.bias)]
 
     def prepare(self) -> None:
         with torch.no_grad():
@@ -372,7 +454,7 @@ class SqueezeExcite(nn.Module):
                 self.prepare()
             w1, b1, w2, b2 = self._cache
         s = x.to(torch.promote_types(torch.float32, x.dtype)).mean(dim=(1, 2)).to(self.dtype)
-        s = torch.sigmoid(F.linear(F.relu(F.linear(s, w1, b1)), w2, b2))
+        s = torch.sigmoid(F.linear(self.act(F.linear(s, w1, b1)), w2, b2))
         return x * s[:, None, None, :]
 
 
@@ -381,12 +463,16 @@ class CNN(nn.Module):
     (each is rebuilt from the current weights at the next eval), and
     ``prepare()`` builds them at once, once per entry into eval (the serving
     engine calls it at build; otherwise the first eval forward does).
-    Subclasses define ``conv_units()``, every ConvBN of the network."""
+    Subclasses define ``conv_units()``, every ConvBN (and :class:`Conv`)
+    of the network; a submodule with an eval cache of its own (the SE
+    gates, BoTNet's attention) has a ``prepare()`` and a ``_cache``."""
 
     def cached_units(self):
-        """Everything with an eval cache: the ConvBNs and the SE gates."""
+        """Everything with an eval cache: the conv units and the modules
+        that keep one."""
         yield from self.conv_units()
-        yield from (m for m in self.modules() if isinstance(m, SqueezeExcite))
+        yield from (m for m in self.modules()
+                    if m is not self and hasattr(m, "_cache") and hasattr(m, "prepare"))
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -441,6 +527,23 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(1, 2))
 
 
+def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.avg_pool(x, (2, 2), strides=(2, 2))`` on NHWC: VALID
+    windows (an odd last row or column is dropped)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+def build_on(cls, *args, generator=None, device=None, **kw):
+    """Build ``cls(*args, **kw)`` on the meta device, materialise it on
+    ``device`` (default CPU) and fill every weight from ``generator``
+    (default seed 0)."""
+    with torch.device("meta"):
+        model = cls(*args, **kw)
+    model.to_empty(device=device or "cpu")
+    init_weights(model, generator or torch.Generator().manual_seed(0))
+    return model
+
+
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """MaxPool2d(3, stride 2, padding 1) on NHWC; pads with -inf."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
@@ -449,25 +552,30 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random init from ``generator``, in module definition order: convs
-    kaiming-normal (fan_out, relu), a conv with a bias (the SE gate's)
-    flax's default instead, normal with std sqrt(1/fan_in) (lecun normal,
-    untruncated here) and a zero bias, Linear U(±1/sqrt(fan_in)) with zero
+    kaiming-normal (fan_out, relu), a conv with a bias (the SE gate's) or
+    marked ``lecun_init`` (BoTNet's q/k/v) flax's default instead, normal
+    with std sqrt(1/fan_in) (lecun normal, untruncated here) and a zero
+    bias; a module with ``init_params(generator)`` fills its own
+    parameters there; Linear U(±1/sqrt(fan_in)) with zero
     bias, BN weight 1 (or 0 where zero-initialised), bias 0, stats 0/1.
     Every value is written, so the model may be built on the meta device
     and materialised with ``to_empty`` first. Conv weights are stored
     channels last, the layout cuDNN computes in, so their gradients, the
     optimizer's moments and the weights share one memory layout."""
     for m in model.modules():
+        if hasattr(m, "init_params"):  # a module's own parameters (BoTNet's tables)
+            m.init_params(generator)
         if isinstance(m, nn.Conv2d):
             m.weight.data = m.weight.data.contiguous(memory_format=torch.channels_last)
             taps = m.kernel_size[0] * m.kernel_size[1]
-            if m.bias is None:
+            if m.bias is None and not getattr(m, "lecun_init", False):
                 m.weight.normal_(0.0, math.sqrt(2.0 / (m.out_channels * taps)),
                                  generator=generator)
             else:
                 fan_in = m.in_channels // m.groups * taps
                 m.weight.normal_(0.0, math.sqrt(1.0 / fan_in), generator=generator)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
         elif isinstance(m, nn.Linear):
             bound = 1.0 / math.sqrt(m.in_features)
             m.weight.uniform_(-bound, bound, generator=generator)

@@ -33,10 +33,10 @@ from distribuuuu_tpu_torch.models.layers import (
     ConvBN,
     Dense,
     SqueezeExcite,
+    build_on,
     conv2d,
     global_avg_pool,
     head_dtype,
-    init_weights,
 )
 
 
@@ -142,14 +142,8 @@ class RegNet(CNN):
         return self.head.fc(x.to(head_dtype(x.dtype)))
 
 
-def _regnet(num_classes=1000, *, generator=None, device=None, **kw):
-    """Build on the meta device, materialise on ``device`` (default CPU),
-    and fill every weight from ``generator`` (default seed 0)."""
-    with torch.device("meta"):
-        model = RegNet(num_classes=num_classes, **kw)
-    model.to_empty(device=device or "cpu")
-    init_weights(model, generator or torch.Generator().manual_seed(0))
-    return model
+def _regnet(num_classes=1000, **kw):
+    return build_on(RegNet, num_classes=num_classes, **kw)
 
 
 def regnetx_160(num_classes=1000, **kw):

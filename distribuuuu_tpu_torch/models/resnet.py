@@ -29,10 +29,10 @@ from distribuuuu_tpu_torch.models.layers import (
     BatchNorm,
     ConvBN,
     Dense,
+    build_on,
     conv2d,
     global_avg_pool,
     head_dtype,
-    init_weights,
     max_pool_3x3_s2,
     remat_contexts,
 )
@@ -164,14 +164,8 @@ class ResNet(CNN):
         return self.fc(x.to(hd))
 
 
-def _resnet(block, layers, num_classes=1000, *, generator=None, device=None, **kw):
-    """Build on the meta device, materialise on ``device`` (default CPU),
-    and fill every weight from ``generator`` (default seed 0)."""
-    with torch.device("meta"):
-        model = ResNet(block, layers, num_classes, **kw)
-    model.to_empty(device=device or "cpu")
-    init_weights(model, generator or torch.Generator().manual_seed(0))
-    return model
+def _resnet(block, layers, num_classes=1000, **kw):
+    return build_on(ResNet, block, layers, num_classes, **kw)
 
 
 def resnet18(num_classes=1000, **kw):

@@ -14,8 +14,9 @@ distribuuuu_tpu/parallel/partition/lowering.py).
 * :func:`validate`: masked sums over the val set (the padded tail counts
   nothing; the sampler's repeats, which pad the shards to one length,
   count as in the JAX package), all-reduced over the processes; on the
-  card every pointwise conv of a ResNet's or RegNet's eval forward runs
-  the conv-epilogue kernel, a ViT's attention runs the flash kernels
+  card every pointwise conv+BN of a CNN's eval forward (ResNet, RegNet,
+  BoTNet, EfficientNet; DenseNet's convs are pre-activation and have
+  none) runs the conv-epilogue kernel, a ViT's attention runs the flash kernels
   under ``DEVICE.ATTN_IMPL flash`` (or ``auto`` at 1024 tokens or more),
   whose backward kernels also run in every train step,
   and under ``DISTRIBUUUU_GROUP_CONV=pallas`` a RegNet's stride-1 grouped
@@ -142,9 +143,10 @@ def attn_impl_from_cfg() -> str:
 def build_model_from_cfg(generator: torch.Generator | None = None):
     """The configured arch on the CPU, in fp32 master weights, filled by
     ``generator`` (default: a ``torch.Generator`` seeded with ``RNG_SEED``,
-    0 when unset). The CNNs (ResNets, RegNets) take their BN regime
-    (``bn_group``; ``TRAIN.REMAT`` only the ResNets); the ViTs,
-    LayerNorm-only, take ``DEVICE.ATTN_IMPL`` and the input size; the
+    0 when unset). The CNNs take their BN regime (``bn_group``;
+    ``TRAIN.REMAT`` only the ResNets); botnet50 its attention grid,
+    ``ceil(TRAIN.IM_SIZE / 16)`` squared, and ``DEVICE.ATTN_IMPL``; the
+    ViTs, LayerNorm-only, take ``DEVICE.ATTN_IMPL`` and the input size; the
     GPTs take ``LM.SEQ_LEN`` and ``DEVICE.ATTN_IMPL``, where ``auto`` is
     the dense causal region, as in the JAX trainer."""
     kernel_tier.validate_kernels_cfg(cfg.KERNELS)
@@ -160,6 +162,11 @@ def build_model_from_cfg(generator: torch.Generator | None = None):
                       seq_len=int(cfg.LM.SEQ_LEN))
     else:
         kwargs["bn_group"] = bn_group_from_cfg()
+    if arch == "botnet50":
+        # each stride-2 op maps n → ceil(n/2): the stride-16 trunk gives
+        # ceil(IM_SIZE/16); eval crops to TRAIN.IM_SIZE, so both see it
+        fmap = max(1, -(-cfg.TRAIN.IM_SIZE // 16))
+        kwargs.update(fmap_size=(fmap, fmap), attn_impl=cfg.DEVICE.ATTN_IMPL)
     if cfg.TRAIN.REMAT and not arch.startswith(RESNETS):
         raise ValueError(
             f"TRAIN.REMAT targets the resnet/resnext/wide_resnet family (stages 1-2 "
@@ -269,7 +276,10 @@ def train_step(model, optimizer, batch: dict, topk: int, policy: str = "raise",
     ``top1``, ``topk`` and ``nonfinite`` (1.0 when the global loss is
     NaN/Inf). Under ``policy="skip"`` a non-finite step leaves the
     parameters, the optimizer state and the BN running stats as they were
-    before its first micro-batch, on every process."""
+    before its first micro-batch, on every process. A model with dropout
+    (``dropout_key``) gets ``(RNG_SEED, optimizer.count, i)`` before
+    micro-batch i: its masks depend on the run's seed, the step and the
+    micro-batch only (``layers.Dropout``)."""
     images, labels = batch["image"], batch["label"]
     n = labels.shape[0]
     if n % accum:
@@ -277,8 +287,11 @@ def train_step(model, optimizer, batch: dict, topk: int, policy: str = "raise",
     mb = n // accum
     saved = ([b.clone() for b in model.buffers()] if policy == "skip" else None)
     gsum, micro = None, []
+    keyed = hasattr(model, "dropout_key")
     for i in range(accum):
         rows = slice(i * mb, (i + 1) * mb)
+        if keyed:
+            model.dropout_key = (int(cfg.RNG_SEED or 0), optimizer.count, i)
         logits = model(prep_images(images[rows]))
         loss = cross_entropy(logits, labels[rows])
         if poison:

@@ -8,6 +8,9 @@ as in tests/test_torch_conv_epilogue.py) at a shape for every plan of its
 bf16 TMA/wgmma body, at ragged edges and in its mma.sync body; a split-K
 shape gives the same bits twice and on two streams; and a small ResNet-50 is served
 on the card through the engine, every fused site launching the kernel.
+EfficientNet-B0's narrow widths (K 16 and 24, N 16, 24 and 40, bf16
+silu and id) are held against the plain version, and one bf16 forward of
+each image-zoo arch on the card against its f32 CPU forward.
 The fused optimizer update is held bit for bit against its plain version
 for each body, and a train step launches it exactly once. The three
 flash-attention kernels are held against their plain versions at ragged
@@ -147,6 +150,62 @@ def test_tma_kernel_matches_plain_on_card(case, out_dtype):
     assert ce.conv1x1_bn_act.launches == before + 1
     assert got.dtype == out_dtype and got.shape == (m, n)
     assert float((got.float() - ref.float()).abs().max()) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("act", ["silu", "id"])
+@pytest.mark.parametrize("k,n", [(16, 96), (24, 144), (96, 24), (144, 24), (240, 40),
+                                 (32, 16), (16, 16)])
+def test_kernel_at_efficientnet_widths_on_card(k, n, act):
+    """EfficientNet-B0's narrow 1x1s in bf16: K of 16 and 24 (one
+    partial ring stage, the rest zero-filled), N of 16, 24 and 40 (under
+    the narrowest 64-column tile: stores clipped at N), silu and id."""
+    dev = _card()
+    m = 8 * 56 * 56 + 7  # ragged rows
+    x, w, a, c = _site(dev, m, k, n)
+    before = ce.conv1x1_bn_act.launches
+    got = ce.conv1x1_bn_act(x, w, a, c, act)
+    ref = ce.conv1x1_bn_act_plain(x, w, a, c, act)
+    torch.cuda.synchronize()
+    assert ce.conv1x1_bn_act.launches == before + 1
+    assert got.shape == (m, n)
+    assert float((got.float() - ref.float()).abs().max()) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("arch", ["efficientnet_b0", "botnet50", "densenet121", "densenet161",
+                                  "densenet169", "densenet201"])
+def test_zoo_bf16_forward_on_card_matches_cpu_f32(arch):
+    """One bf16 eval forward of each image-zoo arch at full width on the
+    card (64², botnet50's grid 4²) against the same weights in f32 on the
+    CPU: within 0.05 of the logit scale; every conv-epilogue site
+    launches the kernel. Every BN is first moved off its init stats (as
+    chip_smoke.seeded_bn does), which keep no activation normalized in
+    eval: EfficientNet's logits would vanish, DenseNet's grow, and
+    BoTNet's bf16 attention logits would round across their argmax."""
+    dev = _card()
+    kw = {"fmap_size": (4, 4)} if arch == "botnet50" else {}
+    model = build_model(arch, num_classes=1000, dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0), **kw)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "running_var"):
+                c = m.weight.shape[0]
+                m.weight.copy_(0.4 + 0.1 * torch.randn(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    ref = build_model(arch, num_classes=1000, dtype=torch.float32, **kw)
+    ref.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 64, 64, 3))
+                         .astype(np.float32))
+    sites = sum(u.fused for u in model.conv_units())
+    before = ce.conv1x1_bn_act.launches
+    with torch.inference_mode():
+        got = model.to(dev).eval()(x.to(dev)).float().cpu().numpy()
+        cpu = ref.eval()(x).numpy()
+    assert ce.conv1x1_bn_act.launches == before + sites
+    assert np.isfinite(got).all()
+    assert np.abs(got - cpu).max() / np.abs(cpu).max() <= 0.05
 
 
 def test_split_k_is_bitwise_repeatable_across_launches_and_streams():

@@ -83,8 +83,8 @@ def test_unported_paths_raise_with_roadmap_item():
     tcfg.DEVICE.S2D_STEM = True
     with pytest.raises(NotImplementedError, match="S2D stem"):
         trainer.build_model_from_cfg()
-    with pytest.raises(NotImplementedError, match="Image zoo"):
-        tmodels.build_model("efficientnet_b0")
+    with pytest.raises(NotImplementedError, match="Parallel layouts beyond DP"):
+        tmodels.build_model("vit_tiny_moe")  # the image zoo is ported; the MoE ViT is not
     with pytest.raises(NotImplementedError, match="Parallel layouts beyond DP"):
         tmodels.build_model("gpt_nano_moe")
     with pytest.raises(KeyError, match="Unknown arch"):

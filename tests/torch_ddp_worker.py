@@ -5,7 +5,8 @@
 scenario of the spec in turn, on the CPU, writing ``{out}/rank{r}.pt``.
 It imports no JAX: the test holds what it writes against the JAX
 package. ``tests/test_torch_shards_resume.py`` launches it too (the
-shards format's cursor across a preemption of two ranks)."""
+shards format's cursor across a preemption of two ranks), and
+``tests/test_torch_efficientnet.py`` (the dropout masks of two ranks)."""
 
 from __future__ import annotations
 
@@ -157,8 +158,19 @@ def shards_consumed(spec: dict, sc: dict) -> dict:
     return {"consumed": train_model_consuming()}
 
 
+def dropout(spec: dict, sc: dict) -> dict:
+    """``layers.Dropout(rate)`` in training on this rank's rows of a
+    global batch of ones, under ``key``: the output (its mask, scaled)."""
+    from distribuuuu_tpu_torch.models.layers import Dropout
+
+    n = sc["global_batch"] // dist.get_world_size()
+    layer = Dropout(sc["rate"]).train()
+    return {"out": layer(torch.ones(n, *sc["shape"]), tuple(sc["key"]))}
+
+
 SCENARIOS = {"lockstep": lockstep, "evaluate": evaluate, "nonfinite": nonfinite,
-             "train_model": run_train_model, "shards_consumed": shards_consumed}
+             "train_model": run_train_model, "shards_consumed": shards_consumed,
+             "dropout": dropout}
 
 
 def main(path: str) -> None:

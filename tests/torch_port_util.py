@@ -1,7 +1,8 @@
 """Shared helpers of the tests/test_torch_*.py files: one set of weights,
-made from a seed with numpy, in the JAX ResNet's, RegNet's, ViT's or GPT's
-variable tree (paths from ``model.init`` under ``jax.eval_shape``), and the port's
-model on the same weights through ``state_dict_from_jax``."""
+made from a seed with numpy, in the JAX model's variable tree (paths from
+``model.init`` under ``jax.eval_shape``), the port's model on the same
+weights through ``state_dict_from_jax``, and one f32 train step on both
+sides."""
 
 from __future__ import annotations
 
@@ -20,14 +21,19 @@ from distribuuuu_tpu_torch import models as tmodels
 from distribuuuu_tpu_torch.utils.weights import state_dict_from_jax
 
 
-def jax_resnet(arch: str, num_classes: int = 10, im: int = 32):
-    """(flax model in f32, its variable tree of ShapeDtypeStructs)."""
-    model = jmodels.build_model(arch, num_classes=num_classes, dtype=jnp.float32)
+def jax_model(model, im: int = 32):
+    """(flax ``model``, its variable tree of ShapeDtypeStructs) at an
+    ``im``² input."""
     shapes = jax.eval_shape(
         lambda k: model.init(k, jnp.zeros((1, im, im, 3), jnp.float32), train=False),
         jax.random.key(0),
     )
     return model, nn.unbox(shapes)
+
+
+def jax_resnet(arch: str, num_classes: int = 10, im: int = 32):
+    """(flax model in f32, its variable tree of ShapeDtypeStructs)."""
+    return jax_model(jmodels.build_model(arch, num_classes=num_classes, dtype=jnp.float32), im)
 
 
 # a toy RegNet: widths [16, 24, 32, 56], depths [1, 2, 2, 1], group width 8
@@ -42,13 +48,41 @@ def jax_regnet(se_ratio: float = 0.25, num_classes: int = 10, im: int = 32, **kw
     constructor (``bn_group``)."""
     from distribuuuu_tpu.models.regnet import RegNet
 
-    model = RegNet(**TOY_REGNET, se_ratio=se_ratio, num_classes=num_classes,
-                   dtype=jnp.float32, **kw)
-    shapes = jax.eval_shape(
-        lambda k: model.init(k, jnp.zeros((1, im, im, 3), jnp.float32), train=False),
-        jax.random.key(0),
-    )
-    return model, nn.unbox(shapes)
+    return jax_model(RegNet(**TOY_REGNET, se_ratio=se_ratio, num_classes=num_classes,
+                            dtype=jnp.float32, **kw), im)
+
+
+def load_jax(model, variables: dict):
+    """``model`` (the port's) holding ``variables``, in eval mode."""
+    model.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"]))
+    return model.eval()
+
+
+def train_steps_side_by_side(jmodel, variables: dict, model, batch: dict, lr: float = 0.05):
+    """One f32 train step of the JAX package (``make_train_step``, SGD
+    Nesterov of ``construct_optimizer``) and of the port (``train_step``)
+    from ``variables`` on ``batch`` (numpy). Returns (JAX loss, JAX
+    state, port loss, port model, port optimizer)."""
+    from distribuuuu_tpu import trainer as jtrainer
+    from distribuuuu_tpu.config import cfg as jcfg
+    from distribuuuu_tpu.parallel.partition.lowering import TrainState
+    from distribuuuu_tpu.utils.optim import construct_optimizer as jax_construct_optimizer
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg as tcfg
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    jcfg.defrost()
+    jcfg.OPTIM.BASE_LR = tcfg.OPTIM.BASE_LR = lr
+    opt = jax_construct_optimizer()
+    state = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
+                       opt_state=opt.init(variables["params"]), step=jnp.int32(0),
+                       key=jax.random.key(0))
+    state, m = jtrainer.make_train_step(jmodel, opt, topk=5)(state, batch)
+    model = load_jax(model, variables).train()
+    topt = construct_optimizer(model)
+    loss = trainer.train_step(model, topt, {"image": torch.from_numpy(batch["image"]),
+                                            "label": torch.from_numpy(batch["label"])}, 5)["loss"]
+    return float(m["loss"]), state, float(loss), model, topt
 
 
 def port_regnet(jmodel, variables: dict, dtype=torch.float32, **kw):
@@ -58,21 +92,15 @@ def port_regnet(jmodel, variables: dict, dtype=torch.float32, **kw):
     the residual branch, the grouped conv and the SE reach the logits."""
     from distribuuuu_tpu_torch.models.regnet import _regnet
 
-    model = _regnet(jmodel.num_classes, **TOY_REGNET, se_ratio=jmodel.se_ratio,
-                    dtype=dtype, **kw)
-    model.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"]))
-    return model.eval()
+    return load_jax(_regnet(jmodel.num_classes, **TOY_REGNET, se_ratio=jmodel.se_ratio,
+                            dtype=dtype, **kw), variables)
 
 
 def jax_vit(arch: str = "vit_small", num_classes: int = 10, im: int = 64, **kw):
     """(flax ViT in f32, its variable tree of ShapeDtypeStructs); ``kw``
     go to the constructor (``depth``, ``attn_impl``)."""
-    model = jmodels.build_model(arch, num_classes=num_classes, dtype=jnp.float32, **kw)
-    shapes = jax.eval_shape(
-        lambda k: model.init(k, jnp.zeros((1, im, im, 3), jnp.float32), train=False),
-        jax.random.key(0),
-    )
-    return model, nn.unbox(shapes)
+    return jax_model(jmodels.build_model(arch, num_classes=num_classes, dtype=jnp.float32,
+                                         **kw), im)
 
 
 def jax_gpt(seq_len: int = 32, vocab: int = 320, dim: int = 32, depth: int = 2,
@@ -117,6 +145,8 @@ def random_variables(shapes, seed: int = 0) -> dict:
             v = 0.5 * rng.standard_normal(shape)
         elif parent.startswith("LayerNorm") and name == "scale":
             v = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name in ("rel_height", "rel_width"):  # BoTNet's position tables
+            v = rng.standard_normal(shape) / np.sqrt(shape[1])
         elif name == "kernel" and len(shape) == 4:
             std = np.sqrt(2.0 / (shape[0] * shape[1] * shape[2]))
             v = rng.standard_normal(shape) * std
@@ -142,9 +172,7 @@ def random_variables(shapes, seed: int = 0) -> dict:
 def port_model(arch: str, variables: dict, num_classes: int = 10,
                dtype=torch.float32):
     """The port's eval model holding ``variables``."""
-    model = tmodels.build_model(arch, num_classes=num_classes, dtype=dtype)
-    model.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"]))
-    return model.eval()
+    return load_jax(tmodels.build_model(arch, num_classes=num_classes, dtype=dtype), variables)
 
 
 def reset_port_cfg():
@@ -192,7 +220,7 @@ def compare_with_jax(trees, sd: dict, tol: float) -> int:
     tree, in order) against the port's ``sd`` (the keys ``jax_path_map``
     gives the first tree), within ``tol`` of the leaf's largest magnitude.
     Returns the number of leaves compared."""
-    from distribuuuu_tpu_torch.utils.weights import jax_path_map
+    from distribuuuu_tpu_torch.utils.weights import TABLES, jax_path_map
 
     paths = jax_path_map(trees[0])
     n = 0
@@ -206,7 +234,10 @@ def compare_with_jax(trees, sd: dict, tol: float) -> int:
             if node is None:
                 continue
             a = np.asarray(node)
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T if a.ndim == 2 else a
+            if a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 2 and not key.endswith(TABLES):
+                a = a.T
             np.testing.assert_allclose(sd[key].numpy(), a, rtol=tol,
                                        atol=tol * np.abs(a).max(), err_msg=key)
             n += 1
