@@ -37,6 +37,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    body and plan it ran, the first design's time (``simple_ms``) and the
    launch floors of an empty block and of an empty kernel over the plan's
    clusters.
+Every serving bucket, LM decode and prompt tile, train step (one-step and
+folded) and synchronous eval step below replays a CUDA graph captured at
+its first call (``distribuuuu_tpu_torch/graphs.py``); the launch counts
+count replays (a capture launches nothing). The one eager step on the
+card is two ranks over gloo (``two_ranks_one_card``), and concurrent
+eval's.
+
 4. Serving slices, through ``engine_from_cfg`` on cuda:0 with buckets
    [1, 2, 4, 8] and two bursts of 64 seeded uint8 requests through
    ``submit`` (img/s and latency are the second burst's; the first is
@@ -168,9 +175,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
      images, step ms and one opt_update launch per optimizer step;
    * ``train_loop_remat``: an f64 step with stages 1-2 recomputed against
      the plain step (cuDNN deterministic; within LOOP_F64_TOL, bitwise
-     equality reported), then the bf16 batch-32 step both ways: peak
-     ``max_memory_allocated`` and step ms. The fused update has no f64
-     body: the f64 steps apply its plain version;
+     equality reported), then the graphed bf16 batch-32 step both ways:
+     the graph's own memory (the peak ``max_memory_allocated`` of its
+     warm-up and capture, and its pool's reserved bytes), each lower under
+     remat, and step ms. The fused update has no f64 body: the f64 steps
+     apply its plain version;
    * ``train_loop_async_save``: a bf16 train state saved synchronously and
      through the committer: the boundary's blocking time against the
      synchronous save's wall, the payloads bitwise equal, the manifests
@@ -182,19 +191,40 @@ Run from the root of a checkout:  python3 chip_smoke.py
      finishes), a truncated ckpt_ep_001 and a SIGKILL between its rename
      and its manifest (CHECKPOINT.ASYNC), each walked back over;
    * ``train_loop_concurrent_eval``: two epochs of config/resnet50.yaml
-     on that ImageFolder, after a warm-up run in turns synchronous, with
-     CONCURRENT_EVAL and CHECKPOINT.ASYNC twice, synchronous (cuDNN
-     deterministic): each
+     on that ImageFolder (two eval batches of 100 an epoch), after a
+     warm-up run in turns synchronous, with CONCURRENT_EVAL and
+     CHECKPOINT.ASYNC twice, synchronous (cuDNN deterministic): each
      concurrent run's final state bitwise the synchronous one's beside
      it, Acc@1 equal, 33 conv-epilogue launches per eval forward, every
-     one of a concurrent run's off the default stream, the walls.
-11. Prints the ``{"kernels": [...]}`` line, the card's name and power
+     one of a concurrent run's off the default stream, a synchronous
+     run's off it only in each eval graph's warm-up (its replays run on
+     the default stream; a capture launches nothing), the walls.
+11. One graph per step, after the RegNet phases (regnety_160's served
+   weights):
+   * ``graph_equal``: eager (``graphed=False``) against graph, cuDNN
+     deterministic: ResNet-50's and regnety_160's served logits bitwise
+     at every bucket, GPT-nano's bf16 greedy streams identical, and after
+     8 bf16 train steps a side the f32 state (parameters, buffers,
+     moments) bitwise equal for ResNet-50 (SGD), ViT-S/16 with flash
+     (AdamW: c1 and c2 move every step) and efficientnet_b0 (dropout);
+   * ``fold_train``: ResNet-50 (bf16, batch 32) with TRAIN.STEPS_PER_CALL
+     4 against the per-step graph over 8 batches, the state bitwise
+     equal; then 24 steps of each timed: img/s, step ms, one opt_update
+     launch a step;
+   * ``recompile_drill``: ``train_model`` (resnet18 at 64², batch 16, one
+     epoch of 64 steps) with FAULTS.RECOMPILE_AT_BATCH 5 and
+     RECOMPILE_N 12 against the run without: 12 more captures in the
+     epoch's record, the final checkpoint bitwise the clean one.
+12. Prints the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds torch.profiler breakdowns of a ResNet-50 and a
-regnety_160 forward at batch 8, of a ResNet-50 and a ViT-S/16 train step at
-batch 32 and a regnety_160 train step at batch 64, and of one GPT-nano
-decode step at batch 4. Any failed phase exits
+``--profile`` adds ``graph_vs_eager``: the graph against the eager body in
+one call, in turns, for a ResNet-50 and a regnety_160 serving forward at
+batch 8, a GPT-nano decode step at batch 4 and a ResNet-50 and a
+ViT-S/16 train step at batch 32 (host ms, and from torch.profiler traces
+device-busy ms, kernels, host-issued launches, idle share), served img/s
+and generated tokens/s through engines built both ways; and a
+breakdown of a regnety_160 train step at batch 64. Any failed phase exits
 non-zero. Exits non-zero, printing no result, without CUDA or outside a
 checkout.
 """
@@ -1015,9 +1045,11 @@ def opt_kernel_phase(torch, ou, dev, shapes):
             return None if ts is None else [t.clone() for t in ts]
 
         kp, km, kv = clone(p), clone(m), clone(v)
+        scal = ou.staged_scalars(h, 0.1, 5, kp, km)
+        table = ou.leaf_table(kp, g, km, kv)
         before = ou.update.launches
-        ou.update(kp, g, km, kv, h, 0.1, 5)
-        ou.update_plain(p, g, m, v, h, 0.1, 5)
+        ou.update(kp, g, km, kv, h, scal, table=table)
+        ou.update_plain(p, g, m, v, h, scal)
         torch.cuda.synchronize()
         if ou.update.launches != before + 1:
             raise AssertionError(f"opt_update {name}: {ou.update.launches - before} launches")
@@ -1047,9 +1079,9 @@ def opt_kernel_phase(torch, ou, dev, shapes):
                                    [*p, *(m or []), *(v or [])])),
             # the wrapper checks 161 leaves in Python before each launch (about
             # 1 ms of host time): hold the stream for 20 of them
-            "ms": time_ms(torch, lambda: ou.update(kp, g, km, kv, h, 0.1, 5), reps=20,
-                          hold_cycles=OPT_HOLD_CYCLES),
-            "plain_ms": time_ms(torch, lambda: ou.update_plain(p, g, m, v, h, 0.1, 5),
+            "ms": time_ms(torch, lambda: ou.update(kp, g, km, kv, h, scal, table=table),
+                          reps=20, hold_cycles=OPT_HOLD_CYCLES),
+            "plain_ms": time_ms(torch, lambda: ou.update_plain(p, g, m, v, h, scal),
                                 reps=5, warmup=1),
             "library_ms": None if lib is None else time_ms(torch, lib.step, reps=20,
                                                            hold_cycles=OPT_HOLD_CYCLES),
@@ -1061,7 +1093,7 @@ def opt_kernel_phase(torch, ou, dev, shapes):
             raise AssertionError(f"opt_update {name}: kernel vs plain differ by up to "
                                  f"{worst} ulp in {n_diff} elements")
         rows[name] = row
-        del p, g, m, v, kp, km, kv, lib
+        del p, g, m, v, kp, km, kv, lib, table
     return rows
 
 
@@ -1969,10 +2001,10 @@ def _f64_step(torch, dev, host: dict, bn_group: int, accum: int = 1, remat: bool
     from distribuuuu_tpu_torch.utils.optim import Optimizer
 
     class PlainUpdate(Optimizer):
-        def step(self, grads):
-            self.count += 1
-            ou.update_plain(self.params, grads, self.m, self.v, self.hyper, self.lr,
-                            self.count)
+        def apply(self, grads=None, skip=None):
+            ou.update_plain(self.params, self.grads if grads is None else grads, self.m,
+                            self.v, self.hyper, self.scal, self.row, skip)
+            self.row += 1
 
     model = build_model(LOOP_ARCH, num_classes=1000, dtype=torch.float64, bn_group=bn_group,
                         remat=remat, generator=torch.Generator().manual_seed(0))
@@ -2000,10 +2032,15 @@ def _worst_rel(torch, got: dict, want: dict):
 
 
 def _bf16_steps(torch, ou, dev, accum: int = 1, remat: bool = False) -> dict:
-    """config/resnet50.yaml (bf16, batch 32) through ``trainer.train_step``
-    on one seeded batch: 3 warm-up steps, then LOOP_TIMED_STEPS timed on
-    the host clock (one synchronise at the end), the peak memory over them
-    and opt_update's launches."""
+    """config/resnet50.yaml (bf16, batch 32) through the graphed
+    ``trainer.TrainStep`` (accum and remat captured in the step) on one
+    seeded batch, after one eager step that warms cuDNN: the graph's own
+    memory (the peak of its first call, the eager warm-up on the step's
+    side stream and the capture into its pool; and the bytes its pool
+    holds for every replay, the reserved memory that call left once the
+    side stream's cache is emptied), then 2 replays and LOOP_TIMED_STEPS
+    more timed on the host clock (one synchronise at the end), and
+    opt_update's launches over them."""
     import distribuuuu_tpu_torch.config as config
     from distribuuuu_tpu_torch import trainer
     from distribuuuu_tpu_torch.config import cfg
@@ -2017,21 +2054,32 @@ def _bf16_steps(torch, ou, dev, accum: int = 1, remat: bool = False) -> dict:
     model = trainer.build_model_from_cfg().to(dev).train()
     opt = construct_optimizer(model)
     batch = {k: v.to(dev) for k, v in _loop_batch(torch, cfg.TRAIN.BATCH_SIZE, 6).items()}
-    for _ in range(3):
-        trainer.train_step(model, opt, batch, 5, accum=accum)
+    trainer.train_step(model, opt, batch, 5, accum=accum)
+    step = trainer.TrainStep(model, opt, 5, "raise", accum, 1, dev,
+                             pool=torch.cuda.graph_pool_handle())
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
     torch.cuda.reset_peak_memory_stats(dev)
+    step([batch], [False])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved(dev) - reserved
+    for _ in range(2):
+        step([batch], [False])
+    torch.cuda.synchronize()
     ou.update.launches = 0
     t0 = time.perf_counter()
     for _ in range(LOOP_TIMED_STEPS):
-        m = trainer.train_step(model, opt, batch, 5, accum=accum)
+        m = step([batch], [False])
     torch.cuda.synchronize()
     res = {"accum": accum, "remat": remat, "batch": cfg.TRAIN.BATCH_SIZE,
            "step_ms": (time.perf_counter() - t0) / LOOP_TIMED_STEPS * 1e3,
-           "peak_mem_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+           "peak_mem_mb": peak / 2 ** 20, "graph_pool_mb": pool / 2 ** 20,
            "opt_update_launches": ou.update.launches, "steps": LOOP_TIMED_STEPS,
-           "loss": float(m["loss"])}
-    del model, opt, batch
+           "loss": float(m[0, 0])}
+    del model, opt, batch, step
     torch.cuda.empty_cache()
     return res
 
@@ -2079,7 +2127,8 @@ def loop_remat_phase(torch, ou, dev) -> dict:
     with stages 1-2 recomputed, against the plain step and against the
     plain step run again (cuDNN deterministic): parameters, running stats
     and momentum within LOOP_F64_TOL, bitwise equality reported; then the
-    bf16 batch-32 step both ways: step ms and peak memory."""
+    graphed bf16 batch-32 step both ways: step ms, and the graph's peak
+    and pool memory, each lower under remat."""
     flags = _deterministic(torch)
     try:
         host = _loop_batch(torch, 8, 7)
@@ -2101,12 +2150,14 @@ def loop_remat_phase(torch, ou, dev) -> dict:
            "loss_plain": runs[0][0], "loss_remat": runs[2][0], "bitwise_equal": bitwise,
            "rel_err": list(err), "plain_rerun_rel_err": list(rerun_err),
            "tol": LOOP_F64_TOL, "bf16": rows,
-           "peak_mem_saved_mb": rows[0]["peak_mem_mb"] - rows[1]["peak_mem_mb"]}
+           "peak_mem_saved_mb": rows[0]["peak_mem_mb"] - rows[1]["peak_mem_mb"],
+           "graph_pool_saved_mb": rows[0]["graph_pool_mb"] - rows[1]["graph_pool_mb"]}
     emit(res)
     if err[0] > LOOP_F64_TOL or abs(runs[2][0] - runs[0][0]) > LOOP_F64_TOL * abs(runs[0][0]):
         raise AssertionError(f"remat step vs plain step at f64: {res}")
-    if not rows[1]["peak_mem_mb"] < rows[0]["peak_mem_mb"]:
-        raise AssertionError(f"remat did not lower the peak memory: {rows}")
+    if not (rows[1]["peak_mem_mb"] < rows[0]["peak_mem_mb"]
+            and rows[1]["graph_pool_mb"] < rows[0]["graph_pool_mb"]):
+        raise AssertionError(f"remat did not lower the graphed step's memory: {rows}")
     return res
 
 
@@ -2288,6 +2339,9 @@ def loop_drills_phase(root: str, work: str) -> dict:
     return res
 
 
+CONC_EVAL_BATCH = 100  # two eval batches of the ImageFolder's 200 val images
+
+
 def loop_concurrent_eval_phase(torch, ce, ou, root: str, work: str) -> dict:
     """``TRAIN.CONCURRENT_EVAL``: two epochs of config/resnet50.yaml on the
     ImageFolder through ``trainer.train_model``, with cuDNN deterministic:
@@ -2295,21 +2349,26 @@ def loop_concurrent_eval_phase(torch, ce, ou, root: str, work: str) -> dict:
     (with async commits), concurrent, synchronous: each concurrent run's
     final parameters, running stats and
     momentum bitwise the synchronous run's beside it, each epoch's Acc@1
-    equal; 33 conv-epilogue launches per eval forward, in a concurrent run
-    every one of them off the default stream (the eval's own); one
-    opt_update launch per step; the walls of each mode."""
+    equal; 33 conv-epilogue launches per eval forward (two eval batches of
+    CONC_EVAL_BATCH an epoch, so each synchronous eval replays its graph);
+    off the default stream, in a concurrent run every one of them (the
+    eval's own stream), in a synchronous run the 33 of each eval's warm-up
+    call (on the graph's side stream; the capture launches nothing and is
+    not counted, the replays run on the default stream); one opt_update
+    launch per step; the walls of each mode."""
     import statistics as st
 
     import distribuuuu_tpu_torch.config as config
-    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch import graphs, trainer
     from distribuuuu_tpu_torch.config import cfg
     from distribuuuu_tpu_torch.utils import checkpoint as ckpt
 
     kernel, launch = ce.conv1x1_bn_act, ce._launch
     side = {"n": 0}
 
-    def counted(x, *a, **k):  # the kernel's launch, off the default stream or on it
-        if torch.cuda.current_stream(x.device) != torch.cuda.default_stream(x.device):
+    def counted(x, *a, **k):  # a real launch off the default stream (a capture's is none)
+        if (not graphs.capturing() and torch.cuda.current_stream(x.device)
+                != torch.cuda.default_stream(x.device)):
             side["n"] += 1
         return launch(x, *a, **k)
 
@@ -2324,6 +2383,7 @@ def loop_concurrent_eval_phase(torch, ce, ou, root: str, work: str) -> dict:
                 "OPTIM.MAX_EPOCH", 2, "OUT_DIR", os.path.join(work, f"conc_{i}"),
                 "DATA.BACKEND", "auto", "TRAIN.WORKERS", os.cpu_count(),
                 "CUDNN.DETERMINISTIC", True, "CUDNN.BENCHMARK", False,
+                "TEST.BATCH_SIZE", CONC_EVAL_BATCH,
                 "TRAIN.CONCURRENT_EVAL", concurrent, "CHECKPOINT.ASYNC", concurrent])
             recs = []
             ou.update.launches = kernel.launches = side["n"] = 0
@@ -2358,11 +2418,13 @@ def loop_concurrent_eval_phase(torch, ce, ou, root: str, work: str) -> dict:
            "wall_saved_s": st.mean(walls[False]) - st.mean(walls[True])}
     emit(res)
     for r in runs:
+        # off the default stream: every launch of a concurrent eval; one
+        # warm-up forward a synchronous eval (2 epochs, one graph each)
+        off = r["launches"]["conv_epilogue"] if r["concurrent"] else LOOP_FUSED_SITES * 2
         if (r["launches"]["conv_epilogue"] != LOOP_FUSED_SITES * r["eval_forwards"]
-                or not r["eval_forwards"]
+                or r["eval_forwards"] != 2 * -(-REAL_CLASSES * REAL_VAL // CONC_EVAL_BATCH)
                 or r["launches"]["opt_update"] != r["steps"] or r["steps"] != 2 * REAL_STEPS
-                or r["launches"]["conv_epilogue_off_default_stream"]
-                != (r["launches"]["conv_epilogue"] if r["concurrent"] else 0)
+                or r["launches"]["conv_epilogue_off_default_stream"] != off
                 or r["acc1"] != runs[0]["acc1"]):
             raise AssertionError(f"concurrent eval run {r}")
     if differ:
@@ -2390,9 +2452,10 @@ def _breakdown(torch, prof, iters: int, classify) -> dict:
     and idle share of the traced window, from a torch.profiler trace."""
     from torch.autograd import DeviceType
 
-    kinds, names, spans = {}, {}, []
+    kinds, names, spans, launches = {}, {}, [], 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            launches += "Launch" in e.name  # cudaLaunchKernel(ExC), cuLaunchKernel, cudaGraphLaunch
             continue
         ms = e.time_range.elapsed_us() / 1e3 / iters
         kind = classify(e.name)
@@ -2412,6 +2475,7 @@ def _breakdown(torch, prof, iters: int, classify) -> dict:
     window = spans[-1][1] - spans[0][0]
     top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
     return {"device_ms_by_kind": kinds, "top_kernels_ms": top, "kernels": len(spans) / iters,
+            "host_launches": launches / iters,
             "device_busy_ms": busy / 1e3 / iters, "device_idle_share": 1.0 - busy / window}
 
 
@@ -2422,41 +2486,6 @@ def _is_conv(name: str) -> bool:
 def _forward_kind(n: str) -> str:
     return ("group_conv" if "gconv_" in n else "conv_epilogue" if "epilogue_gemm" in n
             else "cudnn_conv" if _is_conv(n) else "other")
-
-
-def profile_phase(torch, model, batch: int, im: int, iters: int = 10, classify=_forward_kind):
-    """Where the time of one bf16 forward at ``batch`` goes: its host wall
-    time (synchronised, no profiler), and from a torch.profiler trace the
-    device time by kernel kind and the device's idle share of the traced
-    window (host launch overhead shows up as idle)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from distribuuuu_tpu_torch.data.transforms import normalize_on_device
-
-    dev = next(model.parameters()).device
-    x = normalize_on_device(torch.randint(0, 256, (batch, im, im, 3), dtype=torch.uint8,
-                                          device=dev))
-    with torch.inference_mode():
-        for _ in range(3):
-            model(x)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            model(x)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                model(x)
-            torch.cuda.synchronize()
-    b = _breakdown(torch, prof, iters, classify)
-    emit({"phase": "profile", "arch": type(model).__name__, "batch": batch, "iters": iters,
-          "forward_wall_ms": wall_ms / iters,
-          "device_ms_per_forward_by_kind": b["device_ms_by_kind"],
-          "top_kernels_ms_per_forward": b["top_kernels_ms"],
-          "kernels_per_forward": b["kernels"],
-          "device_busy_ms_per_forward": b["device_busy_ms"],
-          "device_idle_share": b["device_idle_share"]})
 
 
 def _resnet_kind(n: str) -> str:
@@ -2481,8 +2510,9 @@ def _vit_kind(n: str) -> str:
 
 def train_profile_phase(torch, dev, arch: str = "resnet50", batch: int = 32, iters: int = 5,
                         classify=_resnet_kind, **model_kw):
-    """Where the time of one bf16 train step of ``arch`` at ``batch`` goes:
-    host wall time (synchronised), device time by kind (``classify``) and
+    """Where the time of one bf16 train step of ``arch`` at ``batch`` goes
+    (the graphed step, ``trainer.TrainStep``): host wall time
+    (synchronised), device time by kind (``classify``), host launches and
     the device's idle share, from a torch.profiler trace."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2499,24 +2529,27 @@ def train_profile_phase(torch, dev, arch: str = "resnet50", batch: int = 32, ite
     b = {"image": torch.randint(0, 256, (batch, 224, 224, 3), dtype=torch.uint8, device=dev,
                                 generator=gen),
          "label": torch.randint(0, 1000, (batch,), device=dev, generator=gen)}
+    step = trainer.TrainStep(model, opt, 5, "raise", 1, 1, dev,
+                             pool=torch.cuda.graph_pool_handle())
     for _ in range(3):
-        trainer.train_step(model, opt, b, 5)
+        step([b], [False])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        trainer.train_step(model, opt, b, 5)
+        step([b], [False])
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            trainer.train_step(model, opt, b, 5)
+            step([b], [False])
         torch.cuda.synchronize()
     br = _breakdown(torch, prof, iters, classify)
     emit({"phase": "profile_train", "arch": arch, "batch": batch, "iters": iters,
           "dtype": "bfloat16", "step_wall_ms": wall_ms, "img_per_s": batch / wall_ms * 1e3,
           "device_ms_per_step_by_kind": br["device_ms_by_kind"],
           "top_kernels_ms_per_step": br["top_kernels_ms"],
-          "kernels_per_step": br["kernels"], "device_busy_ms_per_step": br["device_busy_ms"],
+          "kernels_per_step": br["kernels"], "host_launches_per_step": br["host_launches"],
+          "device_busy_ms_per_step": br["device_busy_ms"],
           "device_idle_share": br["device_idle_share"]})
 
 
@@ -2800,45 +2833,6 @@ def lm_check_phase(torch, da, dev, engine, prompts):
     if frames[-1].get("stream") != "done" or frames[-1]["tokens"] != socket_toks \
             or len(socket_toks) != 16:
         raise AssertionError(f"generate over the socket: {frames[-1]}")
-
-
-def lm_profile_phase(torch, dev, engine, iters: int = 20):
-    """Where the time of one bf16 GPT-nano decode step at batch 4 goes
-    (cache tile 256, lengths 0/37/128/255): host wall time (synchronised)
-    and, from a torch.profiler trace, device time by kind, launches and the
-    device's idle share."""
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-
-    cache = engine._zero_cache(4, 256)
-    saved, engine._cache = engine._cache, cache
-    tokens = np.asarray([1, 2, 3, 4], np.int32)
-    lengths = np.asarray([0, 37, 128, 255], np.int32)
-    with torch.inference_mode():
-        for _ in range(3):
-            engine._decode(tokens, lengths).cpu()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            engine._decode(tokens, lengths).cpu()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                engine._decode(tokens, lengths).cpu()
-            torch.cuda.synchronize()
-    engine._cache = saved
-    low = str.lower
-    b = _breakdown(torch, prof, iters, lambda n: "decode_attention"
-                   if "decode_split" in n or "decode_simple" in n
-                   else "gemm" if any(t in low(n) for t in ("gemm", "nvjet", "cublas", "cutlass"))
-                   else "memcpy" if "memcpy" in low(n) else "layernorm_gelu_elementwise_other")
-    emit({"phase": "profile_decode", "batch": 4, "cache": 256, "iters": iters,
-          "step_wall_ms": wall_ms, "device_ms_per_step_by_kind": b["device_ms_by_kind"],
-          "top_kernels_ms_per_step": b["top_kernels_ms"], "kernels_per_step": b["kernels"],
-          "device_busy_ms_per_step": b["device_busy_ms"],
-          "device_idle_share": b["device_idle_share"],
-          "decode_attention_share_of_busy": b["device_ms_by_kind"].get("decode_attention", 0.0)
-          / b["device_busy_ms"]})
 
 
 # ---- the image zoo (slice 14) ---------------------------------------------
@@ -3167,13 +3161,369 @@ def zoo_phases(torch, ce, gc, ou, dev, n_requests: int) -> dict:
     return out
 
 
+# ---- one graph per step (slice 15) ------------------------------------------
+GRAPH_EQUAL_STEPS = 8  # train steps a side in graph_equal
+GRAPH_EQUAL_TRAIN = [  # (arch, yaml, overrides): SGD, AdamW (c1, c2 move), dropout
+    ("resnet50", "config/resnet50.yaml", []),
+    ("vit_small", "config/vit_small.yaml", ["DEVICE.ATTN_IMPL", "flash",
+                                            "OPTIM.OPTIMIZER", "adamw"]),
+    ("efficientnet_b0", "config/efficientnet_b0.yaml", ["TRAIN.BATCH_SIZE", 32]),
+]
+GRAPH_EQUAL_LM_PROMPTS = 8
+FOLD_K, FOLD_CALLS = 4, 6  # fold_train: steps a call, timed calls
+RECOMPILE_AT, RECOMPILE_N = 5, 12
+
+
+def _train_cfg(yaml: str, opts: list):
+    """``yaml`` as a user trains it, bf16, cuDNN deterministic, seed 0."""
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+
+    config.reset_cfg()
+    config.merge_from_file(yaml)
+    cfg.merge_from_list(["RNG_SEED", 0, "CUDNN.DETERMINISTIC", True, "CUDNN.BENCHMARK", False,
+                         *opts])
+    trainer.apply_backend_flags()
+    return cfg
+
+
+def _rand_batches(torch, dev, n: int, batch: int, im: int, classes: int, seed: int = 11):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [{"image": torch.randint(0, 256, (batch, im, im, 3), dtype=torch.uint8, device=dev,
+                                    generator=gen),
+             "label": torch.randint(0, classes, (batch,), dtype=torch.int32, device=dev,
+                                    generator=gen)} for _ in range(n)]
+
+
+def _state(opt, model) -> dict:
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for name, key in (("m", opt.m), ("v", opt.v)):
+        for n, t in zip(opt.names, key or []):
+            sd[f"{name}:{n}"] = t.clone()
+    return sd
+
+
+def graph_equal_phase(torch, dev, reg_weights: str) -> dict:
+    """Eager against graph on the card (cuDNN deterministic): the served
+    logits of ResNet-50 and regnety_160 (under DISTRIBUUUU_GROUP_CONV
+    pallas, the served weights) bitwise at every bucket; GPT-nano's bf16
+    greedy streams identical; and after GRAPH_EQUAL_STEPS bf16 train steps
+    a side the f32 state (parameters, buffers, moments) bitwise equal for
+    ResNet-50 (SGD), ViT-S with flash (AdamW) and efficientnet_b0
+    (dropout 0.2)."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.lm import service as lm_service
+    from distribuuuu_tpu_torch.serve import engine_from_cfg
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    res, bad = {"phase": "graph_equal"}, []
+    t0 = time.perf_counter()
+    gc_env = os.environ.get("DISTRIBUUUU_GROUP_CONV")
+    for arch, yaml, opts in (("resnet50", "config/resnet50.yaml", []),
+                             ("regnety_160", "config/regnety_160.yaml",
+                              ["MODEL.WEIGHTS", reg_weights])):
+        if arch == "regnety_160":
+            os.environ["DISTRIBUUUU_GROUP_CONV"] = "pallas"
+        cfg = _train_cfg(yaml, ["SERVE.DEVICE", 0, "SERVE.MAX_BATCH", 8,
+                                "SERVE.BUCKET_SIZES", [1, 2, 4, 8], *opts])
+        im = cfg.TRAIN.IM_SIZE
+        imgs = list(np.random.default_rng(5).integers(0, 256, (8, im, im, 3), np.uint8))
+        out = {}
+        for name in ("graph", "eager"):
+            eng = engine_from_cfg(graphed=name == "graph")
+            with torch.inference_mode():
+                out[name] = {b: eng._run(b, imgs[:b]).float().cpu() for b in eng.buckets}
+            eng.drain()
+            del eng
+        differ = [b for b in out["graph"] if not torch.equal(out["graph"][b], out["eager"][b])]
+        res[f"serve_{arch}"] = {"buckets": list(out["graph"]), "not_bitwise": differ}
+        bad += [f"serve {arch} bucket {b}" for b in differ]
+        if gc_env is None:
+            os.environ.pop("DISTRIBUUUU_GROUP_CONV", None)
+        else:
+            os.environ["DISTRIBUUUU_GROUP_CONV"] = gc_env
+    prompts = _lm_prompts(GRAPH_EQUAL_LM_PROMPTS, seed=3)
+    streams = {}
+    for name in ("graph", "eager"):
+        _lm_cfg()
+        eng = lm_service.engine_from_cfg(graphed=name == "graph")
+        eng.start()
+        streams[name] = [s.result(timeout=300) for s in [eng.submit(p) for p in prompts]]
+        eng.drain()
+        del eng
+    res["lm_greedy_streams_equal"] = streams["graph"] == streams["eager"]
+    if not res["lm_greedy_streams_equal"]:
+        bad.append("gpt_nano greedy streams")
+    for arch, yaml, opts in GRAPH_EQUAL_TRAIN:
+        cfg = _train_cfg(yaml, opts)
+        batches = _rand_batches(torch, dev, GRAPH_EQUAL_STEPS, cfg.TRAIN.BATCH_SIZE,
+                                cfg.TRAIN.IM_SIZE, cfg.MODEL.NUM_CLASSES)
+        states = {}
+        for graph in (True, False):
+            model = trainer.build_model_from_cfg().to(dev).train()
+            opt = construct_optimizer(model)
+            step = trainer.TrainStep(model, opt, 5, "raise", 1, 1, dev, graphed=graph,
+                                     pool=torch.cuda.graph_pool_handle() if graph else None)
+            losses = [step([b], [False])[0, 0].item() for b in batches]
+            states[graph] = (_state(opt, model), losses, opt.count)
+            del model, opt, step
+        differ = [k for k in states[False][0]
+                  if not torch.equal(states[True][0][k], states[False][0][k])]
+        res[f"train_{arch}"] = {"optimizer": cfg.OPTIM.OPTIMIZER, "batch": cfg.TRAIN.BATCH_SIZE,
+                                "steps": GRAPH_EQUAL_STEPS, "tensors": len(states[False][0]),
+                                "not_bitwise": differ[:5], "n_not_bitwise": len(differ),
+                                "losses_equal": states[True][1] == states[False][1],
+                                "last_loss": states[True][1][-1]}
+        if differ or states[True][1] != states[False][1]:
+            bad.append(f"train {arch}: {len(differ)} tensors")
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    if bad:
+        raise AssertionError(f"graph against eager not bitwise equal: {bad}")
+    return res
+
+
+def fold_train_phase(torch, dev) -> dict:
+    """config/resnet50.yaml (bf16, batch 32, cuDNN deterministic) with
+    TRAIN.STEPS_PER_CALL FOLD_K against the per-step graph, over 2·FOLD_K
+    batches from one seed: the state bitwise equal; then FOLD_CALLS more
+    calls of each timed on the host clock: img/s and ms a step."""
+    from distribuuuu_tpu_torch import graphs, trainer
+    from distribuuuu_tpu_torch.ops import cuda as kernel_tier
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    cfg = _train_cfg("config/resnet50.yaml", ["TRAIN.STEPS_PER_CALL", FOLD_K])
+    batch = cfg.TRAIN.BATCH_SIZE
+    batches = _rand_batches(torch, dev, 2 * FOLD_K, batch, cfg.TRAIN.IM_SIZE,
+                            cfg.MODEL.NUM_CLASSES)
+    res, states = {"phase": "fold_train", "arch": "resnet50", "batch": batch,
+                   "steps_per_call": FOLD_K}, {}
+    for k in (FOLD_K, 1):
+        model = trainer.build_model_from_cfg().to(dev).train()
+        opt = construct_optimizer(model)
+        step = trainer.TrainStep(model, opt, 5, "raise", 1, k, dev,
+                                 pool=torch.cuda.graph_pool_handle())
+        c0 = graphs.captures
+        for i in range(0, len(batches), k):
+            step(batches[i:i + k], [False] * k)
+        states[k] = _state(opt, model)
+        torch.cuda.synchronize()
+        before = kernel_tier.launch_counts()["opt_update"]
+        t0 = time.perf_counter()
+        for _ in range(FOLD_CALLS * FOLD_K // k):
+            step(batches[:k], [False] * k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = FOLD_CALLS * FOLD_K
+        res[f"k{k}"] = {"captures": graphs.captures - c0, "timed_steps": steps,
+                        "step_ms": wall / steps * 1e3, "img_per_s": steps * batch / wall,
+                        "opt_update_launches": kernel_tier.launch_counts()["opt_update"] - before}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    differ = [k for k in states[1] if not torch.equal(states[FOLD_K][k], states[1][k])]
+    res.update(tensors=len(states[1]), n_not_bitwise=len(differ), not_bitwise=differ[:5])
+    emit(res)
+    if differ or res[f"k{FOLD_K}"]["opt_update_launches"] != FOLD_CALLS * FOLD_K:
+        raise AssertionError(f"fold of {FOLD_K}: {len(differ)} tensors differ from the "
+                             f"per-step graph; {res}")
+    return res
+
+
+def recompile_drill_phase(torch, work: str) -> dict:
+    """``trainer.train_model`` (what train_net runs) on dummy data,
+    resnet18 at 64², batch 16, one epoch, cuDNN deterministic, with and
+    without FAULTS.RECOMPILE_AT_BATCH RECOMPILE_AT / RECOMPILE_N
+    RECOMPILE_N: the faulted epoch records RECOMPILE_N more captures and
+    the final checkpoint is bitwise the clean run's."""
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.utils import checkpoint as ckpt
+    from distribuuuu_tpu_torch.utils import faults
+
+    out = {}
+    t0 = time.perf_counter()
+    for fault in (False, True):
+        _train_cfg("config/resnet18.yaml", [
+            "MODEL.DUMMY_INPUT", True, "TRAIN.IM_SIZE", 64, "TEST.IM_SIZE", 64,
+            "TRAIN.BATCH_SIZE", 16, "TEST.BATCH_SIZE", 256, "OPTIM.MAX_EPOCH", 1,
+            "TRAIN.WORKERS", 2, "TRAIN.PRINT_FREQ", 16,
+            "OUT_DIR", os.path.join(work, "fault" if fault else "clean"),
+            *(["FAULTS.ENABLED", True, "FAULTS.RECOMPILE_AT_BATCH", RECOMPILE_AT,
+               "FAULTS.RECOMPILE_N", RECOMPILE_N] if fault else [])])
+        faults.reset()
+        records = []
+        trainer.train_model(records)
+        payload = ckpt.load_checkpoint(ckpt.get_checkpoint(0))
+        out[fault] = (records[0]["captures"], payload["model"], payload["opt"]["m"],
+                      payload["step"])
+    differ = [k for k in out[False][1] if not torch.equal(out[False][1][k], out[True][1][k])]
+    differ += [k for k in out[False][2] if not torch.equal(out[False][2][k], out[True][2][k])]
+    res = {"phase": "recompile_drill", "captures_clean": out[False][0],
+           "captures_faulted": out[True][0], "recompile_n": RECOMPILE_N,
+           "steps": out[True][3], "n_not_bitwise": len(differ), "not_bitwise": differ[:5],
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if out[True][0] - out[False][0] != RECOMPILE_N or differ:
+        raise AssertionError(f"recompile drill: {res}")
+    return res
+
+
+def graph_vs_eager_profile(torch, dev, path: str, run_eager, run_graph, iters: int,
+                           classify, per: int = 1, **extra) -> dict:
+    """One path timed and traced both ways in one call, in turns (graph,
+    eager, graph, eager): host ms a call (synchronised), and from a
+    torch.profiler trace the device-busy ms, kernels, host-issued launches
+    and the idle share. ``per`` items (images, tokens) a call give the
+    rate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = {"graph": [], "eager": []}
+    for name in ("graph", "eager", "graph", "eager"):
+        fn = run_graph if name == "graph" else run_eager
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        rows[name].append((time.perf_counter() - t0) * 1e3 / iters)
+    out = {"phase": "graph_vs_eager", "path": path, "iters": iters, **extra}
+    for name, fn in (("graph", run_graph), ("eager", run_eager)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        b = _breakdown(torch, prof, iters, classify)
+        host_ms = min(rows[name])
+        out[name] = {"host_ms": host_ms, "host_ms_runs": rows[name],
+                     "rate_per_s": per / host_ms * 1e3,
+                     "device_busy_ms": b["device_busy_ms"], "kernels": b["kernels"],
+                     "host_launches": b["host_launches"],
+                     "device_idle_share": b["device_idle_share"],
+                     "device_ms_by_kind": b["device_ms_by_kind"]}
+    emit(out)
+    return out
+
+
+def graph_profile_phases(torch, dev, reg_weights: str) -> None:
+    """``--profile``: the five paths of PERF.md graph against eager in one
+    call each: ResNet-50 and regnety_160 serving forwards at batch 8 (the
+    engine's bucket body), the GPT-nano decode step at batch 4 (cache tile
+    256), and the ResNet-50 and ViT-S/16 bf16 train steps at batch 32; then
+    served img/s (ResNet-50, 64 requests) and generated tokens/s (GPT-nano,
+    32 requests × 64 tokens) through engines built both ways."""
+    import functools
+
+    import numpy as np
+
+    from distribuuuu_tpu_torch import graphs, trainer
+    from distribuuuu_tpu_torch.data.transforms import normalize_on_device
+    from distribuuuu_tpu_torch.lm import service as lm_service
+    from distribuuuu_tpu_torch.serve import engine_from_cfg
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    gc_env = os.environ.get("DISTRIBUUUU_GROUP_CONV")
+    for arch, yaml, opts, kind in (
+            ("resnet50", "config/resnet50.yaml", [], _forward_kind),
+            ("regnety_160", "config/regnety_160.yaml", ["MODEL.WEIGHTS", reg_weights],
+             _forward_kind)):
+        if arch == "regnety_160":
+            os.environ["DISTRIBUUUU_GROUP_CONV"] = "pallas"
+        _train_cfg(yaml, opts)
+        from distribuuuu_tpu_torch.config import cfg
+        from distribuuuu_tpu_torch.utils.weights import load_weights
+
+        model = trainer.build_model_from_cfg()
+        if cfg.MODEL.WEIGHTS:
+            load_weights(model, cfg.MODEL.WEIGHTS)
+        model = model.to(dev).eval().prepare()
+        x = torch.randint(0, 256, (8, 224, 224, 3), dtype=torch.uint8, device=dev)
+        g = graphs.StepGraph(lambda: model(normalize_on_device(x)), {"x": x}, device=dev,
+                             pool=torch.cuda.graph_pool_handle())
+        with torch.inference_mode():
+            graph_vs_eager_profile(torch, dev, f"serve_forward_{arch}", g.body, g, 10, kind,
+                                   per=8, arch=arch, batch=8)
+        del model, g
+        if gc_env is None:
+            os.environ.pop("DISTRIBUUUU_GROUP_CONV", None)
+        else:
+            os.environ["DISTRIBUUUU_GROUP_CONV"] = gc_env
+    # the decode step: the served engine's (4, 256) tile, its body and its replay
+    _lm_cfg()
+    lm_engine = lm_service.engine_from_cfg()
+    tile = lm_engine._tile((4, 256))
+    tokens = torch.tensor([[1], [2], [3], [4]], dtype=torch.int32)
+    lengths = torch.tensor([0, 37, 128, 255], dtype=torch.int32)
+
+    def decode(fn):
+        def run():
+            tile.inputs["tokens"].copy_(tokens)
+            tile.inputs["lengths"].copy_(lengths)
+            fn().cpu()
+        return run
+
+    low = str.lower
+    with torch.inference_mode():
+        graph_vs_eager_profile(
+            torch, dev, "decode_step_gpt_nano", decode(tile.body), decode(tile), 20,
+            lambda n: "decode_attention" if "decode_split" in n or "decode_simple" in n
+            else "gemm" if any(t in low(n) for t in ("gemm", "nvjet", "cublas", "cutlass"))
+            else "other", per=4, batch=4, cache=256)
+    lm_engine.drain()
+    del lm_engine, tile
+    for arch, yaml, opts, kind in (
+            ("resnet50", "config/resnet50.yaml", [], _resnet_kind),
+            ("vit_small", "config/vit_small.yaml", ["DEVICE.ATTN_IMPL", "flash"], _vit_kind)):
+        cfg = _train_cfg(yaml, opts)
+        b = _rand_batches(torch, dev, 1, 32, 224, cfg.MODEL.NUM_CLASSES)
+        model = trainer.build_model_from_cfg().to(dev).train()
+        opt = construct_optimizer(model)
+        steps = {g: trainer.TrainStep(model, opt, 5, "raise", 1, 1, dev, graphed=g,
+                                      pool=torch.cuda.graph_pool_handle() if g else None)
+                 for g in (True, False)}
+        graph_vs_eager_profile(torch, dev, f"train_step_{arch}",
+                               lambda: steps[False](b, [False]),
+                               lambda: steps[True](b, [False]), 5, kind, per=32, arch=arch,
+                               batch=32)
+        del model, opt, steps
+        torch.cuda.empty_cache()
+    # served img/s and tokens/s through engines built both ways, in turns
+    rates = {"phase": "graph_vs_eager_serving"}
+
+    for name in ("graph", "eager", "graph", "eager"):
+        _train_cfg("config/resnet50.yaml", ["SERVE.DEVICE", 0, "SERVE.MAX_BATCH", 8,
+                                            "SERVE.BUCKET_SIZES", [1, 2, 4, 8],
+                                            "SERVE.MAX_QUEUE", 2 * N_REQUESTS,
+                                            "SERVE.MAX_WAIT_MS", 2.0])
+        images = np.random.default_rng(0).integers(0, 256, (N_REQUESTS, 224, 224, 3), np.uint8)
+        _, _, walls, _, _ = _serve_bursts(
+            functools.partial(engine_from_cfg, graphed=name == "graph"), images)
+        rates.setdefault(f"resnet50_img_per_s_{name}", []).append(N_REQUESTS / walls[-1])
+        _lm_cfg()
+        prompts = _lm_prompts(LM_REQUESTS)
+        eng = lm_service.engine_from_cfg(graphed=name == "graph")
+        eng.start()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            toks = sum(len(s.result(timeout=300)) for s in [eng.submit(p) for p in prompts])
+            wall = time.perf_counter() - t0
+        eng.drain()
+        rates.setdefault(f"gpt_nano_tokens_per_s_{name}", []).append(toks / wall)
+    emit(rates)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one bf16 ResNet-50 and one regnety_160 forward at "
-                         "batch 8, one ResNet-50 and one ViT-S/16 train step at batch 32, "
-                         "one regnety_160 train step at batch 64, and one GPT-nano decode "
-                         "step at batch 4")
+                    help="also time and trace the graphs against their eager bodies (a "
+                         "ResNet-50 and a regnety_160 forward at batch 8, a GPT-nano decode "
+                         "step at batch 4, a ResNet-50 and a ViT-S/16 train step at batch "
+                         "32; served img/s and tokens/s both ways) and one regnety_160 "
+                         "train step at batch 64")
     ap.add_argument("--two-ranks-worker", metavar="DIR", help=argparse.SUPPRESS)
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--counted-train-net"]:  # train_net's own arguments follow
@@ -3245,8 +3595,6 @@ def main(argv=None) -> int:
     decode_rows = decode_kernel_phase(torch, da, dev)
 
     launches, model = slice_phase(torch, ce, N_REQUESTS)
-    if args.profile:
-        profile_phase(torch, model, 8, 224)
     del model
     vit_serve_fwd = vit_slice_phase(torch, fa, dev, N_REQUESTS)
 
@@ -3264,9 +3612,6 @@ def main(argv=None) -> int:
     step_vs_cpu_phase(torch, dev, "resnet50", bn_group=4)
     step_vs_cpu_phase(torch, dev, "vit_small", attn_impl="flash")
     vit_auto_phase(torch, fa, dev)
-    if args.profile:
-        train_profile_phase(torch, dev, "resnet50", bn_group=32)
-        train_profile_phase(torch, dev, "vit_small", classify=_vit_kind, attn_impl="flash")
 
     # RegNet: every stride-1 grouped 3x3 at <= 14² through the kernel
     os.environ["DISTRIBUUUU_GROUP_CONV"] = "pallas"
@@ -3275,11 +3620,16 @@ def main(argv=None) -> int:
         weights = regnet_weights(torch, os.path.join(reg_dir, "regnety_160.pth"))
         reg_serve_gc, reg_serve_ce, model = regnet_slice_phase(torch, ce, gc, dev, N_REQUESTS,
                                                                weights)
-        if args.profile:
-            profile_phase(torch, model, 8, 224)
         del model
         runs["regnety_160"] = regnet_train_phase(torch, ce, gc, ou,
                                                  os.path.join(reg_dir, "train"), weights)
+        # one graph per step: eager against graph, the folded step, the
+        # recompile storm (and, profiling, the graphs' numbers beside eager)
+        graph_equal_phase(torch, dev, weights)
+        fold_train_phase(torch, dev)
+        recompile_drill_phase(torch, os.path.join(reg_dir, "recompile"))
+        if args.profile:
+            graph_profile_phases(torch, dev, weights)
     finally:
         shutil.rmtree(reg_dir, ignore_errors=True)
     tf32_off()
@@ -3299,8 +3649,6 @@ def main(argv=None) -> int:
         raise AssertionError(f"batch tiles {lm_big['batch_tiles']} != {LM_BIG_TILES}")
     tf32_off()
     lm_check_phase(torch, da, dev, lm_engine, lm_prompts)
-    if args.profile:
-        lm_profile_phase(torch, dev, lm_engine)
     del lm_engine
 
     # real images and process groups: SyncBN in a group of one, the

@@ -11,7 +11,9 @@ Slurm), with the JAX train loop's gradient accumulation, remat, verified
 checkpoints, rollback, background commits, concurrent eval and fault
 injection, and GPT-nano generation serving (``python -m
 distribuuuu_tpu_torch.serve_net`` / ``train_net --cfg
-config/<arch>.yaml``).
+config/<arch>.yaml``); on the card every serving bucket, LM tile, train
+step (``TRAIN.STEPS_PER_CALL`` of them at once) and eval step replays one
+CUDA graph (``graphs.py``).
 """
 
 

@@ -212,8 +212,8 @@ _C.TRAIN.WORKERS = 4
 _C.TRAIN.PIN_MEMORY = True
 _C.TRAIN.PRINT_FREQ = 30
 _C.TRAIN.TOPK = 5
-# Optimizer steps per dispatched call; the port takes 1 (refuses more:
-# ROADMAP "One graph per step").
+# Optimizer steps per dispatched call: K > 1 runs K steps as one CUDA
+# graph (trainer.TrainStep), the ragged tail of an epoch step by step.
 _C.TRAIN.STEPS_PER_CALL = 1
 # Device prefetch depth (data/loader.device_prefetch): batches k+1..k+N
 # are copied host-to-device (pinned, non_blocking) while step k runs.
@@ -437,7 +437,8 @@ _C.FAULTS.STALL_S = 0.0
 # the installed handler (utils/preempt.py). -1 = off.
 _C.FAULTS.PREEMPT_EPOCH = 0
 _C.FAULTS.PREEMPT_AT_BATCH = -1
-# Refused (ROADMAP "One graph per step"): mid-run recompiles. -1 = off.
+# RECOMPILE_N real CUDA graph captures of trivial bodies at
+# (RECOMPILE_EPOCH, RECOMPILE_AT_BATCH), once; the card only. -1 = off.
 _C.FAULTS.RECOMPILE_EPOCH = 0
 _C.FAULTS.RECOMPILE_AT_BATCH = -1
 _C.FAULTS.RECOMPILE_N = 8

@@ -34,7 +34,13 @@
 //    of CHUNK elements are numbered across leaves, one block per chunk;
 //  * a block finds its leaf by a binary search over first_chunk, then its
 //    256 threads stride the chunk with coalesced scalar loads;
-//  * m is the SGD trace (f32 or bf16) or AdamW's mu, v is AdamW's nu.
+//  * m is the SGD trace (f32 or bf16) or AdamW's mu, v is AdamW's nu;
+//  * the step's constants are read from device memory, not passed by value,
+//    so a captured CUDA graph reads each replay's own: row `*step_row` of the
+//    table `scal` (N_SCALARS floats a row, in the order of struct Scalars;
+//    a fold of K steps stages K rows and `step_row` moves on in the graph), and
+//    a device flag `skip` (nonzero: this step leaves every param and moment
+//    as it was, the `TRAIN.NONFINITE skip` policy decided on the device).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +57,7 @@ enum Kind { SGD_MOMENTUM = 0, SGD_PLAIN = 1, ADAMW = 2 };
 struct Scalars {
   float lr, wd, mom, mom_t, b1, b2, ob1, ob2, eps, c1, c2;
 };
+constexpr int N_SCALARS = sizeof(Scalars) / sizeof(float);
 
 __device__ __forceinline__ float load_m(const float* m, int64_t i) { return m[i]; }
 __device__ __forceinline__ float load_m(const __nv_bfloat16* m, int64_t i) {
@@ -63,7 +70,12 @@ __device__ __forceinline__ void store_m(__nv_bfloat16* m, int64_t i, float v) {
 
 template <int K, typename MT, bool NESTEROV>
 __global__ void __launch_bounds__(THREADS)
-    opt_update_kernel(const int64_t* __restrict__ table, int n_leaves, Scalars s) {
+    opt_update_kernel(const int64_t* __restrict__ table, int n_leaves,
+                      const float* __restrict__ scal, const int* __restrict__ step_row,
+                      const float* __restrict__ skip) {
+  if (skip != nullptr && *skip != 0.f) return;
+  const Scalars s =
+      *reinterpret_cast<const Scalars*>(scal + (step_row ? *step_row : 0) * N_SCALARS);
   // leaf of this block: the last l with table[l].first_chunk <= blockIdx.x
   const int64_t chunk = blockIdx.x;
   int lo = 0, hi = n_leaves - 1;
@@ -104,10 +116,10 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int K, typename MT, bool NESTEROV>
-cudaError_t launch(const int64_t* table, int n_leaves, int64_t n_chunks, Scalars s,
-                   cudaStream_t stream) {
+cudaError_t launch(const int64_t* table, int n_leaves, int64_t n_chunks, const float* scal,
+                   const int* row, const float* skip, cudaStream_t stream) {
   opt_update_kernel<K, MT, NESTEROV>
-      <<<(unsigned)n_chunks, THREADS, 0, stream>>>(table, n_leaves, s);
+      <<<(unsigned)n_chunks, THREADS, 0, stream>>>(table, n_leaves, scal, row, skip);
   return cudaGetLastError();
 }
 
@@ -118,26 +130,30 @@ extern "C" {
 // Elements each block updates; the wrapper numbers the chunks with it.
 int opt_update_chunk() { return (int)CHUNK; }
 
+// Floats a row of the scalar table; the wrapper checks its layout with it.
+int opt_update_n_scalars() { return N_SCALARS; }
+
 // kind: 0 SGD with momentum, 1 SGD without momentum, 2 AdamW.
-// trace_bf16: the SGD trace is bf16 (else f32). Returns a cudaError_t.
+// trace_bf16: the SGD trace is bf16 (else f32). scal: the device table of
+// step constants; row: device int32 row index into it (null: row 0);
+// skip: device f32 flag (null: never skip). Returns a cudaError_t.
 int opt_update_launch(const int64_t* table, int n_leaves, int64_t n_chunks, int kind,
-                      int trace_bf16, int nesterov, float lr, float wd, float mom,
-                      float mom_t, float b1, float b2, float ob1, float ob2, float eps,
-                      float c1, float c2, void* stream) {
-  if (n_leaves <= 0 || n_chunks <= 0 || n_chunks > 0x7fffffffLL)
+                      int trace_bf16, int nesterov, const float* scal, const int* row,
+                      const float* skip, void* stream) {
+  if (n_leaves <= 0 || n_chunks <= 0 || n_chunks > 0x7fffffffLL || scal == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Scalars s{lr, wd, mom, mom_t, b1, b2, ob1, ob2, eps, c1, c2};
+  const float* s = scal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == SGD_MOMENTUM) {
     if (trace_bf16)
-      return nesterov ? launch<SGD_MOMENTUM, __nv_bfloat16, true>(table, n_leaves, n_chunks, s, st)
-                      : launch<SGD_MOMENTUM, __nv_bfloat16, false>(table, n_leaves, n_chunks, s, st);
-    return nesterov ? launch<SGD_MOMENTUM, float, true>(table, n_leaves, n_chunks, s, st)
-                    : launch<SGD_MOMENTUM, float, false>(table, n_leaves, n_chunks, s, st);
+      return nesterov ? launch<SGD_MOMENTUM, __nv_bfloat16, true>(table, n_leaves, n_chunks, s, row, skip, st)
+                      : launch<SGD_MOMENTUM, __nv_bfloat16, false>(table, n_leaves, n_chunks, s, row, skip, st);
+    return nesterov ? launch<SGD_MOMENTUM, float, true>(table, n_leaves, n_chunks, s, row, skip, st)
+                    : launch<SGD_MOMENTUM, float, false>(table, n_leaves, n_chunks, s, row, skip, st);
   }
   if (kind == SGD_PLAIN)
-    return launch<SGD_PLAIN, float, false>(table, n_leaves, n_chunks, s, st);
-  if (kind == ADAMW) return launch<ADAMW, float, false>(table, n_leaves, n_chunks, s, st);
+    return launch<SGD_PLAIN, float, false>(table, n_leaves, n_chunks, s, row, skip, st);
+  if (kind == ADAMW) return launch<ADAMW, float, false>(table, n_leaves, n_chunks, s, row, skip, st);
   return (int)cudaErrorInvalidValue;
 }
 

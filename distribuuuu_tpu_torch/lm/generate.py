@@ -13,12 +13,17 @@ overwrites its page, retiring frees the slot without moving data. Where
 the JAX package returns a new cache from each step, the port writes the
 cache in place (one cache in device memory, no copy a step).
 
-**(batch, cache-len) tiles.** A step runs the smallest tile covering the
-live slots and the longest sequence; crossing a tile boundary pads the
-cache once. The JAX engine compiles every tile ahead of time; the port
-runs every decode and prefill tile once, in the scheduler thread, before
-it serves (PyTorch keeps cuBLAS handles per thread). ``n_compiles``
-counts the warmed shapes.
+**(batch, cache-len) tiles, one graph each.** A step runs the smallest
+tile covering the live slots and the longest sequence; crossing a tile
+boundary copies the live rows into the next tile's cache once. The JAX
+engine compiles every tile ahead of time; the port captures every decode
+tile and every prompt tile as one CUDA graph (``graphs.StepGraph``: a
+warm-up call, then the capture, on the engine's own memory pool), in the
+scheduler thread, before it serves (PyTorch keeps cuBLAS handles per
+thread). Each decode tile owns its static cache, tokens and lengths, each
+prompt tile its static page and tokens; a step copies its inputs in and
+replays. On the CPU the same bodies run eagerly on the same buffers.
+``n_compiles`` counts the tiles captured (warmed, on the CPU).
 
 **The decode step's attention.** ``CachedAttention`` applies the GPT's own
 ``blocks.N.attn`` modules (there is no second copy of the parameters).
@@ -45,7 +50,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from distribuuuu_tpu_torch import not_ported
+from distribuuuu_tpu_torch import graphs, not_ported
 from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.ops.cuda import decode_attn
 from distribuuuu_tpu_torch.serve.admission import AdmissionController, EngineClosedError
@@ -434,6 +439,7 @@ class GenerateEngine:
         draft_model=None,
         sample: SampleParams | dict | None = None,
         chunk_prefill: int | None = None,
+        graphed: bool | None = None,
     ):
         self.device = torch.device(device)
         self.max_new = int(
@@ -491,7 +497,13 @@ class GenerateEngine:
         self._slots: list[_Slot | None] = [None] * self.n_slots
         self._b_tile = self.batch_tiles[0]
         self._c_tile = self.cache_tiles[0]
-        self._cache = self._zero_cache(self._b_tile, self._c_tile)
+        # on the card every tile is a graph; graphed=False runs the bodies
+        # eagerly (only to measure the graphs against them)
+        self.graphed = graphs.graphed(self.device) if graphed is None else graphed
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
+        self._decode_graphs: dict = {}  # (b, c) -> StepGraph over the tile's buffers
+        self._prefill_graphs: dict = {}  # prompt tile -> StepGraph over its page
+        self._cache = self._tile((self._b_tile, self._c_tile)).inputs
         self._draining = False
         self._started = False
         self._next_id = 0
@@ -523,32 +535,70 @@ class GenerateEngine:
         return {k: torch.zeros(shape, dtype=self._dtype, device=self.device)
                 for k in ("k", "v")}
 
-    def _ids(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+    def _tile(self, bc: tuple[int, int]) -> graphs.StepGraph:
+        """Decode tile ``(b, c)``'s graph: a T=1 step of its static tokens
+        ``[b, 1]`` and lengths ``[b]`` against its static cache (the
+        inputs ``k``/``v``); returns logits ``[b, V]``."""
+        g = self._decode_graphs.get(bc)
+        if g is None:
+            b, c = bc
+            inputs = {**self._zero_cache(b, c),
+                      "tokens": torch.zeros((b, 1), dtype=torch.int32, device=self.device),
+                      "lengths": torch.zeros((b,), dtype=torch.int32, device=self.device)}
+            decoder = self.decoder  # not self: the graph is freed with the engine
+
+            def body():
+                return decoder(inputs["tokens"], inputs["lengths"], inputs)[:, 0]
+
+            g = self._decode_graphs[bc] = graphs.StepGraph(body, inputs, device=self.device,
+                                                           pool=self._pool, graphed=self.graphed)
+        return g
+
+    def _prompt_tile(self, p: int) -> graphs.StepGraph:
+        """Prompt tile ``p``'s graph: the tile through the decoder against
+        its static page (``k``/``v`` of ``[L, 1, H, p, D]``, every row of
+        which the prefill writes); returns logits ``[1, p, V]``."""
+        g = self._prefill_graphs.get(p)
+        if g is None:
+            inputs = {**self._zero_cache(1, p),
+                      "tokens": torch.zeros((1, p), dtype=torch.int32, device=self.device)}
+            lengths = torch.zeros((1,), dtype=torch.int32, device=self.device)
+            decoder = self.decoder
+
+            def body():
+                return decoder(inputs["tokens"], lengths, inputs)
+
+            g = self._prefill_graphs[p] = graphs.StepGraph(body, inputs, device=self.device,
+                                                           pool=self._pool, graphed=self.graphed)
+        return g
 
     def _prefill(self, padded: np.ndarray):
-        """The prompt tile through the decoder against a fresh zero cache
-        sized to the tile: (logits [1, P, V], the page)."""
-        page = self._zero_cache(1, padded.shape[1])
-        lengths = torch.zeros((1,), dtype=torch.int32, device=self.device)
-        return self.decoder(self._ids(padded), lengths, page), page
+        """The prompt tile through the decoder against its page: (logits
+        [1, P, V], the page). Both are the graph's static buffers, valid
+        until the next prefill."""
+        g = self._prompt_tile(padded.shape[1])
+        return g(tokens=torch.from_numpy(padded)), g.inputs
 
     def _decode(self, tokens: np.ndarray, lengths: np.ndarray):
-        """One T=1 step of the live tile: logits [b, V] (head dtype)."""
-        return self.decoder(self._ids(tokens[:, None]), self._ids(lengths), self._cache)[:, 0]
+        """One T=1 step of the live tile: logits [b, V] (head dtype), valid
+        until the tile's next step."""
+        g = self._tile((self._b_tile, self._c_tile))
+        return g(tokens=torch.from_numpy(tokens[:, None]), lengths=torch.from_numpy(lengths))
 
     def _warm_up(self) -> None:
         try:
-            for b, c in self._tiles:
-                cache = self._cache
-                self._cache = self._zero_cache(b, c)
-                self._decode(np.zeros((b,), np.int32), np.zeros((b,), np.int32))
-                self._cache = cache
+            for bc in self._tiles:  # each tile's warm-up call and capture
+                b = bc[0]
+                self._tile(bc)(tokens=torch.zeros((b, 1), dtype=torch.int32),
+                               lengths=torch.zeros((b,), dtype=torch.int32))
                 self.n_compiles += 1
                 COMPILE_EVENTS.append(b)
             for p in self.prompt_tiles:
                 self._prefill(np.zeros((1, p), np.int32))
                 self.n_compiles += 1
+            for g in self._decode_graphs.values():  # a fresh cache for the first requests
+                for k in ("k", "v"):
+                    g.inputs[k].zero_()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         except BaseException as e:  # noqa: BLE001 — re-raised in __init__
@@ -672,9 +722,10 @@ class GenerateEngine:
         c = tile_for(self.cache_tiles, max(c_need, self._c_tile))
         if (b, c) == (self._b_tile, self._c_tile):
             return
-        grown = self._zero_cache(b, c)
+        grown = self._tile((b, c)).inputs  # the next tile's static cache
         for k in ("k", "v"):
             old = self._cache[k]
+            grown[k].zero_()
             grown[k][:, :old.shape[1], :, :old.shape[3]] = old
         self._cache = grown
         self._b_tile, self._c_tile = b, c

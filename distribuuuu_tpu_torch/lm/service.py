@@ -29,11 +29,12 @@ from distribuuuu_tpu_torch.serve import protocol
 from distribuuuu_tpu_torch.serve.admission import EngineClosedError, QueueFullError
 
 
-def engine_from_cfg() -> GenerateEngine:
+def engine_from_cfg(graphed: bool | None = None) -> GenerateEngine:
     """The generation engine from the global cfg: the configured gpt_*
     arch on ``cuda:{SERVE.DEVICE}`` (the CPU only under ``DEVICE.PLATFORM
     cpu``), weights from ``MODEL.WEIGHTS`` (a torch ``.pth``) or made from
-    ``RNG_SEED``, GENERATE.* tiles warmed."""
+    ``RNG_SEED``, GENERATE.* tiles warmed; ``graphed`` as
+    :class:`GenerateEngine`'s."""
     from distribuuuu_tpu_torch import trainer
     from distribuuuu_tpu_torch.utils import weights
 
@@ -52,7 +53,7 @@ def engine_from_cfg() -> GenerateEngine:
         weights.load_weights(model, cfg.MODEL.WEIGHTS)
     elif cfg.MODEL.PRETRAINED:
         raise weights.pretrained_refusal(cfg.MODEL.ARCH)
-    return GenerateEngine(model, device=device)
+    return GenerateEngine(model, device=device, graphed=graphed)
 
 
 def handle_generate(engine: GenerateEngine, ctrl: dict, send) -> None:

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distribuuuu_tpu_torch import not_ported
+from distribuuuu_tpu_torch import graphs, not_ported
 from distribuuuu_tpu_torch.ops.cuda import conv_epilogue, group_conv
 from distribuuuu_tpu_torch.parallel import dist
 
@@ -383,18 +383,21 @@ class Dropout(nn.Module):
     training keep each element with probability 1 − rate and scale the
     kept ones by 1/(1 − rate) (in the input's dtype), identity in eval.
 
-    The mask is drawn on the host by a ``torch.Generator`` seeded from
-    ``key`` = ``(RNG_SEED, step, micro-batch)`` only (through numpy's
-    ``SeedSequence``; ``trainer.train_step`` hands the key to the model
-    per micro-batch), for
-    the GLOBAL batch (this process's batch times the world size), of
-    which each process takes its own rows; it is copied to the device
-    from pinned memory with ``non_blocking``, so the draw adds no device
-    sync. A run so draws the same masks at any world size, on the card
-    and on the CPU, and after a resume, as JAX's ``fold_in(key, step)``
-    then ``fold_in(step_key, micro)`` does. The bits are not JAX's: a
-    torch Generator is not threefry, so a mask equals JAX's only in
-    distribution."""
+    The mask is drawn on the host (:meth:`draw`) by a ``torch.Generator``
+    seeded from ``key`` = ``(RNG_SEED, step, micro-batch)`` only (through
+    numpy's ``SeedSequence``), for the GLOBAL batch (this process's batch
+    times the world size), of which each process takes its own rows. A
+    run so draws the same masks at any world size, on the card and on the
+    CPU, and after a resume, as JAX's ``fold_in(key, step)`` then
+    ``fold_in(step_key, micro)`` does. The bits are not JAX's: a torch
+    Generator is not threefry, so a mask equals JAX's only in
+    distribution.
+
+    ``key`` is either that tuple (the mask is drawn here and copied to the
+    device from pinned memory) or a :class:`DropoutSlot`, whose masks lie
+    in static device buffers that the trainer refills before each call of
+    a captured step (``trainer.TrainStep``): a graph reads the slot's
+    buffer, never a copy made while it was captured."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -402,20 +405,60 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate {rate} not in [0, 1)")
         self.rate = rate
 
+    def draw(self, key, shape) -> torch.Tensor:
+        """The keep mask (CPU bool) of this process's ``shape[0]`` rows
+        under ``key``."""
+        seed = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
+        gen = torch.Generator().manual_seed(int(seed))
+        n, world, rank = shape[0], dist.get_world_size(), dist.get_rank()
+        rows = torch.rand((n * world, *shape[1:]), generator=gen)[rank * n:(rank + 1) * n]
+        return rows < 1.0 - self.rate
+
     def forward(self, x: torch.Tensor, key=None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if key is None:
             raise ValueError("a training forward with dropout needs its key "
                              "(RNG_SEED, step, micro-batch): trainer.train_step sets it")
-        seed = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
-        gen = torch.Generator().manual_seed(int(seed))
-        n, world, rank = x.shape[0], dist.get_world_size(), dist.get_rank()
-        rows = torch.rand((n * world, *x.shape[1:]), generator=gen)[rank * n:(rank + 1) * n]
-        keep = rows < 1.0 - self.rate
-        if x.device.type == "cuda":
-            keep = keep.pin_memory().to(x.device, non_blocking=True)
+        if isinstance(key, DropoutSlot):
+            keep = key.mask(self, x)
+        else:
+            keep = self.draw(key, x.shape)
+            if x.device.type == "cuda":
+                keep = keep.pin_memory().to(x.device, non_blocking=True)
         return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
+class DropoutSlot:
+    """One micro-batch's dropout key with its masks in static device
+    buffers, one per :class:`Dropout` layer it meets: :meth:`set_key`
+    (host, before the call) draws each layer's mask for the key into its
+    buffer (``graphs.stage``); a forward reads the buffer. A layer's
+    buffer is made, and filled, at its first forward, which is never a
+    capture (a StepGraph's first call runs eagerly)."""
+
+    def __init__(self):
+        self.key = None
+        self._masks: dict = {}  # id(layer) -> (layer, device bool buffer)
+
+    def set_key(self, key) -> None:
+        self.key = tuple(key)
+        for layer, buf in self._masks.values():
+            graphs.stage(buf, layer.draw(self.key, buf.shape))
+
+    def mask(self, layer: Dropout, x: torch.Tensor) -> torch.Tensor:
+        entry = self._masks.get(id(layer))
+        if entry is None:
+            if graphs.capturing():
+                raise RuntimeError("a dropout slot's buffer is made at the step's first, "
+                                   "eager call, not under capture")
+            buf = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+            graphs.stage(buf, layer.draw(self.key, x.shape))
+            entry = self._masks[id(layer)] = (layer, buf)
+        if entry[1].shape != x.shape:
+            raise ValueError(f"dropout slot holds masks of {tuple(entry[1].shape)}, the "
+                             f"forward gives {tuple(x.shape)}")
+        return entry[1]
 
 
 class SqueezeExcite(nn.Module):

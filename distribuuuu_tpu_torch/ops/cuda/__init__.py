@@ -72,3 +72,43 @@ def use_kernel(t: torch.Tensor) -> bool:
         f"no kernel or plain version for tensors on {t.device}: the port "
         "runs on CUDA, and on the CPU only for tests"
     )
+
+
+# (module, attribute holding the count) of every kernel wrapper's launch
+# counter; a function's counter is an attribute of the function
+_COUNTERS = {
+    "conv_epilogue": ("conv_epilogue", "conv1x1_bn_act.launches"),
+    "opt_update": ("opt_update", "update.launches"),
+    "flash_forward": ("flash_attention", "fwd_launches"),
+    "flash_dq": ("flash_attention", "dq_launches"),
+    "flash_dkdv": ("flash_attention", "dkdv_launches"),
+    "decode_attn": ("decode_attn", "launches"),
+    "group_conv": ("group_conv", "group_conv3x3.launches"),
+    "group_conv_dx": ("group_conv", "group_conv3x3.launches_dx"),
+}
+
+
+def _counter(key: str):
+    """(object holding the count, attribute name) of one counter."""
+    import importlib
+
+    mod, path = _COUNTERS[key]
+    obj = importlib.import_module(f"{__name__}.{mod}")
+    *owners, attr = path.split(".")
+    for name in owners:
+        obj = getattr(obj, name)
+    return obj, attr
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count, by kernel."""
+    return {k: getattr(*_counter(k)) for k in _COUNTERS}
+
+
+def add_launches(delta: dict[str, int]) -> None:
+    """Add ``delta[k]`` to kernel k's launch count (a graph's replay adds
+    the launches it captured)."""
+    for k, n in delta.items():
+        if n:
+            obj, attr = _counter(k)
+            setattr(obj, attr, getattr(obj, attr) + n)

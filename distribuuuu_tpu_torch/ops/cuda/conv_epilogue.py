@@ -31,6 +31,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from distribuuuu_tpu_torch import graphs
 from distribuuuu_tpu_torch.ops import cuda as kernel_tier
 
 # activation registry: code -> fp32 implementation of the plain version;
@@ -194,6 +195,9 @@ def _launch(x, w, a, c, act, out_dtype):
         if splits > 1 and x.dtype == torch.bfloat16:
             parts, arrivals = _workspace(x.device, stream, workspace_bytes(m, cout, cin) // 4,
                                          _tiles(m, cout, bm, bn))
+            # a graph captured here reads this workspace at every replay: it
+            # lives as long as the graph, even after a larger one replaces it
+            graphs.keep_alive(parts, arrivals)
         err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), c.data_ptr(),
                  out.data_ptr(), m, cout, cin, _DTYPE_CODE[x.dtype],
                  _DTYPE_CODE[out_dtype], _ACT_CODE[act], bm, bn, splits, stages,

@@ -15,6 +15,15 @@ On CUDA tensors :func:`update` makes ONE launch of the kernel in
 pointers and sizes) and adds one to ``update.launches``; on CPU tensors it
 runs :func:`update_plain`, the same arithmetic in PyTorch ops.
 
+The step's constants (:data:`SCALARS`: the learning rate, the
+hyperparameters and AdamW's bias corrections of step t) are not arguments
+of the launch: they are a row of a device table, computed on the host by
+:func:`scalar_rows` and staged there before the step, so that a captured
+CUDA graph reads each replay's own (``graphs.py``). A device row index
+picks the row (a fold of K steps stages K rows) and a device flag
+``skip`` makes the step leave everything as it was. The plain version
+reads the same tensors.
+
 Rounding is the jitted JAX kernel's on the CPU, bit for bit: XLA contracts
 ``a·b + c`` into a fused multiply-add at fixed sites (the module docstring
 of the CUDA source lists them), and rewrites AdamW's ``(mu/c1)/(√(nu/c2)+ε)``
@@ -66,6 +75,9 @@ def _bf16(x: float) -> float:
     return float(torch.tensor(x, dtype=torch.bfloat16))
 
 
+SCALARS = ("lr", "wd", "mom", "mom_t", "b1", "b2", "ob1", "ob2", "eps", "c1", "c2")
+
+
 def scalars(h: Hyper, lr: float, count: int, trace_dtype=torch.float32,
             dtype=torch.float32) -> dict:
     """The constants of one step for parameters of ``dtype``. In f32 they
@@ -86,6 +98,25 @@ def scalars(h: Hyper, lr: float, count: int, trace_dtype=torch.float32,
         "c1": float(one - np.float32(h.b1) ** np.float32(count)),
         "c2": float(one - np.float32(h.b2) ** np.float32(count)),
     }
+
+
+def scalar_rows(h: Hyper, lr: float, first: int, k: int, trace_dtype=torch.float32,
+                dtype=torch.float32) -> np.ndarray:
+    """The :func:`scalars` of steps ``first`` .. ``first + k - 1`` as a
+    ``[k, len(SCALARS)]`` array of ``dtype`` (f32 holds the f32-rounded
+    values exactly; f64 keeps them in f64)."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    return np.array([[scalars(h, lr, first + i, trace_dtype, dtype)[key] for key in SCALARS]
+                     for i in range(k)], npdt)
+
+
+def staged_scalars(h: Hyper, lr: float, count: int, params, m=None) -> torch.Tensor:
+    """One step's scalar row ``[1, len(SCALARS)]`` on ``params``' device:
+    the table :func:`update` reads, for a caller that steps outside the
+    optimizer (a test, a measurement)."""
+    tdt = m[0].dtype if m and h.body() == "sgd" else torch.float32
+    return torch.from_numpy(scalar_rows(h, lr, count, 1, tdt, params[0].dtype)).to(
+        params[0].device)
 
 
 # ---------------------------------------------------------------- plain version
@@ -135,13 +166,16 @@ def _leaf_plain(body: str, nesterov: bool, s: dict, p, g, m, v) -> None:
 
 
 @torch.no_grad()
-def update_plain(params, grads, m, v, h: Hyper, lr: float, count: int) -> None:
+def update_plain(params, grads, m, v, h: Hyper, scal: torch.Tensor, row=None,
+                 skip=None) -> None:
     """The plain PyTorch version of :func:`update`: leaf by leaf, the same
-    arithmetic and rounding. The CPU path, and the kernel's yardstick on
-    the card."""
+    arithmetic and rounding, reading the same table, row and flag. The
+    CPU path, and the kernel's yardstick on the card."""
+    if skip is not None and float(skip) != 0.0:
+        return
     body = h.body()
-    tdt = m[0].dtype if body == "sgd" else torch.float32
-    s = scalars(h, lr, count, tdt, params[0].dtype)
+    vals = scal[0 if row is None else int(row)].tolist()
+    s = dict(zip(SCALARS, vals))
     for i, (p, g) in enumerate(zip(params, grads)):
         _leaf_plain(body, h.nesterov, s, p, g, m[i] if m else None, v[i] if v else None)
 
@@ -155,34 +189,33 @@ def _lib():
     lib = _build.load("opt_update")
     fn = lib.opt_update_launch
     if fn.argtypes is None:
-        vp, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-        fn.argtypes = [vp, i, i64, i, i, i] + [f] * 11 + [vp]
+        vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = [vp, i, i64, i, i, i, vp, vp, vp, vp]
         fn.restype = ctypes.c_int
         lib.opt_update_chunk.restype = ctypes.c_int
+        lib.opt_update_n_scalars.restype = ctypes.c_int
     return lib
 
 
-# The device table of the last launch, keyed by its content. Copying a new
-# one costs a host-to-device transfer; in steady state autograd's gradients
-# land where they did the step before, and the table is reused as it is.
-_TABLE: dict = {}
-
-
-def _table(params, grads, m, v, chunk: int):
-    """(device int64 table [L, 6], number of chunks): per leaf the pointers
-    of p, g, m, v, its size, and the index of its first chunk."""
+def _rows(params, grads, m, v, chunk: int):
     rows, first = [], 0
     for i, (p, g) in enumerate(zip(params, grads)):
         n = p.numel()
         rows.append((p.data_ptr(), g.data_ptr(), m[i].data_ptr() if m else 0,
                      v[i].data_ptr() if v else 0, n, first))
         first += -(-n // chunk)
-    key = (params[0].device, tuple(rows))
-    if _TABLE.get("key") != key:
-        _TABLE["key"] = key
-        _TABLE["table"] = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
-            params[0].device, non_blocking=True)
-    return _TABLE["table"], first
+    return rows, first
+
+
+def leaf_table(params, grads, m=None, v=None):
+    """(device int64 table [L, 6], number of chunks): per leaf the pointers
+    of p, g, m, v, its size, and the index of its first chunk. It stays
+    right as long as none of these tensors moves: a caller whose leaves
+    never move (the optimizer's own gradient buffers, which a CUDA graph
+    reads) builds it once and passes it to every launch. Its copy to the
+    card waits for the stream."""
+    rows, n_chunks = _rows(params, grads, m, v, _lib().opt_update_chunk())
+    return torch.tensor(rows, dtype=torch.int64).to(params[0].device), n_chunks
 
 
 def _dense(t: torch.Tensor) -> bool:
@@ -235,22 +268,38 @@ def _check(params, grads, m, v, body: str) -> None:
                         f"{[str(t) for t in mts]}")
 
 
-def _launch(params, grads, m, v, h: Hyper, lr: float, count: int) -> None:
+def _launch(params, grads, m, v, h: Hyper, scal, row, skip, table) -> None:
     body = h.body()
     _check(params, grads, m, v, body)
     lib = _lib()
+    if scal.dtype != torch.float32 or scal.device != params[0].device or \
+            scal.dim() != 2 or scal.shape[1] != lib.opt_update_n_scalars() or \
+            not scal.is_contiguous():
+        raise ValueError(f"fused optimizer update: the scalar table must be a contiguous "
+                         f"f32 [rows, {lib.opt_update_n_scalars()}] tensor on "
+                         f"{params[0].device}, got {scal.dtype} {tuple(scal.shape)} on "
+                         f"{scal.device}")
+    for name, t, dt in (("row", row, torch.int32), ("skip", skip, torch.float32)):
+        if t is not None and (t.dtype != dt or t.device != scal.device or t.numel() != 1):
+            raise ValueError(f"fused optimizer update: {name} must be one {dt} on "
+                             f"{scal.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     tdt = m[0].dtype if body == "sgd" else torch.float32
-    s = scalars(h, lr, count, tdt)
-    table, n_chunks = _table(params, grads, m, v, lib.opt_update_chunk())
+    if table is None:
+        from distribuuuu_tpu_torch import graphs
+
+        if graphs.capturing():
+            raise RuntimeError("fused optimizer update under graph capture needs the "
+                               "leaves' table built beforehand (leaf_table)")
+        table = leaf_table(params, grads, m, v)
+    table, n_chunks = table
     dev = params[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.opt_update_launch(
             table.data_ptr(), len(params), n_chunks, _KIND_CODE[body],
-            int(tdt == torch.bfloat16), int(h.nesterov),
-            *(s[k] for k in ("lr", "wd", "mom", "mom_t", "b1", "b2", "ob1", "ob2",
-                             "eps", "c1", "c2")),
-            stream,
+            int(tdt == torch.bfloat16), int(h.nesterov), scal.data_ptr(),
+            None if row is None else row.data_ptr(),
+            None if skip is None else skip.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"opt_update_launch failed: CUDA error {err}")
@@ -258,7 +307,8 @@ def _launch(params, grads, m, v, h: Hyper, lr: float, count: int) -> None:
 
 
 @torch.no_grad()
-def update(params, grads, m, v, h: Hyper, lr: float, count: int) -> None:
+def update(params, grads, m, v, h: Hyper, scal: torch.Tensor, row=None, skip=None,
+           table=None) -> None:
     """One optimizer step, in place, over every leaf.
 
     params, grads: lists of tensors of one shape per leaf (f32 on the card;
@@ -266,15 +316,20 @@ def update(params, grads, m, v, h: Hyper, lr: float, count: int) -> None:
     their memory element by element);
     m: the SGD traces (f32 or bf16) or AdamW's first moments, or None for
     SGD without momentum; v: AdamW's second moments, else None;
-    lr: this step's learning rate; count: the step number t ≥ 1 (AdamW's
-    bias correction). CUDA tensors take one kernel launch (adding one to
-    ``update.launches``); CPU tensors take :func:`update_plain`.
+    scal: the step constants, a ``[rows, len(SCALARS)]`` table on the
+    params' device (:func:`scalar_rows`, :func:`staged_scalars`); row: a
+    one-element int32 device tensor, the row this step reads (None: row
+    0); skip: a one-element f32 device flag, nonzero to leave everything as
+    it was (None: never); table: :func:`leaf_table`'s result for these
+    leaves (None: built here, a copy that waits for the stream). CUDA tensors take one kernel
+    launch (adding one to ``update.launches``); CPU tensors take
+    :func:`update_plain`.
     """
     if not params:
         return
     if kernel_tier.use_kernel(params[0]):
-        return _launch(params, grads, m, v, h, lr, count)
-    return update_plain(params, grads, m, v, h, lr, count)
+        return _launch(params, grads, m, v, h, scal, row, skip, table)
+    return update_plain(params, grads, m, v, h, scal, row, skip)
 
 
 update.launches = 0

@@ -122,6 +122,13 @@ def is_primary() -> bool:
     return get_rank() == 0
 
 
+def capturable() -> bool:
+    """Whether the default group's collectives can be captured in a CUDA
+    graph: no group (the one-process identity), or NCCL. gloo cannot be
+    captured, whatever device its tensors lie on."""
+    return not is_initialized() or dist.get_backend() == "nccl"
+
+
 def collective_device(group=None) -> torch.device:
     """Where a host value goes for a collective on ``group`` (default: the
     whole group): NCCL takes CUDA tensors only (on the device set for this

@@ -6,16 +6,20 @@ distribuuuu_tpu/serve/engine.py), in the order requests meet it:
 2. **Dynamic micro-batching**: a batcher thread takes up to
    ``SERVE.MAX_BATCH`` requests, or flushes ``SERVE.MAX_WAIT_MS`` after the
    oldest waiting request arrived.
-3. **Bucketed shapes, warmed once**: a batch of n pads (zero rows) to the
-   smallest bucket ≥ n. Every bucket shape runs once at startup (cuDNN
-   picks its algorithms there), the counterpart of the JAX engine's AOT
-   compile; ``n_compiles`` counts the shapes warmed and steady-state
-   serving never adds to it.
+3. **Bucketed shapes, one graph each**: a batch of n pads (zero rows) to
+   the smallest bucket ≥ n. Every bucket's normalize and forward is
+   captured at startup as one CUDA graph over a static device input
+   (``graphs.StepGraph``: a warm-up call, where cuDNN picks its
+   algorithms, then the capture, on the engine's own memory pool), the
+   counterpart of the JAX engine's AOT compile; ``n_compiles`` counts the
+   buckets captured (on the CPU, warmed: the body runs eagerly there) and
+   steady-state serving never adds to it.
 4. **Double-buffered dispatch**: the batch is staged in a pinned host
-   buffer, copied to the card asynchronously, normalized there (uint8
-   input) and run; the batcher hands the in-flight logits to a completion
-   thread through a depth-2 queue and assembles the next batch while the
-   card works.
+   buffer, copied into the bucket's static input asynchronously, and the
+   graph replays; its logits are copied out of the pool on the stream
+   (the next replay overwrites them); the batcher hands the in-flight
+   logits to a completion thread through a depth-2 queue and assembles
+   the next batch while the card works.
 5. **Per-request futures**: the completer's ``.cpu()`` is the
    synchronisation point; it slices off the padding rows and resolves
    request i's ``Future`` with row i.
@@ -35,7 +39,7 @@ from queue import Queue
 import numpy as np
 import torch
 
-from distribuuuu_tpu_torch import not_ported
+from distribuuuu_tpu_torch import graphs, not_ported
 from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.data.transforms import normalize_on_device
 from distribuuuu_tpu_torch.serve.admission import (
@@ -100,6 +104,7 @@ class Engine:
         bucket_sizes: list[int] | None = None,
         max_queue: int | None = None,
         input_dtype=np.uint8,
+        graphed: bool | None = None,
     ):
         self.quantize_mode = ""  # SERVE.QUANTIZE is refused by engine_from_cfg
         self.device = torch.device(device)
@@ -139,6 +144,11 @@ class Engine:
             for b in self.buckets
         }
         self._turn = dict.fromkeys(self.buckets, 0)
+        self._graphs: dict[int, graphs.StepGraph] = {}  # made in the batcher thread
+        # on the card every bucket is a graph; graphed=False runs the
+        # bodies eagerly (only to measure the graphs against them)
+        self.graphed = graphs.graphed(self.device) if graphed is None else graphed
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
 
         self._cond = threading.Condition()
         self._pending: deque[_Request] = deque()
@@ -166,10 +176,27 @@ class Engine:
             raise self._warm_error
 
     # -- model forward -------------------------------------------------------
+    def _graph(self, bucket: int) -> graphs.StepGraph:
+        """The bucket's graph: normalize (uint8 input) and forward over its
+        static device input."""
+        g = self._graphs.get(bucket)
+        if g is None:
+            stage = self._stages[bucket][0].host
+            x = torch.empty(stage.shape, dtype=stage.dtype, device=self.device)
+            model = self.model  # not self: the graph is freed with the engine
+
+            def body():
+                return model(normalize_on_device(x) if x.dtype == torch.uint8 else x)
+
+            g = self._graphs[bucket] = graphs.StepGraph(body, {"x": x}, device=self.device,
+                                                        pool=self._pool, graphed=self.graphed)
+        return g
+
     def _run(self, bucket: int, images: list[np.ndarray]) -> torch.Tensor:
-        """Stage ``images`` (zero rows pad to ``bucket``), copy to the
-        device, normalize uint8 there, and run the forward. Returns the
-        logits on the device without waiting for them."""
+        """Stage ``images`` (zero rows pad to ``bucket``), copy them into
+        the bucket's static input, and run its graph. Returns the logits on
+        the device, copied out of the graph's pool, without waiting for
+        them."""
         stage = self._stages[bucket][self._turn[bucket]]
         self._turn[bucket] ^= 1
         if stage.copied is not None:
@@ -178,12 +205,12 @@ class Engine:
         for i, img in enumerate(images):
             host[i] = img
         host[len(images):] = 0
-        x = stage.host.to(self.device, non_blocking=True)
+        g = self._graph(bucket)
+        g.inputs["x"].copy_(stage.host, non_blocking=True)
         if stage.copied is not None:
             stage.copied.record(torch.cuda.current_stream(self.device))
-        if x.dtype == torch.uint8:
-            x = normalize_on_device(x)
-        return self.model(x)
+        out = g()
+        return out.clone() if g.graphed else out
 
     # -- client surface ----------------------------------------------------
     def start(self) -> "Engine":
@@ -280,7 +307,7 @@ class Engine:
 
     def _warm_up(self) -> None:
         try:
-            for b in self.buckets:
+            for b in self.buckets:  # each bucket's warm-up call and capture
                 self._run(b, [])
                 self.n_compiles += 1
                 COMPILE_EVENTS.append(b)
@@ -334,11 +361,12 @@ class Engine:
             self.metrics.record_batch(len(reqs), bucket, t_done - t_disp, lats)
 
 
-def engine_from_cfg() -> Engine:
+def engine_from_cfg(graphed: bool | None = None) -> Engine:
     """Build a serving Engine from the global cfg: the configured arch on
     ``cuda:{SERVE.DEVICE}`` (or the CPU under ``DEVICE.PLATFORM cpu``),
     weights from ``MODEL.WEIGHTS`` (a torch ``.pth``) or made from
-    ``RNG_SEED``, input dtype per ``DATA.DEVICE_NORMALIZE``."""
+    ``RNG_SEED``, input dtype per ``DATA.DEVICE_NORMALIZE``; ``graphed``
+    as :class:`Engine`'s."""
     from distribuuuu_tpu_torch import trainer
     from distribuuuu_tpu_torch.utils import weights
 
@@ -360,4 +388,5 @@ def engine_from_cfg() -> Engine:
         cfg.TRAIN.IM_SIZE,
         device=device,
         input_dtype=np.uint8 if cfg.DATA.DEVICE_NORMALIZE else np.float32,
+        graphed=graphed,
     )

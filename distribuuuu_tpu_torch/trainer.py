@@ -2,19 +2,23 @@
 distribuuuu_tpu/trainer.py and the step bodies of
 distribuuuu_tpu/parallel/partition/lowering.py).
 
-* :func:`train_step`: forward in training mode, cross-entropy, backward,
+* :class:`TrainStep`: forward in training mode, cross-entropy, backward,
   the gradients averaged over the processes (``parallel/dist.
   all_reduce_grads``, one collective a bucket), ONE fused optimizer update
   (``ops/cuda/opt_update``), the step's metrics as global means and the
   non-finite guard, decided on the global loss so every process skips or
-  raises together. Metrics stay on the device; the epoch loop fetches
-  them at ``PRINT_FREQ``, so steps dispatch back to back.
+  raises together; ``TRAIN.STEPS_PER_CALL`` such steps as one CUDA graph
+  on the card (``graphs.py``), the same body eagerly on the CPU.
+  :func:`train_step` runs it once, eagerly. Metrics stay on the device;
+  the epoch loop fetches them at ``PRINT_FREQ``, so calls dispatch back
+  to back.
 * :func:`train_epoch`: epoch-granular learning rate, the device prefetch
-  ring, meters and ETA, the preemption check at every step boundary.
+  ring, meters and ETA, the preemption check at every call boundary.
 * :func:`validate`: masked sums over the val set (the padded tail counts
   nothing; the sampler's repeats, which pad the shards to one length,
   count as in the JAX package), all-reduced over the processes; on the
-  card every pointwise conv+BN of a CNN's eval forward (ResNet, RegNet,
+  card each eval batch shape is one CUDA graph (:class:`EvalStep`); every
+  pointwise conv+BN of a CNN's eval forward (ResNet, RegNet,
   BoTNet, EfficientNet; DenseNet's convs are pre-activation and have
   none) runs the conv-epilogue kernel, a ViT's attention runs the flash kernels
   under ``DEVICE.ATTN_IMPL flash`` (or ``auto`` at 1024 tokens or more),
@@ -40,18 +44,20 @@ over the global micro-batch (``models/layers.BatchNorm``); ``MODEL.SYNCBN``
 is one group of the whole global micro-batch. ``TRAIN.GRAD_ACCUM_STEPS``
 splits each step into micro-batches; ``TRAIN.REMAT`` recomputes the
 ResNets' stages 1-2 in the backward. What the port does not run raises
-with its ROADMAP item: mesh axes beyond data, folded steps, the token
-shards and the fault knobs whose mechanism the port does not have.
+with its ROADMAP item: mesh axes beyond data, the token shards and the
+fault knobs whose mechanism the port does not have.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from distribuuuu_tpu_torch import not_ported
+from distribuuuu_tpu_torch import graphs, not_ported
 from distribuuuu_tpu_torch.asyncplane import committer
 from distribuuuu_tpu_torch.asyncplane.evalloop import ConcurrentEval
 from distribuuuu_tpu_torch.config import cfg
@@ -62,9 +68,8 @@ from distribuuuu_tpu_torch.data.loader import (
 )
 from distribuuuu_tpu_torch.data.transforms import normalize_on_device
 from distribuuuu_tpu_torch.models import build_model
-from distribuuuu_tpu_torch.models.layers import head_dtype, resolve_dtype
+from distribuuuu_tpu_torch.models.layers import DropoutSlot, head_dtype, resolve_dtype
 from distribuuuu_tpu_torch.ops import cuda as kernel_tier
-from distribuuuu_tpu_torch.ops.cuda import opt_update
 from distribuuuu_tpu_torch.parallel import dist
 from distribuuuu_tpu_torch.resilience import manifest, supervisor
 from distribuuuu_tpu_torch.utils import checkpoint as ckpt
@@ -79,7 +84,6 @@ from distribuuuu_tpu_torch.utils.weights import load_weights, pretrained_refusal
 
 REAL_DATA = "Real data and many processes"
 PARALLEL = "Parallel layouts beyond DP"
-ONE_GRAPH = "One graph per step"
 
 
 def bn_group_from_cfg() -> int:
@@ -206,11 +210,8 @@ def check_train_cfg(eval_only: bool = False) -> None:
         raise ValueError(f"MESH.DATA={mesh.DATA}: the port runs one card a process, so the "
                          f"data axis is -1 or the number of processes ({world})")
     if not eval_only:
-        if cfg.TRAIN.STEPS_PER_CALL > 1:
-            raise not_ported(f"TRAIN.STEPS_PER_CALL={cfg.TRAIN.STEPS_PER_CALL} (folded steps)",
-                             ONE_GRAPH)
         supervisor.validate_policy(str(cfg.TRAIN.NONFINITE))
-    faults.validate_cfg()
+    faults.validate_cfg(cfg.DEVICE.PLATFORM)
     if cfg.MODEL.PRETRAINED and not cfg.MODEL.WEIGHTS:
         raise pretrained_refusal(cfg.MODEL.ARCH)
     if not eval_only:
@@ -254,6 +255,15 @@ def apply_backend_flags() -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def step_graphed(device: torch.device) -> bool:
+    """Whether the train and eval steps on ``device`` run as CUDA graphs:
+    on the card, with no process group or an NCCL one. A gloo group
+    holding CUDA tensors (two ranks sharing one card) cannot be captured:
+    its steps run eagerly, by the group's backend, decided before the
+    first step (the site's shape, not a fallback on a failed capture)."""
+    return graphs.graphed(device) and dist.capturable()
+
+
 def prep_images(images: torch.Tensor) -> torch.Tensor:
     """The device half of ``DATA.DEVICE_NORMALIZE``: uint8 batches are
     normalized on the device; float batches arrive normalized."""
@@ -262,60 +272,164 @@ def prep_images(images: torch.Tensor) -> torch.Tensor:
     return images
 
 
+class _StepBody:
+    """What a train step's graph reads (the model, the optimizer, the
+    staged poison scale and dropout slots, the BN snapshot), kept apart
+    from the :class:`TrainStep` that holds the graphs: a body closes over
+    this, so no reference cycle runs through a graph (``graphs.py``)."""
+
+    def __init__(self, model, opt, topk: int, accum: int, slots: list, poison, skip: bool):
+        self.model, self.opt, self.topk, self.accum = model, opt, topk, accum
+        self.slots, self.poison = slots, poison
+        self.bufs = list(model.buffers())
+        self.snap = [torch.empty_like(b) for b in self.bufs] if skip else None
+
+    def __call__(self, k: int, inputs: dict) -> torch.Tensor:
+        self.opt.row.zero_()
+        return torch.stack([self.step(s, inputs["image"][s], inputs["label"][s])
+                            for s in range(k)])
+
+    def step(self, s: int, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        model, opt, accum = self.model, self.opt, self.accum
+        n = labels.shape[0]
+        if n % accum:
+            raise ValueError(f"batch dim {n} not divisible by GRAD_ACCUM_STEPS={accum}")
+        mb = n // accum
+        if self.snap is not None:
+            for b, c in zip(self.bufs, self.snap):
+                c.copy_(b)
+        gsum, micro = None, []
+        for i in range(accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            if self.slots:
+                model.dropout_key = self.slots[s * accum + i]
+            logits = model(prep_images(images[rows]))
+            loss = cross_entropy(logits, labels[rows]) * self.poison[s]
+            grads = torch.autograd.grad(loss, opt.params)
+            gsum = list(grads) if gsum is None else [a + g for a, g in zip(gsum, grads)]
+            micro.append((loss.detach(), *accuracy(logits.detach(), labels[rows],
+                                                   topk=(1, self.topk))))
+        with torch.no_grad():
+            # the fused update walks each leaf's memory: the static buffers
+            # are laid out as the parameters
+            for buf, g in zip(opt.grads, gsum):
+                buf.copy_(g / accum if accum > 1 else g)
+        dist.all_reduce_grads(opt.grads)
+        metrics = micro[0] if accum == 1 else [torch.stack(m).mean() for m in zip(*micro)]
+        loss, acc1, acck = dist.scaled_all_reduce(list(metrics))
+        bad = torch.logical_not(torch.isfinite(loss))
+        opt.apply(skip=None if self.snap is None else bad.to(torch.float32))
+        if self.snap is not None:
+            with torch.no_grad():
+                for b, c in zip(self.bufs, self.snap):
+                    b.copy_(torch.where(bad, c, b))
+        return torch.stack([loss, acc1.to(loss.dtype), acck.to(loss.dtype),
+                            bad.to(loss.dtype)])
+
+
+class TrainStep:
+    """The train step, ``fold`` optimizer steps a call (``TRAIN.
+    STEPS_PER_CALL``, JAX's folded dispatch), as one graph on the card
+    (``graphs.StepGraph``; the CPU runs the same body eagerly).
+
+    A call takes ``k`` batches (``fold``, or 1 for the ragged tail of an
+    epoch: a second graph of one step), their poison flags and the step
+    cursor of the first (JAX's ``state.step``; default the optimizer's
+    count), stages what changes per step (the optimizer's scalar rows, the
+    poison scale, the dropout masks, keyed by the cursor as JAX folds its
+    key by ``state.step``, so a skipped step moves them on), copies the
+    batches into the graph's static inputs and runs the body. Each step of
+    the body is :func:`train_step`'s: forward in training mode over
+    ``accum`` micro-batches (the BN running stats carried from one to the
+    next), cross-entropy times the staged poison scale (1.0, or NaN at
+    ``FAULTS.NAN_STEP``: ``loss · 1.0`` is ``loss`` bit for bit), the
+    gradients summed, divided by ``accum`` and written into the
+    optimizer's static buffers in each parameter's layout, all-reduced
+    (one collective a bucket), the metrics as global means, the
+    non-finite flag of the global loss, and ONE fused update. Under
+    ``policy="skip"`` the flag goes to the kernel, which then changes
+    nothing, and the BN buffers are restored from the step's snapshot by
+    ``torch.where``: JAX's in-graph skip. The body reads nothing on the
+    host. Returns the ``[k, 4]`` metrics (loss, top1, topk, nonfinite),
+    valid until the next call; under ``skip`` the call reads the flags
+    (one sync a call, as the eager step's ``bool(bad)`` was one a step)
+    so that ``optimizer.count`` counts applied steps only.
+
+    ``graphed`` defaults to :func:`step_graphed`; False runs the body
+    eagerly wherever it is (the eager :func:`train_step`, and the
+    yardstick the graph is measured against)."""
+
+    def __init__(self, model, optimizer, topk: int, policy: str = "raise", accum: int = 1,
+                 fold: int = 1, device=None, graphed: bool | None = None, pool=None):
+        self.opt, self.accum, self.fold = optimizer, accum, fold
+        self.device = torch.device(device) if device is not None else optimizer.params[0].device
+        self.graphed = step_graphed(self.device) if graphed is None else graphed
+        self.slots = ([DropoutSlot() for _ in range(fold * accum)]
+                      if hasattr(model, "dropout_key") else [])
+        self.poison = torch.ones(fold, dtype=torch.float32, device=self.device)
+        self.body = _StepBody(model, optimizer, topk, accum, self.slots, self.poison,
+                              policy == "skip")
+        self.pool = pool
+        self.stream = torch.cuda.Stream(self.device) if self.graphed else None
+        self._graphs: dict = {}
+
+    def _build(self, k: int, batch: dict):
+        img, lab = batch["image"], batch["label"]
+        inputs = {"image": torch.empty((k, *img.shape), dtype=img.dtype, device=img.device),
+                  "label": torch.empty((k, *lab.shape), dtype=lab.dtype, device=lab.device)}
+        return graphs.StepGraph(functools.partial(self.body, k, inputs), inputs,
+                                device=self.device, pool=self.pool, stream=self.stream,
+                                graphed=self.graphed)
+
+    def __call__(self, batches: list, poison: list, step: int | None = None) -> torch.Tensor:
+        k = len(batches)
+        if k not in (1, self.fold):
+            raise ValueError(f"a call takes 1 or {self.fold} batches, got {k}")
+        opt = self.opt
+        step = opt.count if step is None else step
+        opt.stage(k)
+        graphs.stage(self.poison[:k], np.where(np.asarray(poison, bool), np.nan, 1.0))
+        seed = int(cfg.RNG_SEED or 0)
+        for j, slot in enumerate(self.slots[:k * self.accum]):
+            slot.set_key((seed, step + j // self.accum, j % self.accum))
+        key = (k, *((t.shape, t.dtype) for t in (batches[0]["image"], batches[0]["label"])))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._build(k, batches[0])
+        for s, b in enumerate(batches):
+            g.inputs["image"][s].copy_(b["image"], non_blocking=True)
+            g.inputs["label"][s].copy_(b["label"], non_blocking=True)
+        out = g()
+        if self.body.snap is not None:
+            opt.advance(k - int(out[:, 3].sum()))
+        else:
+            opt.advance(k)
+        return out
+
+
 def train_step(model, optimizer, batch: dict, topk: int, policy: str = "raise",
                accum: int = 1, poison: bool = False) -> dict:
     """One optimizer step on ``batch`` (device tensors; ``model`` in train
-    mode). With ``accum`` > 1 the batch splits into that many contiguous
-    micro-batches (rows ``[i·mb, (i+1)·mb)``), each a forward and backward
-    in turn, the BN running stats carried from one to the next; the
-    gradients are summed and divided by ``accum``, then all-reduced once
-    and applied in ONE fused optimizer update, as the JAX package's
-    ``accum_train_step``. ``poison`` multiplies every micro-batch's loss by
-    NaN (``FAULTS.NAN_STEP``). Returns the step's metrics as device
-    scalars, the means over the micro-batches and the processes: ``loss``,
+    mode), eagerly: the body of :class:`TrainStep` run once. With ``accum``
+    > 1 the batch splits into that many contiguous micro-batches (rows
+    ``[i·mb, (i+1)·mb)``), each a forward and backward in turn, the BN
+    running stats carried from one to the next; the gradients are summed
+    and divided by ``accum``, then all-reduced once and applied in ONE
+    fused optimizer update, as the JAX package's ``accum_train_step``.
+    ``poison`` multiplies every micro-batch's loss by NaN
+    (``FAULTS.NAN_STEP``). Returns the step's metrics as device scalars,
+    the means over the micro-batches and the processes: ``loss``,
     ``top1``, ``topk`` and ``nonfinite`` (1.0 when the global loss is
     NaN/Inf). Under ``policy="skip"`` a non-finite step leaves the
     parameters, the optimizer state and the BN running stats as they were
     before its first micro-batch, on every process. A model with dropout
-    (``dropout_key``) gets ``(RNG_SEED, optimizer.count, i)`` before
+    (``dropout_key``) gets the key ``(RNG_SEED, optimizer.count, i)`` for
     micro-batch i: its masks depend on the run's seed, the step and the
     micro-batch only (``layers.Dropout``)."""
-    images, labels = batch["image"], batch["label"]
-    n = labels.shape[0]
-    if n % accum:
-        raise ValueError(f"batch dim {n} not divisible by GRAD_ACCUM_STEPS={accum}")
-    mb = n // accum
-    saved = ([b.clone() for b in model.buffers()] if policy == "skip" else None)
-    gsum, micro = None, []
-    keyed = hasattr(model, "dropout_key")
-    for i in range(accum):
-        rows = slice(i * mb, (i + 1) * mb)
-        if keyed:
-            model.dropout_key = (int(cfg.RNG_SEED or 0), optimizer.count, i)
-        logits = model(prep_images(images[rows]))
-        loss = cross_entropy(logits, labels[rows])
-        if poison:
-            loss = loss * float("nan")
-        grads = torch.autograd.grad(loss, optimizer.params)
-        gsum = list(grads) if gsum is None else [a + g for a, g in zip(gsum, grads)]
-        micro.append((loss.detach(), *accuracy(logits.detach(), labels[rows], topk=(1, topk))))
-    if accum > 1:
-        gsum = [g / accum for g in gsum]
-    # the fused update walks each leaf's memory: a gradient laid out
-    # unlike its parameter is copied into the parameter's layout
-    grads = [g if opt_update.same_layout(g, p) else torch.empty_like(p).copy_(g)
-             for g, p in zip(gsum, optimizer.params)]
-    dist.all_reduce_grads(grads)
-    metrics = micro[0] if accum == 1 else [torch.stack(m).mean() for m in zip(*micro)]
-    loss, acc1, acck = dist.scaled_all_reduce(list(metrics))
-    bad = torch.logical_not(torch.isfinite(loss))
-    if saved is not None and bool(bad):
-        with torch.no_grad():
-            for b, s in zip(model.buffers(), saved):
-                b.copy_(s)
-    else:
-        optimizer.step(grads)
-    return {"loss": loss, "top1": acc1, "topk": acck, "nonfinite": bad.float()}
+    step = TrainStep(model, optimizer, topk, policy, accum, device=batch["label"].device,
+                     graphed=False)
+    out = step([batch], [poison])[0]
+    return dict(zip(("loss", "top1", "topk", "nonfinite"), out.unbind(0)))
 
 
 @torch.inference_mode()
@@ -335,22 +449,58 @@ def eval_step(model, batch: dict, topk: int) -> dict:
     }
 
 
+class EvalStep:
+    """The eval step as one graph per eval batch shape (``graphs.
+    StepGraph``; the CPU runs the body eagerly): :func:`eval_step` over
+    static inputs. Made afresh for each :func:`validate`, after the model's
+    eval caches (``prepare()``) are built by the first, eager call, and
+    freed when that returns (a body holds the model, not this step), before
+    ``train()`` drops the caches the graph reads. A call's sums are valid
+    until the next call. ``graphed`` defaults to :func:`step_graphed`;
+    False runs :func:`eval_step` on the batch itself."""
+
+    def __init__(self, model, topk: int, device, graphed: bool | None = None, pool=None):
+        self.model, self.topk, self.device = model, topk, torch.device(device)
+        self.graphed = step_graphed(self.device) if graphed is None else graphed
+        self.pool = pool
+        self.stream = torch.cuda.Stream(self.device) if self.graphed else None
+        self._graphs: dict = {}
+
+    def __call__(self, batch: dict) -> dict:
+        if not self.graphed:
+            return eval_step(self.model, batch, self.topk)
+        key = tuple((k, batch[k].shape, batch[k].dtype) for k in ("image", "label", "mask"))
+        g = self._graphs.get(key)
+        if g is None:
+            inputs = {k: torch.empty_like(batch[k]) for k in ("image", "label", "mask")}
+            g = self._graphs[key] = graphs.StepGraph(
+                functools.partial(eval_step, self.model, inputs, self.topk), inputs,
+                device=self.device, pool=self.pool, stream=self.stream, graphed=True)
+        return g(**{k: batch[k] for k in ("image", "label", "mask")})
+
+
 def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
-                device: torch.device):
+                device: torch.device, runner: TrainStep | None = None):
     """One epoch. Returns ``(interrupted, batches_done, record)``: with
-    ``TRAIN.PREEMPT_SAVE`` a SIGTERM ends the epoch at a step boundary with
+    ``TRAIN.PREEMPT_SAVE`` a SIGTERM ends the epoch at a call boundary with
     ``interrupted`` True (the next one with one process; with several,
-    every process agrees on the flag every 8 steps, one all-reduce, and
-    all leave at the same step). ``batches_done`` is the absolute batch
+    every process agrees on the flag every 8 calls, one all-reduce, and
+    all leave at the same one). ``batches_done`` is the absolute batch
     cursor: when the loader was armed with a restored shards cursor for
     this epoch (``Loader.load_state_dict``), the epoch continues at batch
-    ``start_batch`` and the skipped prefix counts. Each step beats the
-    stall watchdog (``TRAIN.STALL_TIMEOUT``) and passes the fault hooks
-    (``FAULTS.*``, at the absolute batch) first. ``record`` holds the
-    epoch, ``start_batch``, the steps this call ran, the step losses, each
-    step's wait for its host batch (``data_wait_s``), the host time at the
-    end of each step (``step_t``) and the (batches done, host time) of
-    each metric flush; every flush waits for the device."""
+    ``start_batch`` and the skipped prefix counts. Batches go to
+    ``runner`` (:class:`TrainStep`; one is made for the epoch when None)
+    ``TRAIN.STEPS_PER_CALL`` at a time, as JAX's folded dispatch: one call
+    of K steps, the ragged tail (``num_batches % K``) through the one-step
+    graph. Each batch beats the stall watchdog (``TRAIN.STALL_TIMEOUT``)
+    and passes the fault hooks (``FAULTS.*``, at the absolute batch)
+    first. Metrics are flushed when ``done % PRINT_FREQ < K`` or at the
+    end. ``record`` holds the epoch, ``start_batch``, the steps this call
+    ran, the step losses, each batch's wait for its host batch
+    (``data_wait_s``), the host time at the end of each step's call
+    (``step_t``), the (batches done, host time) of each metric flush (each
+    waits for the device) and the graph captures the epoch made
+    (``captures``)."""
     lr = get_epoch_lr(epoch)
     set_lr(optimizer, lr)
     loader.set_epoch(epoch)
@@ -364,26 +514,32 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
         num_batches, f"Epoch[{epoch + 1}/{cfg.OPTIM.MAX_EPOCH}]", topk)
     policy = str(cfg.TRAIN.NONFINITE)
     accum = max(1, int(cfg.TRAIN.GRAD_ACCUM_STEPS))
+    fold = max(1, int(cfg.TRAIN.STEPS_PER_CALL))
+    if runner is None:
+        runner = TrainStep(model, optimizer, topk, policy, accum, fold, device)
     nan_step = faults.nan_injection_step()
     monitor = supervisor.NonFiniteMonitor(policy, epoch, logger)
+    captures0 = graphs.captures
     record = {"epoch": epoch, "start_batch": start_batch, "steps": 0, "flushes": [],
-              "losses": [], "data_wait_s": [], "step_t": []}
-    pending, done = [], start_batch
+              "losses": [], "data_wait_s": [], "step_t": [], "captures": 0}
+    pending, done, calls = [], start_batch, 0
     preempt_every = 1 if dist.get_world_size() == 1 else 8
 
     def flush():
-        for m in pending:
-            m = {k: float(v) for k, v in m.items()}
-            if monitor.observe(m["loss"], m["nonfinite"], done):
-                continue
-            losses.update(m["loss"])
-            top1.update(m["top1"])
-            topk_m.update(m["topk"])
-            record["losses"].append(m["loss"])
+        for rows in pending:
+            for m in rows.tolist():
+                m = dict(zip(("loss", "top1", "topk", "nonfinite"), m))
+                if monitor.observe(m["loss"], m["nonfinite"], done):
+                    continue
+                losses.update(m["loss"])
+                top1.update(m["top1"])
+                topk_m.update(m["topk"])
+                record["losses"].append(m["loss"])
         pending.clear()
         record["flushes"].append((done, time.perf_counter()))
 
     heartbeat = supervisor.Heartbeat(cfg.TRAIN.STALL_TIMEOUT, logger)
+    held = []  # the batches of the call being assembled
     try:
         end = time.perf_counter()
         for it, batch, tl in device_prefetch(loader, device, cfg.TRAIN.PREFETCH_DEVICE,
@@ -393,23 +549,35 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
             faults.maybe_stall(epoch, abs_it)  # each a no-op unless FAULTS.ENABLED
             faults.maybe_kill(epoch, abs_it)
             faults.maybe_preempt(epoch, abs_it)
+            faults.maybe_recompile(epoch, abs_it, device)
             faults.maybe_slowdown(epoch, abs_it)
             data_time.update(tl["get1"] - tl["get0"])
             record["data_wait_s"].append(tl["get1"] - tl["get0"])
-            pending.append(train_step(model, optimizer, batch, topk, policy, accum,
-                                      poison=state["step"] == nan_step))
-            state["step"] += 1
-            done += 1
+            held.append(batch)
+            if len(held) < fold and abs_it + 1 < num_batches:
+                continue
+            n = len(held)
+            calls_of = [held] if n == fold else [[b] for b in held]
+            for part in calls_of:
+                k = len(part)
+                poison = [state["step"] + s == nan_step for s in range(k)]
+                pending.append(runner(part, poison, state["step"]).clone())
+                state["step"] += k
+            held.clear()
+            done += n
+            calls += 1
             record["steps"] = done - start_batch
-            if done % cfg.TRAIN.PRINT_FREQ == 0 or done == num_batches:
+            if done % cfg.TRAIN.PRINT_FREQ < fold or done == num_batches:
                 flush()
                 eta = progress.get_eta(
                     done, (num_batches - done) + (cfg.OPTIM.MAX_EPOCH - epoch - 1) * num_batches)
                 logger.info("%s  LR %.5f  ETA %s", progress.display(done), lr, eta)
-            record["step_t"].append(time.perf_counter())
-            batch_time.update(record["step_t"][-1] - end)
-            end = record["step_t"][-1]
-            if (cfg.TRAIN.PREEMPT_SAVE and done < num_batches and done % preempt_every == 0
+            now = time.perf_counter()
+            record["step_t"].extend([now] * n)
+            batch_time.update((now - end) / n, n=n)
+            end = now
+            tick = done if fold == 1 else calls
+            if (cfg.TRAIN.PREEMPT_SAVE and done < num_batches and tick % preempt_every == 0
                     and preempt.requested_global()):
                 flush()
                 logger.warning("preemption signaled — leaving epoch %d at batch %d/%d",
@@ -417,6 +585,7 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
                 return True, done, record
     finally:
         heartbeat.stop()
+        record["captures"] = graphs.captures - captures0
     return False, done, record
 
 
@@ -427,21 +596,27 @@ def log_eval_result(logger, epoch: int, top1: float, topk_acc: float, loss: floa
 
 
 def validate(loader, model, epoch: int, logger, device: torch.device,
-             watch_preemption: bool | None = None, quiet: bool = False, group=None):
+             watch_preemption: bool | None = None, quiet: bool = False, group=None,
+             graphed: bool | None = None, pool=None):
     """The full eval pass over every process's shard: ``(top1, topk, loss,
     samples)`` from the four sums all-reduced over the processes (on
     ``group``, default all), or ``None`` when preemption was signaled
     mid-eval (``TRAIN.PREEMPT_SAVE``). ``quiet`` logs nothing: concurrent
-    eval's caller logs the result at the join."""
+    eval's caller logs the result at the join. On the card each eval batch
+    shape is one graph (:class:`EvalStep`, on ``pool``), captured for
+    this pass; ``graphed=False`` (concurrent eval, on its own stream over
+    a snapshot) runs the step eagerly."""
     if watch_preemption is None:
         watch_preemption = cfg.TRAIN.PREEMPT_SAVE
     model.eval()
     topk, num_batches, totals = effective_topk(), len(loader), None
+    step = EvalStep(model, topk, device, graphed, pool)
     end = time.perf_counter()
     for it, batch, _ in device_prefetch(loader, device, cfg.TRAIN.PREFETCH_DEVICE,
                                         cfg.TRAIN.PIN_MEMORY):
-        m = eval_step(model, batch, topk)
-        totals = m if totals is None else {k: totals[k] + m[k] for k in totals}
+        m = step(batch)
+        totals = ({k: v.clone() for k, v in m.items()} if totals is None
+                  else {k: totals[k] + m[k] for k in totals})
         if (it + 1) % cfg.TEST.PRINT_FREQ == 0 and it + 1 < num_batches:
             if watch_preemption and preempt.requested_global():
                 logger.warning("preemption signaled — abandoning eval at batch %d/%d",
@@ -556,6 +731,15 @@ def train_model(records: list | None = None):
     m_params, mb = count_parameters(model)
     logger.info("model %s: %.3fM params (%.2f MB fp32) on %s, %d process(es)",
                 cfg.MODEL.ARCH, m_params, mb, device, world)
+    graphed = step_graphed(device)
+    pool = torch.cuda.graph_pool_handle() if graphed else None
+    runner = TrainStep(model, optimizer, effective_topk(), str(cfg.TRAIN.NONFINITE),
+                       max(1, int(cfg.TRAIN.GRAD_ACCUM_STEPS)),
+                       max(1, int(cfg.TRAIN.STEPS_PER_CALL)), device, graphed, pool)
+    if device.type == "cuda":
+        logger.info("train and eval steps: %s", "one CUDA graph each, captured at the first "
+                    "call and replayed" if graphed else "eager (a gloo group holds CUDA "
+                    "tensors: gloo's collectives cannot be captured)")
     if cfg.TRAIN.TIMELINE:
         logger.info("TRAIN.TIMELINE and the telemetry sinks: the port writes no "
                     "records yet (ROADMAP.md Queue 1, Telemetry)")
@@ -613,7 +797,7 @@ def train_model(records: list | None = None):
         preempted, else None."""
         nonlocal best_acc1
         t0 = time.perf_counter()
-        result = validate(val_loader, model, epoch, logger, device)
+        result = validate(val_loader, model, epoch, logger, device, pool=pool)
         record["eval_wall_s"] = time.perf_counter() - t0
         if result is None:
             return ckpt.save_preempt_checkpoint(full_state(), epoch + 1, best_acc1,
@@ -629,7 +813,7 @@ def train_model(records: list | None = None):
     def timed_eval(snap, epoch):
         t0 = time.perf_counter()
         result = validate(val_loader, snap, epoch, logger, device, watch_preemption=False,
-                          quiet=True, group=eval_group)
+                          quiet=True, group=eval_group, graphed=False)
         return result, time.perf_counter() - t0
 
     conc_eval = None
@@ -669,7 +853,7 @@ def train_model(records: list | None = None):
         while epoch < cfg.OPTIM.MAX_EPOCH:
             try:
                 interrupted, done, record = train_epoch(train_loader, model, optimizer,
-                                                        state, epoch, logger, device)
+                                                        state, epoch, logger, device, runner)
             except supervisor.NonFiniteLossError as e:
                 if cfg.TRAIN.NONFINITE != "rollback":
                     raise

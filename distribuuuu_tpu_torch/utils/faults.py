@@ -25,7 +25,11 @@ event here, so the tests drive the real recovery code:
                          file, "partial" deletes its manifest.
   truncated shard        ``FAULTS.TRUNCATE_SHARD``: shard file k of a
                          split cut to 60 % of its size (footer and tail
-                         records lost) before the reader opens it.
+                         records lost) before the reader opens it;
+  recompile storm        ``FAULTS.RECOMPILE_EPOCH/RECOMPILE_AT_BATCH/
+                         RECOMPILE_N``: N real CUDA graph captures of
+                         trivial bodies at distinct shapes, once, at that
+                         batch (the card only: the CPU has no graph).
 
 Every hook is one attribute read unless ``FAULTS.ENABLED``. The knobs whose
 mechanism the port does not have are refused by :func:`validate_cfg`,
@@ -54,7 +58,6 @@ REFUSED = {
                    "Async, resilience, live plane, shards and analysis"),
     "KILL_AT_COMMIT_BARRIER": ("a kill at the cross-host commit barrier",
                                "Async, resilience, live plane, shards and analysis"),
-    "RECOMPILE_AT_BATCH": ("a mid-run recompile storm", "One graph per step"),
 }
 
 
@@ -62,7 +65,8 @@ class InjectedFault(RuntimeError):
     """An injected failure, distinguishable from organic errors in logs."""
 
 
-_state: dict = {"decode_raised": set(), "preempted": False, "truncated_shards": set()}
+_state: dict = {"decode_raised": set(), "preempted": False, "truncated_shards": set(),
+                "recompiled": False}
 
 
 def reset() -> None:
@@ -70,20 +74,25 @@ def reset() -> None:
     _state["decode_raised"] = set()
     _state["preempted"] = False
     _state["truncated_shards"] = set()
+    _state["recompiled"] = False
 
 
 def enabled() -> bool:
     return bool(cfg.FAULTS.ENABLED)
 
 
-def validate_cfg() -> None:
-    """Refuse, at start-up, an armed knob the port cannot inject; check
-    the modes. No-op unless ``FAULTS.ENABLED``."""
+def validate_cfg(platform: str = "auto") -> None:
+    """Refuse, at start-up, an armed knob the port cannot inject, and the
+    recompile storm on ``DEVICE.PLATFORM cpu`` (no graph to capture there);
+    check the modes. No-op unless ``FAULTS.ENABLED``."""
     if not enabled():
         return
     for knob, (what, item) in REFUSED.items():
         if int(cfg.FAULTS[knob]) >= 0:
             raise not_ported(f"FAULTS.{knob} ({what})", item)
+    if int(cfg.FAULTS.RECOMPILE_AT_BATCH) >= 0 and platform == "cpu":
+        raise ValueError("FAULTS.RECOMPILE_AT_BATCH needs the card: its storm is CUDA graph "
+                         "captures, and the CPU has no graph")
     for knob, modes in (("DECODE_ERROR_MODE", ("once", "always")),
                         ("CORRUPT_MODE", ("truncate", "partial"))):
         if cfg.FAULTS[knob] not in modes:
@@ -153,6 +162,22 @@ def maybe_truncate_shard(split_dir: str) -> None:
     if os.path.isfile(path) and os.path.getsize(path) == meta["size"]:
         with open(path, "r+b") as f:
             f.truncate(max(1, int(meta["size"]) * 6 // 10))
+
+
+def maybe_recompile(epoch: int, batch: int, device) -> int:
+    """At ``(RECOMPILE_EPOCH, RECOMPILE_AT_BATCH)``, ``RECOMPILE_N`` real
+    graph captures of trivial bodies at distinct shapes
+    (``graphs.capture_trivial``): the mid-run recompile storm a shape leak
+    causes, while training math is untouched (nothing here feeds the
+    step). One-shot per process. Returns the captures made."""
+    if not enabled() or cfg.FAULTS.RECOMPILE_AT_BATCH < 0 or _state["recompiled"]:
+        return 0
+    if epoch != int(cfg.FAULTS.RECOMPILE_EPOCH) or batch != int(cfg.FAULTS.RECOMPILE_AT_BATCH):
+        return 0
+    _state["recompiled"] = True
+    from distribuuuu_tpu_torch import graphs
+
+    return graphs.capture_trivial(max(1, int(cfg.FAULTS.RECOMPILE_N)), device)
 
 
 def maybe_slowdown(epoch: int, batch: int) -> None:

@@ -11,6 +11,15 @@ nu) plus the step count, and a checkpoint saves exactly that. A step is
 one call of the fused update (``ops/cuda/opt_update.update``): one kernel
 launch on the card. The learning rate is epoch-granular and set between
 steps with :func:`set_lr`, as the JAX package injects it.
+
+What a CUDA graph of the train step reads stays at one address for the
+optimizer's life: the moments (a restore copies into them), the static
+gradient buffers the step writes (``grads``, each laid out as its
+parameter), the leaves' pointer table, and the staged scalar table
+(``scal``, one row per step of a fold, written by :meth:`stage` before
+each call) with its device row index (``row``). ``count`` is the number
+of applied steps and lives on the host: the step's caller adds the
+steps a call applied (:meth:`advance`).
 """
 
 from __future__ import annotations
@@ -18,7 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from distribuuuu_tpu_torch import graphs
 from distribuuuu_tpu_torch.config import cfg
+from distribuuuu_tpu_torch.ops import cuda as kernel_tier
 from distribuuuu_tpu_torch.ops.cuda import opt_update
 
 
@@ -26,9 +37,10 @@ class Optimizer:
     """Moment buffers and step count for a list of named parameters."""
 
     def __init__(self, named_params, hyper: opt_update.Hyper, lr: float,
-                 momentum_dtype: torch.dtype | None = None):
+                 momentum_dtype: torch.dtype | None = None, fold: int = 1):
         """``momentum_dtype`` is the SGD trace's dtype (None: the
-        parameter's own, as optax's default)."""
+        parameter's own, as optax's default); ``fold`` the most steps one
+        call stages (``TRAIN.STEPS_PER_CALL``)."""
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         self.hyper = hyper
@@ -40,12 +52,53 @@ class Optimizer:
             torch.zeros_like(p, dtype=mdt or p.dtype) for p in self.params
         ]
         self.v = [torch.zeros_like(p) for p in self.params] if body == "adamw" else None
+        self.fold = max(1, int(fold))
+        self.grads = self.scal = self.row = self._table = None
+
+    def trace_dtype(self) -> torch.dtype:
+        return self.m[0].dtype if self.hyper.body() == "sgd" else torch.float32
+
+    def stage(self, k: int = 1) -> None:
+        """Write the scalar rows of the next ``k`` steps (counts ``count +
+        1`` .. ``count + k``, this learning rate) into the static table,
+        ahead of the call that applies them (``graphs.stage``). Makes the
+        static buffers at the first call."""
+        if k > self.fold:
+            raise ValueError(f"{k} steps a call, the optimizer stages at most {self.fold}")
+        p0 = self.params[0]
+        if self.scal is None:
+            self.grads = [torch.empty_like(p) for p in self.params]
+            self.scal = torch.zeros((self.fold, len(opt_update.SCALARS)), dtype=p0.dtype,
+                                    device=p0.device)
+            self.row = torch.zeros((), dtype=torch.int32, device=p0.device)
+        graphs.stage(self.scal[:k], opt_update.scalar_rows(
+            self.hyper, self.lr, self.count + 1, k, self.trace_dtype(), p0.dtype))
+
+    def apply(self, grads=None, skip: torch.Tensor | None = None) -> None:
+        """Apply the staged row ``row`` from ``grads`` (default: the static
+        buffers ``grads``) and move ``row`` on; with ``skip`` (a device
+        flag) nonzero nothing changes and ``row`` stays. No host read: a
+        graph captures it."""
+        if grads is None:
+            grads = self.grads
+            if self._table is None and kernel_tier.use_kernel(self.params[0]):
+                self._table = opt_update.leaf_table(self.params, grads, self.m, self.v)
+        table = self._table if grads is self.grads else None
+        opt_update.update(self.params, grads, self.m, self.v, self.hyper, self.scal,
+                          self.row, skip, table)
+        self.row += 1 if skip is None else (skip == 0).to(torch.int32)
+
+    def advance(self, n: int) -> None:
+        """Count ``n`` applied steps."""
+        self.count += int(n)
 
     def step(self, grads) -> None:
-        """Apply one update from ``grads`` (one per parameter, in order)."""
-        self.count += 1
-        opt_update.update(self.params, grads, self.m, self.v, self.hyper, self.lr,
-                          self.count)
+        """Apply one update from ``grads`` (one per parameter, in order),
+        eagerly."""
+        self.stage(1)
+        self.row.zero_()
+        self.apply(list(grads))
+        self.advance(1)
 
     def state_dict(self) -> dict:
         return {
@@ -108,7 +161,8 @@ def construct_optimizer(model: torch.nn.Module) -> Optimizer:
     """The configured optimizer over every parameter of ``model``, at
     ``OPTIM.BASE_LR``."""
     return Optimizer(list(model.named_parameters()), hyper_from_cfg(),
-                     cfg.OPTIM.BASE_LR, _momentum_dtype())
+                     cfg.OPTIM.BASE_LR, _momentum_dtype(),
+                     fold=max(1, int(cfg.TRAIN.STEPS_PER_CALL)))
 
 
 def set_lr(optimizer: Optimizer, lr: float) -> Optimizer:

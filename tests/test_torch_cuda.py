@@ -38,6 +38,9 @@ leave the others equal to the plain version), agrees at every tiling
 its launcher takes (ragged M, K and N) and with a one-stage ring; a
 base off 16-byte alignment runs the mma.sync body; and its dx at
 regnety_160's width agrees with the CPU's autograd.
+One graph per step: a serving bucket's replay, a decode tile's replay and
+a ResNet-18 train step's replays give the eager calls' bits, and the
+launch counts after N replays are the eager calls' counts.
 """
 
 from __future__ import annotations
@@ -273,8 +276,9 @@ def test_opt_update_kernel_matches_plain_on_card(body):
     before = ou.update.launches
     for step in range(1, 4):
         grads = [0.1 * torch.randn(s, device=dev, generator=g) for s in shapes]
-        ou.update(kp, grads, km, kv, h, 0.1 / step, step)
-        ou.update_plain(p, grads, m, v, h, 0.1 / step, step)
+        scal = ou.staged_scalars(h, 0.1 / step, step, kp, km)
+        ou.update(kp, grads, km, kv, h, scal)
+        ou.update_plain(p, grads, m, v, h, scal)
     torch.cuda.synchronize()
     assert ou.update.launches == before + 3
     for got, want in zip([*kp, *(km or []), *(kv or [])], [*p, *(m or []), *(v or [])]):
@@ -285,12 +289,15 @@ def test_opt_update_refuses_what_it_does_not_take():
     dev = _card()
     h = ou.Hyper(kind="sgd", mom=0.9)
     p, gr = torch.zeros(4, device=dev), torch.zeros(4, device=dev)
+    s = ou.staged_scalars(h, 0.1, 1, [p])
     with pytest.raises(TypeError, match="f32 params"):
-        ou.update([p.double()], [gr.double()], [p.double()], None, h, 0.1, 1)
+        ou.update([p.double()], [gr.double()], [p.double()], None, h, s)
     with pytest.raises(ValueError, match="on cpu"):
-        ou.update([p], [gr.cpu()], [p.clone()], None, h, 0.1, 1)
+        ou.update([p], [gr.cpu()], [p.clone()], None, h, s)
     with pytest.raises(TypeError, match="moment"):
-        ou.update([p], [gr], [p.half()], None, h, 0.1, 1)
+        ou.update([p], [gr], [p.half()], None, h, s)
+    with pytest.raises(ValueError, match="scalar table"):
+        ou.update([p], [gr], [p.clone()], None, h, s.cpu())
 
 
 # of the reference's scale; f16 rounds p and dS as bf16 does, with more bits
@@ -1000,3 +1007,92 @@ def test_group_conv_dx_at_regnety_160_width_matches_cpu_autograd():
     cx = x.float().requires_grad_()
     (want,) = torch.autograd.grad(gc.group_conv3x3(cx, w.float(), 1, g), (cx,), dy.float())
     _close(dx.float().cpu(), want, GROUP_TOL[torch.bfloat16])
+
+
+# ------------------------------------------------------- one graph per step
+
+
+def _launches():
+    from distribuuuu_tpu_torch.ops import cuda as kernel_tier
+
+    return kernel_tier.launch_counts()
+
+
+def _delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in a if b[k] != a[k]}
+
+
+def test_serving_bucket_replay_equals_eager():
+    """ResNet-50 (bf16) at bucket 4: the graph's logits are the eager
+    engine's, bit for bit, and 3 replays count the eager calls' launches."""
+    dev = _card()
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8) for _ in range(3)]
+    out = {}
+    for name in ("graph", "eager"):
+        model = build_model("resnet50", num_classes=10, dtype=torch.bfloat16,
+                            generator=torch.Generator().manual_seed(1))
+        eng = Engine(model, 64, device=dev, max_batch=4, bucket_sizes=[4],
+                     graphed=name == "graph").start()
+        before = _launches()
+        rows = [[f.result(60) for f in [eng.submit(i) for i in imgs]] for _ in range(3)]
+        torch.cuda.synchronize()
+        out[name] = (np.stack(rows[-1]), _delta(before, _launches()))
+        assert eng.stats()["n_compiles"] == 1
+        eng.drain()
+    assert np.array_equal(out["graph"][0], out["eager"][0])
+    assert out["graph"][1] == out["eager"][1] and out["graph"][1]["conv_epilogue"] > 0
+
+
+def test_decode_tile_replay_equals_eager():
+    """A tiny GPT (f32, 3 blocks): greedy streams of the graphed engine
+    equal the eager one's; each decode step counts one launch a block."""
+    from distribuuuu_tpu_torch.lm.generate import GenerateEngine
+
+    dev = _card()
+    prompts = [[1, 2, 3], [7, 8], [4, 5, 6, 7, 9]]
+    got = {}
+    for name in ("graph", "eager"):
+        eng = GenerateEngine(_tiny_gpt(torch.float32), device=dev, max_new_tokens=12,
+                             prompt_len=8, batch_tiles=[1, 2, 4], cache_tiles=[32],
+                             eos_id=-1, graphed=name == "graph").start()
+        before = _launches()
+        streams = [eng.submit(p) for p in prompts]
+        got[name] = ([s.result(60) for s in streams], _delta(before, _launches()),
+                     eng.stats()["decode_steps"])
+        eng.drain()
+    assert got["graph"][0] == got["eager"][0]
+    assert got["graph"][1] == got["eager"][1] == {"decode_attn": 3 * got["graph"][2]}
+
+
+def test_train_step_replays_equal_eager_steps():
+    """ResNet-18 (f32, cuDNN deterministic): five graphed steps (the first
+    the eager warm-up, then four replays) leave the eager steps' state,
+    bit for bit, and count the same launches."""
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    dev = _card()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    batches = [{"image": torch.from_numpy(rng.integers(0, 256, (8, 32, 32, 3), np.uint8)).to(dev),
+                "label": torch.from_numpy(rng.integers(0, 10, 8).astype(np.int32)).to(dev)}
+               for _ in range(5)]
+    state = {}
+    for graph in (True, False):
+        model = build_model("resnet18", num_classes=10, dtype=torch.float32, bn_group=4,
+                            generator=torch.Generator().manual_seed(0)).to(dev).train()
+        opt = construct_optimizer(model)
+        step = trainer.TrainStep(model, opt, 5, "raise", 1, 1, dev, graphed=graph,
+                                 pool=torch.cuda.graph_pool_handle() if graph else None)
+        before = _launches()
+        losses = [float(step([b], [False])[0, 0]) for b in batches]
+        torch.cuda.synchronize()
+        state[graph] = ({k: v.clone() for k, v in model.state_dict().items()},
+                        [m.clone() for m in opt.m], losses, _delta(before, _launches()))
+    (sg, mg, lg, ng), (se, me, le, ne) = state[True], state[False]
+    assert lg == le and ng == ne == {"opt_update": 5}
+    assert all(torch.equal(sg[k], se[k]) for k in se)
+    assert all(torch.equal(a, b) for a, b in zip(mg, me))

@@ -207,7 +207,7 @@ def test_train_step_keys_each_micro_batch(monkeypatch):
     keys = []
     real = tlayers.Dropout.forward
     monkeypatch.setattr(tlayers.Dropout, "forward",
-                        lambda self, x, key=None: keys.append(key) or real(self, x, key))
+                        lambda self, x, key=None: keys.append(key.key) or real(self, x, key))
     opt = construct_optimizer(model)
     b = _batch(0)
     batch = {"image": torch.from_numpy(b["image"]), "label": torch.from_numpy(b["label"])}

@@ -129,8 +129,9 @@ def test_bf16_trace_decays_by_the_rounded_momentum():
     assert s["mom_t"] == 0.8984375 and s["mom"] == float(np.float32(0.9))
     p = torch.zeros(1)
     t = torch.tensor([3.0], dtype=torch.bfloat16)
-    opt_update.update_plain([p], [torch.zeros(1)], [t], None,
-                            opt_update.Hyper(kind="sgd", mom=0.9, nesterov=True), 0.0, 1)
+    h = opt_update.Hyper(kind="sgd", mom=0.9, nesterov=True)
+    opt_update.update_plain([p], [torch.zeros(1)], [t], None, h,
+                            opt_update.staged_scalars(h, 0.0, 1, [p], [t]))
     assert float(t) == 2.6875  # bf16(0.8984375 · 3) = bf16(2.6953125)
 
 

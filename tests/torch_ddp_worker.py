@@ -132,22 +132,23 @@ def train_model_consuming(records: list | None = None) -> list[int]:
     from distribuuuu_tpu_torch.data.loader import Loader
 
     consumed: list[int] = []
-    assemble, step = Loader._assemble, trainer.train_step
+    assemble, call = Loader._assemble, trainer.TrainStep.__call__
 
     def tagged(self, idxs):
         batch = assemble(self, idxs)
         batch["idx"] = np.asarray(idxs, np.int64)
         return batch
 
-    def recording(model, opt, batch, *a, **k):
-        consumed.extend(batch["idx"].tolist())
-        return step(model, opt, batch, *a, **k)
+    def recording(self, batches, *a, **k):
+        for batch in batches:
+            consumed.extend(batch["idx"].tolist())
+        return call(self, batches, *a, **k)
 
-    Loader._assemble, trainer.train_step = tagged, recording
+    Loader._assemble, trainer.TrainStep.__call__ = tagged, recording
     try:
         trainer.train_model(records)
     finally:
-        Loader._assemble, trainer.train_step = assemble, step
+        Loader._assemble, trainer.TrainStep.__call__ = assemble, call
     return consumed
 
 
