@@ -24,7 +24,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    SGD without momentum, AdamW); the flash-attention forward, dQ and
    dK/dV at the ViT-S/16 shapes [B·6, 196, 64] (train batch 32, serving
    batch 8, eval batch 200, bf16), the ViT-Ti/16 1024² shape
-   [4·3, 4096, 64] (bf16, plain and causal) and a ragged f32 shape, with
+   [4·3, 4096, 64] (bf16, plain and causal), a ragged f32 shape and
+   GPT-nano's causal training shape [16·4, 256, 32] (bf16, run zero-padded
+   to head dim 64 as the autograd Function pads it; bound and SDPA at
+   32), with
    ``F.scaled_dot_product_attention`` (forward; backward) as the library,
    each forward row with its ``fwd_plan``, each backward row with its
    ``bwd_plan``, and a ``flash_backward`` row a
@@ -79,7 +82,29 @@ eval's.
    launches reported apart). Checks: f32 greedy streams on the card equal
    the port's CPU engine's; bf16 logits teacher-forced over the CPU's
    streams within SLICE_REL_TOL of the CPU's f32 scale; a sampled request
-   replays; one request through the socket protocol.
+   replays; one request through the socket protocol. Then the LM plane
+   (``lm_plane_phases``):
+   * ``lm_pack``: a corpus of LM_CORPUS_MB of seeded word salad packed by
+     ``pack_tokens --pack-len 256 --val-frac 0.05`` and verified;
+   * ``lm_train``: config/gpt_nano.yaml trained one epoch on the pack
+     (bf16, batch 16, AdamW, graphed) and evaluated, dense and under
+     DEVICE.ATTN_IMPL flash: train sequences/s and tokens/s, step ms,
+     eval tokens/s; one opt_update launch a step; the loss falls over the
+     epoch; under flash 4 forward launches a step and an eval forward,
+     4 dQ and 4 dK/dV a step (none dense); the two first losses within
+     LM_FLASH_LOSS_RTOL; then a ``step_vs_cpu`` row, one f32 AdamW step
+     card vs CPU (update L2 within STEP_UPDATE_L2_TOL);
+   * ``lm_chunk_prefill``: GENERATE.CHUNK_PREFILL 64: f32 greedy streams
+     (TF32 off) identical to the whole-prompt engine's, then 32 bf16
+     prompts of 65–192 tokens: tokens/s, the admission (first-token) ms,
+     no capture after warm-up, 4 decode_attention launches a step;
+   * ``lm_length_classes``: SERVE.LONG_PROMPT_THRESHOLD 128 and
+     LONG_MAX_QUEUE 4: long prompts past 4 refused with the class's
+     error, short ones admitted, every admitted request completed;
+   * ``lm_speculate``: K 4: at f32 a self-draft rejects nothing and a
+     draft from RNG_SEED 1 (DRAFT_WEIGHTS) gives the target-only greedy
+     streams; in bf16 tokens/s target-only, self-drafted and with the
+     seed-1 draft, the acceptance, decode_attention launches a round.
 7. RegNet (``DISTRIBUUUU_GROUP_CONV=pallas``): group_conv3x3 against its
    plain version at the stage-3 shapes of regnety_160 (batches 8, 64, 200),
    regnetx_160 and regnety_320 (batch 64), the dx shape (flipped weight),
@@ -279,6 +304,7 @@ FLASH_SHAPES = [  # (name, batch, heads, length, head dim, dtype, causal)
     ("vit_ti_1024px_b4", 4, 3, 4096, 64, "bfloat16", False),
     ("causal_4096_b4", 4, 3, 4096, 64, "bfloat16", True),
     ("ragged_f32", 2, 3, 150, 64, "float32", False),
+    ("gpt_nano_causal_b16", 16, 4, 256, 32, "bfloat16", True),  # head dim 32, run at 64
 ]
 FLASH_KERNELS = {  # kernel -> (source function name, TPU kernel it replaces)
     "forward": ("flash_attention_fwd", "distribuuuu_tpu/ops/flash_attention.py:315"),
@@ -649,11 +675,17 @@ def flash_kernel_phase(torch, fa, dev):
         q, k, v, do = (torch.randn(b * h, L, d, device=dev, generator=gen).to(dtype)
                        for _ in range(4))
         scale = d ** -0.5
-        o, lse = fa.forward_kernel(q, k, v, scale, causal)
+        # a head dim the kernels do not take runs zero-padded, as _Flash pads it
+        dp = fa.kernel_head_dim(dtype, d)
+        qk, kk, vk, dok = (F.pad(t, (0, dp - d)).contiguous() if dp != d else t
+                           for t in (q, k, v, do))
+        o_full, lse = fa.forward_kernel(qk, kk, vk, scale, causal)
+        o = o_full[..., :d]
         o_ref, lse_ref = fa.forward_plain(q, k, v, scale, causal)
         delta = (do.float() * o_ref.float()).sum(-1)
         args = (q, k, v, do, lse_ref, delta, scale, causal)
-        dq, (dk, dv) = fa.dq_kernel(*args), fa.dkdv_kernel(*args)
+        kargs = (qk, kk, vk, dok, lse_ref, delta, scale, causal)
+        dq, (dk, dv) = fa.dq_kernel(*kargs)[..., :d], (t[..., :d] for t in fa.dkdv_kernel(*kargs))
         dq_ref, (dk_ref, dv_ref) = fa.dq_plain(*args), fa.dkdv_plain(*args)
         torch.cuda.synchronize()
         errs = {"forward": [_scaled_err(o, o_ref), _scaled_err(lse, lse_ref)],
@@ -668,21 +700,22 @@ def flash_kernel_phase(torch, fa, dev):
                                                              retain_graph=True))
         del qg, kg, vg, sdpa
         calls = {
-            "forward": (lambda: fa.forward_kernel(q, k, v, scale, causal),
+            "forward": (lambda: fa.forward_kernel(qk, kk, vk, scale, causal),
                         lambda: fa.forward_plain(q, k, v, scale, causal), lib_fwd),
-            "dq": (lambda: fa.dq_kernel(*args), lambda: fa.dq_plain(*args), lib_bwd),
-            "dkdv": (lambda: fa.dkdv_kernel(*args), lambda: fa.dkdv_plain(*args), lib_bwd),
+            "dq": (lambda: fa.dq_kernel(*kargs), lambda: fa.dq_plain(*args), lib_bwd),
+            "dkdv": (lambda: fa.dkdv_kernel(*kargs), lambda: fa.dkdv_plain(*args), lib_bwd),
         }
+        # the bound is the work at the model's head dim, not the padded one
         nbytes, ops = fa.pass_bytes(b * h, L, d, dtype), fa.flops(b * h, L, d, causal)
-        plan = fa.bwd_plan(L, d, dtype)._asdict()
-        plans = {"forward": fa.fwd_plan(b * h, L, d, dtype)._asdict(), "dq": plan, "dkdv": plan}
+        plan = fa.bwd_plan(L, dp, dtype)._asdict()
+        plans = {"forward": fa.fwd_plan(b * h, L, dp, dtype)._asdict(), "dq": plan, "dkdv": plan}
         rows = {}
         for kern, (fn, plain, lib) in calls.items():
             t_bytes = nbytes[kern] / HBM_BYTES_PER_S * 1e3
             t_ops = ops[kern] / PEAK_FLOPS[dt] * 1e3
             row = {
                 "phase": "kernel", "name": FLASH_KERNELS[kern][0], "shape": name,
-                "B": b, "H": h, "L": L, "D": d, "dtype": dt, "causal": causal,
+                "B": b, "H": h, "L": L, "D": d, "kernel_D": dp, "dtype": dt, "causal": causal,
                 "max_abs_err": max(e for e, _ in errs[kern]),
                 "scaled_err": max(r for _, r in errs[kern]), "tol": FLASH_TOL[dt],
                 "ms": time_ms(torch, fn),
@@ -702,9 +735,9 @@ def flash_kernel_phase(torch, fa, dev):
             rows[kern] = row
 
         def backward():  # as _Flash.backward runs it, lse cotangent aside
-            dl = (do.float() * o.float()).sum(-1)
-            fa.dq_kernel(q, k, v, do, lse, dl, scale, causal)
-            fa.dkdv_kernel(q, k, v, do, lse, dl, scale, causal)
+            dl = (dok.float() * o_full.float()).sum(-1)
+            fa.dq_kernel(qk, kk, vk, dok, lse, dl, scale, causal)
+            fa.dkdv_kernel(qk, kk, vk, dok, lse, dl, scale, causal)
 
         # delta reads dO and O and writes [BH, L] fp32 beside the two kernels
         bwd_bytes = nbytes["dq"] + nbytes["dkdv"] + 2 * b * h * L * d * q.element_size() \
@@ -719,6 +752,7 @@ def flash_kernel_phase(torch, fa, dev):
               "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
         out[name] = rows
         del q, k, v, do, o, lse, o_ref, lse_ref, delta, args, dq, dk, dv, dq_ref, dk_ref, dv_ref
+        del qk, kk, vk, dok, o_full, kargs
     return out
 
 
@@ -1197,7 +1231,8 @@ def vit_train_phase(torch, fa, ou, out_dir: str):
 
 
 def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, tweak=None,
-                      reach=None, **model_kw):
+                      reach=None, host=None, hyper=None, lr: float = 0.1,
+                      num_classes: int = 1000, **model_kw):
     """One f32 train step of ``arch`` (full width, TF32 off) on the card
     and on the port's CPU path, and one f64 step on the CPU, from the same
     weights and batch. The card's update agrees with the CPU's f32 update
@@ -1206,7 +1241,9 @@ def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, tweak=
     update's distance from the f64 update. ``tweak(model)`` edits the
     weights before the step (the same in all three runs); ``reach(model)``
     names the weights whose zeroing must move the card's train-mode
-    logits (on a copy, before the step)."""
+    logits (on a copy, before the step). ``host`` is the batch (default
+    seeded 224² uint8 images), ``hyper`` and ``lr`` the optimizer's
+    (default SGD Nesterov at 0.1)."""
     import copy
 
     import numpy as np
@@ -1218,13 +1255,15 @@ def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, tweak=
     from distribuuuu_tpu_torch.utils.optim import Optimizer
 
     config.reset_cfg()
-    rng = np.random.default_rng(1)
-    host = {"image": torch.from_numpy(rng.integers(0, 256, (batch, 224, 224, 3), np.uint8)),
-            "label": torch.from_numpy(rng.integers(0, 1000, batch).astype(np.int32))}
+    if host is None:
+        rng = np.random.default_rng(1)
+        host = {"image": torch.from_numpy(rng.integers(0, 256, (batch, 224, 224, 3), np.uint8)),
+                "label": torch.from_numpy(rng.integers(0, 1000, batch).astype(np.int32))}
+    hyper = hyper or ou.Hyper(kind="sgd", wd=5e-5, mom=0.9, nesterov=True)
     cpu = torch.device("cpu")
     deltas, losses = [], []
     for device, dtype in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
-        model = build_model(arch, num_classes=1000, dtype=dtype,
+        model = build_model(arch, num_classes=num_classes, dtype=dtype,
                             generator=torch.Generator().manual_seed(0), **model_kw)
         if tweak is not None:
             tweak(model)
@@ -1243,8 +1282,7 @@ def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, tweak=
             del probe
         names = [n for n, _ in model.named_parameters()]
         before = [p.detach().cpu().clone() for p in model.parameters()]
-        opt = Optimizer(list(model.named_parameters()),
-                        ou.Hyper(kind="sgd", wd=5e-5, mom=0.9, nesterov=True), 0.1)
+        opt = Optimizer(list(model.named_parameters()), hyper, lr)
         m = trainer.train_step(model.train(), opt, {k: v.to(device) for k, v in host.items()},
                                5)
         losses.append(float(m["loss"]))
@@ -3516,6 +3554,410 @@ def graph_profile_phases(torch, dev, reg_weights: str) -> None:
     emit(rates)
 
 
+# ----------------------------------------------------------- the LM plane
+# gpt_nano trained on token shards packed from a corpus generated here
+# (seeded word salad, LM_CORPUS_MB), then chunked prefill, the length
+# classes and speculative decoding served through lm/generate.py
+
+LM_CORPUS_MB = 2.5
+LM_WORDS = ("time year people way day man thing woman life child world school state "
+            "family student group country problem hand part place case week company "
+            "system program question work government number night point home water room "
+            "mother area money story fact month lot right study book eye job word business "
+            "issue side kind head house service friend father power hour game line end "
+            "member law car city community name president team minute idea kid body "
+            "information back parent face others level office door health person art war "
+            "history party result change morning reason research girl guy moment air "
+            "teacher force education the of and to a in is it you that he was for on are "
+            "with as his they be at one have this from or had by hot but some what there "
+            "we can out other were all your when up use how said an each she which do "
+            "their if will way about many then them would write like so these her long "
+            "make see him two has look more day could go come did my sound no most who "
+            "over know than call first may down been now find any new take get place made "
+            "live where after little only round man year came show every good me give our "
+            "under very through just form much great think say help low line before turn "
+            "cause same mean differ move right boy old too does tell set three want well "
+            "also play small end put home read hand port large spell add even land here "
+            "must big high such follow act why ask men went light kind off need house").split()
+LM_TRAIN_WINDOW = 20  # the first and last LM_TRAIN_WINDOW losses of the epoch, compared
+LM_FLASH_LOSS_RTOL = 1e-2  # flash vs dense first-step loss (bf16, one step)
+LM_CHUNK = 64
+LM_LONG_PROMPTS = (65, 192)  # chunked prefill admits prompts past PROMPT_LEN (64)
+LM_LONG_THRESHOLD, LM_LONG_MAX_QUEUE = 128, 4
+LM_SPEC_K = 4
+LM_SPEC_REQUESTS = 16
+
+
+def lm_corpus(path: str, seed: int = 0) -> dict:
+    """A text of LM_CORPUS_MB of seeded word salad over LM_WORDS, one
+    document a paragraph (40-400 words each)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = np.asarray(LM_WORDS)
+    docs, size = [], 0
+    while size < LM_CORPUS_MB * 1e6:
+        n = int(rng.integers(40, 400))
+        doc = " ".join(words[rng.integers(0, len(words), n)]) + "."
+        docs.append(doc)
+        size += len(doc) + 2
+    with open(path, "w") as f:
+        f.write("\n\n".join(docs))
+    return {"documents": len(docs), "bytes": os.path.getsize(path)}
+
+
+def lm_pack_phase(work: str) -> str:
+    """``pack_tokens`` over the generated corpus at pack length 256 with a
+    5 % val split, then ``--verify``: returns the pack's root."""
+    import contextlib
+    import io
+
+    from distribuuuu_tpu_torch.data.shards import pack_tokens
+
+    t0 = time.perf_counter()
+    src, out = os.path.join(work, "corpus.txt"), os.path.join(work, "tokens")
+    corpus = lm_corpus(src)
+    t_gen = time.perf_counter() - t0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = pack_tokens.main(["--src", src, "--out", out, "--pack-len", "256",
+                               "--val-frac", "0.05"])
+    t_pack = time.perf_counter() - t0
+    with contextlib.redirect_stdout(buf):
+        rc_verify = pack_tokens.main(["--out", out, "--verify"])
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    splits = {x["split"]: x for x in lines if "sequences" in x}
+    verified = [x for x in lines if "ok" in x]
+    emit({"phase": "lm_pack", **corpus, "generate_s": t_gen, "pack_s": t_pack,
+          "splits": splits, "verify": verified})
+    if rc or rc_verify or len(verified) != 2 or not all(x["ok"] for x in verified):
+        raise AssertionError(f"token pack failed: rc {rc}, verify rc {rc_verify}: {lines}")
+    return out
+
+
+def lm_train_phase(torch, ou, fa, pack: str, work: str) -> dict:
+    """config/gpt_nano.yaml trained one epoch on the pack through
+    ``trainer.train_model`` (bf16, batch 16, AdamW, graphed), dense
+    (``DEVICE.ATTN_IMPL auto``) and then under ``flash``: train
+    sequences/s and tokens/s, step ms, eval tokens/s, one opt_update
+    launch a step, the loss falling over the epoch, under flash the
+    forward once a block a step and an eval forward, dQ and dK/dV once a
+    block a step (none dense), and the two runs' first losses within
+    LM_FLASH_LOSS_RTOL. Returns {impl: report}."""
+    import math
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import graphs, trainer
+    from distribuuuu_tpu_torch.config import cfg
+
+    out = {}
+    for impl in ("auto", "flash"):
+        config.reset_cfg()
+        config.merge_from_file("config/gpt_nano.yaml")
+        cfg.merge_from_list(["DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE", "bfloat16",
+                             "RNG_SEED", 0, "OPTIM.MAX_EPOCH", 1, "TRAIN.DATASET", pack,
+                             "TEST.DATASET", pack, "DEVICE.ATTN_IMPL", impl,
+                             "TRAIN.PRINT_FREQ", 100, "OUT_DIR",
+                             os.path.join(work, f"train_{impl}")])
+        ou.update.launches = 0
+        fa.reset_launch_counts()
+        recs = []
+        c0 = graphs.captures
+        t0 = time.perf_counter()
+        trainer.train_model(recs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = recs[0]
+        launches = {"opt_update": ou.update.launches,
+                    **{f"flash_{k}": n for k, n in fa.launch_counts().items()}}
+        losses, steps = rec["losses"], rec["steps"]
+        evals = -(-rec["eval_images"] // (cfg.TEST.BATCH_SIZE * cfg.LM.SEQ_LEN))
+        w = LM_TRAIN_WINDOW
+        res = {"phase": "lm_train", "arch": cfg.MODEL.ARCH, "attn_impl": impl,
+               "dtype": "bfloat16", "batch": cfg.TRAIN.BATCH_SIZE, "seq_len": cfg.LM.SEQ_LEN,
+               "optimizer": cfg.OPTIM.OPTIMIZER, "steps": steps, "eval_forwards": evals,
+               "train_seqs_per_s": rec["seqs_per_s"], "train_tokens_per_s": rec["tokens_per_s"],
+               "step_ms": rec["step_ms"], "eval_tokens": rec["eval_images"],
+               "eval_wall_s": rec["eval_wall_s"],
+               "eval_tokens_per_s": rec["eval_images"] / rec["eval_wall_s"],
+               "first_loss": losses[0], f"loss_first{w}_mean": statistics.mean(losses[:w]),
+               f"loss_last{w}_mean": statistics.mean(losses[-w:]), "eval_loss_acc1": rec["acc1"],
+               "captures": graphs.captures - c0, "launches": launches, "wall_s": wall}
+        emit(res)
+        if launches["opt_update"] != steps or len(losses) != steps \
+                or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"lm_train {impl}: opt_update launches "
+                                 f"{launches['opt_update']} != {steps} steps, or bad losses")
+        if not statistics.mean(losses[-w:]) < statistics.mean(losses[:w]):
+            raise AssertionError(f"lm_train {impl}: the loss did not fall: {losses[:w]} ... "
+                                 f"{losses[-w:]}")
+        want = ({"forward": LM_DEPTH * (steps + evals), "dq": LM_DEPTH * steps,
+                 "dkdv": LM_DEPTH * steps} if impl == "flash"
+                else {"forward": 0, "dq": 0, "dkdv": 0})
+        got = {k: launches[f"flash_{k}"] for k in want}
+        if got != want:
+            raise AssertionError(f"lm_train {impl}: flash launches {got} != {want}")
+        out[impl] = res
+    a, b = out["auto"]["first_loss"], out["flash"]["first_loss"]
+    if not abs(b - a) <= LM_FLASH_LOSS_RTOL * abs(a):
+        raise AssertionError(f"flash first loss {b} vs dense {a}: beyond {LM_FLASH_LOSS_RTOL}")
+    return out
+
+
+def lm_step_vs_cpu_phase(torch, dev, batch: int = 4) -> None:
+    """``step_vs_cpu_phase`` for gpt_nano at full width: one f32 AdamW step
+    (gpt_nano.yaml's lr and weight decay) over ``batch`` seeded sequences
+    of 256 tokens."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
+
+    seq = np.random.default_rng(2).integers(0, 256, (batch, 257)).astype(np.int32)
+    step_vs_cpu_phase(torch, dev, "gpt_nano", batch,
+                      host={"image": torch.from_numpy(seq[:, :-1]),
+                            "label": torch.from_numpy(seq[:, 1:])},
+                      hyper=ou.Hyper(kind="adamw", wd=0.01), lr=1e-3, num_classes=320,
+                      seq_len=256)
+
+
+def _lm_engine(torch, dtype: str, graphed=None, **gen):
+    """A GenerateEngine of gpt_nano (seed-0 weights) on cuda:0 under
+    ``_lm_cfg(dtype)``, the GENERATE/SERVE keys in ``gen`` merged first."""
+    from distribuuuu_tpu_torch.lm import service as lm_service
+
+    cfg = _lm_cfg(dtype)
+    cfg.merge_from_list([x for kv in gen.items() for x in kv])
+    if dtype == "float32":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return lm_service.engine_from_cfg(graphed)
+
+
+def _run_requests(engine, prompts, **kw):
+    """Submit every prompt, wait for all: (streams, wall s, first-token
+    latencies ms from submit)."""
+    t0 = time.perf_counter()
+    streams = [engine.submit(p, **kw) for p in prompts]
+    iters, first, heads = [iter(s) for s in streams], [], []
+    for s, it in zip(streams, iters):  # admitted, so first tokens come, in this order
+        heads.append(next(it))
+        first.append((time.perf_counter() - s.t_submit) * 1e3)
+    outs = [[h, *it] for h, it in zip(heads, iters)]
+    return outs, time.perf_counter() - t0, first
+
+
+def lm_chunk_prefill_phase(torch, da) -> dict:
+    """GENERATE.CHUNK_PREFILL LM_CHUNK: (1) f32, TF32 off, greedy streams
+    of prompts up to PROMPT_LEN identical to the whole-prompt engine's on
+    the same weights; (2) bf16, LM_REQUESTS prompts of LM_LONG_PROMPTS
+    tokens (past PROMPT_LEN), each to its full new tokens: tokens/s, the
+    admission (first-token) ms, no capture after the warm-up, the
+    decode-attention launches (once a block a decode step)."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch import graphs
+
+    prompts = _lm_prompts(LM_F32_PROMPTS, seed=5)
+    whole = _lm_engine(torch, "float32").start()
+    want, _, _ = _run_requests(whole, prompts)
+    whole.drain()
+    del whole
+    chunked = _lm_engine(torch, "float32", **{"GENERATE.CHUNK_PREFILL": LM_CHUNK}).start()
+    got, _, _ = _run_requests(chunked, prompts)
+    chunked.drain()
+    del chunked
+    same = sum(a == b for a, b in zip(got, want))
+    first_diff = next(([i, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)]
+                       for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+
+    rng = np.random.default_rng(6)
+    long_prompts = [rng.integers(0, 256, int(n)).tolist()
+                    for n in rng.integers(LM_LONG_PROMPTS[0], LM_LONG_PROMPTS[1] + 1,
+                                          LM_REQUESTS)]
+    eng = _lm_engine(torch, "bfloat16", **{"GENERATE.CHUNK_PREFILL": LM_CHUNK}).start()
+    c0 = graphs.captures
+    da.reset_launch_counts()
+    outs, wall, first = _run_requests(eng, long_prompts)
+    launches = da.launches
+    st = eng.stats()
+    eng.drain()
+    tokens = sum(len(o) for o in outs)
+    res = {"phase": "lm_chunk_prefill", "chunk": LM_CHUNK,
+           "f32_prompts": len(prompts), "f32_identical_streams": same,
+           "f32_first_divergence": first_diff,
+           "requests": LM_REQUESTS, "prompt_tokens": [min(map(len, long_prompts)),
+                                                      max(map(len, long_prompts))],
+           "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+           "first_token_ms_p50": _pct(first, 0.5), "first_token_ms_p99": _pct(first, 0.99),
+           "admit_ms_p50": st["prefill_p50_ms"], "admit_ms_p99": st["prefill_p99_ms"],
+           "chunk_prefills": st["chunk_prefills"], "chunk_calls": st["chunk_calls"],
+           "decode_steps": st["decode_steps"], "decode_attention_launches": launches,
+           "captures_after_warmup": graphs.captures - c0}
+    emit(res)
+    if same != len(prompts):
+        raise AssertionError(f"chunked f32 greedy streams: {same}/{len(prompts)} identical to "
+                             f"the whole-prompt engine's (first divergence {first_diff})")
+    if tokens != LM_REQUESTS * LM_NEW_TOKENS or res["captures_after_warmup"] \
+            or st["chunk_prefills"] != LM_REQUESTS or launches != LM_DEPTH * st["decode_steps"]:
+        raise AssertionError(f"chunked bf16 burst: {res}")
+    return res
+
+
+def lm_length_classes_phase(torch, da) -> dict:
+    """SERVE.LONG_PROMPT_THRESHOLD LM_LONG_THRESHOLD, LONG_MAX_QUEUE
+    LM_LONG_MAX_QUEUE, chunked prefill: a burst of long prompts queued
+    before the engine starts is refused past LONG_MAX_QUEUE with the long
+    class's error, short prompts keep being admitted around it; then
+    every admitted request completes."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch.serve.admission import LongQueueFullError
+
+    eng = _lm_engine(torch, "bfloat16", **{"GENERATE.CHUNK_PREFILL": LM_CHUNK,
+                                           "SERVE.LONG_PROMPT_THRESHOLD": LM_LONG_THRESHOLD,
+                                           "SERVE.LONG_MAX_QUEUE": LM_LONG_MAX_QUEUE,
+                                           "SERVE.MAX_QUEUE": 32})
+    rng = np.random.default_rng(7)
+    decisions, admitted = [], []
+    for i in range(16):  # long, long, short, long, ... : 11 long, 5 short
+        long_ = i % 3 != 2
+        n = int(rng.integers(LM_LONG_THRESHOLD, 193) if long_ else rng.integers(8, 65))
+        try:
+            admitted.append(eng.submit(rng.integers(0, 256, n).tolist()))
+            decisions.append(["long" if long_ else "short", "admitted"])
+        except LongQueueFullError as e:
+            decisions.append(["long" if long_ else "short", "rejected", e.length_class, str(e)])
+    st0 = eng.stats()
+    da.reset_launch_counts()
+    eng.start()
+    outs = [s.result(timeout=300) for s in admitted]
+    st = eng.stats()
+    eng.drain()
+    longs = [d for d in decisions if d[0] == "long"]
+    res = {"phase": "lm_length_classes", "threshold": LM_LONG_THRESHOLD,
+           "long_max_queue": LM_LONG_MAX_QUEUE, "decisions": decisions,
+           "queue_depth_long_before_start": st0["queue_depth_long"],
+           "long_admitted": st["long_admitted"], "long_rejected": st["long_rejected"],
+           "short_admitted": sum(1 for d in decisions if d[:2] == ["short", "admitted"]),
+           "completed": sum(len(o) == LM_NEW_TOKENS for o in outs),
+           "decode_attention_launches": da.launches}
+    emit(res)
+    want = ["admitted"] * LM_LONG_MAX_QUEUE + ["rejected"] * (len(longs) - LM_LONG_MAX_QUEUE)
+    if [d[1] for d in longs] != want or res["short_admitted"] != len(decisions) - len(longs) \
+            or res["completed"] != len(admitted) \
+            or any(d[2] != "long" for d in longs if d[1] == "rejected"):
+        raise AssertionError(f"length classes: {res}")
+    return res
+
+
+def lm_speculate_phase(torch, da) -> dict:
+    """GENERATE.SPECULATE with K = LM_SPEC_K: (1) f32, TF32 off: a
+    self-draft (DRAFT_ARCH gpt_nano from the same seed) rejects no
+    proposal (acceptance 1.0) and a draft from RNG_SEED 1 (a ``.pth``
+    through DRAFT_WEIGHTS) gives greedy streams identical to the
+    target-only engine's; (2) bf16: tokens/s of LM_SPEC_REQUESTS requests
+    target-only, self-drafted and with the seed-1 draft, the acceptance
+    rates and the decode-attention launches a round."""
+    from distribuuuu_tpu_torch.models import build_model
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_spec_")
+    try:
+        draft = build_model("gpt_nano", num_classes=320, dtype=torch.float32, seq_len=256,
+                            generator=torch.Generator().manual_seed(1))
+        dpath = os.path.join(work, "draft_seed1.pth")
+        torch.save(draft.state_dict(), dpath)
+        del draft
+        spec = {"GENERATE.SPECULATE.ENABLED": True, "GENERATE.SPECULATE.DRAFT_ARCH": "gpt_nano",
+                "GENERATE.SPECULATE.K": LM_SPEC_K, "GENERATE.PROMPT_LEN": 64,
+                "GENERATE.MAX_NEW_TOKENS": LM_NEW_TOKENS}
+        other = {**spec, "GENERATE.SPECULATE.DRAFT_WEIGHTS": dpath}
+        prompts = _lm_prompts(LM_SPEC_REQUESTS, seed=9)
+        f32 = {}
+        for name, gen in (("target", {}), ("self", spec), ("seed1", other)):
+            eng = _lm_engine(torch, "float32", **gen).start()
+            outs, _, _ = _run_requests(eng, prompts[:LM_F32_PROMPTS])
+            f32[name] = (outs, eng.stats())
+            eng.drain()
+            del eng
+        bf16 = {}
+        for name, gen in (("target", {}), ("self", spec), ("seed1", other)):
+            eng = _lm_engine(torch, "bfloat16", **gen).start()
+            _run_requests(eng, prompts[:2])  # first requests: host paths warm
+            st0 = eng.stats()
+            da.reset_launch_counts()
+            outs, wall, first = _run_requests(eng, prompts)
+            st = eng.stats()
+            launches = da.launches
+            eng.drain()
+            del eng
+            row = {"tokens": sum(map(len, outs)), "wall_s": wall,
+                   "tokens_per_s": sum(map(len, outs)) / wall,
+                   "first_token_ms_p50": _pct(first, 0.5),
+                   "decode_attention_launches": launches}
+            if name != "target":
+                d = {k: st[k] - st0[k] for k in ("spec_rounds", "spec_proposed",
+                                                  "spec_accepted", "spec_rejected",
+                                                  "spec_bonus")}
+                row.update(d, acceptance=d["spec_accepted"] / max(
+                    1, d["spec_accepted"] + d["spec_rejected"]),
+                    launches_per_round=launches / max(1, d["spec_rounds"]))
+            else:
+                row.update(decode_steps=st["decode_steps"] - st0["decode_steps"])
+            bf16[name] = row
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    self_st, seed1_st = f32["self"][1], f32["seed1"][1]
+    res = {"phase": "lm_speculate", "k": LM_SPEC_K,
+           "f32_self_acceptance": self_st["spec_accepted"] / max(
+               1, self_st["spec_accepted"] + self_st["spec_rejected"]),
+           "f32_self_rejected": self_st["spec_rejected"],
+           "f32_self_streams_identical": sum(a == b for a, b in zip(f32["self"][0],
+                                                                    f32["target"][0])),
+           "f32_seed1_streams_identical": sum(a == b for a, b in zip(f32["seed1"][0],
+                                                                     f32["target"][0])),
+           "f32_seed1_acceptance": seed1_st["spec_accepted"] / max(
+               1, seed1_st["spec_accepted"] + seed1_st["spec_rejected"]),
+           "f32_prompts": LM_F32_PROMPTS, "bf16": bf16,
+           "bf16_speedup_self": bf16["self"]["tokens_per_s"] / bf16["target"]["tokens_per_s"],
+           "bf16_speedup_seed1": bf16["seed1"]["tokens_per_s"] / bf16["target"]["tokens_per_s"]}
+    emit(res)
+    n = LM_F32_PROMPTS
+    if res["f32_self_rejected"] or res["f32_self_streams_identical"] != n \
+            or res["f32_seed1_streams_identical"] != n:
+        raise AssertionError(f"speculative decoding: {res}")
+    for name in ("self", "seed1"):
+        r = bf16[name]
+        if r["tokens"] != LM_SPEC_REQUESTS * LM_NEW_TOKENS or not r["spec_rounds"]:
+            raise AssertionError(f"speculative bf16 {name}: {r}")
+    return res
+
+
+def lm_plane_phases(torch, ou, fa, da, dev) -> dict:
+    """The LM plane's phases in order; returns their launch counts for
+    the kernels line."""
+    import shutil
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    try:
+        pack = lm_pack_phase(work)
+        train = lm_train_phase(torch, ou, fa, pack, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lm_step_vs_cpu_phase(torch, dev)
+    chunk = lm_chunk_prefill_phase(torch, da)
+    classes = lm_length_classes_phase(torch, da)
+    spec = lm_speculate_phase(torch, da)
+    return {"opt_update": sum(r["launches"]["opt_update"] for r in train.values()),
+            **{f"flash_{k}": train["flash"]["launches"][f"flash_{k}"]
+               for k in ("forward", "dq", "dkdv")},
+            "decode_attention": chunk["decode_attention_launches"]
+            + classes["decode_attention_launches"]
+            + sum(r["decode_attention_launches"] for r in spec["bf16"].values())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3650,6 +4092,11 @@ def main(argv=None) -> int:
     tf32_off()
     lm_check_phase(torch, da, dev, lm_engine, lm_prompts)
     del lm_engine
+    # the LM plane: gpt_nano trained on token shards, chunked prefill, the
+    # length classes, speculative decoding
+    tf32_off()
+    lm_plane = lm_plane_phases(torch, ou, fa, da, dev)
+    tf32_off()
 
     # real images and process groups: SyncBN in a group of one, the
     # ImageFolder path in that group, then two ranks sharing the card
@@ -3714,6 +4161,7 @@ def main(argv=None) -> int:
         "replaces": "distribuuuu_tpu/ops/pallas/opt_update.py:75",
         "launches": real["launches"]["opt_update"] + shards["launches"]["opt_update"]
         + resume["launches"]["opt_update"] + loop["opt_update"] + zoo["opt_update"]
+        + lm_plane["opt_update"]
         + sum(r["launches"]["opt_update"] for rs in runs.values() for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in opt_rows.values()),
         "ms": main_body["ms"],
@@ -3723,7 +4171,7 @@ def main(argv=None) -> int:
         "library_ms": main_body["library_ms"],
     }]
     # the flash kernels at the ViT-S training shape, launches from the
-    # ViT-S serving and training runs
+    # ViT-S serving and training runs and the GPT-nano flash training run
     for kern, (name, replaces) in FLASH_KERNELS.items():
         train = flash_rows[FLASH_SHAPES[0][0]][kern]
         kernels.append({
@@ -3732,19 +4180,20 @@ def main(argv=None) -> int:
             "source": "distribuuuu_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces,
             "launches": (vit_serve_fwd if kern == "forward" else 0)
-            + sum(r["launches"][f"flash_{kern}"] for r in runs["vit_small"]),
+            + sum(r["launches"][f"flash_{kern}"] for r in runs["vit_small"])
+            + lm_plane[f"flash_{kern}"],
             "max_abs_err": max(rs[kern]["max_abs_err"] for rs in flash_rows.values()),
             **{k: train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     # decode attention at the GPT-nano decode tile, launches from the LM
-    # serving bursts (warm-ups apart)
+    # serving bursts and the LM plane's serving phases (warm-ups apart)
     tile = decode_rows[DECODE_SHAPES[0][0]]
     kernels.append({
         "name": "decode_attention",
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/csrc/decode_attn.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/decode_attn.py:121",
-        "launches": lm_launches + lm_big_launches,
+        "launches": lm_launches + lm_big_launches + lm_plane["decode_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in decode_rows.values()),
         **{k: tile[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })

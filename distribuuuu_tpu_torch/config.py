@@ -303,7 +303,11 @@ _C.GENERATE.BATCH_TILES = []
 _C.GENERATE.CACHE_TILES = []
 # Longest admissible prompt (tokens); prefill pads to a power-of-two tile.
 _C.GENERATE.PROMPT_LEN = 64
-# Chunked paged prefill: not ported (the port refuses anything but 0).
+# Chunked paged prefill: > 0 streams a prompt into its KV-cache page in
+# fixed CHUNK_PREFILL-token chunks (one graph a cache tile, in place of the
+# prompt tiles), so a prompt may exceed PROMPT_LEN up to what the largest
+# cache tile holds next to the request's max_new (+ SPECULATE.K). Every
+# cache tile at least CHUNK_PREFILL wide must be a multiple of it. 0 = off.
 _C.GENERATE.CHUNK_PREFILL = 0
 # Token id that ends a sequence early (the byte tokenizer's EOS);
 # -1 = generate exactly max_new_tokens.
@@ -317,7 +321,10 @@ _C.GENERATE.SAMPLE.TEMPERATURE = 0.0
 _C.GENERATE.SAMPLE.TOP_K = 0
 _C.GENERATE.SAMPLE.TOP_P = 1.0
 _C.GENERATE.SAMPLE.SEED = 0
-# Draft-model speculative decoding: not ported (the port refuses ENABLED).
+# Draft-model speculative decoding: the DRAFT_ARCH model (a gpt_* arch; its
+# own seeded init, or DRAFT_WEIGHTS, a .pth) proposes K tokens a round in
+# T=1 decode steps, the target verifies all K+1 positions in one call; the
+# largest cache tile must hold PROMPT_LEN + MAX_NEW_TOKENS + K.
 _C.GENERATE.SPECULATE = CfgNode()
 _C.GENERATE.SPECULATE.ENABLED = False
 _C.GENERATE.SPECULATE.DRAFT_ARCH = ""
@@ -484,8 +491,9 @@ _C.SERVE.HOST = "127.0.0.1"
 _C.SERVE.PORT = 8765
 # Weight-only quantization: not ported (the port refuses anything but "").
 _C.SERVE.QUANTIZE = ""
-# Length-aware LM admission (a long-prompt class with its own queue
-# share): not ported (the port refuses anything but 0).
+# Length-aware LM admission: prompts of at least LONG_PROMPT_THRESHOLD
+# tokens form the "long" class, which may hold at most LONG_MAX_QUEUE of
+# the MAX_QUEUE slots (0 = no reservation; a reservation needs a threshold).
 _C.SERVE.LONG_PROMPT_THRESHOLD = 0
 _C.SERVE.LONG_MAX_QUEUE = 0
 

@@ -21,7 +21,8 @@ runs.
 
 Each batch is a dict: ``image`` [B,H,W,3] (uint8 under
 ``DATA.DEVICE_NORMALIZE``, else float32, NHWC), ``label`` [B] int32,
-``mask`` [B] float32, with B the per-process batch.
+``mask`` [B] float32, with B the per-process batch; token shards give
+``image`` and ``label`` [B, S] int32 (inputs and next tokens).
 
 A dataset may bring its own sampler (``make_sampler``: the shards'
 window-shuffled order). Either sampler draws the epoch's global order from
@@ -43,7 +44,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from distribuuuu_tpu_torch import not_ported
 from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.data.dummy import DummyDataset
 from distribuuuu_tpu_torch.data.sampler import DistributedSampler
@@ -63,7 +63,8 @@ class Loader:
         self.drop_last = drop_last
         self.workers = max(1, workers)
         use_native = getattr(dataset, "_use_native", None)
-        self.backend = ("native" if use_native() else "pil") if use_native else "dummy"
+        self.backend = (("native" if use_native() else "pil") if use_native
+                        else getattr(dataset, "KIND", "dummy"))
         self.prefetch_depth = 2 if self.backend == "native" else self.workers
         self.retries = max(0, int(cfg.DATA.RETRIES))
         self.retry_backoff = float(cfg.DATA.RETRY_BACKOFF_S)
@@ -106,14 +107,18 @@ class Loader:
         }
         if hasattr(self.sampler, "order_state"):
             sd["order"] = self.sampler.order_state()
+        # the token species' pack and tokenizer fingerprint: the same bytes
+        # under another tokenizer or pack length are other samples
+        if hasattr(self.dataset, "identity"):
+            sd["dataset_identity"] = self.dataset.identity()
         return sd
 
     def load_state_dict(self, sd: dict) -> int:
         """Arms the one-shot skip of a saved :meth:`state_dict`; returns
         the batches of this process the matching epoch will skip. Raises
         ``ValueError`` when the cursor cannot be trusted (another format,
-        record count or order identity): the caller re-runs the epoch from
-        batch 0. A global batch that grew past a divisor of the cursor
+        record count, order identity or dataset identity): the caller
+        re-runs the epoch from batch 0. A global batch that grew past a divisor of the cursor
         rounds down, with a warning (those samples train twice)."""
         live_fmt = getattr(self.dataset, "FORMAT", "imagefolder")
         if sd.get("format") != live_fmt:
@@ -136,6 +141,15 @@ class Loader:
                 raise ValueError("shuffle order identity changed since the save (fields: "
                                  f"{', '.join(diff)}): the cursor would point into another "
                                  "permutation")
+        saved_ident = sd.get("dataset_identity")
+        if saved_ident is not None:
+            live_ident = self.dataset.identity() if hasattr(self.dataset, "identity") else None
+            if live_ident != saved_ident:
+                raise ValueError(
+                    f"dataset identity changed since the save (saved "
+                    f"{saved_ident}, live {live_ident}) — a tokenizer/"
+                    "pack-len drift makes the cursor meaningless"
+                )
         cursor = int(sd["cursor"])
         global_batch = self.batch_size * self.sampler.num_replicas
         skip, rem = divmod(cursor, global_batch)
@@ -218,7 +232,11 @@ class Loader:
     def _assemble(self, idxs: np.ndarray) -> dict:
         images, labels = self._decode(idxs)
         images = np.asarray(images)
-        img_dtype = np.uint8 if images.dtype == np.uint8 else np.float32
+        # uint8 under DATA.DEVICE_NORMALIZE, else float32; a dataset may
+        # pin the payload dtype (BATCH_DTYPE: the token species' int32 ids,
+        # which are neither cast nor normalized)
+        img_dtype = getattr(self.dataset, "BATCH_DTYPE", None) or (
+            np.uint8 if images.dtype == np.uint8 else np.float32)
         n = len(images)
         batch = {
             "image": images.astype(img_dtype, copy=False),
@@ -229,7 +247,9 @@ class Loader:
             pad = self.batch_size - n
             batch["image"] = np.concatenate(
                 [batch["image"], np.zeros((pad,) + images.shape[1:], img_dtype)])
-            batch["label"] = np.concatenate([batch["label"], np.zeros(pad, np.int32)])
+            # labels are [B] for the image zoo, [B, S] for the LM
+            batch["label"] = np.concatenate(
+                [batch["label"], np.zeros((pad,) + batch["label"].shape[1:], np.int32)])
             batch["mask"] = np.concatenate([batch["mask"], np.zeros(pad, np.float32)])
         return batch
 
@@ -298,7 +318,14 @@ def _build_dataset(train: bool):
         return DummyDataset(length=cfg.TRAIN.BATCH_SIZE * 64, size=cfg.TRAIN.IM_SIZE,
                             raw_u8=raw_u8)
     if cfg.DATA.FORMAT == "tokens":
-        raise not_ported("DATA.FORMAT='tokens' (the LM's token shards)", "LM plane")
+        # the LM's packed token shards (data/shards/tokens.py); the pack
+        # length and the tokenizer and vocab identity are checked here
+        from distribuuuu_tpu_torch.data.shards.tokens import TokenShardDataset
+
+        return TokenShardDataset(cfg.TRAIN.DATASET if train else cfg.TEST.DATASET,
+                                 cfg.TRAIN.SPLIT if train else cfg.TEST.SPLIT,
+                                 seq_len=int(cfg.LM.SEQ_LEN),
+                                 num_classes=int(cfg.MODEL.NUM_CLASSES))
     if cfg.DATA.FORMAT == "shards":
         from distribuuuu_tpu_torch.data.shards.reader import ShardDataset as Dataset
     elif cfg.DATA.FORMAT == "imagefolder":

@@ -7,7 +7,8 @@ the ``(seed, epoch)``-only window-shuffled order that makes the exact
 mid-epoch resume's cursor mean the same at any world size, ``reader.py``
 the dataset the loader consumes and ``pack.py`` the packer:
 ``python -m distribuuuu_tpu_torch.data.shards.pack --src <imagefolder root>
---out <shards root> [--verify]``.
+--out <shards root> [--verify]``. ``tokens.py`` is the LM's species of the
+same container (``DATA.FORMAT tokens``), packed by ``pack_tokens.py``.
 """
 
 from distribuuuu_tpu_torch.data.shards.format import (  # noqa: F401

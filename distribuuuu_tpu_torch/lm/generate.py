@@ -1,6 +1,5 @@
 """KV-cache generation with continuous batching (counterpart of
-distribuuuu_tpu/lm/generate.py, without chunked prefill, speculative or
-tensor-parallel decode).
+distribuuuu_tpu/lm/generate.py, without tensor-parallel decode).
 
 **Prefill/decode split.** A prompt runs once through the decoder against
 an empty cache (whole prompt, padded to a power-of-two prompt tile); that
@@ -11,38 +10,64 @@ decode step: one token per sequence against the cached K/V.
 compute dtype, one page (row) per request slot: admitting a request
 overwrites its page, retiring frees the slot without moving data. Where
 the JAX package returns a new cache from each step, the port writes the
-cache in place (one cache in device memory, no copy a step).
+cache in place (one cache a tile in device memory, no copy a step).
 
 **(batch, cache-len) tiles, one graph each.** A step runs the smallest
 tile covering the live slots and the longest sequence; crossing a tile
 boundary copies the live rows into the next tile's cache once. The JAX
-engine compiles every tile ahead of time; the port captures every decode
-tile and every prompt tile as one CUDA graph (``graphs.StepGraph``: a
-warm-up call, then the capture, on the engine's own memory pool), in the
-scheduler thread, before it serves (PyTorch keeps cuBLAS handles per
-thread). Each decode tile owns its static cache, tokens and lengths, each
-prompt tile its static page and tokens; a step copies its inputs in and
-replays. On the CPU the same bodies run eagerly on the same buffers.
-``n_compiles`` counts the tiles captured (warmed, on the CPU).
+engine compiles every tile ahead of time; the port captures every tile as
+one CUDA graph (``graphs.StepGraph``: a warm-up call, then the capture, on
+the engine's own memory pool), in the scheduler thread, before it serves
+(PyTorch keeps cuBLAS handles per thread). Each tile's cache is a static
+buffer its graphs share (the decode step and, under speculation, the
+verify step read and write the same one); each graph owns its tokens and
+lengths, each prompt or chunk tile its page; a step copies its inputs in
+and replays. On the CPU the same bodies run eagerly on the same buffers.
+``n_compiles`` counts the graphs captured (warmed, on the CPU).
+
+**Chunked paged prefill** (``chunk_prefill`` > 0) replaces the prompt
+tiles by one fixed-width chunk graph a cache tile: the prompt streams into
+a B=1 page ``W`` tokens a call, each chunk attending the page written so
+far through the dense region; the final chunk is padded (its pad K/V land
+past the prompt, where the ragged mask never looks and the decode writes
+overwrite them), and the first token comes off the last chunk's logit
+row. A prompt may then exceed ``prompt_len`` up to what the largest cache
+tile holds next to its decode budget.
+
+**Length classes.** Prompts of at least ``long_prompt_threshold`` tokens
+are the "long" class, which may hold at most ``long_max_queue`` of the
+queue (``serve/admission.py``); short requests keep being admitted.
+
+**Speculative decoding** (``draft_model``). Each round the draft proposes
+K tokens per slot through T=1 decode steps against its own paged cache
+(the decode-attention kernel on the card), the target verifies
+``[last, d_1..d_K]`` in one T=K+1 call through the dense region, and the
+acceptance rule keeps the longest agreeing prefix plus one corrective or
+bonus token. An all-greedy round runs the K (or K+1) draft steps as one
+graph with the argmax fed back on the device (JAX's fused propose); a
+round with a sampled slot runs them one graph call a step, selecting on
+the host in float64. Rejection costs nothing in either cache: positions
+past a slot's length are invisible and overwritten by the next write.
 
 **The decode step's attention.** ``CachedAttention`` applies the GPT's own
 ``blocks.N.attn`` modules (there is no second copy of the parameters).
 At T = 1, when ``decode_attn.supported`` holds for the cache tile, the
 step goes through ``ops/cuda/decode_attn.decode_attention`` (the kernel on
-the card); otherwise, and for every prefill, it runs the dense fp32
-region, as the JAX package does.
+the card); otherwise, and for every prefill, chunk and verify call, it
+runs the dense fp32 region, as the JAX package does.
 
 **Continuous batching.** The scheduler admits and retires per decode
 step; tokens stream to each requester the step they are produced
 (:class:`GenStream`).
 
 **Sampling** is host numpy, the JAX package's functions verbatim, so a
-seed replays the same stream in both.
+seed replays the same stream in both, speculative rounds included.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 import time
 from collections import deque
@@ -50,13 +75,15 @@ from collections import deque
 import numpy as np
 import torch
 
-from distribuuuu_tpu_torch import graphs, not_ported
+from distribuuuu_tpu_torch import graphs
 from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.ops.cuda import decode_attn
-from distribuuuu_tpu_torch.serve.admission import AdmissionController, EngineClosedError
+from distribuuuu_tpu_torch.serve.admission import (
+    AdmissionController,
+    EngineClosedError,
+    QueueFullError,
+)
 from distribuuuu_tpu_torch.serve.engine import COMPILE_EVENTS
-
-LM_PLANE = "LM plane"
 
 
 # --------------------------------------------------------- decode modules
@@ -197,7 +224,9 @@ def validate_generate_cfg(seq_len: int, prompt_len: int, max_new: int,
 
 def validate_chunk_prefill_cfg(chunk: int, cache_tiles: list[int]):
     """The GENERATE.CHUNK_PREFILL refusals, exact arithmetic in-message (the
-    JAX package's; the port validates, then refuses chunked prefill)."""
+    JAX package's): the final chunk is padded and writes
+    ``ceil(plen/chunk)*chunk`` page positions, so every cache tile wide
+    enough to be a page must be a multiple of the chunk."""
     if chunk < 1:
         raise ValueError(
             f"GENERATE.CHUNK_PREFILL={chunk} must be >= 1 (0 disables "
@@ -229,9 +258,10 @@ def validate_chunk_prefill_cfg(chunk: int, cache_tiles: list[int]):
 # Greedy (temperature <= 0) is argmax and draws nothing. A sampled decision
 # consumes one counter-based uniform ``_uniform(seed, stream, n)``, ``n`` a
 # per-request per-stream draw counter, so a seed replays the same stream
-# however requests were batched.
+# however requests were batched. One stream a decision kind: plain decode,
+# speculative acceptance, draft proposal, residual resample.
 
-_U_PLAIN = 0
+_U_PLAIN, _U_ACCEPT, _U_DRAFT, _U_RESID = 0, 1, 2, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,6 +361,41 @@ def sample_token(logits, sp: SampleParams, u: float | None = None) -> int:
     return _pick(warp_probs(logits, sp), u)
 
 
+def validate_speculate_cfg(k: int, target_model, draft_model, prompt_len: int,
+                           max_new: int, cache_tiles: list[int]):
+    """The GENERATE.SPECULATE refusals, exact arithmetic in-message (the
+    JAX package's): the draft/target pairing, and K positions of headroom
+    in the largest cache tile (a round may write K+1 past a length)."""
+    if k < 1:
+        raise ValueError(f"GENERATE.SPECULATE.K={k} must be >= 1")
+    tv, dv = int(target_model.vocab_size), int(draft_model.vocab_size)
+    if tv != dv:
+        raise ValueError(
+            f"GENERATE.SPECULATE draft/target vocab mismatch: draft "
+            f"vocab_size={dv} != target vocab_size={tv} — the accept/"
+            "reject rule compares the two distributions token by token, "
+            "which is undefined across vocabularies"
+        )
+    need = prompt_len + max_new + k
+    if cache_tiles[-1] < need:
+        raise ValueError(
+            f"largest GENERATE.CACHE_TILES entry {cache_tiles[-1]} cannot "
+            f"hold a speculative round: GENERATE.PROMPT_LEN={prompt_len} + "
+            f"MAX_NEW_TOKENS={max_new} + SPECULATE.K={k} = {need} cached "
+            f"positions — raise CACHE_TILES to >= {need} or lower "
+            "K/MAX_NEW_TOKENS/PROMPT_LEN"
+        )
+    ds = int(draft_model.seq_len)
+    if cache_tiles[-1] > ds:
+        raise ValueError(
+            f"GENERATE.CACHE_TILES largest entry {cache_tiles[-1]} exceeds "
+            f"the draft model's trained context LM.SEQ_LEN={ds}: the draft "
+            "mirrors every cached position and its learned position table "
+            "has no entry past that — use a draft trained for the context "
+            "or lower the cache tiles"
+        )
+
+
 # -------------------------------------------------------------- the engine
 
 
@@ -363,16 +428,20 @@ class GenStream:
 
     # client side
     def __iter__(self):
+        # the lock is released before each yield: a consumer that holds the
+        # iterator between tokens must not block the scheduler's _emit
         while True:
             with self._cond:
                 while not self._q and not self._done:
                     self._cond.wait(timeout=0.1)
-                if self._q:
-                    yield self._q.popleft()
-                    continue
-                if self._error is not None:
-                    raise self._error
-                return
+                token = self._q.popleft() if self._q else None
+                error = self._error
+            if token is not None:
+                yield token
+                continue
+            if error is not None:
+                raise error
+            return
 
     def result(self, timeout: float | None = 60.0) -> list[int]:
         deadline = None if timeout is None else time.perf_counter() + timeout
@@ -399,7 +468,7 @@ class GenStream:
 
 class _Slot:
     __slots__ = ("stream", "length", "last_token", "new_tokens", "max_new",
-                 "sample", "draws")
+                 "sample", "draws", "history", "draft_len")
 
     def __init__(self, stream, length, last_token, max_new, sample):
         self.stream = stream
@@ -409,18 +478,19 @@ class _Slot:
         self.max_new = max_new
         self.sample = sample          # SampleParams for this request
         self.draws = [0, 0, 0, 0]     # per-stream uniform draw counters
+        self.history: list[int] = []  # prompt + emitted tokens (the draft's feed)
+        self.draft_len = 0            # positions the draft's cache holds
 
 
 class GenerateEngine:
     """Continuous-batching generation of a GPT on one device.
 
     ``model`` is a ``models/gpt.GPT``; it is moved to ``device``, put in
-    eval and prepared (compute-dtype weights cast once) here. Every decode
-    and prefill tile runs once in the scheduler thread during
-    construction; ``start()`` lets it serve; ``submit`` returns a
-    :class:`GenStream`. Refused, with their ROADMAP item: chunked prefill,
-    a draft model (speculative decoding) and the long-prompt admission
-    class."""
+    eval and prepared (compute-dtype weights cast once) here, and so is
+    ``draft_model`` (speculative decoding, ``spec_k`` proposals a round).
+    Every graph (decode, verify, draft and propose tiles; prompt or chunk
+    tiles) runs once in the scheduler thread during construction;
+    ``start()`` lets it serve; ``submit`` returns a :class:`GenStream`."""
 
     def __init__(
         self,
@@ -437,6 +507,7 @@ class GenerateEngine:
         long_max_queue: int | None = None,
         poll_s: float | None = None,
         draft_model=None,
+        spec_k: int | None = None,
         sample: SampleParams | dict | None = None,
         chunk_prefill: int | None = None,
         graphed: bool | None = None,
@@ -461,35 +532,44 @@ class GenerateEngine:
         )
         if self.chunk_prefill:
             validate_chunk_prefill_cfg(self.chunk_prefill, self.cache_tiles)
-            raise not_ported(f"GENERATE.CHUNK_PREFILL={self.chunk_prefill} (chunked "
-                             "paged prefill)", LM_PLANE)
+        self._default_sample = sample_params(sample)
+        self.spec_k = 0
         if draft_model is not None:
-            raise not_ported("a draft model (GENERATE.SPECULATE, speculative decoding)",
-                             LM_PLANE)
+            k = int(spec_k if spec_k is not None else cfg.GENERATE.SPECULATE.K)
+            validate_speculate_cfg(k, model, draft_model, self.prompt_len, self.max_new,
+                                   self.cache_tiles)
+            self.spec_k = k
         self.long_threshold = int(
             long_prompt_threshold if long_prompt_threshold is not None
             else cfg.SERVE.LONG_PROMPT_THRESHOLD
         )
-        long_q = int(long_max_queue if long_max_queue is not None else cfg.SERVE.LONG_MAX_QUEUE)
-        if self.long_threshold or long_q:
-            raise not_ported(
-                f"length-aware admission (SERVE.LONG_PROMPT_THRESHOLD={self.long_threshold}, "
-                f"SERVE.LONG_MAX_QUEUE={long_q})", LM_PLANE)
-        self._default_sample = sample_params(sample)
-        self.prompt_tiles = default_tiles(self.prompt_len)
-        self.n_slots = self.batch_tiles[-1]
         self._admission = AdmissionController(
-            max_queue if max_queue is not None else cfg.SERVE.MAX_QUEUE
+            max_queue if max_queue is not None else cfg.SERVE.MAX_QUEUE,
+            long_max_queue=int(long_max_queue if long_max_queue is not None
+                               else cfg.SERVE.LONG_MAX_QUEUE),
         )
+        if self._admission.long_max_queue and not self.long_threshold:
+            raise ValueError(
+                f"SERVE.LONG_MAX_QUEUE={self._admission.long_max_queue} "
+                "without SERVE.LONG_PROMPT_THRESHOLD — the long-class "
+                "reservation needs the prompt-token threshold that "
+                "defines the long class (set SERVE.LONG_PROMPT_THRESHOLD "
+                ">= 1)"
+            )
+        self.prompt_tiles = default_tiles(self.prompt_len)
+        # chunked prefill: one chunk graph per cache tile wide enough to be a page
+        self.page_tiles = ([c for c in self.cache_tiles if c >= self.chunk_prefill]
+                           if self.chunk_prefill else self.prompt_tiles)
+        self.n_slots = self.batch_tiles[-1]
 
         if self.device.type == "cuda" and model.dtype == torch.float32:
             torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
         self.model = model.to(self.device).eval().prepare()
         self.decoder = decoder_for(self.model)
-        self._dtype = model.dtype
-        self._heads = model.num_heads
-        self._head_dim = model.dim // model.num_heads
-        self._depth = model.depth
+        self.draft_model = self.draft_decoder = None
+        if self.spec_k:
+            self.draft_model = draft_model.to(self.device).eval().prepare()
+            self.draft_decoder = decoder_for(self.draft_model)
         self.vocab_size = model.vocab_size
 
         self._lock = threading.Condition()
@@ -501,9 +581,11 @@ class GenerateEngine:
         # eagerly (only to measure the graphs against them)
         self.graphed = graphs.graphed(self.device) if graphed is None else graphed
         self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
-        self._decode_graphs: dict = {}  # (b, c) -> StepGraph over the tile's buffers
-        self._prefill_graphs: dict = {}  # prompt tile -> StepGraph over its page
-        self._cache = self._tile((self._b_tile, self._c_tile)).inputs
+        self._caches: dict = {}   # (b, c, draft) -> the tile's static cache
+        self._graphs: dict = {}   # (kind, shape...) -> StepGraph
+        self._cache = self._cache_of(self._b_tile, self._c_tile)
+        self._draft_cache = (self._cache_of(self._b_tile, self._c_tile, True)
+                             if self.spec_k else None)
         self._draining = False
         self._started = False
         self._next_id = 0
@@ -512,10 +594,20 @@ class GenerateEngine:
             "prompt_tokens": 0, "new_tokens": 0, "decode_steps": 0,
             "requests": 0, "retired": 0,
         }
+        if self.spec_k:
+            # spec_rejected (the port's addition) counts the proposals the
+            # target refused; proposals left when a request retires mid-round
+            # are neither, so accepted / (accepted + rejected) is the rate
+            self._counters.update(spec_rounds=0, spec_proposed=0, spec_accepted=0,
+                                  spec_bonus=0, spec_rejected=0)
+        if self.chunk_prefill:
+            self._counters.update(chunk_prefills=0, chunk_calls=0)
+        if self.long_threshold:
+            self._counters.update(long_admitted=0, long_rejected=0)
         self._decode_ms: deque = deque(maxlen=4096)
         self._prefill_ms: deque = deque(maxlen=1024)
 
-        # -- warm every tile once, in the thread that serves -----------------
+        # -- warm every graph once, in the thread that serves ----------------
         self.n_compiles = 0
         self._tiles = [(b, c) for b in self.batch_tiles for c in self.cache_tiles]
         self._warm_error: BaseException | None = None
@@ -530,54 +622,119 @@ class GenerateEngine:
             raise self._warm_error
 
     # -------------------------------------------------------------- device
-    def _zero_cache(self, b: int, c: int) -> dict:
-        shape = (self._depth, b, self._heads, c, self._head_dim)
-        return {k: torch.zeros(shape, dtype=self._dtype, device=self.device)
+    def _zero_cache(self, b: int, c: int, draft: bool = False) -> dict:
+        m = self.draft_model if draft else self.model
+        shape = (m.depth, b, m.num_heads, c, m.dim // m.num_heads)
+        return {k: torch.zeros(shape, dtype=m.dtype, device=self.device)
                 for k in ("k", "v")}
 
+    def _cache_of(self, b: int, c: int, draft: bool = False) -> dict:
+        """Tile ``(b, c)``'s static cache (the target's, or the draft's),
+        shared by every graph of that tile."""
+        key = (b, c, draft)
+        if key not in self._caches:
+            self._caches[key] = self._zero_cache(b, c, draft)
+        return self._caches[key]
+
+    def _graph(self, key: tuple, body, inputs: dict) -> graphs.StepGraph:
+        g = self._graphs[key] = graphs.StepGraph(body, inputs, device=self.device,
+                                                 pool=self._pool, graphed=self.graphed)
+        return g
+
+    def _step_graph(self, b: int, c: int, t: int, draft: bool = False) -> graphs.StepGraph:
+        """A T-token step of tile ``(b, c)`` against its static cache, from
+        static tokens ``[b, t]`` and lengths ``[b]``: the decode step (t=1,
+        logits ``[b, V]``) or the verify step (t=K+1, ``[b, t, V]``), the
+        target's or the draft's."""
+        key = ("step", b, c, t, draft)
+        if key in self._graphs:
+            return self._graphs[key]
+        inputs = {**self._cache_of(b, c, draft),
+                  "tokens": torch.zeros((b, t), dtype=torch.int32, device=self.device),
+                  "lengths": torch.zeros((b,), dtype=torch.int32, device=self.device)}
+        decoder = self.draft_decoder if draft else self.decoder  # not self: see graphs.py
+
+        def body():
+            out = decoder(inputs["tokens"], inputs["lengths"], inputs)
+            return out[:, 0] if t == 1 else out
+
+        return self._graph(key, body, inputs)
+
     def _tile(self, bc: tuple[int, int]) -> graphs.StepGraph:
-        """Decode tile ``(b, c)``'s graph: a T=1 step of its static tokens
-        ``[b, 1]`` and lengths ``[b]`` against its static cache (the
-        inputs ``k``/``v``); returns logits ``[b, V]``."""
-        g = self._decode_graphs.get(bc)
-        if g is None:
-            b, c = bc
-            inputs = {**self._zero_cache(b, c),
-                      "tokens": torch.zeros((b, 1), dtype=torch.int32, device=self.device),
-                      "lengths": torch.zeros((b,), dtype=torch.int32, device=self.device)}
-            decoder = self.decoder  # not self: the graph is freed with the engine
+        """Decode tile ``bc``'s graph (a T=1 step; logits ``[b, V]``)."""
+        return self._step_graph(*bc, 1)
 
-            def body():
-                return decoder(inputs["tokens"], inputs["lengths"], inputs)[:, 0]
+    def _propose_graph(self, b: int, c: int, steps: int) -> graphs.StepGraph:
+        """The greedy propose phase of a round as one graph: ``steps`` T=1
+        draft steps against tile ``(b, c)``'s draft cache, step s feeding
+        ``feed[:, s]`` while ``s <= lags`` (history the draft has not
+        cached yet) and the previous step's argmax after it, at lengths
+        ``lens0 + s``; returns the ``[steps, b]`` argmaxes (JAX's fused
+        propose scan)."""
+        key = ("propose", b, c, steps)
+        if key in self._graphs:
+            return self._graphs[key]
+        z = functools.partial(torch.zeros, dtype=torch.int32, device=self.device)
+        inputs = {**self._cache_of(b, c, True), "feed": z((b, steps)), "lags": z((b,)),
+                  "lens0": z((b,))}
+        decoder = self.draft_decoder
 
-            g = self._decode_graphs[bc] = graphs.StepGraph(body, inputs, device=self.device,
-                                                           pool=self._pool, graphed=self.graphed)
-        return g
+        def body():
+            prev, outs = torch.zeros_like(inputs["lens0"]), []
+            for s in range(steps):
+                tok = torch.where(s <= inputs["lags"], inputs["feed"][:, s], prev)
+                logits = decoder(tok[:, None], inputs["lens0"] + s, inputs)[:, 0]
+                prev = logits.argmax(-1).to(torch.int32)
+                outs.append(prev)
+            return torch.stack(outs)
 
-    def _prompt_tile(self, p: int) -> graphs.StepGraph:
-        """Prompt tile ``p``'s graph: the tile through the decoder against
-        its static page (``k``/``v`` of ``[L, 1, H, p, D]``, every row of
-        which the prefill writes); returns logits ``[1, p, V]``."""
-        g = self._prefill_graphs.get(p)
-        if g is None:
-            inputs = {**self._zero_cache(1, p),
-                      "tokens": torch.zeros((1, p), dtype=torch.int32, device=self.device)}
-            lengths = torch.zeros((1,), dtype=torch.int32, device=self.device)
-            decoder = self.decoder
+        return self._graph(key, body, inputs)
 
-            def body():
-                return decoder(inputs["tokens"], lengths, inputs)
+    def _page_graph(self, p: int, draft: bool = False) -> graphs.StepGraph:
+        """A B=1 page graph of width ``p``: with chunked prefill, one
+        ``CHUNK_PREFILL``-token chunk appended at offset ``lengths`` into a
+        page of cache tile ``p`` (logits ``[1, W, V]``); otherwise the
+        prompt tile ``p`` through the decoder against a page it fills from
+        0 (logits ``[1, p, V]``). The page (``k``/``v``) is the graph's."""
+        key = ("page", p, draft)
+        if key in self._graphs:
+            return self._graphs[key]
+        w = self.chunk_prefill or p
+        inputs = {**self._zero_cache(1, p, draft),
+                  "tokens": torch.zeros((1, w), dtype=torch.int32, device=self.device),
+                  "lengths": torch.zeros((1,), dtype=torch.int32, device=self.device)}
+        decoder = self.draft_decoder if draft else self.decoder
 
-            g = self._prefill_graphs[p] = graphs.StepGraph(body, inputs, device=self.device,
-                                                           pool=self._pool, graphed=self.graphed)
-        return g
+        def body():
+            return decoder(inputs["tokens"], inputs["lengths"], inputs)
 
-    def _prefill(self, padded: np.ndarray):
-        """The prompt tile through the decoder against its page: (logits
-        [1, P, V], the page). Both are the graph's static buffers, valid
-        until the next prefill."""
-        g = self._prompt_tile(padded.shape[1])
-        return g(tokens=torch.from_numpy(padded)), g.inputs
+        return self._graph(key, body, inputs)
+
+    def _page_width(self, plen: int) -> int:
+        """The page a ``plen``-token prompt fills: its prompt tile, or with
+        chunked prefill the smallest cache tile holding its padded chunks."""
+        if not self.chunk_prefill:
+            return tile_for(self.prompt_tiles, plen)
+        return tile_for(self.cache_tiles, -(-plen // self.chunk_prefill) * self.chunk_prefill)
+
+    def _fill_page(self, ids: np.ndarray, draft: bool = False):
+        """The prompt ``ids`` into a fresh page: ``(logits row of its last
+        token [V], page, calls)``. The logits row is read before the next
+        call of any graph."""
+        plen, g = len(ids), self._page_graph(self._page_width(len(ids)), draft)
+        w = self.chunk_prefill or g.inputs["tokens"].shape[1]  # one call of the whole tile
+        n_calls = -(-plen // w)
+        if self.chunk_prefill:
+            for k in ("k", "v"):
+                g.inputs[k].zero_()
+        logits = None
+        for i in range(n_calls):
+            chunk = np.zeros((1, w), np.int32)
+            seg = ids[i * w:(i + 1) * w]
+            chunk[0, :len(seg)] = seg
+            logits = g(tokens=torch.from_numpy(chunk),
+                       lengths=torch.full((1,), i * w, dtype=torch.int32))
+        return logits[0, (plen - 1) - (n_calls - 1) * w], g.inputs, n_calls
 
     def _decode(self, tokens: np.ndarray, lengths: np.ndarray):
         """One T=1 step of the live tile: logits [b, V] (head dtype), valid
@@ -587,18 +744,26 @@ class GenerateEngine:
 
     def _warm_up(self) -> None:
         try:
-            for bc in self._tiles:  # each tile's warm-up call and capture
-                b = bc[0]
-                self._tile(bc)(tokens=torch.zeros((b, 1), dtype=torch.int32),
-                               lengths=torch.zeros((b,), dtype=torch.int32))
-                self.n_compiles += 1
-                COMPILE_EVENTS.append(b)
-            for p in self.prompt_tiles:
-                self._prefill(np.zeros((1, p), np.int32))
-                self.n_compiles += 1
-            for g in self._decode_graphs.values():  # a fresh cache for the first requests
-                for k in ("k", "v"):
-                    g.inputs[k].zero_()
+            k = self.spec_k
+            z = functools.partial(torch.zeros, dtype=torch.int32)
+            for b, c in self._tiles:  # each graph's warm-up call and capture
+                shapes = [(1, False)] + ([(k + 1, False), (1, True)] if k else [])
+                for t, draft in shapes:
+                    self._step_graph(b, c, t, draft)(tokens=z((b, t)), lengths=z((b,)))
+                    self.n_compiles += 1
+                    COMPILE_EVENTS.append(b)
+                for steps in ((k, k + 1) if k else ()):
+                    self._propose_graph(b, c, steps)(feed=z((b, steps)), lags=z((b,)),
+                                                     lens0=z((b,)))
+                    self.n_compiles += 1
+                    COMPILE_EVENTS.append(b)
+            for p in self.page_tiles:
+                for draft in ((False, True) if k else (False,)):
+                    self._page_graph(p, draft)()
+                    self.n_compiles += 1
+            for cache in self._caches.values():  # a fresh cache for the first requests
+                for t in cache.values():
+                    t.zero_()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         except BaseException as e:  # noqa: BLE001 — re-raised in __init__
@@ -621,8 +786,9 @@ class GenerateEngine:
     def submit(self, prompt, max_new_tokens: int | None = None,
                sample: SampleParams | dict | None = None) -> GenStream:
         """Enqueue one prompt (iterable of token ids); returns its token
-        stream. Raises ``QueueFullError``/``EngineClosedError`` like the
-        image engine. ``sample`` overrides the engine's default
+        stream. Raises ``QueueFullError`` (``LongQueueFullError`` for a
+        long prompt past the class's reservation) or ``EngineClosedError``
+        like the image engine. ``sample`` overrides the engine's default
         :class:`SampleParams` for this request."""
         sp = self._default_sample if sample is None else sample_params(sample)
         ids = np.asarray(list(prompt), np.int32)
@@ -632,7 +798,21 @@ class GenerateEngine:
             self.max_new,
             int(max_new_tokens) if max_new_tokens else self.max_new,
         )
-        if len(ids) > self.prompt_len:
+        if self.chunk_prefill:
+            # chunked prefill unpins the prompt bound from PROMPT_LEN: any
+            # prompt the cache can hold next to its decode budget
+            bound = self.cache_tiles[-1] - max_new - self.spec_k
+            if len(ids) > bound:
+                spec = f" + SPECULATE.K={self.spec_k}" if self.spec_k else ""
+                raise ValueError(
+                    f"prompt of {len(ids)} tokens cannot fit the cache: "
+                    f"{len(ids)} + max_new={max_new}{spec} > largest "
+                    f"GENERATE.CACHE_TILES entry {self.cache_tiles[-1]} — "
+                    "chunked prefill admits any prompt the cache holds; "
+                    "shorten the prompt, lower max_new_tokens, or raise "
+                    "CACHE_TILES"
+                )
+        elif len(ids) > self.prompt_len:
             raise ValueError(
                 f"prompt of {len(ids)} tokens exceeds "
                 f"GENERATE.PROMPT_LEN={self.prompt_len}"
@@ -641,14 +821,31 @@ class GenerateEngine:
             raise ValueError(
                 f"prompt token ids must lie in [0, {self.vocab_size})"
             )
+        lc = self._length_class(len(ids))
         with self._lock:
-            self._admission.admit(len(self._waiting), self._retry_after_ms())
+            try:
+                self._admission.admit(
+                    len(self._waiting), self._retry_after_ms(), length_class=lc,
+                    class_depth=sum(1 for w in self._waiting
+                                    if self._length_class(len(w[1])) == "long"))
+            except QueueFullError:
+                if lc == "long":
+                    self._counters["long_rejected"] += 1
+                raise
             stream = GenStream(self._next_id, len(ids))
             self._next_id += 1
             self._waiting.append((stream, ids, max_new, sp))
             self._counters["requests"] += 1
+            if lc == "long":
+                self._counters["long_admitted"] += 1
             self._lock.notify_all()
         return stream
+
+    def _length_class(self, prompt_tokens: int) -> str:
+        """"long" when classification is on and the prompt reaches
+        ``long_prompt_threshold`` tokens; "short" otherwise."""
+        return ("long" if self.long_threshold and prompt_tokens >= self.long_threshold
+                else "short")
 
     def drain(self, timeout: float | None = 60.0) -> None:
         """Stop admitting, finish every queued and in-flight request, stop
@@ -679,6 +876,8 @@ class GenerateEngine:
         the generation view."""
         with self._lock:
             waiting = len(self._waiting)
+            waiting_long = sum(1 for w in self._waiting
+                               if self._length_class(len(w[1])) == "long")
             active = sum(1 for s in self._slots if s is not None)
         dm = sorted(self._decode_ms)
         pm = sorted(self._prefill_ms)
@@ -689,9 +888,9 @@ class GenerateEngine:
         el = max(time.perf_counter() - self._t0, 1e-9)
         return {
             "queue_depth": waiting,
-            "queue_depth_long": 0,
+            "queue_depth_long": waiting_long,
             "long_threshold": self.long_threshold,
-            "long_max_queue": 0,
+            "long_max_queue": self._admission.long_max_queue,
             "active": active,
             "slots": self.n_slots,
             "chunk_prefill": self.chunk_prefill,
@@ -715,19 +914,23 @@ class GenerateEngine:
         return None
 
     def _ensure_tile(self, b_need: int, c_need: int) -> None:
-        """Grow the live cache to the smallest tile covering the need
-        (zero padding at the end of the batch and cache dims; never a
-        shrink mid-flight)."""
+        """Grow the live caches (the target's and the draft's) to the
+        smallest tile covering the need (zero padding at the end of the
+        batch and cache dims; never a shrink mid-flight)."""
         b = tile_for(self.batch_tiles, max(b_need, self._b_tile))
         c = tile_for(self.cache_tiles, max(c_need, self._c_tile))
         if (b, c) == (self._b_tile, self._c_tile):
             return
-        grown = self._tile((b, c)).inputs  # the next tile's static cache
-        for k in ("k", "v"):
-            old = self._cache[k]
-            grown[k].zero_()
-            grown[k][:, :old.shape[1], :, :old.shape[3]] = old
-        self._cache = grown
+        for draft in ((False, True) if self.spec_k else (False,)):
+            old = self._draft_cache if draft else self._cache
+            grown = self._cache_of(b, c, draft)  # the next tile's static cache
+            for k in ("k", "v"):
+                grown[k].zero_()
+                grown[k][:, :old[k].shape[1], :, :old[k].shape[3]] = old[k]
+            if draft:
+                self._draft_cache = grown
+            else:
+                self._cache = grown
         self._b_tile, self._c_tile = b, c
 
     def _admit(self, stream: GenStream, ids: np.ndarray, max_new: int,
@@ -736,23 +939,35 @@ class GenerateEngine:
         assert slot is not None
         t0 = time.perf_counter()
         plen = len(ids)
-        ptile = tile_for(self.prompt_tiles, plen)
-        self._ensure_tile(slot + 1, plen + max_new)
-        if ptile > self._c_tile:
+        width = self._page_width(plen)
+        need = plen + max_new + self.spec_k
+        # a chunked page sizes the tile too; a prompt tile must fit the
+        # tile the request needs (JAX has no insert for a wider one)
+        self._ensure_tile(slot + 1, max(need, width) if self.chunk_prefill else need)
+        if width > self._c_tile:
             raise ValueError(
-                f"prompt tile {ptile} does not fit the cache tile {self._c_tile}: "
+                f"prompt tile {width} does not fit the cache tile {self._c_tile}: "
                 "raise GENERATE.CACHE_TILES"
             )
-        padded = np.zeros((1, ptile), np.int32)
-        padded[0, :plen] = ids
-        logits, page = self._prefill(padded)
+        row, page, calls = self._fill_page(ids)
+        row = row.cpu().numpy()
         for k in ("k", "v"):
-            self._cache[k][:, slot, :, :ptile] = page[k][:, 0]
+            self._cache[k][:, slot, :, :width] = page[k][:, 0]
         s = _Slot(stream, plen, 0, max_new, sp)
-        first = self._select(s, logits[0, plen - 1].cpu().numpy())
+        first = self._select(s, row)
         s.last_token = first
+        s.history = [int(t) for t in ids] + [first]
         self._slots[slot] = s
+        if self.spec_k:  # the draft mirrors the prompt into its own paged cache
+            _, dpage, dcalls = self._fill_page(ids, draft=True)
+            for k in ("k", "v"):
+                self._draft_cache[k][:, slot, :, :width] = dpage[k][:, 0]
+            s.draft_len = plen
+            calls += dcalls
         self._counters["prompt_tokens"] += plen
+        if self.chunk_prefill:
+            self._counters["chunk_prefills"] += 1
+            self._counters["chunk_calls"] += calls
         self._prefill_ms.append((time.perf_counter() - t0) * 1e3)
         stream._emit(first)
         s.new_tokens = 1  # prefill produced token #1
@@ -792,6 +1007,7 @@ class GenerateEngine:
         s = self._slots[i]
         s.length += 1
         s.last_token = tok
+        s.history.append(tok)
         s.new_tokens += 1
         self._counters["new_tokens"] += 1
         s.stream._emit(tok)
@@ -813,6 +1029,137 @@ class GenerateEngine:
         self._counters["decode_steps"] += 1
         for i in live:
             self._emit_tok(i, self._select(self._slots[i], logits[i]))
+
+    def _spec_propose_steps(self, live, props, qrows, steps, b, c) -> None:
+        """The per-step propose path, for a round with a sampled slot: one
+        draft decode call (and one sync) a step, proposals selected on the
+        host in float64 (the replay contract)."""
+        k = self.spec_k
+        g = self._step_graph(b, c, 1, draft=True)
+        for s_idx in range(steps):
+            tokens = np.zeros((b, 1), np.int32)
+            lengths = np.zeros((b,), np.int32)
+            for i in live:
+                sl = self._slots[i]
+                pos = sl.draft_len + s_idx  # the position this step feeds
+                tokens[i, 0] = (sl.history[pos] if pos <= sl.length
+                                else props[i][pos - sl.length - 1])
+                lengths[i] = pos
+            dlogits = g(tokens=torch.from_numpy(tokens),
+                        lengths=torch.from_numpy(lengths)).cpu().numpy()
+            for i in live:
+                sl = self._slots[i]
+                if sl.draft_len + s_idx >= sl.length and len(props[i]) < k:
+                    row = dlogits[i]
+                    props[i].append(self._select(sl, row, _U_DRAFT))
+                    if not sl.sample.greedy:
+                        qrows.setdefault(i, []).append(row)
+
+    def _spec_round(self) -> None:
+        """One speculative round over every live slot (JAX's ``_spec_round``).
+
+        1. Propose: K draft proposals a slot (greedy: the draft's argmax;
+           sampled: drawn from the warped draft distribution). A slot whose
+           draft cache trails by one position (its previous round accepted
+           every proposal) first feeds that history token, and the round
+           runs one more step so every slot proposes K.
+        2. Verify: one T=K+1 target call over ``[last, d_1..d_K]``.
+        3. Accept, left to right: greedy keeps d_j while it is the target's
+           argmax and emits the target's argmax where it is not; sampled
+           keeps d_j iff ``u·q(d_j) <= p(d_j)`` and resamples a rejection
+           from ``max(p − q, 0)``. All K kept: a bonus token off the
+           (K+1)-th row.
+        """
+        t0 = time.perf_counter()
+        k = self.spec_k
+        live = [i for i, s in enumerate(self._slots) if s is not None]
+        max_len = max(self._slots[i].length for i in live)
+        self._ensure_tile(max(live) + 1, max_len + k + 1)
+        b, c = self._b_tile, self._c_tile
+
+        props: dict[int, list[int]] = {i: [] for i in live}
+        qrows: dict[int, list[np.ndarray]] = {}
+        steps = k + max(self._slots[i].length - self._slots[i].draft_len for i in live)
+        if all(self._slots[i].sample.greedy for i in live) and steps in (k, k + 1):
+            # proposal j of a slot with lag L is the argmax of step L + j
+            feed = np.zeros((b, steps), np.int32)
+            lags = np.zeros((b,), np.int32)
+            lens0 = np.zeros((b,), np.int32)
+            for i in live:
+                sl = self._slots[i]
+                lag = sl.length - sl.draft_len
+                lags[i], lens0[i] = lag, sl.draft_len
+                feed[i, :lag + 1] = sl.history[sl.draft_len:sl.draft_len + lag + 1]
+            outs = self._propose_graph(b, c, steps)(
+                feed=torch.from_numpy(feed), lags=torch.from_numpy(lags),
+                lens0=torch.from_numpy(lens0)).cpu().numpy()
+            for i in live:
+                lag = int(lags[i])
+                props[i] = [int(outs[s, i]) for s in range(lag, lag + k)]
+        else:
+            self._spec_propose_steps(live, props, qrows, steps, b, c)
+
+        tokens = np.zeros((b, k + 1), np.int32)
+        lengths = np.zeros((b,), np.int32)
+        for i in live:
+            sl = self._slots[i]
+            tokens[i, 0] = sl.last_token
+            tokens[i, 1:] = props[i]
+            lengths[i] = sl.length
+        vlogits = self._step_graph(b, c, k + 1)(
+            tokens=torch.from_numpy(tokens), lengths=torch.from_numpy(lengths)).cpu().numpy()
+
+        n_acc = n_bonus = n_rej = 0
+        for i in live:
+            sl = self._slots[i]
+            old_draft_len = sl.draft_len
+            for j in range(k):
+                d = int(props[i][j])
+                trow = vlogits[i, j]
+                if sl.sample.greedy:
+                    tgt = int(trow.argmax())
+                    if d == tgt:
+                        n_acc += 1
+                        if self._emit_tok(i, d):
+                            break
+                        continue
+                    # the corrective token is the target's argmax: what
+                    # target-only greedy decode emits here
+                    n_rej += 1
+                    self._emit_tok(i, tgt)
+                    break
+                p = warp_probs(trow, sl.sample)
+                q = warp_probs(qrows[i][j], sl.sample)
+                u = _uniform(sl.sample.seed, _U_ACCEPT, sl.draws[_U_ACCEPT])
+                sl.draws[_U_ACCEPT] += 1
+                if u * q[d] <= p[d]:
+                    n_acc += 1
+                    if self._emit_tok(i, d):
+                        break
+                    continue
+                n_rej += 1
+                r = np.maximum(p - q, 0.0)  # rejected: resample the residual
+                if r.sum() <= 0.0:
+                    r = p
+                u = _uniform(sl.sample.seed, _U_RESID, sl.draws[_U_RESID])
+                sl.draws[_U_RESID] += 1
+                self._emit_tok(i, _pick(r, u))
+                break
+            else:
+                n_bonus += 1  # every proposal kept, the slot still live
+                self._emit_tok(i, self._select(sl, vlogits[i, k]))
+            if self._slots[i] is not None:
+                # the draft's cache is valid through the last kept position,
+                # capped by what this round's steps wrote
+                sl.draft_len = min(old_draft_len + steps, sl.length)
+
+        self._decode_ms.append((time.perf_counter() - t0) * 1e3)
+        self._counters["decode_steps"] += 1
+        self._counters["spec_rounds"] += 1
+        self._counters["spec_proposed"] += k * len(live)
+        self._counters["spec_accepted"] += n_acc
+        self._counters["spec_bonus"] += n_bonus
+        self._counters["spec_rejected"] += n_rej
 
     def _scheduler(self) -> None:
         # inference mode is thread-local: enter it in the thread that runs
@@ -839,7 +1186,10 @@ class GenerateEngine:
                         self._lock.wait(timeout=self._poll_s)
                         continue
                     try:
-                        self._decode_step()
+                        if self.spec_k:
+                            self._spec_round()
+                        else:
+                            self._decode_step()
                     except Exception as e:  # noqa: BLE001 — a device fault fails
                         # every in-flight request loudly; new ones are still served
                         for i, s in enumerate(self._slots):

@@ -1,6 +1,6 @@
 """Replica-side LM generation service (counterpart of
-distribuuuu_tpu/lm/service.py, without tensor-parallel and speculative
-decoding and without trace spans).
+distribuuuu_tpu/lm/service.py, without tensor-parallel decoding and
+without trace spans).
 
 ``serve_net`` builds this engine instead of the image engine when
 ``MODEL.ARCH`` is a ``gpt_*`` arch: the same length-prefixed socket and
@@ -21,9 +21,11 @@ from __future__ import annotations
 import json
 import socket
 
+import torch
+
 from distribuuuu_tpu_torch import not_ported
 from distribuuuu_tpu_torch.config import cfg
-from distribuuuu_tpu_torch.lm.generate import LM_PLANE, GenerateEngine
+from distribuuuu_tpu_torch.lm.generate import GenerateEngine
 from distribuuuu_tpu_torch.lm.tokenizer import ByteTokenizer
 from distribuuuu_tpu_torch.serve import protocol
 from distribuuuu_tpu_torch.serve.admission import EngineClosedError, QueueFullError
@@ -34,7 +36,9 @@ def engine_from_cfg(graphed: bool | None = None) -> GenerateEngine:
     arch on ``cuda:{SERVE.DEVICE}`` (the CPU only under ``DEVICE.PLATFORM
     cpu``), weights from ``MODEL.WEIGHTS`` (a torch ``.pth``) or made from
     ``RNG_SEED``, GENERATE.* tiles warmed; ``graphed`` as
-    :class:`GenerateEngine`'s."""
+    :class:`GenerateEngine`'s. ``GENERATE.SPECULATE.ENABLED`` also builds
+    the ``DRAFT_ARCH`` draft (:func:`_draft_from_cfg`), and every decode
+    step becomes a speculative round."""
     from distribuuuu_tpu_torch import trainer
     from distribuuuu_tpu_torch.utils import weights
 
@@ -44,16 +48,52 @@ def engine_from_cfg(graphed: bool | None = None) -> GenerateEngine:
             "image archs serve through serve/engine.py"
         )
     if int(cfg.MESH.MODEL) > 1:
-        raise not_ported(f"tensor-parallel decode (MESH.MODEL={cfg.MESH.MODEL})", LM_PLANE)
-    if cfg.GENERATE.SPECULATE.ENABLED:
-        raise not_ported("GENERATE.SPECULATE.ENABLED (speculative decoding)", LM_PLANE)
+        raise not_ported(f"tensor-parallel decode (MESH.MODEL={cfg.MESH.MODEL})",
+                         "Parallel layouts beyond DP")
+    kwargs = _draft_from_cfg() if cfg.GENERATE.SPECULATE.ENABLED else {}
     device = trainer.device_from_cfg()
     model = trainer.build_model_from_cfg()
     if cfg.MODEL.WEIGHTS:
         weights.load_weights(model, cfg.MODEL.WEIGHTS)
     elif cfg.MODEL.PRETRAINED:
         raise weights.pretrained_refusal(cfg.MODEL.ARCH)
-    return GenerateEngine(model, device=device, graphed=graphed)
+    return GenerateEngine(model, device=device, graphed=graphed, **kwargs)
+
+
+def _draft_from_cfg() -> dict:
+    """The draft half of a speculative engine from ``GENERATE.SPECULATE``:
+    the ``DRAFT_ARCH`` model, made from ``RNG_SEED`` like the target (so
+    ``DRAFT_ARCH`` = ``MODEL.ARCH`` drafts with the target's own weights)
+    or loaded from ``DRAFT_WEIGHTS`` (a ``.pth``), after the
+    tokenizer-identity check: speculation verifies the draft's token ids
+    under the target's distribution."""
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.models.layers import resolve_dtype
+    from distribuuuu_tpu_torch.utils import weights
+
+    arch = cfg.GENERATE.SPECULATE.DRAFT_ARCH
+    if not arch.startswith("gpt"):
+        raise ValueError(
+            f"GENERATE.SPECULATE.DRAFT_ARCH={arch!r} is not a gpt_* zoo "
+            "arch — the draft decodes through the same GPTDecoder"
+        )
+    # every gpt_* arch tokenizes with the one byte tokenizer, so the
+    # fingerprints coincide; the check is what a second tokenizer would trip
+    t_id, d_id = ByteTokenizer().identity(), ByteTokenizer().identity()
+    if t_id != d_id:
+        raise ValueError(
+            f"GENERATE.SPECULATE.DRAFT_ARCH={arch}: draft tokenizer "
+            f"identity {d_id} != target tokenizer identity {t_id} — "
+            "draft proposals are token ids; accept/reject is undefined "
+            "across tokenizers"
+        )
+    draft = build_model(arch, num_classes=cfg.MODEL.NUM_CLASSES,
+                        dtype=resolve_dtype(cfg.DEVICE.COMPUTE_DTYPE),
+                        seq_len=int(cfg.LM.SEQ_LEN),
+                        generator=torch.Generator().manual_seed(int(cfg.RNG_SEED or 0)))
+    if cfg.GENERATE.SPECULATE.DRAFT_WEIGHTS:
+        weights.load_weights(draft, cfg.GENERATE.SPECULATE.DRAFT_WEIGHTS)
+    return {"draft_model": draft, "spec_k": int(cfg.GENERATE.SPECULATE.K)}
 
 
 def handle_generate(engine: GenerateEngine, ctrl: dict, send) -> None:

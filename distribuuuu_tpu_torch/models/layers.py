@@ -172,7 +172,7 @@ class BatchNorm(nn.Module):
         shift = self._shift() if mode == "shifted" else 0.0
         d = v - shift
         s1, s2 = (t.squeeze(dims) for t in means(d, torch.square(d)))
-        return s1 + shift, torch.clamp_min(s2 - torch.square(s1), 0.0)
+        return s1 + shift, clamp0(s2 - torch.square(s1))
 
     def _shift(self) -> torch.Tensor:
         """The running mean as the variance's constant shift: its value
@@ -230,6 +230,13 @@ class BatchNorm(nn.Module):
             for buf, u in zip((self.running_mean, self.running_var), upd):
                 buf.copy_((m * buf + (1.0 - m) * u).to(buf.dtype))
         return y
+
+
+def clamp0(v: torch.Tensor) -> torch.Tensor:
+    """``max(v, 0)`` with ``jnp.maximum``'s gradient at a tie: half of it
+    (``torch.maximum``'s too), where ``clamp_min`` passes all of it. A
+    variance lands exactly on 0 when a ghost group's values are equal."""
+    return torch.maximum(v, v.new_zeros(()))
 
 
 def group_conv_mode() -> str:
@@ -555,7 +562,7 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(torch.float32, x.dtype))
         mu = xf.mean(-1, keepdim=True)
-        var = torch.clamp_min(torch.square(xf).mean(-1, keepdim=True) - torch.square(mu), 0.0)
+        var = clamp0(torch.square(xf).mean(-1, keepdim=True) - torch.square(mu))
         y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight)
         return (y + self.bias).to(self.dtype)
 

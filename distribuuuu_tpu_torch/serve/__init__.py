@@ -9,6 +9,7 @@ Entry point: ``python -m distribuuuu_tpu_torch.serve_net``.
 from distribuuuu_tpu_torch.serve.admission import (  # noqa: F401
     AdmissionController,
     EngineClosedError,
+    LongQueueFullError,
     QueueFullError,
     drain_requested,
     install_drain,

@@ -194,14 +194,16 @@ def effective_topk() -> int:
 def check_train_cfg(eval_only: bool = False) -> None:
     """Refuse, before any work (and before joining a process group), what
     the port does not run, and a batch geometry that cannot work."""
-    if cfg.MODEL.ARCH.startswith("gpt"):
-        raise not_ported(f"training or evaluating {cfg.MODEL.ARCH!r} (token shards, the "
-                         "per-token loss)", "LM plane")
-    if cfg.DATA.FORMAT == "tokens":
-        raise not_ported("DATA.FORMAT='tokens' (the LM's token shards)", "LM plane")
-    if cfg.DATA.FORMAT not in ("imagefolder", "shards"):
+    if cfg.DATA.FORMAT not in ("imagefolder", "shards", "tokens"):
         raise ValueError(f"DATA.FORMAT must be imagefolder|shards|tokens, got "
                          f"{cfg.DATA.FORMAT!r}")
+    lm = cfg.MODEL.ARCH.startswith("gpt")
+    if lm and (cfg.MODEL.DUMMY_INPUT or cfg.DATA.FORMAT != "tokens"):
+        raise ValueError(f"MODEL.ARCH={cfg.MODEL.ARCH!r} trains and evaluates on token shards: "
+                         "set DATA.FORMAT tokens (config/gpt_nano.yaml does) and "
+                         "MODEL.DUMMY_INPUT False")
+    if not lm and cfg.DATA.FORMAT == "tokens":
+        raise ValueError(f"DATA.FORMAT tokens feeds the gpt_* archs, not {cfg.MODEL.ARCH!r}")
     world, mesh = dist.env_world_size(), cfg.MESH
     if mesh.MODEL != 1 or mesh.SEQ != 1 or mesh.PIPE != 1:
         raise not_ported(f"MESH axes beyond data (MODEL={mesh.MODEL}, SEQ={mesh.SEQ}, "
@@ -266,7 +268,8 @@ def step_graphed(device: torch.device) -> bool:
 
 def prep_images(images: torch.Tensor) -> torch.Tensor:
     """The device half of ``DATA.DEVICE_NORMALIZE``: uint8 batches are
-    normalized on the device; float batches arrive normalized."""
+    normalized on the device; float batches arrive normalized; int32
+    token batches (the LM) pass as they are."""
     if images.dtype == torch.uint8 and cfg.DATA.DEVICE_NORMALIZE:
         return normalize_on_device(images)
     return images
@@ -435,9 +438,15 @@ def train_step(model, optimizer, batch: dict, topk: int, policy: str = "raise",
 @torch.inference_mode()
 def eval_step(model, batch: dict, topk: int) -> dict:
     """Masked sums of one eval batch: ``loss_sum``, ``correct1``,
-    ``correctk`` and ``count`` (device scalars; ``model`` in eval mode)."""
+    ``correctk`` and ``count`` (device scalars; ``model`` in eval mode).
+    Per-token logits ``[B, S, V]`` (the LM) count every token of a
+    masked-in sequence as one example: ``count`` is ``mask · S``, as in
+    the JAX package's eval step."""
     logits = model(prep_images(batch["image"]))
     mask, labels = batch["mask"], batch["label"].long()
+    if logits.dim() == 3:
+        mask = mask[:, None].expand(labels.shape).reshape(-1)
+        logits, labels = logits.reshape(-1, logits.shape[-1]), labels.reshape(-1)
     logp = F.log_softmax(logits.to(head_dtype(logits.dtype)), dim=-1)
     nll = -logp.gather(-1, labels[:, None])[:, 0]
     hits = logits.topk(topk, dim=-1).indices == labels[:, None]
@@ -586,13 +595,34 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
     finally:
         heartbeat.stop()
         record["captures"] = graphs.captures - captures0
+    _log_lm_rate(logger, epoch, record, loader)
     return False, done, record
+
+
+def _log_lm_rate(logger, epoch: int, record: dict, loader) -> None:
+    """For an LM epoch, the train rate in sequences and tokens a second
+    over the steps after the epoch's first call (which captures), into
+    the log and ``record`` (``seqs_per_s``, ``tokens_per_s``,
+    ``step_ms``)."""
+    seq = getattr(getattr(loader, "dataset", None), "seq_len", None)
+    t = record["step_t"]
+    steps = sum(1 for x in t if x > t[0]) if t else 0
+    if not seq or not steps:
+        return
+    span = t[-1] - t[0]
+    seqs = steps * loader.batch_size * dist.get_world_size()
+    record.update(seqs_per_s=seqs / span, tokens_per_s=seqs * seq / span,
+                  step_ms=span / steps * 1e3)
+    logger.info("Epoch[%d] train: %.1f sequences/s, %.0f tokens/s, %.3f ms a step (%d steps "
+                "after the first call)", epoch + 1, record["seqs_per_s"],
+                record["tokens_per_s"], record["step_ms"], steps)
 
 
 def log_eval_result(logger, epoch: int, top1: float, topk_acc: float, loss: float,
                     n: int) -> None:
-    logger.info("Eval[%d]  Loss %.4f  Acc@1 %.3f  Acc@%d %.3f  (%d samples)",
-                epoch + 1, loss, top1, effective_topk(), topk_acc, n)
+    logger.info("Eval[%d]  Loss %.4f  Acc@1 %.3f  Acc@%d %.3f  (%d %s)",
+                epoch + 1, loss, top1, effective_topk(), topk_acc, n,
+                "tokens" if cfg.MODEL.ARCH.startswith("gpt") else "samples")
 
 
 def validate(loader, model, epoch: int, logger, device: torch.device,
@@ -799,6 +829,9 @@ def train_model(records: list | None = None):
         t0 = time.perf_counter()
         result = validate(val_loader, model, epoch, logger, device, pool=pool)
         record["eval_wall_s"] = time.perf_counter() - t0
+        if result is not None and cfg.MODEL.ARCH.startswith("gpt"):
+            logger.info("Eval[%d]: %.0f tokens/s over %.3f s", epoch + 1,
+                        result[3] / record["eval_wall_s"], record["eval_wall_s"])
         if result is None:
             return ckpt.save_preempt_checkpoint(full_state(), epoch + 1, best_acc1,
                                                 pending_eval=epoch)

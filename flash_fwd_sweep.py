@@ -3,7 +3,8 @@
 
 Run from the root of a checkout:  python3 flash_fwd_sweep.py [--out FILE]
 
-At each bf16 shape of ``chip_smoke.FLASH_SHAPES``, at ViT-S training
+At each bf16 shape of ``chip_smoke.FLASH_SHAPES`` (a head dim under 64
+zero-padded to 64, as the autograd Function runs it), at ViT-S training
 batch 64, and at head dim 128 beside the ViT-S training, eval and
 4096-token ones, every tiling the forward's
 launcher in csrc/flash_attention.cu takes (one or two consumer warpgroups
@@ -80,21 +81,26 @@ def main(argv=None) -> int:
                    for _ in range(3))
         scale = d ** -0.5
         o_ref, lse_ref = fa.forward_plain(q, k, v, scale, causal)
-        picked = tuple(fa.fwd_plan(b * h, L, d, dtype)[1:])
+        # a head dim the kernels do not take runs zero-padded, as _Flash pads it
+        dp = fa.kernel_head_dim(dtype, d)
+        qk, kk, vk = (torch.nn.functional.pad(t, (0, dp - d)).contiguous() if dp != d else t
+                      for t in (q, k, v))
+        picked = tuple(fa.fwd_plan(b * h, L, dp, dtype)[1:])
         q4, k4, v4 = (t.view(b, h, L, d) for t in (q, k, v))
         sdpa = cs.time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal, scale=scale))
         ops = fa.flops(b * h, L, d, causal)["forward"]
-        for plan in tilings(L, d):
-            row = {"shape": name, "B": b, "H": h, "L": L, "D": d, "causal": causal,
+        for plan in tilings(L, dp):
+            row = {"shape": name, "B": b, "H": h, "L": L, "D": d, "kernel_D": dp,
+                   "causal": causal,
                    "warpgroups": plan[0], "key_tile": plan[1], "stages": plan[2],
                    "fwd_plan": plan == picked, "sdpa_ms": sdpa}
             try:
-                o, lse = launch(torch, fa, q, k, v, scale, causal, plan)
+                o, lse = launch(torch, fa, qk, kk, vk, scale, causal, plan)
                 torch.cuda.synchronize()
-                row["scaled_err"] = max(cs._scaled_err(o, o_ref)[1],
+                row["scaled_err"] = max(cs._scaled_err(o[..., :d], o_ref)[1],
                                         cs._scaled_err(lse, lse_ref)[1])
-                row["ms"] = cs.time_ms(torch, lambda: launch(torch, fa, q, k, v, scale,
+                row["ms"] = cs.time_ms(torch, lambda: launch(torch, fa, qk, kk, vk, scale,
                                                              causal, plan))
                 row["tflops"] = ops / row["ms"] * 1e-9
             except RuntimeError as e:

@@ -469,7 +469,7 @@ def test_flash_forward_takes_a_negative_scale(dtype):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("L", [196, 4096, 150, 197, 4097, 70, 1100])
+@pytest.mark.parametrize("L", [196, 4096, 150, 197, 4097, 70, 1100, 256])
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_backward_launches_every_plan(causal, L, d):
     """The dK/dV plan of every length and head dim the CPU tests pin is

@@ -170,9 +170,11 @@ def test_kernel_accounting():
 
 # ---- the backward's body and tiling (pure functions: pinned here, run on the card)
 
-# (L, d) that the ViT configs and chip_smoke.py's FLASH_SHAPES reach: ViT-Ti/S
-# at 224² (196 tokens) and 1024² (4096), head dims 32/64/128, ragged lengths
-PLAN_SHAPES = [(L, d) for L in (196, 4096, 150, 197, 4097, 70, 1100) for d in (32, 64, 128)]
+# (L, d) that the ViT and GPT configs and chip_smoke.py's FLASH_SHAPES reach:
+# ViT-Ti/S at 224² (196 tokens) and 1024² (4096), GPT-nano's 256, head dims
+# 32/64/128, ragged lengths
+PLAN_SHAPES = [(L, d) for L in (196, 4096, 150, 197, 4097, 70, 1100, 256)
+               for d in (32, 64, 128)]
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])

@@ -11,6 +11,7 @@ from __future__ import annotations
 import json
 import socket
 import threading
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -245,23 +246,42 @@ def test_tile_defaults_match_jax():
         assert tgen.default_tiles(cap) == jgen.default_tiles(cap)
 
 
-@pytest.mark.parametrize("kw", [{"chunk_prefill": 8}, {"draft_model": object()},
-                                {"long_prompt_threshold": 4}, {"long_max_queue": 2}])
-def test_refused_engine_knobs(gpt, kw):
-    with pytest.raises(NotImplementedError, match="LM plane"):
+# chunked prefill, the draft model and the length classes run since the
+# LM plane was ported; each knob's case now holds one of its refusals
+@pytest.mark.parametrize("kw,match", [
+    ({"chunk_prefill": 12}, "does not divide GENERATE.CACHE_TILES entry 16"),
+    ({"draft_model": SimpleNamespace(vocab_size=256, seq_len=32)},
+     "draft/target vocab mismatch"),
+    ({"long_prompt_threshold": 4, "long_max_queue": 4, "max_queue": 4},
+     "must leave short-class headroom"),
+    ({"long_max_queue": 2}, "without SERVE.LONG_PROMPT_THRESHOLD"),
+], ids=["kw0", "kw1", "kw2", "kw3"])
+def test_refused_engine_knobs(gpt, kw, match):
+    with pytest.raises(ValueError, match=match):
         _engine(gpt, **kw)
 
 
-@pytest.mark.parametrize("opts,err,match", [
-    (["MESH.MODEL", 2], NotImplementedError, "LM plane"),
-    (["GENERATE.SPECULATE.ENABLED", True], NotImplementedError, "LM plane"),
-    (["GENERATE.CHUNK_PREFILL", 32], NotImplementedError, "LM plane"),
-    (["SERVE.LONG_PROMPT_THRESHOLD", 16], NotImplementedError, "LM plane"),
+ENGINE_CFG_REFUSALS = [
+    (["MESH.MODEL", 2], NotImplementedError, "Parallel layouts beyond DP"),
+    (["GENERATE.SPECULATE.ENABLED", True, "GENERATE.SPECULATE.DRAFT_ARCH", "resnet18"],
+     ValueError, "is not a gpt_"),
+    (["GENERATE.CHUNK_PREFILL", 12], ValueError, "does not divide"),
+    (["SERVE.LONG_MAX_QUEUE", 4], ValueError, "without SERVE.LONG_PROMPT_THRESHOLD"),
     (["MODEL.ARCH", "gpt_nano_moe"], NotImplementedError, "Parallel layouts beyond DP"),
     (["KERNELS.DECODE_ATTN", "pallas"], ValueError, "accepts only"),
     (["KERNELS.DECODE_BLOCK", 12], ValueError, "multiple of 8"),
     (["MODEL.ARCH", "resnet18"], ValueError, "serves the gpt_"),
-])
+]
+
+
+# the first four ids keep the names of the "LM plane" refusals these cases
+# held before the LM plane was ported: TP decode moved to "Parallel layouts
+# beyond DP", the other three knobs run now and their cases hold the knobs'
+# own refusals
+@pytest.mark.parametrize("opts,err,match", ENGINE_CFG_REFUSALS, ids=[
+    *(f"opts{i}-NotImplementedError-LM plane" for i in range(4)),
+    *(f"opts{i}-{e.__name__}-{m}" for i, (_, e, m) in enumerate(ENGINE_CFG_REFUSALS)
+      if i >= 4)])
 def test_engine_from_cfg_refusals(opts, err, match):
     tconfig.merge_from_file("config/gpt_nano.yaml")
     tcfg.merge_from_list(["DEVICE.PLATFORM", "cpu", "LM.SEQ_LEN", 32,

@@ -120,8 +120,12 @@ def test_build_model_from_cfg_routes_attention():
     with pytest.raises(NotImplementedError, match="Parallel layouts beyond DP"):
         trainer.build_model_from_cfg()
     tcfg.MODEL.ARCH = "gpt_nano"
-    with pytest.raises(NotImplementedError, match="LM plane"):
-        trainer.check_train_cfg()
+    trainer.check_train_cfg()  # gpt_nano.yaml's DATA.FORMAT tokens
+    tcfg.DATA.FORMAT = "imagefolder"
+    with pytest.raises(ValueError, match="trains and evaluates on token shards"):
+        trainer.check_train_cfg()  # the GPT trains on token shards, not images
+    tcfg.DATA.FORMAT = "tokens"
+    trainer.check_train_cfg()
 
 
 def test_tokenizer_round_trips_and_matches_jax():

@@ -68,9 +68,15 @@ from distribuuuu_tpu_torch.utils.optim import Optimizer, construct_optimizer
 from distribuuuu_tpu_torch.utils.weights import state_dict_from_jax
 
 BATCH, GROUP, LR, TOL, CLASSES = 4, 2, 0.005, 1e-7, 10
-# against JAX: ghost BN groups of 4 (at groups of 2 the layer-4 variances,
-# over 2 values each, are ill-conditioned enough that the two frameworks'
-# summation orders part after a few steps, fold or no fold)
+# against JAX: ghost BN groups of 4. At groups of 2 the two frameworks
+# part over a few steps (losses 3e-13, 2.5e-9, 5.8e-6, 6.6e-3 apart), and
+# the first tensor that parts is layer 4's BN input gradient: at 32² layer
+# 4 is 1x1, so a group is 2 values a channel, its one-pass variance falls
+# to 1.9e-12 (s1²/var up to 7.9e8) and a 1-ulp change of its input moves
+# dx by 2e-11. Fed the same input, the two BN layers agree to 1.4e-14;
+# the ulps come from the convolutions' summation orders upstream, and
+# after one step the gradients (momentum traces) are 1.3e-10 apart against
+# 3e-13 at groups of 4 (test_ghost_bn_groups_of_2_part_by_conditioning).
 J_BATCH, J_GROUP = 8, 4
 
 
@@ -153,9 +159,9 @@ def weights():
     return random_variables(shapes, seed=5)
 
 
-def _port(weights, policy: str = "raise", fold: int = 3):
+def _port(weights, policy: str = "raise", fold: int = 3, group: int = J_GROUP):
     model = tmodels.build_model("resnet18", num_classes=CLASSES, dtype=torch.float64,
-                                bn_group=J_GROUP)
+                                bn_group=group)
     model.load_state_dict(state_dict_from_jax(weights["params"], weights["batch_stats"]))
     model = model.to(torch.float64).train()
     tcfg.OPTIM.BASE_LR = LR
@@ -169,7 +175,7 @@ def _port_batch(b):
             "label": torch.from_numpy(b["label"])}
 
 
-def _jax_steps(weights, batches, policy: str = "raise"):
+def _jax_steps(weights, batches, policy: str = "raise", group: int = J_GROUP):
     """The JAX package's per-step ``make_train_step`` at f64 over
     ``batches``: (params, batch_stats, trace, count, losses)."""
     jax.config.update("jax_enable_x64", True)
@@ -179,7 +185,7 @@ def _jax_steps(weights, batches, policy: str = "raise"):
         jcfg.OPTIM.BASE_LR = LR
         jcfg.TRAIN.NONFINITE = policy
         jmodel = jmodels.build_model("resnet18", num_classes=CLASSES, dtype=jnp.float64,
-                                     bn_group=J_GROUP)
+                                     bn_group=group)
         cast = jax.tree.map(lambda a: jnp.asarray(a, np.float64), weights)
         opt = jax_construct_optimizer()
         state = TrainState(params=cast["params"], batch_stats=cast["batch_stats"],
@@ -230,6 +236,102 @@ def test_device_skip_equals_jax_in_graph_skip_at_f64(weights):
     assert compare_with_jax((params, stats), model.state_dict(), TOL) > 100
     assert compare_with_jax((trace,), dict(zip(opt.names, opt.m)), TOL) == len(opt.names)
     assert opt.count == count == 2
+
+
+def _layer4_bn_inputs(weights, group: int) -> dict:
+    """Each layer-4 BN's (input, running mean, scale, bias) in the f64
+    port's train forward of the first lockstep batch at ghost groups of
+    ``group``."""
+    model = _port(weights, group=group)[0]
+    caught = {}
+
+    def hook(name):
+        def grab(mod, args, out):
+            caught[name] = (args[0].detach().clone(), mod.running_mean.clone(),
+                            mod.weight.detach().clone(), mod.bias.detach().clone())
+        return grab
+
+    for name, m in model.named_modules():
+        if isinstance(m, tlayers.BatchNorm) and name.startswith("layer4"):
+            m.register_forward_hook(hook(name))
+    model(_port_batch(stream_batch(0, J_BATCH))["image"])
+    return caught
+
+
+def _bn_pair(x, stats, group: int, dy):
+    """(y, dx) of the port's BatchNorm and of JAX's on the same f64 input
+    and upstream gradient ``dy``."""
+    from distribuuuu_tpu.models.layers import _BNCore
+
+    rm, w, b = stats
+    bn = tlayers.BatchNorm(x.shape[-1], group_size=group).double()
+    with torch.no_grad():
+        bn.running_mean.copy_(rm)
+        bn.weight.copy_(w)
+        bn.bias.copy_(b)
+    xt = x.clone().requires_grad_(True)
+    y = bn(xt, torch.float64)
+    (y * dy).sum().backward()
+    jax.config.update("jax_enable_x64", True)
+    try:
+        core = _BNCore(group_size=group, dtype=jnp.float64)
+        vs = {"params": {"scale": jnp.asarray(w.numpy()), "bias": jnp.asarray(b.numpy())},
+              "batch_stats": {"mean": jnp.asarray(rm.numpy()),
+                              "var": jnp.ones(x.shape[-1], jnp.float64)}}
+        yj, vjp = jax.vjp(lambda v: core.apply(vs, v, train=True, mutable=["batch_stats"])[0],
+                          jnp.asarray(x.numpy()))
+        gx = vjp(jnp.asarray(dy.numpy()))[0]
+        return (y.detach().numpy(), xt.grad.numpy()), (np.asarray(yj), np.asarray(gx))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def _rel(a, b) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def test_ghost_bn_groups_of_2_part_by_conditioning(weights):
+    """The groups-of-2 parting is rounding, amplified: (1) each layer-4 BN,
+    fed the port's own input, gives JAX's output and input gradient within
+    f64 rounding (the same formulation); (2) at groups of 2 that layer
+    moves its input gradient by more than 1e-12 for a 1-ulp input change,
+    at groups of 4 by less; (3) one lockstep step at groups of 2 then
+    keeps the loss to 1e-12 and the gradients (the momentum traces) to
+    1e-9 of their scale, the bound the first step reaches (1.3e-10
+    measured)."""
+    rng = np.random.default_rng(0)
+    sensitivity = {}
+    for group in (2, 4):
+        worst = 0.0
+        for x, *stats in _layer4_bn_inputs(weights, group).values():
+            dy = torch.from_numpy(rng.standard_normal(tuple(x.shape)))
+            (y, dx), (yj, dxj) = _bn_pair(x, stats, group, dy)
+            assert _rel(y, yj) < 1e-14
+            assert _rel(dx, dxj) < 1e-13
+            up = torch.nextafter(x, torch.full_like(x, np.inf))
+            (_, dx_up), _ = _bn_pair(up, stats, group, dy)
+            worst = max(worst, _rel(dx_up, dx))
+        sensitivity[group] = worst
+    assert sensitivity[2] > 1e-12 > sensitivity[4], sensitivity
+
+    batch = stream_batch(0, J_BATCH)
+    (_, _, trace), _, jlosses = _jax_steps(weights, [batch], group=2)
+    _, opt, step = _port(weights, fold=1, group=2)
+    out = step([_port_batch(batch)], [False])
+    np.testing.assert_allclose(out[0, 0].item(), jlosses[0], rtol=1e-12)
+    assert compare_with_jax((trace,), dict(zip(opt.names, opt.m)), 1e-9) == len(opt.names)
+
+
+def test_variance_clamp_takes_jnp_maximum_gradient_at_a_tie():
+    """BatchNorm's and LayerNorm's variance clamp (``layers.clamp0``)
+    passes half the gradient at an exact 0, as ``jnp.maximum`` does in the
+    JAX layers (``clamp_min`` would pass all of it)."""
+    v = np.asarray([-1.0, 0.0, 1.0])
+    want = jax.grad(lambda a: jnp.maximum(a, 0.0).sum())(jnp.asarray(v, jnp.float32))
+    vt = torch.tensor(v, dtype=torch.float32, requires_grad=True)
+    tlayers.clamp0(vt).sum().backward()
+    np.testing.assert_array_equal(vt.grad.numpy(), np.asarray(want))
+    assert vt.grad.tolist() == [0.0, 0.5, 1.0]
 
 
 def _epoch(tmp_path, fold: int, batches: int, *opts):

@@ -136,8 +136,8 @@ def test_unported_serving_features_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="Serving fleet"):
         serve_net.main(["--cfg", "config/resnet50.yaml", "--fleet", "2"])
     tcfg.defrost()
-    with pytest.raises(NotImplementedError, match="LM plane"):  # speculative decoding
-        serve_net.main(["--cfg", "config/gpt_nano.yaml", "GENERATE.SPECULATE.ENABLED", "True",
+    with pytest.raises(NotImplementedError, match="Parallel layouts beyond DP"):  # TP decode
+        serve_net.main(["--cfg", "config/gpt_nano.yaml", "MESH.MODEL", "2",
                         "OUT_DIR", str(tmp_path)])
 
 
