@@ -130,8 +130,8 @@ eval's.
    2.5M rows, bf16 silu and id, and of botnet50 at batch 8, each forward
    summed): efficientnet_b0 (config/efficientnet_b0.yaml), botnet50
    (config/botnet50.yaml) and densenet121 (config/resnet50.yaml with
-   MODEL.ARCH densenet121) served as ResNet-50 is (32, 34 and 0
-   conv-epilogue launches per forward, no grouped-conv launch; bf16 logits
+   MODEL.ARCH densenet121) served as ResNet-50 is, in bursts of
+   ZOO_REQUESTS (32, 34 and 0 conv-epilogue launches per forward, no grouped-conv launch; bf16 logits
    against the port's f32 CPU forward; weights from seed 0 with every BN
    moved off its init stats by ``seeded_bn``; zoo_serve_phase zeroes
    botnet50's attention value weights, which must move its f32 card
@@ -240,7 +240,32 @@ eval's.
      epoch of 64 steps) with FAULTS.RECOMPILE_AT_BATCH 5 and
      RECOMPILE_N 12 against the run without: 12 more captures in the
      epoch's record, the final checkpoint bitwise the clean one.
-12. Prints the ``{"kernels": [...]}`` line, the card's name and power
+12. Telemetry on the card (``telemetry_phases``, after the LM plane):
+   * ``telemetry_train``: config/resnet50.yaml (bf16, batch 32, dummy
+     data) through ``train_model``, two epochs of 64 graphed steps and
+     their evals, ``PROF`` over steps 20-24: every record of the rank
+     file and metrics.jsonl validates against the port's schema, one
+     ``step`` span a step, a ``compile`` record a graph capture,
+     ``memstats`` above 0, the ledger's ``cost.*`` of ``train_step`` and
+     ``eval_step`` (train FLOPs an image within 10 % of JAX's 24.5 G),
+     the profiler's trace names the ``opt_update`` kernel, the port's
+     exporter writes a trace; it prints the FLOPs an image, the MFU and
+     the roofline against the measured step (epoch 2 between its first
+     and last flush), the graphs' memory headroom, the step span's p50
+     (the host's dispatch) and the timeline's img/s beside the measured;
+   * ``telemetry_neutral``: telemetry on against off: six f32 ResNet-50
+     batch-8 steps of ``train_epoch`` (cuDNN deterministic) leave the f32
+     state bitwise equal; in turns in one call, graphed ResNet-50 b32
+     train img/s, GPT-nano b16 train tokens/s (seeded token rows) and
+     served ResNet-50 img/s; one GPT-nano epoch under ``PROF``: the
+     train step's device time by kind from the trace;
+   * ``telemetry_lm``: GPT-nano served (32 greedy requests x 64 tokens)
+     off and on in turns on one engine: tokens/s each way, the streams the
+     same, a ``gen.decode`` record a decode step while on, ``lm.tokens``
+     at the drain equal to the tokens served; four requests through the
+     socket under ``SERVE.TRACE_SAMPLE 1.0``, each one connected
+     ``trace.span`` tree from the client edge to the engine.
+13. Prints the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``graph_vs_eager``: the graph against the eager body in
@@ -2884,6 +2909,7 @@ ZOO_FORWARD_ARCHS = ("densenet161", "densenet169", "densenet201")  # one bf16 fo
 # host (900 s is the aim, 1200 s the limit); this cut drops no check
 ZOO_FORWARD_BATCH = 2
 ZOO_MEMORY_BATCH = 32  # densenet161's peak memory of a bf16 train step
+ZOO_REQUESTS = 32  # requests a burst in zoo_serve (its f32 CPU forward holds the batch)
 
 
 def efficientnet_sites(batch: int, im: int):
@@ -3958,6 +3984,486 @@ def lm_plane_phases(torch, ou, fa, da, dev) -> dict:
             + sum(r["decode_attention_launches"] for r in spec["bf16"].values())}
 
 
+# ------------------------------------------------------------------ telemetry
+TEL_EPOCHS = 2  # telemetry_train: the second, steady epoch gives the timeline's img/s
+TEL_PROF = (20, 5)  # PROF.START_STEP, PROF.NUM_STEPS of telemetry_train
+TEL_TABLE_TRAIN = 3 * 2 * 4.09e9  # JAX's hand table: ResNet-50 train FLOPs an image
+TEL_NEUTRAL_STEPS = 6  # f32 ResNet-50 batch-8 steps with telemetry on, then off
+TEL_TURNS = (False, True, True, False, False, True)  # telemetry off/on, in turns
+TEL_TURN_STEPS = {"resnet50": (40, 10), "gpt_nano": (200, 50)}  # (steps, PRINT_FREQ)
+TEL_SERVE_REQUESTS = 512  # served ResNet-50 requests a turn
+TEL_LM_TRACED = 4  # traced generate requests through the socket
+TEL_LM_BURSTS = 2  # bursts of LM_REQUESTS a telemetry_lm turn
+TEL_LM_PROF = (50, 10)  # PROF window of the profiled GPT-nano epoch
+
+
+def _read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def _lm_kind(name: str) -> str:
+    n = name.lower()
+    for kind, keys in (("opt_update", ("opt_update",)), ("flash", ("flash", "fwd_", "dq_", "dkdv")),
+                       ("gemm", ("gemm", "xmma", "cutlass", "gemv", "sm90", "matmul", "nvjet")),
+                       ("topk (accuracy)", ("topk", "radixsort", "sort")),
+                       ("layernorm", ("layer_norm", "layernorm")),
+                       ("softmax/loss", ("softmax", "nll", "cross_entropy")),
+                       ("reduce", ("reduce",)),
+                       ("elementwise", ("elementwise", "vectorized", "unrolled", "copy", "fill"))):
+        if any(k in n for k in keys):
+            return kind
+    return "other"
+
+
+def _trace_kernels(path: str) -> list:
+    """The kernel events (``cat`` ``"kernel"``) of a torch.profiler Chrome
+    trace: graph replays' kernels included, when the profiler sees them."""
+    with open(path) as f:
+        trace = json.load(f)
+    return [e for e in trace["traceEvents"]
+            if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"]
+
+
+def _device_split(path: str, steps: int, classify) -> dict:
+    """Device ms a step by kind from a profiler trace over ``steps``
+    steps, the kernels' total, the window's span and its idle share."""
+    evs = _trace_kernels(path)
+    split: dict = {}
+    other: dict = {}
+    for e in evs:
+        k = classify(e["name"])
+        split[k] = split.get(k, 0.0) + e["dur"] / 1e3 / steps
+        if k == "other":
+            other[e["name"][:80]] = other.get(e["name"][:80], 0.0) + e["dur"] / 1e3 / steps
+    busy = sum(split.values())
+    span = (max(e["ts"] + e["dur"] for e in evs) - min(e["ts"] for e in evs)) / 1e3 / steps
+    return {"kernels_a_step": len(evs) / steps, "device_busy_ms": busy,
+            "window_ms_a_step": span, "idle_share": 1.0 - busy / span if span else None,
+            "by_kind_ms": {k: round(v, 5) for k, v in sorted(split.items(), key=lambda kv: -kv[1])},
+            "top_other_ms": dict(sorted(((k, round(v, 5)) for k, v in other.items()),
+                                        key=lambda kv: -kv[1])[:6])}
+
+
+def telemetry_train_phase(torch, ce, ou, out_dir: str) -> dict:
+    """config/resnet50.yaml (bf16, batch 32, dummy data) through
+    ``trainer.train_model`` with telemetry on: TEL_EPOCHS epochs of 64
+    graphed steps and their evals of 2048 images, ``PROF`` over TEL_PROF
+    steps of the first. Checks: every record of the rank file and
+    metrics.jsonl validates against the port's schema; one ``step`` span a
+    step; the ``compile`` records equal the graph captures; ``memstats``
+    above 0; the ledger's ``cost.step``, ``cost.roofline`` and
+    ``cost.memory`` of ``train_step`` and ``eval_step``, the train FLOPs
+    an image within 10 % of JAX's table; the profiler trace parses and
+    names the ``opt_update`` kernel; the port's exporter writes a trace
+    that parses. Prints the ledger's FLOPs an image and MFU against the
+    measured step (epoch 2, between its first and last metric flush),
+    the roofline, the headroom, the step span's p50 (the host's dispatch)
+    and the timeline's img/s (run_report's) beside the measured img/s."""
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import graphs, trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.telemetry import costmodel, export, schema
+
+    config.reset_cfg()
+    config.merge_from_file("config/resnet50.yaml")
+    cfg.merge_from_list(["MODEL.DUMMY_INPUT", True, "DEVICE.PLATFORM", "auto",
+                         "DEVICE.COMPUTE_DTYPE", "bfloat16", "RNG_SEED", 0,
+                         "OPTIM.MAX_EPOCH", TEL_EPOCHS, "OUT_DIR", out_dir,
+                         "PROF.ENABLED", True, "PROF.START_STEP", TEL_PROF[0],
+                         "PROF.NUM_STEPS", TEL_PROF[1]])
+    ou.update.launches = ce.conv1x1_bn_act.launches = 0
+    c0, recs = graphs.captures, []
+    t0 = time.perf_counter()
+    trainer.train_model(recs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"opt_update": ou.update.launches, "conv_epilogue": ce.conv1x1_bn_act.launches}
+    captures = graphs.captures - c0
+    rank = _read_jsonl(os.path.join(out_dir, "telemetry", "rank00000.jsonl"))
+    metrics = _read_jsonl(os.path.join(out_dir, "metrics.jsonl"))
+    for r in rank + metrics:
+        schema.validate_record(r)
+    steps = sum(r["steps"] for r in recs)
+    step_spans = [r for r in rank if r["kind"] == "span" and r["name"] == "step"
+                  and r["phase"] == "train"]
+    compiles = [r for r in rank if r["kind"] == "compile"]
+    mem = [r for r in rank if r["kind"] == "memstats"]
+    cost = {(r["kind"], r["label"]): r for r in rank if r["kind"].startswith("cost.")}
+    rec = recs[-1]
+    (d0, t_0), (d1, t_1) = rec["flushes"][0], rec["flushes"][-1]
+    step_s = (t_1 - t_0) / (d1 - d0)
+    batch = cfg.TRAIN.BATCH_SIZE
+    cs = cost.get(("cost.step", "train_step"), {})
+    roof = cost.get(("cost.roofline", "train_step"), {})
+    cm = cost.get(("cost.memory", "train_step"), {})
+    tl = [r for r in metrics if r["kind"] == "timeline" and r["phase"] == "train"
+          and r["epoch"] == TEL_EPOCHS]
+    tl_img_s = sum(r["n"] for r in tl) / (max(r["step1"] for r in tl)
+                                          - min(r["get0"] for r in tl))
+    prof_path = os.path.join(out_dir, "profile", "trace_ep1.json")
+    kernels = _trace_kernels(prof_path)
+    opt_kernels = sorted({e["name"] for e in kernels if "opt_update" in e["name"]})
+    with open(export.export_trace(out_dir)) as f:
+        merged = json.load(f)
+    flops_img = cs["flops"] / cs["images"] if cs.get("flops") else None
+    res = {
+        "phase": "telemetry_train", "arch": cfg.MODEL.ARCH, "batch": batch,
+        "epochs": TEL_EPOCHS, "steps": steps, "wall_s": wall, "records": len(rank),
+        "metrics_records": len(metrics), "step_spans": len(step_spans),
+        "captures": captures, "compile_records": len(compiles),
+        "compile_s": sum(r["dur_s"] for r in compiles),
+        "memstats_bytes_in_use": [r["bytes_in_use"] for r in mem],
+        "memstats_peak_bytes": [r["peak_bytes_in_use"] for r in mem],
+        "cost_labels": sorted(f"{k}:{lbl}" for k, lbl in cost),
+        "flops_per_image": flops_img,
+        "flops_vs_table": flops_img / TEL_TABLE_TRAIN if flops_img else None,
+        "bytes_per_step": cs.get("bytes_accessed"),
+        "measured_step_ms": step_s * 1e3, "measured_img_per_s": batch / step_s,
+        "mfu": costmodel.mfu_value(cs.get("flops"), step_s, cs.get("peak_flops")),
+        "arithmetic_intensity": roof.get("arithmetic_intensity"),
+        "ridge_intensity": roof.get("ridge_intensity"), "bound": roof.get("bound"),
+        "graph_peak_bytes": cm.get("total_bytes"), "capacity_bytes": cm.get("capacity_bytes"),
+        "headroom_pct": cm.get("headroom_pct"),
+        "eval_headroom_pct": cost.get(("cost.memory", "eval_step"), {}).get("headroom_pct"),
+        "step_span_p50_ms": statistics.median(r["dur"] for r in step_spans) * 1e3,
+        "timeline_img_per_s": tl_img_s,
+        "timeline_vs_measured": tl_img_s / (batch / step_s),
+        "prof_kernels": len(kernels), "prof_opt_update_kernels": opt_kernels,
+        "trace_events": len(merged["traceEvents"]), "launches": launches,
+    }
+    emit(res)
+    want = {("cost.step", "train_step"), ("cost.roofline", "train_step"),
+            ("cost.memory", "train_step"), ("cost.step", "eval_step"),
+            ("cost.memory", "eval_step")}
+    if len(step_spans) != steps or len(compiles) != captures or not captures:
+        raise AssertionError(f"telemetry_train: {len(step_spans)} step spans for {steps} "
+                             f"steps, {len(compiles)} compile records for {captures} captures")
+    if len(mem) != TEL_EPOCHS or not all(r["bytes_in_use"] > 0 for r in mem):
+        raise AssertionError(f"telemetry_train: memstats {mem}")
+    if not want <= set(cost) or cs.get("source") != "dispatch" \
+            or not abs(res["flops_vs_table"] - 1.0) <= 0.10:
+        raise AssertionError(f"telemetry_train: ledger {sorted(cost)}, {cs}")
+    if not opt_kernels or not merged["traceEvents"]:
+        raise AssertionError("telemetry_train: the profiler trace names no opt_update kernel, "
+                             "or the merged trace is empty")
+    if launches["opt_update"] != steps:
+        raise AssertionError(f"telemetry_train: opt_update launches {launches} != {steps}")
+    return res
+
+
+class _TokenRows:
+    """Seeded int32 token rows for the loader: ``(inputs, next tokens)``
+    of ``seq_len`` each (GPT-nano's train batch without a pack)."""
+
+    BATCH_DTYPE = None
+
+    def __init__(self, n: int, seq_len: int, seed: int = 0):
+        import numpy as np
+
+        self.BATCH_DTYPE = np.int32
+        self.seq_len = seq_len
+        self.rows = np.random.default_rng(seed).integers(0, 256, (n, seq_len + 1)).astype(
+            np.int32)
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        r = self.rows[int(i)]
+        return r[:-1], r[1:]
+
+
+def _sinks(on: bool, out_dir: str) -> None:
+    """Telemetry on (the rank file and metrics.jsonl under ``out_dir``,
+    appended) or off, for the global cfg."""
+    from distribuuuu_tpu_torch import telemetry
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.utils import jsonlog
+
+    cfg.TELEMETRY.ENABLED = on
+    cfg.OUT_DIR = out_dir
+    telemetry.setup_from_cfg(cfg)
+    if on:
+        jsonlog.setup_metrics_log(out_dir)
+    else:
+        jsonlog.close_metrics_log()
+
+
+def _train_turns(torch, dev, yaml: str, batch: int, dataset, out_dir: str, opts=()) -> dict:
+    """``trainer.train_epoch`` of ``yaml``'s model on ``dataset`` (graphed,
+    one runner), telemetry off and on in turns (TEL_TURNS) after an
+    untimed epoch: each turn's img/s between its first and last flush."""
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.data.loader import Loader
+    from distribuuuu_tpu_torch.utils.logger import get_logger
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    arch = os.path.basename(yaml).split(".")[0]
+    steps, freq = TEL_TURN_STEPS[arch]
+    _train_cfg(yaml, ["DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE", "bfloat16",
+                      "TRAIN.PRINT_FREQ", freq, "TRAIN.BATCH_SIZE", batch, *opts])
+    model = trainer.build_model_from_cfg().to(dev)
+    opt = construct_optimizer(model)
+    runner = trainer.TrainStep(model, opt, 5, "raise", 1, 1, dev,
+                               pool=torch.cuda.graph_pool_handle())
+    loader = Loader(dataset, batch, shuffle=True, drop_last=True, workers=2, seed=0)
+    state, logger = {"step": 0}, get_logger()
+    rates = {True: [], False: []}
+    for i, on in enumerate((False, *TEL_TURNS)):
+        _sinks(on, out_dir)
+        rec = trainer.train_epoch(loader, model, opt, state, 0, logger, dev, runner)[2]
+        (d0, t0), (d1, t1) = rec["flushes"][0], rec["flushes"][-1]
+        if i:  # the first epoch captures
+            rates[on].append((d1 - d0) * batch / (t1 - t0))
+    _sinks(False, out_dir)
+    off, on = statistics.mean(rates[False]), statistics.mean(rates[True])
+    return {"steps_a_turn": steps, "window_steps": steps - freq, "off": rates[False],
+            "on": rates[True], "on_vs_off": on / off}
+
+
+def telemetry_neutral_phase(torch, ou, dev, work: str) -> dict:
+    """Telemetry on against off. (1) config/resnet50.yaml in f32 (TF32
+    off, cuDNN deterministic), batch 8, TEL_NEUTRAL_STEPS graphed steps
+    of ``trainer.train_epoch`` a side from one seed: the f32 state
+    (parameters, buffers, moments) bitwise equal. (2) In turns in this
+    call: graphed ResNet-50 bf16 b32 train img/s, GPT-nano bf16 b16 train
+    tokens/s (seeded token rows), served ResNet-50 img/s (buckets to 8,
+    TEL_SERVE_REQUESTS a turn). (3) One GPT-nano epoch under ``PROF``
+    (TEL_LM_PROF): the step's device time by kind from the trace."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.data.dummy import DummyDataset
+    from distribuuuu_tpu_torch.data.loader import Loader
+    from distribuuuu_tpu_torch.serve import ServeMetrics, engine_from_cfg
+    from distribuuuu_tpu_torch.utils.logger import get_logger
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    ou.update.launches = 0
+    flags = _deterministic(torch)
+    states = {}
+    try:
+        for on in (True, False):
+            _train_cfg("config/resnet50.yaml", ["DEVICE.PLATFORM", "auto",
+                                                "DEVICE.COMPUTE_DTYPE", "float32",
+                                                "TRAIN.BATCH_SIZE", 8, "TRAIN.PRINT_FREQ", 3])
+            _sinks(on, os.path.join(work, "neutral"))
+            model = trainer.build_model_from_cfg().to(dev)
+            opt = construct_optimizer(model)
+            loader = Loader(DummyDataset(8 * TEL_NEUTRAL_STEPS, 224, raw_u8=True), 8,
+                            shuffle=True, drop_last=True, workers=2, seed=0)
+            trainer.train_epoch(loader, model, opt, {"step": 0}, 0, get_logger(), dev)
+            torch.cuda.synchronize()
+            states[on] = _state(opt, model)
+            del model, opt
+            torch.cuda.empty_cache()
+        _sinks(False, work)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    differ = [k for k in states[True] if not torch.equal(states[True][k], states[False][k])]
+    res = {"phase": "telemetry_neutral", "f32_steps": TEL_NEUTRAL_STEPS,
+           "tensors": len(states[True]), "n_not_bitwise": len(differ),
+           "not_bitwise": differ[:5]}
+    del states
+    torch.cuda.empty_cache()
+    res["resnet50_train_img_per_s"] = _train_turns(
+        torch, dev, "config/resnet50.yaml", 32,
+        DummyDataset(32 * TEL_TURN_STEPS["resnet50"][0], 224, raw_u8=True),
+        os.path.join(work, "turns_resnet50"))
+    torch.cuda.empty_cache()
+    seq = 256
+    lm = _train_turns(torch, dev, "config/gpt_nano.yaml", 16,
+                      _TokenRows(16 * TEL_TURN_STEPS["gpt_nano"][0], seq),
+                      os.path.join(work, "turns_gpt_nano"))
+    lm["tokens_per_s"] = {k: [r * seq for r in lm[k]] for k in ("on", "off")}
+    res["gpt_nano_train"] = lm
+    torch.cuda.empty_cache()
+
+    # served ResNet-50, the same engine, telemetry off and on in turns
+    import distribuuuu_tpu_torch.config as config
+
+    config.reset_cfg()
+    config.merge_from_file("config/resnet50.yaml")
+    cfg.merge_from_list(["DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE", "bfloat16",
+                         "RNG_SEED", 0, "SERVE.MAX_QUEUE", TEL_SERVE_REQUESTS,
+                         "SERVE.BUCKET_SIZES", [1, 2, 4, 8]])
+    images = np.random.default_rng(3).integers(0, 256, (TEL_SERVE_REQUESTS, 224, 224, 3),
+                                                dtype=np.uint8)
+    serve_dir = os.path.join(work, "serve")
+    _sinks(True, serve_dir)
+    engine = engine_from_cfg().start()
+    rates = {True: [], False: []}
+    for i, on in enumerate((False, *TEL_TURNS)):
+        _sinks(on, serve_dir)
+        engine.metrics = ServeMetrics()
+        t0 = time.perf_counter()
+        for f in [engine.submit(img) for img in images]:
+            f.result(timeout=300)
+        if i:
+            rates[on].append(len(images) / (time.perf_counter() - t0))
+    _sinks(True, serve_dir)
+    engine.drain()
+    _sinks(False, serve_dir)
+    del engine
+    torch.cuda.empty_cache()
+    res["resnet50_served_img_per_s"] = {"off": rates[False], "on": rates[True],
+                                        "on_vs_off": statistics.mean(rates[True])
+                                        / statistics.mean(rates[False])}
+
+    # the GPT-nano train step's device time, from one PROF window
+    from distribuuuu_tpu_torch.telemetry import schema
+
+    prof_dir = os.path.join(work, "lm_prof")
+    steps, _ = TEL_TURN_STEPS["gpt_nano"]
+    _train_cfg("config/gpt_nano.yaml", ["DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE",
+                                        "bfloat16", "TRAIN.PRINT_FREQ", steps,
+                                        "PROF.ENABLED", True, "PROF.START_STEP",
+                                        TEL_LM_PROF[0], "PROF.NUM_STEPS", TEL_LM_PROF[1],
+                                        "OUT_DIR", prof_dir])
+    _sinks(True, prof_dir)
+    model = trainer.build_model_from_cfg().to(dev)
+    opt = construct_optimizer(model)
+    loader = Loader(_TokenRows(16 * steps, seq, seed=1), 16, shuffle=True, drop_last=True,
+                    workers=2, seed=0)
+    trainer.train_epoch(loader, model, opt, {"step": 0}, 0, get_logger(), dev)
+    _sinks(False, prof_dir)
+    for r in _read_jsonl(os.path.join(prof_dir, "telemetry", "rank00000.jsonl")):
+        schema.validate_record(r)
+    res["gpt_nano_step_device"] = _device_split(
+        os.path.join(prof_dir, "profile", "trace_ep1.json"), TEL_LM_PROF[1], _lm_kind)
+    del model, opt
+    torch.cuda.empty_cache()
+    res["opt_update_launches"] = ou.update.launches
+    emit(res)
+    if differ:
+        raise AssertionError(f"telemetry_neutral: {len(differ)} tensors differ with "
+                             f"telemetry on: {differ[:5]}")
+    return res
+
+
+def _trees(recs: list) -> dict:
+    """trace id -> its trace.span records."""
+    out: dict = {}
+    for r in recs:
+        if r["kind"] == "trace.span":
+            out.setdefault(r["trace"], []).append(r)
+    return out
+
+
+def telemetry_lm_phase(torch, da, out_dir: str) -> dict:
+    """GPT-nano served (bf16, config/gpt_nano.yaml, TEL_LM_BURSTS bursts
+    of LM_REQUESTS x LM_NEW_TOKENS greedy a turn) with telemetry off and
+    on in turns (TEL_TURNS) on one engine: tokens/s each way, every turn's greedy streams the
+    same; the ``gen.decode`` records equal the
+    engine's decode steps while on (a record inside a graph body would
+    fire once, at capture); ``lm.tokens`` at the drain holds every token
+    served; then TEL_LM_TRACED requests through the socket under
+    ``SERVE.TRACE_SAMPLE 1.0``, each one connected ``trace.span`` tree
+    (``client.request`` root, ``engine.request`` under it, its
+    ``queue_wait``, ``prefill`` and ``decode_step`` spans under that)."""
+    import threading
+
+    from distribuuuu_tpu_torch.lm import service as lm_service
+    from distribuuuu_tpu_torch.serve import protocol
+    from distribuuuu_tpu_torch.telemetry import schema
+
+    cfg = _lm_cfg("bfloat16")
+    cfg.merge_from_list(["SERVE.TRACE_SAMPLE", 1.0])
+    _sinks(True, out_dir)
+    da.reset_launch_counts()
+    engine = lm_service.engine_from_cfg().start()
+    prompts = _lm_prompts(LM_REQUESTS, seed=3)
+    rates, steps_on, served, streams = {True: [], False: []}, 0, 0, []
+    for i, on in enumerate((False, *TEL_TURNS)):
+        _sinks(on, out_dir)
+        s0 = engine.stats()["decode_steps"]
+        t0, tokens = time.perf_counter(), 0
+        for _ in range(TEL_LM_BURSTS):
+            outs = [s.result(timeout=300) for s in [engine.submit(p) for p in prompts]]
+            streams.append(outs)
+            tokens += sum(len(o) for o in outs)
+        wall = time.perf_counter() - t0
+        served += tokens
+        steps_on += (engine.stats()["decode_steps"] - s0) if on else 0
+        if i:
+            rates[on].append(tokens / wall)
+    _sinks(True, out_dir)
+    s0 = engine.stats()["decode_steps"]
+    listener = protocol.open_listener("127.0.0.1", 0)
+    stop = threading.Event()
+    t = threading.Thread(target=protocol.serve_forever, args=(engine, listener, stop.is_set),
+                         daemon=True)
+    t.start()
+    traced = []
+    try:
+        for p in prompts[:TEL_LM_TRACED]:
+            frames = list(lm_service.generate_request(
+                "127.0.0.1", listener.getsockname()[1], tokens=p,
+                trace_sample=cfg.SERVE.TRACE_SAMPLE))
+            traced.append(frames[-1])
+            served += len(frames[-1]["tokens"])
+    finally:
+        stop.set()
+        t.join(60)  # serve_forever drains the engine: lm.tokens lands now
+    steps_on += engine.stats()["decode_steps"] - s0
+    launches = da.launches
+    _sinks(False, out_dir)
+    recs = _read_jsonl(os.path.join(out_dir, "telemetry", "rank00000.jsonl"))
+    for r in recs:
+        schema.validate_record(r)
+    decode = sum(1 for r in recs if r["kind"] == "gen.decode")
+    last_tokens = [r for r in recs if r["kind"] == "lm.tokens"][-1]
+    trees = _trees(recs)
+    connected = 0
+    for tid, tree in trees.items():
+        ids = {r["span"] for r in tree}
+        roots = [r for r in tree if r["parent"] == ""]
+        names = {r["name"] for r in tree}
+        if ([r["name"] for r in roots] == ["client.request"]
+                and all(r["parent"] in ids for r in tree if r["parent"])
+                and {"engine.request", "queue_wait", "prefill", "decode_step"} <= names):
+            connected += 1
+    res = {"phase": "telemetry_lm", "arch": cfg.MODEL.ARCH, "requests": LM_REQUESTS,
+           "new_tokens_each": LM_NEW_TOKENS, "tokens_per_s_off": rates[False],
+           "tokens_per_s_on": rates[True],
+           "on_vs_off": statistics.mean(rates[True]) / statistics.mean(rates[False]),
+           "decode_steps_on": steps_on, "gen_decode_records": decode,
+           "tokens_served": served, "lm_tokens_new_tokens": last_tokens["new_tokens"],
+           "traced_requests": len(traced), "trace_ids": len(trees),
+           "connected_trees": connected,
+           "trace_ids_echoed": sum(1 for f in traced if f.get("trace_id") in trees),
+           "streams_identical_on_and_off": all(o == streams[0] for o in streams),
+           "decode_attention_launches": launches}
+    emit(res)
+    if not res["streams_identical_on_and_off"]:
+        raise AssertionError("telemetry_lm: the greedy streams differ between turns")
+    if decode != steps_on or last_tokens["new_tokens"] != served:
+        raise AssertionError(f"telemetry_lm: {decode} gen.decode records for {steps_on} decode "
+                             f"steps; lm.tokens {last_tokens['new_tokens']} for {served} served")
+    if connected != TEL_LM_TRACED or res["trace_ids_echoed"] != TEL_LM_TRACED:
+        raise AssertionError(f"telemetry_lm: {connected} connected trees of "
+                             f"{TEL_LM_TRACED} traced requests ({len(trees)} trace ids)")
+    return res
+
+
+def telemetry_phases(torch, ce, ou, da, dev) -> dict:
+    """The three telemetry phases; their launch counts for the kernels line."""
+    import shutil
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        train = telemetry_train_phase(torch, ce, ou, os.path.join(work, "train"))
+        neutral = telemetry_neutral_phase(torch, ou, dev, os.path.join(work, "neutral"))
+        lm = telemetry_lm_phase(torch, da, os.path.join(work, "lm"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"opt_update": train["launches"]["opt_update"] + neutral["opt_update_launches"],
+            "conv_epilogue": train["launches"]["conv_epilogue"],
+            "decode_attention": lm["decode_attention_launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4083,7 +4589,7 @@ def main(argv=None) -> int:
 
     # the image zoo, still under DISTRIBUUUU_GROUP_CONV=pallas: EfficientNet's
     # depthwise convs must not reach the grouped-conv kernel
-    zoo = zoo_phases(torch, ce, gc, ou, dev, N_REQUESTS)
+    zoo = zoo_phases(torch, ce, gc, ou, dev, ZOO_REQUESTS)
 
     lm_res, lm_launches, lm_engine, lm_prompts = lm_serve_phase(torch, da)
     lm_big, lm_big_launches, _, _ = lm_serve_phase(torch, da, LM_BIG_TILES)
@@ -4096,6 +4602,10 @@ def main(argv=None) -> int:
     # length classes, speculative decoding
     tf32_off()
     lm_plane = lm_plane_phases(torch, ou, fa, da, dev)
+    tf32_off()
+    # telemetry on the card: a ResNet-50 run's records, on against off, the
+    # LM's records and request traces
+    tel = telemetry_phases(torch, ce, ou, da, dev)
     tf32_off()
 
     # real images and process groups: SyncBN in a group of one, the
@@ -4144,6 +4654,7 @@ def main(argv=None) -> int:
         "source": "distribuuuu_tpu_torch/csrc/conv_epilogue.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/conv_epilogue.py:121",
         "launches": launches + reg_serve_ce + real["launches"]["conv_epilogue"]
+        + tel["conv_epilogue"]
         + shards["launches"]["conv_epilogue"] + resume["launches"]["conv_epilogue"]
         + loop["conv_epilogue"] + zoo["conv_epilogue"]
         + sum(r["launches"]["conv_epilogue"] for a in ("resnet50", "regnety_160")
@@ -4161,7 +4672,7 @@ def main(argv=None) -> int:
         "replaces": "distribuuuu_tpu/ops/pallas/opt_update.py:75",
         "launches": real["launches"]["opt_update"] + shards["launches"]["opt_update"]
         + resume["launches"]["opt_update"] + loop["opt_update"] + zoo["opt_update"]
-        + lm_plane["opt_update"]
+        + lm_plane["opt_update"] + tel["opt_update"]
         + sum(r["launches"]["opt_update"] for rs in runs.values() for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in opt_rows.values()),
         "ms": main_body["ms"],
@@ -4193,7 +4704,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "distribuuuu_tpu_torch/csrc/decode_attn.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/decode_attn.py:121",
-        "launches": lm_launches + lm_big_launches + lm_plane["decode_attention"],
+        "launches": lm_launches + lm_big_launches + lm_plane["decode_attention"]
+        + tel["decode_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in decode_rows.values()),
         **{k: tile[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })

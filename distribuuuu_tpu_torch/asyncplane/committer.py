@@ -19,7 +19,8 @@ thread. The invariants of the synchronous protocol hold:
 With several processes only the primary writes, so the JAX package's
 cross-host commit barrier and sharded saves have nothing to do here; a
 rank that must read a checkpoint waits for the primary's join through
-``find_last_valid_checkpoint``'s broadcast.
+``find_last_valid_checkpoint``'s broadcast. Each background save lands
+one ``ckpt.async`` record (:func:`emit_commit_record`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import atexit
 import threading
 import time
 
+from distribuuuu_tpu_torch.telemetry import spans as telemetry_spans
 from distribuuuu_tpu_torch.utils.logger import get_logger
 
 
@@ -114,6 +116,13 @@ def join_commits(reason: str = "") -> None:
             "The checkpoint has no committed manifest: auto-resume quarantines it and "
             "walks back to the previous intact save."
         ) from e
+
+
+def emit_commit_record(ckpt: str, snapshot_s: float, commit_s: float, ok: bool = True) -> None:
+    """One ``kind="ckpt.async"`` record per background save: the
+    trainer's blocking snapshot against the committer's off-path write."""
+    telemetry_spans.emit_event("ckpt.async", ckpt=ckpt, snapshot_s=round(float(snapshot_s), 6),
+                               commit_s=round(float(commit_s), 6), ok=bool(ok))
 
 
 def _drain_at_exit() -> None:

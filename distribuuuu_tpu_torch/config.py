@@ -5,12 +5,11 @@ The port's own copy of the yacs-compatible ``CfgNode`` of
 ``merge_from_file``, ``merge_from_list`` with dotted keys, typed merges),
 with the part of the default tree that the image configs and the ported
 slices use. Every shipped image config (``config/resnet*.yaml`` and the
-other CNN and ViT yamls) merges into it unchanged; nodes that only the
-unported planes read (TELEMETRY, ...) are added with the slices that
-port them. The JAX package's ``ASYNC`` node (its dispatch sequencer and
-cross-host ring) has no counterpart: the port's concurrent eval runs on
-its own CUDA stream and its own process group instead. ``config/gpt_nano.yaml`` merges too (LM, GENERATE, the
-decode-attention knobs, DATA.FORMAT).
+other CNN and ViT yamls) merges into it unchanged, and so does
+``config/gpt_nano.yaml`` (LM, GENERATE, the decode-attention knobs,
+DATA.FORMAT). The JAX package's ``ASYNC`` node (its dispatch sequencer
+and cross-host ring) has no counterpart: the port's concurrent eval runs
+on its own CUDA stream and its own process group instead.
 """
 
 from __future__ import annotations
@@ -218,7 +217,9 @@ _C.TRAIN.STEPS_PER_CALL = 1
 # Device prefetch depth (data/loader.device_prefetch): batches k+1..k+N
 # are copied host-to-device (pinned, non_blocking) while step k runs.
 _C.TRAIN.PREFETCH_DEVICE = 2
-# Per-batch timeline records: the port writes none yet (logged once).
+# Per-batch kind="timeline" records in the primary's metrics.jsonl (the
+# stage stamps of utils/jsonlog.TIMELINE_STAGES); none under
+# STEPS_PER_CALL > 1, whose calls are one fold_window span each.
 _C.TRAIN.TIMELINE = True
 # Rematerialize stages 1-2 of the ResNet family (models/resnet.py):
 # their blocks run under torch.utils.checkpoint and are recomputed in the
@@ -496,6 +497,48 @@ _C.SERVE.QUANTIZE = ""
 # the MAX_QUEUE slots (0 = no reservation; a reservation needs a threshold).
 _C.SERVE.LONG_PROMPT_THRESHOLD = 0
 _C.SERVE.LONG_MAX_QUEUE = 0
+# Request tracing (telemetry/tracectx.py): the fraction of requests a
+# client edge opens a trace for (head-based, a pure function of the trace
+# id). 0.0 keeps every frame byte-identical to an untraced one.
+_C.SERVE.TRACE_SAMPLE = 0.0
+
+# ------------------------------- telemetry ----------------------------------
+# The telemetry layer (telemetry/): per-rank JSONL files
+# ({OUT_DIR}/telemetry/rank*.jsonl: spans, graph captures, registry
+# snapshots, mirrored resilience events, the FLOP/byte ledger), read by
+# tools/run_report.py into a report and a Perfetto trace. On or off, a run
+# trains the same bits and serves the same tokens.
+_C.TELEMETRY = CfgNode()
+_C.TELEMETRY.ENABLED = True
+# Per-rank sink directory; "" = {OUT_DIR}/telemetry.
+_C.TELEMETRY.DIR = ""
+# Per-batch wait/h2d/step spans on every rank (pipeline track; one
+# fold_window span a call under STEPS_PER_CALL > 1) and the loader's
+# decode/assemble spans. False keeps the epoch-level records.
+_C.TELEMETRY.STEP_SPANS = True
+# Each CUDA graph capture as a kind="compile" record and in the
+# jit.compiles / jit.compile_s counters.
+_C.TELEMETRY.COMPILE_EVENTS = True
+# torch.cuda.memory_stats of the card once an epoch (kind="memstats"; a
+# CPU run has none).
+_C.TELEMETRY.MEMSTATS = True
+# The FLOP/byte ledger (telemetry/costmodel.py): once per step label, the
+# step's aten ops counted on the meta device (kind="cost.step" and
+# "cost.roofline").
+_C.TELEMETRY.COSTMODEL = True
+# And the graph's measured first-call peak against the card's capacity
+# (kind="cost.memory": headroom %). A CPU run has none.
+_C.TELEMETRY.COSTMODEL_MEMORY = True
+
+# ------------------------------- profiler -----------------------------------
+# torch.profiler (CPU and CUDA activities) over train steps
+# [START_STEP, START_STEP + NUM_STEPS) of the first executed epoch, on the
+# primary process; a Chrome trace under {OUT_DIR}/profile (or DIR).
+_C.PROF = CfgNode()
+_C.PROF.ENABLED = False
+_C.PROF.DIR = ""
+_C.PROF.START_STEP = 10
+_C.PROF.NUM_STEPS = 5
 
 # ------------------------------- misc ---------------------------------------
 _C.OUT_DIR = "./output"

@@ -19,6 +19,13 @@ two sites).
 to the card (pinned host buffers, ``non_blocking``) while the current step
 runs.
 
+Telemetry (``TELEMETRY.STEP_SPANS``): each batch's ``decode`` and
+``assemble`` spans on the ``loader`` track, its ``submit``/``dec0``/
+``dec1``/``asm1`` stamps for the timeline (:meth:`Loader.last_timing`,
+merged into :func:`device_prefetch`'s), the registry's ``data.batches``,
+``data.samples``, ``data.decode_s`` and ``data.errors``, and one
+``data_error`` record per corrupt sample skipped.
+
 Each batch is a dict: ``image`` [B,H,W,3] (uint8 under
 ``DATA.DEVICE_NORMALIZE``, else float32, NHWC), ``label`` [B] int32,
 ``mask`` [B] float32, with B the per-process batch; token shards give
@@ -37,6 +44,7 @@ trained.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -48,8 +56,13 @@ from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.data.dummy import DummyDataset
 from distribuuuu_tpu_torch.data.sampler import DistributedSampler
 from distribuuuu_tpu_torch.parallel import dist
+from distribuuuu_tpu_torch.telemetry import registry as telemetry_registry
+from distribuuuu_tpu_torch.telemetry import spans as telemetry_spans
 from distribuuuu_tpu_torch.utils import faults
+from distribuuuu_tpu_torch.utils.jsonlog import metrics_log
 from distribuuuu_tpu_torch.utils.logger import get_logger
+
+_stamps = threading.local()  # .last: the stamps of the batch this pool thread assembled
 
 
 class Loader:
@@ -78,6 +91,7 @@ class Loader:
                                               shuffle=shuffle, seed=seed)
         self._epoch = 0
         self._resume: dict | None = None  # {"epoch", "skip"}, one-shot
+        self._last_timing: dict | None = None
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
@@ -200,6 +214,9 @@ class Loader:
             get_logger().warning("corrupt sample %d skipped after %d attempts (%s: %s): "
                                  "substituting a good sample from the same batch", int(i),
                                  self.retries + 1, type(err).__name__, err)
+            telemetry_registry.get_registry().counter("data.errors").inc(1)
+            metrics_log("data_error", index=int(i), attempts=self.retries + 1,
+                        error=f"{type(err).__name__}: {err}")
         return sample
 
     def _decode(self, idxs) -> tuple[np.ndarray, np.ndarray]:
@@ -230,7 +247,12 @@ class Loader:
         return np.stack([s[0] for s in samples]), np.asarray([s[1] for s in samples], np.int32)
 
     def _assemble(self, idxs: np.ndarray) -> dict:
+        """The batch of ``idxs``; its ``dec0``/``dec1``/``asm1`` stamps
+        (``time.perf_counter``) are left for :meth:`_assemble_timed` in
+        this thread's ``_stamps``."""
+        dec0 = time.perf_counter()
         images, labels = self._decode(idxs)
+        dec1 = time.perf_counter()
         images = np.asarray(images)
         # uint8 under DATA.DEVICE_NORMALIZE, else float32; a dataset may
         # pin the payload dtype (BATCH_DTYPE: the token species' int32 ids,
@@ -251,7 +273,28 @@ class Loader:
             batch["label"] = np.concatenate(
                 [batch["label"], np.zeros((pad,) + batch["label"].shape[1:], np.int32)])
             batch["mask"] = np.concatenate([batch["mask"], np.zeros(pad, np.float32)])
+        asm1 = time.perf_counter()
+        if telemetry_spans.enabled() and cfg.TELEMETRY.STEP_SPANS:
+            telemetry_spans.emit_span("decode", dec0, dec1, track="loader", n=n)
+            telemetry_spans.emit_span("assemble", dec1, asm1, track="loader", n=n)
+        reg = telemetry_registry.get_registry()
+        reg.counter("data.batches").inc(1)
+        reg.counter("data.samples").inc(n)
+        reg.counter("data.decode_s").inc(dec1 - dec0)
+        _stamps.last = {"dec0": dec0, "dec1": dec1, "asm1": asm1}
         return batch
+
+    def _assemble_timed(self, idxs: np.ndarray, submit: float) -> tuple[dict, dict]:
+        """``(batch, stamps)``: :meth:`_assemble`'s batch and its
+        ``submit``/``dec0``/``dec1``/``asm1`` stamps."""
+        _stamps.last = {}
+        batch = self._assemble(idxs)
+        return batch, {"submit": submit, **_stamps.last}
+
+    def last_timing(self) -> dict | None:
+        """The assembly stamps of the batch yielded last (one consumer
+        iterates, so "last" is unambiguous)."""
+        return self._last_timing
 
     def __iter__(self):
         idxs = self.sampler.indices()
@@ -262,14 +305,17 @@ class Loader:
             chunks = chunks[self._resume["skip"]:]
             self._resume = None
         depth = self.prefetch_depth
+        self._last_timing = None
         with ThreadPoolExecutor(max_workers=depth) as pool:
-            in_flight: deque = deque(pool.submit(self._assemble, c) for c in chunks[:depth])
+            in_flight: deque = deque(pool.submit(self._assemble_timed, c, time.perf_counter())
+                                     for c in chunks[:depth])
             for c in chunks[depth:]:
-                batch = in_flight.popleft().result()
-                in_flight.append(pool.submit(self._assemble, c))
+                batch, self._last_timing = in_flight.popleft().result()
+                in_flight.append(pool.submit(self._assemble_timed, c, time.perf_counter()))
                 yield batch
             while in_flight:
-                yield in_flight.popleft().result()
+                batch, self._last_timing = in_flight.popleft().result()
+                yield batch
 
 
 def _to_device(host: dict, device: torch.device, pin: bool) -> dict:
@@ -286,9 +332,12 @@ def device_prefetch(loader, device: torch.device, depth: int, pin: bool = True):
     """Yields ``(it, device_batch, timing)`` in loader order, keeping the
     next ``depth`` batches already copied (on the card: pinned buffers and
     ``non_blocking`` copies on the current stream, so they overlap the
-    step on batch ``it``). ``timing`` has ``get0/get1`` (waiting for the
-    host batch) and ``put0/put1`` (issuing the copy). Every depth yields
-    the same batches in the same order."""
+    step on batch ``it``). ``timing`` has the loader's assembly stamps
+    (:meth:`Loader.last_timing`), ``get0/get1`` (waiting for the host
+    batch), ``put0/put1`` (issuing the copy) and ``n`` (the batch's rows);
+    the caller adds ``step0/step1``. Every depth yields the same batches
+    in the same order."""
+    get_timing = getattr(loader, "last_timing", lambda: None)
     src = iter(loader)
     ring: deque = deque()
     exhausted, it = False, 0
@@ -299,7 +348,10 @@ def device_prefetch(loader, device: torch.device, depth: int, pin: bool = True):
             if hb is None:
                 exhausted = True
                 break
-            tl = {"get0": get0, "get1": time.perf_counter()}
+            get1 = time.perf_counter()
+            tl = dict(get_timing() or {})
+            tl["get0"], tl["get1"] = get0, get1
+            tl["n"] = int(hb["image"].shape[0])
             tl["put0"] = time.perf_counter()
             db = _to_device(hb, device, pin)
             tl["put1"] = time.perf_counter()

@@ -22,7 +22,8 @@ PIL throughout. A damaged record raises ``ShardReadError`` for its sample
 alone (the loader's ``DATA.SKIP_CORRUPT`` path); a shard whose footer is
 lost is re-indexed by a forward scan when it is opened, with a warning
 that gives the recovered and expected counts (``FAULTS.TRUNCATE_SHARD``
-drills it).
+drills it). Every record read adds to the registry's ``shards.records``
+and ``shards.bytes``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from distribuuuu_tpu_torch.data.shards.format import (
     read_shard_index,
     read_shard_manifest,
 )
+from distribuuuu_tpu_torch.telemetry import registry as telemetry_registry
 
 BACKENDS = ("auto", "native", "pil")
 
@@ -72,9 +74,8 @@ class RecordShards:
         self._open_lock = threading.Lock()
         self._fds: dict[int, int] = {}
         self._offsets: dict[int, list[int]] = {}
-        # the records and encoded bytes read; the telemetry registry's
-        # shards.records / shards.bytes counters take their place when it
-        # is ported (ROADMAP "Telemetry")
+        # the records and encoded bytes this reader read (the registry's
+        # shards.records / shards.bytes count every reader of the process)
         self._tally_lock = threading.Lock()
         self.records_read = 0
         self.bytes_read = 0
@@ -115,6 +116,9 @@ class RecordShards:
         with self._tally_lock:
             self.records_read += 1
             self.bytes_read += len(rec[0])
+        reg = telemetry_registry.get_registry()
+        reg.counter("shards.records").inc(1)
+        reg.counter("shards.bytes").inc(len(rec[0]))
         return rec
 
     def close(self) -> None:

@@ -38,16 +38,25 @@ against their eager bodies.
   its owner is dropped, not at some later garbage collection.
 * ``captures`` counts every capture of the process (the engines'
   ``n_compiles`` and the train record's ``captures`` read it).
+* **Telemetry.** A capture is the port's compile: once it is done (never
+  inside it) ``telemetry/runtime.on_capture`` lands a ``kind="compile"``
+  record of the warm-up and capture seconds. The first call resets the
+  allocator's peak and keeps the peak over itself in
+  ``first_call_peak`` (the graph's memory, ``cost.memory``). Nothing in a
+  body emits a record: a body runs once, at capture, and never on a
+  replay.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
 
 from distribuuuu_tpu_torch.ops import cuda as kernel_tier
+from distribuuuu_tpu_torch.telemetry import runtime as telemetry_runtime
 
 captures = 0  # graphs captured in this process
 _local = threading.local()  # .graph: the StepGraph this thread is capturing
@@ -106,6 +115,7 @@ class StepGraph:
         self.outputs = None
         self.keep: list = []
         self.launches: dict = {}  # kernel launches a replay adds
+        self.first_call_peak = None  # allocator peak bytes over the first call
 
     def __call__(self, **src):
         for k, v in src.items():
@@ -121,6 +131,8 @@ class StepGraph:
     def _warm_and_capture(self):
         global captures
         dev = self.device
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
         side = self.stream or torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -139,6 +151,8 @@ class StepGraph:
             kernel_tier.add_launches({k: -n for k, n in self.launches.items()})
         self.graph = g
         captures += 1
+        self.first_call_peak = torch.cuda.max_memory_allocated(dev)
+        telemetry_runtime.on_capture(time.perf_counter() - t0)
         return out
 
 

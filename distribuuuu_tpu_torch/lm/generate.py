@@ -62,6 +62,21 @@ step; tokens stream to each requester the step they are produced
 
 **Sampling** is host numpy, the JAX package's functions verbatim, so a
 seed replays the same stream in both, speculative rounds included.
+
+**Telemetry** (the JAX engine's records, from the scheduler thread, outside
+every graph: a record in a graph's body would fire once, at capture): a
+``gen.admit`` and a ``gen.prefill`` (or ``gen.chunk_prefill``) a request,
+``gen.sample`` for a sampled one, ``gen.decode`` a step (``gen.speculate``
+a round), ``gen.retire`` a retirement, each ``ms`` from the engine's own
+host clocks; ``lm.tokens`` (the running counters) every
+``serve/engine.EMIT_INTERVAL_S`` and at the drain; the warm-up's captures in the
+registry's ``serve.aot_compiles``, and the ledger of each decode tile
+(``gen_decode_b{b}_c{c}``) and prompt or chunk tile (``gen_prefill_p{p}``,
+``gen_chunk_prefill_w{W}_c{c}``), phase ``"generate"``. A traced request (``submit(trace=...)``,
+``telemetry/tracectx.py``) takes the trace id as its ``request_id`` and
+lands its ``trace.span`` tree: ``queue_wait``, ``prefill`` or
+``chunk_prefill``, a ``decode_step`` or ``spec_round`` for each step it
+was live in, and the ``engine.request`` root at retire.
 """
 
 from __future__ import annotations
@@ -83,7 +98,11 @@ from distribuuuu_tpu_torch.serve.admission import (
     EngineClosedError,
     QueueFullError,
 )
-from distribuuuu_tpu_torch.serve.engine import COMPILE_EVENTS
+from distribuuuu_tpu_torch.serve.engine import COMPILE_EVENTS, EMIT_INTERVAL_S
+from distribuuuu_tpu_torch.telemetry import costmodel
+from distribuuuu_tpu_torch.telemetry import registry as telemetry_registry
+from distribuuuu_tpu_torch.telemetry import spans as telemetry_spans
+from distribuuuu_tpu_torch.telemetry import tracectx
 
 
 # --------------------------------------------------------- decode modules
@@ -401,12 +420,17 @@ def validate_speculate_cfg(k: int, target_model, draft_model, prompt_len: int,
 
 class GenStream:
     """Per-request streamed result: iterate for tokens as they decode, or
-    ``result()`` for the full list. Closed exactly once at retire."""
+    ``result()`` for the full list. Closed exactly once at retire.
+    ``request_id`` is the engine's counter, or a traced request's trace
+    id; ``span_id`` (minted now, so the children can parent onto it) is
+    its ``engine.request`` root span."""
 
-    def __init__(self, request_id, prompt_len: int):
+    def __init__(self, request_id, prompt_len: int, trace=None):
         self.request_id = request_id
         self.prompt_len = prompt_len
+        self.trace = trace
         self.t_submit = time.perf_counter()
+        self.span_id = "" if trace is None else tracectx.new_span_id()
         self._q: deque = deque()
         self._cond = threading.Condition()
         self._done = False
@@ -742,14 +766,44 @@ class GenerateEngine:
         g = self._tile((self._b_tile, self._c_tile))
         return g(tokens=torch.from_numpy(tokens[:, None]), lengths=torch.from_numpy(lengths))
 
+    def _tile_work(self, meta_dec, b: int, c: int, t: int):
+        """A ``t``-token step of tile ``(b, c)`` on the meta decoder (the
+        ledger)."""
+        m = self.model
+        shape = (m.depth, b, m.num_heads, c, m.dim // m.num_heads)
+
+        def work():
+            cache = {n: torch.empty(shape, dtype=m.dtype, device="meta") for n in ("k", "v")}
+            meta_dec(torch.empty((b, t), dtype=torch.int32, device="meta"),
+                     torch.empty((b,), dtype=torch.int32, device="meta"), cache)
+
+        return work
+
+    def _count_tile(self, meta_dec, label: str, b: int, c: int, t: int, images: int) -> None:
+        if meta_dec is not None:
+            costmodel.capture_step(self._tile_work(meta_dec, b, c, t), label=label,
+                                   phase="generate", images=images, device=self.device,
+                                   arch=cfg.MODEL.ARCH)
+
     def _warm_up(self) -> None:
         try:
             k = self.spec_k
             z = functools.partial(torch.zeros, dtype=torch.int32)
+            # the ledger of the decode and prompt (or chunk) tiles, as JAX's
+            count = telemetry_spans.enabled() and cfg.TELEMETRY.COSTMODEL
+            meta_dec = (GPTDecoder(costmodel.meta_copy(self.model), self.decoder.blk)
+                        if count else None)
             for b, c in self._tiles:  # each graph's warm-up call and capture
                 shapes = [(1, False)] + ([(k + 1, False), (1, True)] if k else [])
                 for t, draft in shapes:
-                    self._step_graph(b, c, t, draft)(tokens=z((b, t)), lengths=z((b,)))
+                    label = f"gen_decode_b{b}_c{c}" if (t, draft) == (1, False) else None
+                    if label:
+                        self._count_tile(meta_dec, label, b, c, 1, b)
+                    g = self._step_graph(b, c, t, draft)
+                    g(tokens=z((b, t)), lengths=z((b,)))
+                    if label:
+                        costmodel.capture_memory(g, label=label, phase="generate",
+                                                 device=self.device)
                     self.n_compiles += 1
                     COMPILE_EVENTS.append(b)
                 for steps in ((k, k + 1) if k else ()):
@@ -758,12 +812,20 @@ class GenerateEngine:
                     self.n_compiles += 1
                     COMPILE_EVENTS.append(b)
             for p in self.page_tiles:
+                label = (f"gen_chunk_prefill_w{self.chunk_prefill}_c{p}" if self.chunk_prefill
+                         else f"gen_prefill_p{p}")
+                self._count_tile(meta_dec, label, 1, p, self.chunk_prefill or p, 1)
                 for draft in ((False, True) if k else (False,)):
-                    self._page_graph(p, draft)()
+                    g = self._page_graph(p, draft)
+                    g()
+                    if not draft:
+                        costmodel.capture_memory(g, label=label, phase="generate",
+                                                 device=self.device)
                     self.n_compiles += 1
             for cache in self._caches.values():  # a fresh cache for the first requests
                 for t in cache.values():
                     t.zero_()
+            telemetry_registry.get_registry().counter("serve.aot_compiles").inc(self.n_compiles)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         except BaseException as e:  # noqa: BLE001 — re-raised in __init__
@@ -784,12 +846,17 @@ class GenerateEngine:
         self.drain()
 
     def submit(self, prompt, max_new_tokens: int | None = None,
-               sample: SampleParams | dict | None = None) -> GenStream:
+               sample: SampleParams | dict | None = None, trace=None) -> GenStream:
         """Enqueue one prompt (iterable of token ids); returns its token
         stream. Raises ``QueueFullError`` (``LongQueueFullError`` for a
         long prompt past the class's reservation) or ``EngineClosedError``
         like the image engine. ``sample`` overrides the engine's default
-        :class:`SampleParams` for this request."""
+        :class:`SampleParams` for this request. ``trace`` (a
+        ``tracectx.TraceContext`` or its ctrl-frame dict) makes the trace
+        id the stream's ``request_id`` and turns on its spans; admission,
+        scheduling and every token are the same without it."""
+        if isinstance(trace, dict):
+            trace = tracectx.from_fields(trace)
         sp = self._default_sample if sample is None else sample_params(sample)
         ids = np.asarray(list(prompt), np.int32)
         if ids.ndim != 1 or len(ids) < 1:
@@ -832,7 +899,8 @@ class GenerateEngine:
                 if lc == "long":
                     self._counters["long_rejected"] += 1
                 raise
-            stream = GenStream(self._next_id, len(ids))
+            stream = GenStream(self._next_id if trace is None else trace.trace_id, len(ids),
+                               trace=trace)
             self._next_id += 1
             self._waiting.append((stream, ids, max_new, sp))
             self._counters["requests"] += 1
@@ -968,17 +1036,57 @@ class GenerateEngine:
         if self.chunk_prefill:
             self._counters["chunk_prefills"] += 1
             self._counters["chunk_calls"] += calls
-        self._prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._prefill_ms.append(ms)
         stream._emit(first)
         s.new_tokens = 1  # prefill produced token #1
         self._counters["new_tokens"] += 1
+        if telemetry_spans.enabled():
+            self._emit_admission(slot, stream, plen, width, sp, t0, ms)
         self._maybe_finish(slot, first)
+
+    def _emit_admission(self, slot: int, stream: GenStream, plen: int, width: int,
+                        sp: SampleParams, t0: float, ms: float) -> None:
+        """An admission's records and trace spans."""
+        telemetry_spans.emit_event("gen.admit", slot=slot, prompt_tokens=plen,
+                                   request=stream.request_id,
+                                   length_class=self._length_class(plen))
+        if self.chunk_prefill:
+            chunks = -(-plen // self.chunk_prefill)
+            telemetry_spans.emit_event("gen.chunk_prefill", tokens=plen,
+                                       chunk=self.chunk_prefill, chunks=chunks, tile=width,
+                                       ms=round(ms, 3))
+        else:
+            telemetry_spans.emit_event("gen.prefill", tokens=plen, tile=width, ms=round(ms, 3))
+        if not sp.greedy:
+            telemetry_spans.emit_event("gen.sample", request=stream.request_id,
+                                       temperature=sp.temperature, top_k=sp.top_k,
+                                       top_p=sp.top_p, seed=sp.seed)
+        tracectx.emit_trace_span(stream.trace, "queue_wait", stream.t_submit,
+                                 t0 - stream.t_submit, parent=stream.span_id, slot=slot)
+        if self.chunk_prefill:
+            tracectx.emit_trace_span(stream.trace, "chunk_prefill", t0, ms / 1e3,
+                                     parent=stream.span_id, tokens=plen,
+                                     chunk=self.chunk_prefill, chunks=chunks, tile=width)
+        else:
+            tracectx.emit_trace_span(stream.trace, "prefill", t0, ms / 1e3,
+                                     parent=stream.span_id, tokens=plen, tile=width)
 
     def _retire(self, slot: int, reason: str) -> None:
         s = self._slots[slot]
         self._slots[slot] = None
         self._counters["retired"] += 1
         s.stream._close(reason)
+        if telemetry_spans.enabled():
+            telemetry_spans.emit_event("gen.retire", slot=slot, new_tokens=s.new_tokens,
+                                       reason=reason, request=s.stream.request_id)
+            # the engine-side root of a traced request's tree: submit to retire
+            tr = s.stream.trace
+            tracectx.emit_trace_span(
+                tr, "engine.request", s.stream.t_submit, time.perf_counter() - s.stream.t_submit,
+                parent="" if tr is None else tr.parent_span, span_id=s.stream.span_id,
+                reason=reason, new_tokens=s.new_tokens, prompt_tokens=s.stream.prompt_len,
+                length_class=self._length_class(s.stream.prompt_len))
 
     def _maybe_finish(self, slot: int, token: int) -> bool:
         s = self._slots[slot]
@@ -1016,6 +1124,9 @@ class GenerateEngine:
     def _decode_step(self) -> None:
         t0 = time.perf_counter()
         live = [i for i, s in enumerate(self._slots) if s is not None]
+        # the traced residents now: a slot may retire below, but this
+        # step's wall was its share
+        traced = [(i, self._slots[i]) for i in live if self._slots[i].stream.trace is not None]
         c_need = max(self._slots[i].length for i in live) + 1
         self._ensure_tile(max(live) + 1, c_need)
         b = self._b_tile
@@ -1025,8 +1136,18 @@ class GenerateEngine:
             tokens[i] = self._slots[i].last_token
             lengths[i] = self._slots[i].length
         logits = self._decode(tokens, lengths).cpu().numpy()  # the step's one sync
-        self._decode_ms.append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._decode_ms.append(ms)
         self._counters["decode_steps"] += 1
+        if telemetry_spans.enabled():
+            # written before the tokens go out: a client that saw its last
+            # token finds its step's record in the file
+            telemetry_spans.emit_event("gen.decode", active=len(live), tile_b=b,
+                                       tile_c=self._c_tile, ms=round(ms, 3))
+            for i, s in traced:
+                tracectx.emit_trace_span(s.stream.trace, "decode_step", t0, ms / 1e3,
+                                         parent=s.stream.span_id, slot=i, tile_b=b,
+                                         tile_c=self._c_tile, active=len(live))
         for i in live:
             self._emit_tok(i, self._select(self._slots[i], logits[i]))
 
@@ -1073,6 +1194,7 @@ class GenerateEngine:
         t0 = time.perf_counter()
         k = self.spec_k
         live = [i for i, s in enumerate(self._slots) if s is not None]
+        traced = [(i, self._slots[i]) for i in live if self._slots[i].stream.trace is not None]
         max_len = max(self._slots[i].length for i in live)
         self._ensure_tile(max(live) + 1, max_len + k + 1)
         b, c = self._b_tile, self._c_tile
@@ -1153,13 +1275,31 @@ class GenerateEngine:
                 # capped by what this round's steps wrote
                 sl.draft_len = min(old_draft_len + steps, sl.length)
 
-        self._decode_ms.append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._decode_ms.append(ms)
         self._counters["decode_steps"] += 1
         self._counters["spec_rounds"] += 1
         self._counters["spec_proposed"] += k * len(live)
         self._counters["spec_accepted"] += n_acc
         self._counters["spec_bonus"] += n_bonus
         self._counters["spec_rejected"] += n_rej
+        if telemetry_spans.enabled():
+            telemetry_spans.emit_event("gen.speculate", k=k, active=len(live),
+                                       proposed=k * len(live), accepted=n_acc, bonus=n_bonus,
+                                       ms=round(ms, 3))
+            for i, s in traced:
+                tracectx.emit_trace_span(s.stream.trace, "spec_round", t0, ms / 1e3,
+                                         parent=s.stream.span_id, slot=i, k=k,
+                                         accepted=n_acc, bonus=n_bonus, active=len(live))
+
+    def _emit_token_counters(self) -> None:
+        """The running token counters as one ``lm.tokens`` record."""
+        if telemetry_spans.enabled():
+            telemetry_spans.emit_event(
+                "lm.tokens", prompt_tokens=self._counters["prompt_tokens"],
+                new_tokens=self._counters["new_tokens"],
+                decode_steps=self._counters["decode_steps"],
+                elapsed_s=round(time.perf_counter() - self._t0, 3))
 
     def _scheduler(self) -> None:
         # inference mode is thread-local: enter it in the thread that runs
@@ -1169,6 +1309,7 @@ class GenerateEngine:
             if self._warm_error is not None:
                 return
             self._go.wait()
+            last_emit = time.perf_counter()
             while True:
                 with self._lock:
                     # continuous batching: admit into free slots at every
@@ -1196,3 +1337,7 @@ class GenerateEngine:
                             if s is not None:
                                 self._slots[i] = None
                                 s.stream._close("error", e)
+                if time.perf_counter() - last_emit >= EMIT_INTERVAL_S:
+                    self._emit_token_counters()
+                    last_emit = time.perf_counter()
+            self._emit_token_counters()

@@ -1,6 +1,5 @@
 """Replica-side LM generation service (counterpart of
-distribuuuu_tpu/lm/service.py, without tensor-parallel decoding and
-without trace spans).
+distribuuuu_tpu/lm/service.py, without tensor-parallel decoding).
 
 ``serve_net`` builds this engine instead of the image engine when
 ``MODEL.ARCH`` is a ``gpt_*`` arch: the same length-prefixed socket and
@@ -14,12 +13,20 @@ the same ``stats`` control frame, plus the streaming generate frames:
              token, then ``{"stream": "done", "tokens": [...], "text":
              "...", "reason": ...}`` (or one ``{"error": ...}`` frame;
              backpressure keeps the image engine's retry-after shape).
+
+A ``"trace"`` ctrl field (``telemetry/tracectx.py``) makes the trace id the
+engine's ``request_id``; the token and done frames then echo it as
+``trace_id``. :func:`generate_request` is the client edge: a ``trace`` or a
+``trace_sample`` rate (a client passes ``SERVE.TRACE_SAMPLE``) opens the
+tree and lands its ``client.request`` root in the caller's sink. Untraced,
+every frame is byte-identical to one without tracing.
 """
 
 from __future__ import annotations
 
 import json
 import socket
+import time
 
 import torch
 
@@ -29,6 +36,7 @@ from distribuuuu_tpu_torch.lm.generate import GenerateEngine
 from distribuuuu_tpu_torch.lm.tokenizer import ByteTokenizer
 from distribuuuu_tpu_torch.serve import protocol
 from distribuuuu_tpu_torch.serve.admission import EngineClosedError, QueueFullError
+from distribuuuu_tpu_torch.telemetry import tracectx
 
 
 def engine_from_cfg(graphed: bool | None = None) -> GenerateEngine:
@@ -100,7 +108,9 @@ def handle_generate(engine: GenerateEngine, ctrl: dict, send) -> None:
     """Serve one ``op="generate"`` ctrl request: submit, then one frame per
     token and a final done frame through ``send(payload_bytes)``. The
     optional ``temperature``/``top_k``/``top_p``/``seed`` fields override
-    the replica's ``GENERATE.SAMPLE`` defaults for this request."""
+    the replica's ``GENERATE.SAMPLE`` defaults for this request; a
+    ``"trace"`` field traces it (its frames echo ``trace_id``)."""
+    trace = tracectx.from_fields(ctrl.get("trace"))
     tok = ByteTokenizer()
     if "tokens" in ctrl:
         ids = [int(t) for t in ctrl["tokens"]]
@@ -110,8 +120,10 @@ def handle_generate(engine: GenerateEngine, ctrl: dict, send) -> None:
         send(json.dumps({"error": "generate needs 'tokens' or 'text'"}).encode())
         return
     sample = {k: ctrl[k] for k in ("temperature", "top_k", "top_p", "seed") if k in ctrl}
+    echo = {} if trace is None else {"trace_id": trace.trace_id}
     try:
-        stream = engine.submit(ids, ctrl.get("max_new_tokens"), sample=sample or None)
+        stream = engine.submit(ids, ctrl.get("max_new_tokens"), sample=sample or None,
+                               trace=trace)
     except QueueFullError as e:
         send(json.dumps({
             "error": "queue_full",
@@ -128,10 +140,11 @@ def handle_generate(engine: GenerateEngine, ctrl: dict, send) -> None:
     try:
         for token in stream:
             out.append(token)
-            send(json.dumps({"stream": "token", "token": token, "i": len(out) - 1}).encode())
+            send(json.dumps({"stream": "token", "token": token, "i": len(out) - 1,
+                             **echo}).encode())
     except Exception as e:  # noqa: BLE001 — fail THIS request only
         send(json.dumps({"stream": "done", "error": f"{type(e).__name__}: {e}",
-                         "tokens": out, "n": len(out)}).encode())
+                         "tokens": out, "n": len(out), **echo}).encode())
         return
     send(json.dumps({
         "stream": "done",
@@ -139,6 +152,7 @@ def handle_generate(engine: GenerateEngine, ctrl: dict, send) -> None:
         "n": len(out),
         "text": tok.decode(out),
         "reason": stream.reason,
+        **echo,
     }).encode())
 
 
@@ -146,12 +160,26 @@ def generate_request(host: str, port: int, *, tokens=None, text=None,
                      max_new_tokens: int | None = None,
                      temperature: float | None = None,
                      top_k: int | None = None, top_p: float | None = None,
-                     seed: int | None = None, timeout: float = 60.0):
+                     seed: int | None = None, timeout: float = 60.0,
+                     trace=None, trace_sample: float = 0.0):
     """Client helper: send one generate request to a replica and yield the
     decoded frames, token frames as they stream and the done frame last.
     Raises on an error frame. A request that sets the sampling fields
-    replays verbatim (same frame, same stream)."""
+    replays verbatim (same frame, same stream).
+
+    The tracing plane's client edge: a ``tracectx.TraceContext`` as
+    ``trace`` (or a ``trace_sample`` rate, head-sampled here) rides the
+    ctrl frame, and the edge lands the tree's ``client.request`` root in
+    this process's sink when the done frame arrives. Neither (the
+    default) sends the untraced bytes."""
+    if trace is None and trace_sample > 0.0:
+        trace = tracectx.open_trace(trace_sample)
+    # the edge's span id, minted before sending: the replica's spans
+    # parent onto it
+    edge_sid = "" if trace is None else tracectx.new_span_id()
     fields = {}
+    if trace is not None:
+        fields.update(tracectx.to_fields(trace.child(edge_sid)))
     if tokens is not None:
         fields["tokens"] = [int(t) for t in tokens]
     if text is not None:
@@ -166,6 +194,7 @@ def generate_request(host: str, port: int, *, tokens=None, text=None,
         fields["top_p"] = float(top_p)
     if seed is not None:
         fields["seed"] = int(seed)
+    t0, n_frames = time.perf_counter(), 0
     with socket.create_connection((host, port), timeout=timeout) as conn:
         conn.settimeout(timeout)
         protocol.send_frame(conn, protocol.ctrl_request("generate", **fields))
@@ -176,6 +205,10 @@ def generate_request(host: str, port: int, *, tokens=None, text=None,
             frame = json.loads(payload)
             if "error" in frame and "stream" not in frame:
                 raise RuntimeError(f"generate failed: {frame}")
+            n_frames += 1
             yield frame
             if frame.get("stream") == "done":
+                tracectx.emit_trace_span(trace, "client.request", t0, time.perf_counter() - t0,
+                                         parent="", span_id=edge_sid, frames=n_frames,
+                                         ok=("error" not in frame))
                 return

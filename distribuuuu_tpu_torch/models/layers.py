@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distribuuuu_tpu_torch import graphs, not_ported
+from distribuuuu_tpu_torch.ops import cuda as kernel_tier
 from distribuuuu_tpu_torch.ops.cuda import conv_epilogue, group_conv
 from distribuuuu_tpu_torch.parallel import dist
 
@@ -321,6 +322,8 @@ class ConvBN:
             return self._conv_bn_act(x, w)
         if self._cache is None:
             self.prepare()
+        if not self.fused:  # the site's shape runs the plain layer
+            kernel_tier.note_select("conv_epilogue", "plain")
         if self.fused:
             w, a, c = self._cache
             return conv_epilogue.conv1x1_bn_act(

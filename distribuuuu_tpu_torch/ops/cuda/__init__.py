@@ -17,8 +17,8 @@ Counterpart of ``distribuuuu_tpu/ops/pallas/`` and the Pallas kernels of
   pallas`` routes to it (3x3, stride 1, at most 14², as in JAX: the
   RegNets' stage 3 at 224²).
 
-Which implementation runs is decided in ONE place, :func:`use_kernel`, and
-only by where the tensor lives: a CUDA tensor goes through the kernel or
+Which implementation runs is decided in ONE place, :func:`use_kernel`
+(:func:`choose` records the choice), and only by where the tensor lives: a CUDA tensor goes through the kernel or
 the call raises; a CPU tensor goes through the kernel's plain PyTorch
 version (the tests' path). There is no knob that sends a CUDA tensor to
 the plain version and no forced-but-unsupported fallback. A call site that
@@ -30,6 +30,9 @@ as the JAX package does; that is the site's shape, not a fallback.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -63,15 +66,66 @@ def validate_kernels_cfg(kcfg) -> None:
 
 def use_kernel(t: torch.Tensor) -> bool:
     """True when ``t`` must go through the CUDA kernel, False when it goes
-    through the plain version (a CPU tensor). Other devices raise."""
+    through the plain version (a CPU tensor; a meta tensor while the cost
+    ledger counts, :func:`counting`). Other devices raise."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type == "cpu" or (t.device.type == "meta" and getattr(_local, "counting", False)):
         return False
     raise RuntimeError(
         f"no kernel or plain version for tensors on {t.device}: the port "
         "runs on CUDA, and on the CPU only for tests"
     )
+
+
+def choose(t: torch.Tensor, op: str) -> bool:
+    """:func:`use_kernel` for kernel ``op``, the choice recorded: the
+    first for ``op`` in a run lands one ``kind="kernel.select"`` record
+    (``impl`` ``"cuda"`` or ``"plain"``, ``requested`` ``"auto"``); the
+    port has no fallback, so it writes no ``kernel.fallback``."""
+    kernel = use_kernel(t)
+    if t.device.type != "meta":
+        note_select(op, "cuda" if kernel else "plain")
+    return kernel
+
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def counting():
+    """Meta tensors take the plain versions inside (this thread): the cost
+    ledger counts a step's work on the meta device
+    (``telemetry/costmodel.py``)."""
+    prev = getattr(_local, "counting", False)
+    _local.counting = True
+    try:
+        yield
+    finally:
+        _local.counting = prev
+
+
+_selected: set = set()
+
+
+def reset_selected() -> None:
+    """Forget the choices recorded (a new run's telemetry sink)."""
+    _selected.clear()
+
+
+def note_select(op: str | None, impl: str) -> None:
+    """One ``kind="kernel.select"`` record per (op, impl) and run (the
+    telemetry sink's life), once the sink is open: :func:`use_kernel`'s choice, or a
+    site whose shape runs the plain layer (``impl "plain"``; JAX's
+    ``select`` records such a site as ``"xla"``)."""
+    if op is None or (op, impl) in _selected:
+        return
+    from distribuuuu_tpu_torch.telemetry import spans
+
+    if not spans.enabled():
+        return
+    _selected.add((op, impl))
+    spans.emit_event("kernel.select", op=op, impl=impl, requested="auto")
 
 
 # (module, attribute holding the count) of every kernel wrapper's launch

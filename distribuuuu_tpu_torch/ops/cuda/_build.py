@@ -7,8 +7,10 @@ includes PyTorch's headers, so a build takes seconds. The library lands in
 keyed by a hash of the source, the ``csrc/`` headers it includes
 (``#include "…"``, followed through the headers) and the flags, so an
 edited source or header rebuilds and an unchanged one loads what is
-there. A missing ``nvcc`` or a failed
-build raises: there is no fallback.
+there (the port's persistent compile cache: each load from ``_build/``
+lands a ``kind="compile.cache"`` record ``"hit"``, each build a
+``"miss"``, ``telemetry/runtime.on_build``). A missing ``nvcc`` or a
+failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from distribuuuu_tpu_torch.telemetry import runtime as telemetry_runtime
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -88,7 +92,9 @@ def build(*names: str) -> dict[str, ctypes.CDLL]:
             src, lib = _target(n)
             if os.path.exists(lib):
                 build_seconds[n] = 0.0
+                telemetry_runtime.on_build(n, hit=True)
                 continue
+            telemetry_runtime.on_build(n, hit=False)
             tmp = f"{lib}.{os.getpid()}.tmp"
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
             procs[n] = (subprocess.Popen(

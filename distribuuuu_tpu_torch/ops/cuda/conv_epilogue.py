@@ -235,7 +235,7 @@ def conv1x1_bn_act(x, w, a, c, act: str = "id", out_dtype=None):
     if act not in _ACTS:
         raise ValueError(f"conv epilogue: unknown act {act!r} ({list(_ACTS)})")
     out_dtype = out_dtype or x.dtype
-    if kernel_tier.use_kernel(x):
+    if kernel_tier.choose(x, "conv_epilogue"):
         return _launch(x, _as_matrix(w), a, c, act, out_dtype)
     return conv1x1_bn_act_plain(x, w, a, c, act, out_dtype)
 

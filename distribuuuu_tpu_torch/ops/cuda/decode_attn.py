@@ -247,7 +247,7 @@ def decode_attention(q, cache_k, cache_v, lengths, *, scale: float,
     c = cache_k.shape[2]
     if resolve_block(c, blk_k) is None:
         raise ValueError(f"decode_attention: block {blk_k} does not divide cache {c}")
-    if kernel_tier.use_kernel(q):
+    if kernel_tier.choose(q, "decode_attn"):
         return decode_attention_kernel(q, cache_k, cache_v, lengths, scale)
     return decode_attention_plain(q, cache_k, cache_v, lengths, scale)
 

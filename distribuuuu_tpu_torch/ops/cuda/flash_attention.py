@@ -315,17 +315,21 @@ def dkdv_kernel(q, k, v, do, lse, delta, scale: float, causal: bool):
 
 
 def _forward(q, k, v, scale, causal):
-    if kernel_tier.use_kernel(q):
+    if kernel_tier.choose(q, "flash_attention"):
         return forward_kernel(q, k, v, scale, causal)
     return forward_plain(q, k, v, scale, causal)
 
 
 def _dq(*args):
-    return dq_kernel(*args) if kernel_tier.use_kernel(args[0]) else dq_plain(*args)
+    if kernel_tier.choose(args[0], "flash_attention"):
+        return dq_kernel(*args)
+    return dq_plain(*args)
 
 
 def _dkdv(*args):
-    return dkdv_kernel(*args) if kernel_tier.use_kernel(args[0]) else dkdv_plain(*args)
+    if kernel_tier.choose(args[0], "flash_attention"):
+        return dkdv_kernel(*args)
+    return dkdv_plain(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -195,7 +195,7 @@ def _launch(x, weight, stride: int, groups: int, tiling: GroupPlan | None = None
 
 
 def _conv(x, weight, stride: int, groups: int, dx: bool = False):
-    if not kernel_tier.use_kernel(x):
+    if not kernel_tier.choose(x, "group_conv"):
         return group_conv3x3_plain(x, weight, stride, groups)
     out = _launch(x, weight, stride, groups)
     if dx:

@@ -327,7 +327,7 @@ def update(params, grads, m, v, h: Hyper, scal: torch.Tensor, row=None, skip=Non
     """
     if not params:
         return
-    if kernel_tier.use_kernel(params[0]):
+    if kernel_tier.choose(params[0], "opt_update"):
         return _launch(params, grads, m, v, h, scal, row, skip, table)
     return update_plain(params, grads, m, v, h, scal, row, skip)
 

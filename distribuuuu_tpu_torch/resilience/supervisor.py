@@ -21,9 +21,10 @@ raises at the same flush.
 ``TRAIN.STALL_TIMEOUT`` (seconds, 0 = off): :class:`Heartbeat` warns when
 no step lands within the window; :func:`watch_blocking` warns when a
 blocking wait outside the epoch loop (the checkpoint committer's join)
-lasts that long. Flag, not kill. The telemetry counter and ``stall``
-records of the JAX package wait for the port's telemetry (ROADMAP
-"Telemetry").
+lasts that long. Flag, not kill. Each flag adds to the registry's
+``resilience.stalls`` and lands a ``stall`` record; each non-finite step
+adds to ``resilience.nonfinite`` and lands a ``nonfinite`` record (through
+``utils/jsonlog.metrics_log``, mirrored to the rank's own sink).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import threading
 import time
 from contextlib import contextmanager
 
+from distribuuuu_tpu_torch.telemetry import registry as telemetry_registry
+from distribuuuu_tpu_torch.utils.jsonlog import metrics_log
 from distribuuuu_tpu_torch.utils.logger import get_logger
 
 NONFINITE_POLICIES = ("raise", "skip", "rollback")
@@ -73,6 +76,7 @@ class NonFiniteMonitor:
         """True when this step was skipped (keep it out of the meters)."""
         if not nonfinite:
             return False
+        telemetry_registry.get_registry().counter("resilience.nonfinite").inc(1)
         if self.policy == "skip":
             self.skipped += 1
             self.logger.warning(
@@ -80,7 +84,10 @@ class NonFiniteMonitor:
                 "(TRAIN.NONFINITE=skip; %d skipped so far)",
                 self.epoch + 1, batch, self.skipped,
             )
+            metrics_log("nonfinite", epoch=self.epoch + 1, batch=batch, skipped=self.skipped,
+                        policy="skip")
             return True
+        metrics_log("nonfinite", epoch=self.epoch + 1, batch=batch, policy=self.policy)
         raise NonFiniteLossError(self.epoch, batch, loss)
 
 
@@ -102,6 +109,8 @@ def watch_blocking(label: str, timeout: float, logger=None):
             if age > timeout:
                 logger.warning("blocked in %s for %.1fs (threshold %.1fs): hung storage "
                                "or a wedged background commit", label, age, timeout)
+                telemetry_registry.get_registry().counter("resilience.stalls").inc(1)
+                metrics_log("stall", age_s=round(age, 3), last=label, count=1)
                 return
 
     watcher = threading.Thread(target=_watch, daemon=True, name="dtpu-block-watch")
@@ -149,6 +158,9 @@ class Heartbeat:
                     "heartbeat: no step progress for %.1fs (last: %s; "
                     "TRAIN.STALL_TIMEOUT=%.1fs): a wedged collective, a dead peer, "
                     "or hung storage", age, self._label, self.timeout)
+                telemetry_registry.get_registry().counter("resilience.stalls").inc(1)
+                metrics_log("stall", age_s=round(age, 3), last=self._label,
+                            count=self.stall_count)
 
     def stop(self) -> None:
         self._stop.set()

@@ -26,6 +26,13 @@ distribuuuu_tpu/serve/engine.py), in the order requests meet it:
 
 The forward is the model's eval forward. The fp32 master weights are cast
 to the compute dtype once, here (``model.prepare()``), not per forward.
+
+Telemetry: the warm-up's captures add to the registry's
+``serve.aot_compiles`` (and, as every capture, to ``jit.compiles``); each
+bucket's ledger (``serve_bucket_{b}``: the forward counted on the meta
+device, and the graph's first-call memory) lands before it serves; the
+completer writes a ``kind="serve"`` snapshot every ``EMIT_INTERVAL_S`` and
+one at shutdown.
 """
 
 from __future__ import annotations
@@ -47,10 +54,14 @@ from distribuuuu_tpu_torch.serve.admission import (
     EngineClosedError,
 )
 from distribuuuu_tpu_torch.serve.metrics import ServeMetrics
+from distribuuuu_tpu_torch.telemetry import costmodel
+from distribuuuu_tpu_torch.telemetry import registry as telemetry_registry
+from distribuuuu_tpu_torch.telemetry import spans as telemetry_spans
 
 # Warm-up hook: every bucket warmed at startup appends its batch size.
 # Steady-state serving must not grow this list.
 COMPILE_EVENTS: list[int] = []
+EMIT_INTERVAL_S = 10.0  # seconds between the serve records (the LM's lm.tokens too)
 
 
 def default_buckets(max_batch: int) -> list[int]:
@@ -305,12 +316,28 @@ class Engine:
                 return b
         raise AssertionError(f"no bucket for batch {n}")  # unreachable
 
+    def _bucket_work(self, meta, b: int):
+        """Bucket ``b``'s forward on the meta copy ``meta`` (the ledger)."""
+        stage = self._stages[b][0].host
+        x = torch.empty(stage.shape, dtype=stage.dtype, device="meta")
+        return lambda: meta(normalize_on_device(x) if x.dtype == torch.uint8 else x)
+
     def _warm_up(self) -> None:
         try:
+            count = telemetry_spans.enabled() and cfg.TELEMETRY.COSTMODEL
+            meta = costmodel.meta_copy(self.model) if count else None
             for b in self.buckets:  # each bucket's warm-up call and capture
+                label = f"serve_bucket_{b}"
+                if meta is not None:
+                    costmodel.capture_step(self._bucket_work(meta, b), label=label,
+                                           phase="serve", images=b, device=self.device,
+                                           arch=cfg.MODEL.ARCH)
                 self._run(b, [])
+                costmodel.capture_memory(self._graphs[b], label=label, phase="serve",
+                                         device=self.device)
                 self.n_compiles += 1
                 COMPILE_EVENTS.append(b)
+            telemetry_registry.get_registry().counter("serve.aot_compiles").inc(self.n_compiles)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         except BaseException as e:  # noqa: BLE001 — re-raised in __init__
@@ -342,9 +369,11 @@ class Engine:
 
     # -- completion thread -------------------------------------------------
     def _completer(self) -> None:
+        last_emit = time.perf_counter()
         while True:
             item = self._inflight.get()
             if item is None:
+                self.metrics.emit(final=True)  # a no-op without a jsonlog sink
                 break
             out, reqs, bucket, t_disp = item
             try:
@@ -359,6 +388,9 @@ class Engine:
                 r.future.set_result(np.array(logits[i]))
                 lats.append(t_done - r.t_enq)
             self.metrics.record_batch(len(reqs), bucket, t_done - t_disp, lats)
+            if t_done - last_emit >= EMIT_INTERVAL_S:
+                self.metrics.emit()  # a no-op without a jsonlog sink
+                last_emit = t_done
 
 
 def engine_from_cfg(graphed: bool | None = None) -> Engine:

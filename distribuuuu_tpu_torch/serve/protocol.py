@@ -13,8 +13,11 @@ Request payloads, auto-detected:
   from an LM engine (``lm/service.handle_generate``) and answers
   ``not_a_generation_replica`` from an image engine;
 * a model envelope (``MODEL_MAGIC``) is stripped — this replica is the
-  model; a trace envelope (``TRACE_MAGIC``) is stripped too, or refused as
-  ``bad_trace_envelope`` when torn.
+  model; a trace envelope (``telemetry/tracectx.TRACE_MAGIC``) is
+  stripped too, or refused as ``bad_trace_envelope`` when torn. Its
+  context is kept: a traced image request lands a ``replica.handle``
+  ``trace.span`` in this process's sink, and a generate ctrl frame's
+  ``"trace"`` field reaches the LM engine (``lm/service.py``).
 
 Response payload: JSON — ``{"pred", "topk", "logits"}`` on success;
 ``{"error": ..., "retry_after_ms"?}`` on rejection/failure.
@@ -35,12 +38,13 @@ import numpy as np
 
 from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.serve.admission import EngineClosedError, QueueFullError
+from distribuuuu_tpu_torch.telemetry import registry as telemetry_registry
+from distribuuuu_tpu_torch.telemetry import tracectx
 
 _NPY_MAGIC = b"\x93NUMPY"
 MAX_FRAME = 64 << 20  # refuse absurd frames before allocating for them
 CTRL_MAGIC = b"\x00DTPUCTL1"
 MODEL_MAGIC = b"\x00DTPUMDL1"
-TRACE_MAGIC = b"\x00DTPUTRC1"
 
 
 def ctrl_request(op: str, **fields) -> bytes:
@@ -68,36 +72,16 @@ def split_model_envelope(payload: bytes) -> tuple[str | None, bytes]:
     return mid.decode("utf-8"), payload[start + n:]
 
 
-def split_trace_envelope(payload: bytes) -> tuple[dict | None, bytes]:
-    """(trace fields, inner payload): ``TRACE_MAGIC + u16 length + context
-    JSON + payload``. A torn envelope raises ValueError. The port keeps no
-    trace spans yet (ROADMAP "Telemetry"); it only strips the context."""
-    if not payload.startswith(TRACE_MAGIC):
-        return None, payload
-    off = len(TRACE_MAGIC)
-    if len(payload) < off + 2:
-        raise ValueError("torn trace envelope (no length)")
-    (n,) = struct.unpack_from(">H", payload, off)
-    off += 2
-    if len(payload) < off + n:
-        raise ValueError("torn trace envelope (truncated context)")
-    try:
-        ctx = json.loads(payload[off:off + n])
-    except (ValueError, UnicodeDecodeError) as e:
-        raise ValueError(f"torn trace envelope (bad context: {e})") from e
-    return ctx, payload[off + n:]
-
-
 def replica_stats(engine) -> dict:
-    """The answer to a ``stats`` control frame: the engine's view plus
-    the compile counters under the JAX replica's keys (the port compiles
-    nothing at run time: ``jit_compiles`` is 0, ``aot_compiles`` counts the
-    warmed bucket shapes)."""
+    """The answer to a ``stats`` control frame: the engine's view plus the
+    process's ``jit.compiles`` (graph captures, ``telemetry/runtime.py``,
+    counted while the telemetry sink is open) and the engine's warmed
+    shapes as ``aot_compiles``, under the JAX replica's keys."""
     out = engine.stats()
     out.update(
         pid=os.getpid(),
         accepting=engine._admission.is_open,
-        jit_compiles=0,
+        jit_compiles=int(telemetry_registry.get_registry().counter("jit.compiles").value),
         aot_compiles=int(engine.n_compiles),
     )
     return out
@@ -210,7 +194,7 @@ def _handle_conn(engine, conn: socket.socket, transform, topk: int) -> None:
             if payload is None:
                 return
             try:
-                _trace, payload = split_trace_envelope(payload)
+                trace, payload = tracectx.split_payload(payload)
             except ValueError:
                 resp = {"error": "bad_trace_envelope"}
             else:
@@ -232,7 +216,12 @@ def _handle_conn(engine, conn: socket.socket, transform, topk: int) -> None:
                         except OSError:
                             return
                         continue
+                    t_req = time.perf_counter()
                     resp = _answer(engine, payload, transform, topk)
+                    if ctrl is None:
+                        tracectx.emit_trace_span(trace, "replica.handle", t_req,
+                                                 time.perf_counter() - t_req,
+                                                 ok=("error" not in resp))
             try:
                 send_frame(conn, json.dumps(resp).encode())
             except OSError:

@@ -7,7 +7,10 @@ and the dynamic micro-batching engine; a ``gpt_*`` arch gets the
 continuous-batching generation engine (``lm/service.py``), driven by
 streaming ``op="generate"`` control frames. Both listen on a
 length-prefixed socket; SIGTERM drains gracefully. Runs on
-``cuda:{SERVE.DEVICE}`` unless ``DEVICE.PLATFORM cpu``.
+``cuda:{SERVE.DEVICE}`` unless ``DEVICE.PLATFORM cpu``. Telemetry lands
+under ``OUT_DIR``: ``telemetry/rank00000.jsonl`` (the warm-up's captures,
+the buckets' ledger, ``gen.*``/``lm.tokens`` and traced requests'
+``trace.span``) and ``metrics.jsonl`` (``serve`` snapshots).
 
 Usage:
     python -m distribuuuu_tpu_torch.serve_net --cfg config/resnet50.yaml \\
@@ -58,12 +61,25 @@ def main(argv=None):
             "(lm/service.generate_request) instead"
         )
 
-    from distribuuuu_tpu_torch import trainer
-    from distribuuuu_tpu_torch.serve import admission, engine_from_cfg, protocol
+    from distribuuuu_tpu_torch import telemetry
+    from distribuuuu_tpu_torch.utils.jsonlog import close_metrics_log, setup_metrics_log
     from distribuuuu_tpu_torch.utils.logger import get_logger, setup_logger
 
     setup_logger()
-    logger = get_logger()
+    # a standalone replica is rank 0
+    telemetry.setup_from_cfg(cfg, rank=0)
+    setup_metrics_log(cfg.OUT_DIR)
+    try:
+        _serve(args, lm, get_logger())
+    finally:
+        telemetry.close_telemetry()
+        close_metrics_log()
+
+
+def _serve(args, lm: bool, logger) -> None:
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.serve import admission, engine_from_cfg, protocol
+
     if lm:
         from distribuuuu_tpu_torch.lm import service as lm_service
 

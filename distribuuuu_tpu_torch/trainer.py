@@ -36,6 +36,19 @@ distribuuuu_tpu/parallel/partition/lowering.py).
   batch) or ``MODEL.DUMMY_INPUT`` data, in one process or several
   (``torchrun``, Slurm; ``parallel/dist.setup_distributed``).
 
+Telemetry (``telemetry/``, ``utils/jsonlog.py``), as the JAX trainer
+writes it: the primary's ``{OUT_DIR}/metrics.jsonl`` (``train`` at each
+print window, ``eval``, ``epoch``, one ``timeline`` record a batch under
+``TRAIN.TIMELINE``) and every rank's ``{OUT_DIR}/telemetry/rank*.jsonl``
+(``wait``/``h2d``/``step`` spans a batch on the ``pipeline`` track, or one
+``fold_window`` span a call under ``STEPS_PER_CALL > 1``; graph captures;
+the ledger's ``cost.*`` at each label's first call, ``train_step``,
+``train_fold``, ``eval_step``; memstats and a registry snapshot each
+epoch). A ``step`` span times the host's dispatch of a call (a graph
+replay is asynchronous); the metric flush is where the host waits. The
+``PROF`` window is a ``torch.profiler`` trace. Both sinks close when
+``train_model`` or ``test_model`` returns.
+
 Each process runs on one card: ``cuda:LOCAL_RANK`` under a launch of
 several processes, else ``cuda:{SERVE.DEVICE}``, under ``DEVICE.PLATFORM``
 ``auto``/``cuda`` (raising without CUDA); on the CPU only when asked
@@ -51,13 +64,14 @@ fault knobs whose mechanism the port does not have.
 from __future__ import annotations
 
 import functools
+import os
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from distribuuuu_tpu_torch import graphs, not_ported
+from distribuuuu_tpu_torch import graphs, not_ported, telemetry
 from distribuuuu_tpu_torch.asyncplane import committer
 from distribuuuu_tpu_torch.asyncplane.evalloop import ConcurrentEval
 from distribuuuu_tpu_torch.config import cfg
@@ -72,9 +86,18 @@ from distribuuuu_tpu_torch.models.layers import DropoutSlot, head_dtype, resolve
 from distribuuuu_tpu_torch.ops import cuda as kernel_tier
 from distribuuuu_tpu_torch.parallel import dist
 from distribuuuu_tpu_torch.resilience import manifest, supervisor
+from distribuuuu_tpu_torch.telemetry import costmodel
+from distribuuuu_tpu_torch.telemetry import runtime as telemetry_runtime
+from distribuuuu_tpu_torch.telemetry import spans as telemetry_spans
 from distribuuuu_tpu_torch.utils import checkpoint as ckpt
 from distribuuuu_tpu_torch.utils import faults, preempt
-from distribuuuu_tpu_torch.utils.logger import setup_logger
+from distribuuuu_tpu_torch.utils.jsonlog import (
+    close_metrics_log,
+    metrics_log,
+    setup_metrics_log,
+    timeline_log,
+)
+from distribuuuu_tpu_torch.utils.logger import get_logger, setup_logger
 from distribuuuu_tpu_torch.utils.meters import construct_meters
 from distribuuuu_tpu_torch.utils.metrics import accuracy, count_parameters, cross_entropy
 from distribuuuu_tpu_torch.utils.optim import construct_optimizer, set_lr
@@ -375,6 +398,7 @@ class TrainStep:
         self.pool = pool
         self.stream = torch.cuda.Stream(self.device) if self.graphed else None
         self._graphs: dict = {}
+        self.last_graph = None  # the graph of the last call (its first-call memory)
 
     def _build(self, k: int, batch: dict):
         img, lab = batch["image"], batch["label"]
@@ -402,6 +426,7 @@ class TrainStep:
         for s, b in enumerate(batches):
             g.inputs["image"][s].copy_(b["image"], non_blocking=True)
             g.inputs["label"][s].copy_(b["label"], non_blocking=True)
+        self.last_graph = g
         out = g()
         if self.body.snap is not None:
             opt.advance(k - int(out[:, 3].sum()))
@@ -474,6 +499,7 @@ class EvalStep:
         self.pool = pool
         self.stream = torch.cuda.Stream(self.device) if self.graphed else None
         self._graphs: dict = {}
+        self.last_graph = None
 
     def __call__(self, batch: dict) -> dict:
         if not self.graphed:
@@ -485,11 +511,157 @@ class EvalStep:
             g = self._graphs[key] = graphs.StepGraph(
                 functools.partial(eval_step, self.model, inputs, self.topk), inputs,
                 device=self.device, pool=self.pool, stream=self.stream, graphed=True)
+        self.last_graph = g
         return g(**{k: batch[k] for k in ("image", "label", "mask")})
 
 
+class _ProfilerWindow:
+    """``torch.profiler`` (CPU and CUDA activities) over train steps
+    ``[PROF.START_STEP, START_STEP + NUM_STEPS)`` of the first executed
+    epoch (an auto-resumed run profiles its first epoch too), on the
+    primary process, as JAX's ``jax.profiler`` window. It opens at the
+    first call boundary at or after the start and closes at the first
+    one covering the end (a fold's calls are K steps); it synchronises
+    the card before it stops, then writes a Chrome trace
+    ``{PROF.DIR or OUT_DIR/profile}/trace_ep{E}.json``."""
+
+    def __init__(self, epoch: int, first_epoch: int, device: torch.device):
+        self.active = self.started = False
+        self.epoch, self.device = epoch, device
+        self.enabled = cfg.PROF.ENABLED and epoch == first_epoch and dist.is_primary()
+        if self.enabled and cfg.PROF.NUM_STEPS < 1:
+            get_logger().warning("PROF.NUM_STEPS=%d < 1; profiling disabled",
+                                 cfg.PROF.NUM_STEPS)
+            self.enabled = False
+        if self.enabled:
+            self.trace_dir = cfg.PROF.DIR or os.path.join(cfg.OUT_DIR, "profile")
+            self.first = cfg.PROF.START_STEP
+            self.last = cfg.PROF.START_STEP + cfg.PROF.NUM_STEPS
+            self.path = None
+
+    def begin(self, it: int) -> None:
+        if self.enabled and not self.started and it >= self.first:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+            self.active = self.started = True
+
+    def _stop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the trace holds the steps' device work
+        self.prof.stop()
+        os.makedirs(self.trace_dir, exist_ok=True)
+        self.path = os.path.join(self.trace_dir, f"trace_ep{self.epoch + 1}.json")
+        self.prof.export_chrome_trace(self.path)
+        self.active = False
+        get_logger().info("profiler trace written to %s", self.path)
+
+    def end(self, it: int) -> None:
+        if self.active and it + 1 >= self.last:
+            self._stop()
+
+    def finish(self) -> None:
+        """The epoch ended first: close the trace anyway, and say so when
+        the window never opened."""
+        if self.active:
+            get_logger().warning("profiler window truncated by epoch end (wanted steps "
+                                 "[%d, %d))", self.first, self.last)
+            self._stop()
+        elif self.enabled and not self.started:
+            get_logger().warning("profiler never started: PROF.START_STEP=%d not reached "
+                                 "(epoch has fewer batches?): no trace written", self.first)
+
+
+def _step_spans_on() -> bool:
+    return telemetry_spans.enabled() and cfg.TELEMETRY.STEP_SPANS
+
+
+def _emit_batch_spans(phase: str, epoch: int, batch: int, tl: dict) -> None:
+    """One batch's ``wait``/``h2d``/``step`` spans on the ``pipeline``
+    track, from the stamps the loop already took (written after every
+    interval closed). Every rank writes them."""
+    attrs = {"phase": phase, "epoch": epoch, "batch": batch}
+    for name, a, b in (("wait", "get0", "get1"), ("h2d", "put0", "put1")):
+        if a in tl and b in tl:
+            telemetry_spans.emit_span(name, tl[a], tl[b], track="pipeline", **attrs)
+    if "step0" in tl and "step1" in tl:
+        telemetry_spans.emit_span("step", tl["step0"], tl["step1"], track="pipeline",
+                                  n=tl.get("n", 0), **attrs)
+
+
+def _cost_on(label: str) -> bool:
+    """Whether the ledger still has ``label`` to count (the sink open,
+    ``TELEMETRY.COSTMODEL`` on)."""
+    return (telemetry_spans.enabled() and cfg.TELEMETRY.COSTMODEL
+            and not costmodel.seen(label))
+
+
+def _meta_batch(batch: dict) -> dict:
+    return {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+
+
+def _train_work(model, optimizer, batch: dict, topk: int, accum: int):
+    """One train step of :class:`TrainStep`'s body for the ledger, on a
+    meta copy of ``model`` (``costmodel.meta_copy``): the forward over the
+    micro-batches, the loss, the backward, the metrics and the
+    optimizer's plain update over meta moments. Collectives move bytes,
+    not FLOPs, and are left out; nothing live is touched."""
+    from distribuuuu_tpu_torch.ops.cuda import opt_update
+
+    meta = costmodel.meta_copy(model)
+    if hasattr(meta, "dropout_key"):
+        meta.dropout_key = DropoutSlot()
+        meta.dropout_key.key = (0, 0, 0)
+    params = [p for _, p in meta.named_parameters()]
+    m = None if optimizer.m is None else [torch.empty_like(t, device="meta") for t in optimizer.m]
+    v = None if optimizer.v is None else [torch.empty_like(t, device="meta") for t in optimizer.v]
+    scal = torch.as_tensor(opt_update.scalar_rows(optimizer.hyper, optimizer.lr, 1, 1,
+                                                  optimizer.trace_dtype(), params[0].dtype))
+    mb = _meta_batch({"image": batch["image"], "label": batch["label"]})
+    n = mb["label"].shape[0] // accum
+
+    def work():
+        gsum = None
+        for i in range(accum):
+            rows = slice(i * n, (i + 1) * n)
+            logits = meta(prep_images(mb["image"][rows]))
+            loss = cross_entropy(logits, mb["label"][rows])
+            grads = torch.autograd.grad(loss, params)
+            gsum = list(grads) if gsum is None else [a + g for a, g in zip(gsum, grads)]
+            accuracy(logits.detach(), mb["label"][rows], topk=(1, topk))
+        with torch.no_grad():
+            opt_update.update_plain(params, [g / accum for g in gsum] if accum > 1 else gsum,
+                                    m, v, optimizer.hyper, scal)
+
+    return work
+
+
+def _capture_train_cost(model, optimizer, batch: dict, topk: int, accum: int,
+                        device) -> None:
+    """The ledger's ``train_step`` (one step, whatever the fold) before the
+    first call."""
+    if _cost_on("train_step"):
+        costmodel.capture_step(_train_work(model, optimizer, batch, topk, accum),
+                               label="train_step", phase="train",
+                               images=int(batch["label"].shape[0]), device=device,
+                               arch=cfg.MODEL.ARCH)
+
+
+def _eval_work(model, batch: dict, topk: int):
+    """One eval step (:func:`eval_step`) on a meta copy of ``model``, its
+    eval caches made first (as the graph's warm-up call makes them; a
+    replay does not)."""
+    meta, mb = costmodel.meta_copy(model), _meta_batch(batch)
+    if hasattr(meta, "prepare"):
+        with torch.no_grad():
+            meta.prepare()
+    return lambda: eval_step(meta, mb, topk)
+
+
 def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
-                device: torch.device, runner: TrainStep | None = None):
+                device: torch.device, runner: TrainStep | None = None, first_epoch: int = 0):
     """One epoch. Returns ``(interrupted, batches_done, record)``: with
     ``TRAIN.PREEMPT_SAVE`` a SIGTERM ends the epoch at a call boundary with
     ``interrupted`` True (the next one with one process; with several,
@@ -509,7 +681,11 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
     (``data_wait_s``), the host time at the end of each step's call
     (``step_t``), the (batches done, host time) of each metric flush (each
     waits for the device) and the graph captures the epoch made
-    (``captures``)."""
+    (``captures``). Telemetry (module docstring): each batch's spans and
+    timeline record after its call, or one ``fold_window`` span a call
+    under a fold; a ``train`` record at each print; the ledger before
+    the first call of ``train_step`` (and ``train_fold``'s memory after
+    it); the ``PROF`` window when ``epoch`` is ``first_epoch``."""
     lr = get_epoch_lr(epoch)
     set_lr(optimizer, lr)
     loader.set_epoch(epoch)
@@ -548,9 +724,12 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
         record["flushes"].append((done, time.perf_counter()))
 
     heartbeat = supervisor.Heartbeat(cfg.TRAIN.STALL_TIMEOUT, logger)
+    prof = _ProfilerWindow(epoch, first_epoch, device)
+    emit_spans, primary = _step_spans_on(), dist.is_primary()
+    emit_timeline = cfg.TRAIN.TIMELINE and primary and fold == 1
     held = []  # the batches of the call being assembled
     try:
-        end = time.perf_counter()
+        end = win_start = time.perf_counter()
         for it, batch, tl in device_prefetch(loader, device, cfg.TRAIN.PREFETCH_DEVICE,
                                             cfg.TRAIN.PIN_MEMORY):
             abs_it = start_batch + it  # the loader skipped the resumed prefix
@@ -567,31 +746,53 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
                 continue
             n = len(held)
             calls_of = [held] if n == fold else [[b] for b in held]
+            k0 = len(calls_of[0])
+            _capture_train_cost(model, optimizer, held[0], topk, accum, device)
+            prof.begin(done)
+            tl["step0"] = time.perf_counter()
             for part in calls_of:
                 k = len(part)
                 poison = [state["step"] + s == nan_step for s in range(k)]
                 pending.append(runner(part, poison, state["step"]).clone())
                 state["step"] += k
+            tl["step1"] = time.perf_counter()
+            prof.end(done + n - 1)
+            costmodel.capture_memory(runner.last_graph, label="train_fold" if k0 > 1 else
+                                     "train_step", phase="train", device=device)
             held.clear()
             done += n
             calls += 1
             record["steps"] = done - start_batch
+            if emit_spans and fold == 1:
+                _emit_batch_spans("train", epoch + 1, abs_it, tl)
+            if emit_timeline:
+                timeline_log("train", epoch + 1, abs_it, tl.pop("n", 0), **tl)
             if done % cfg.TRAIN.PRINT_FREQ < fold or done == num_batches:
                 flush()
                 eta = progress.get_eta(
                     done, (num_batches - done) + (cfg.OPTIM.MAX_EPOCH - epoch - 1) * num_batches)
                 logger.info("%s  LR %.5f  ETA %s", progress.display(done), lr, eta)
+                if primary:
+                    metrics_log("train", epoch=epoch + 1, batch=done, loss=losses.avg,
+                                top1=top1.avg, topk=topk_m.avg, lr=lr,
+                                batch_time=batch_time.avg, data_time=data_time.avg)
             now = time.perf_counter()
             record["step_t"].extend([now] * n)
             batch_time.update((now - end) / n, n=n)
-            end = now
+            if emit_spans and fold > 1:
+                # a fold has no per-step stamps: one span a call of n steps
+                telemetry_spans.emit_span("fold_window", win_start, now, track="pipeline",
+                                          phase="train", epoch=epoch + 1, batch=done - n, n=n)
+            end = win_start = now
             tick = done if fold == 1 else calls
             if (cfg.TRAIN.PREEMPT_SAVE and done < num_batches and tick % preempt_every == 0
                     and preempt.requested_global()):
                 flush()
                 logger.warning("preemption signaled — leaving epoch %d at batch %d/%d",
                                epoch + 1, done, num_batches)
+                prof.finish()
                 return True, done, record
+        prof.finish()
     finally:
         heartbeat.stop()
         record["captures"] = graphs.captures - captures0
@@ -620,9 +821,14 @@ def _log_lm_rate(logger, epoch: int, record: dict, loader) -> None:
 
 def log_eval_result(logger, epoch: int, top1: float, topk_acc: float, loss: float,
                     n: int) -> None:
+    """The eval summary line and, on the primary, the ``eval`` record
+    (the concurrent eval's join writes them from the main thread, in a
+    synchronous run's order)."""
     logger.info("Eval[%d]  Loss %.4f  Acc@1 %.3f  Acc@%d %.3f  (%d %s)",
                 epoch + 1, loss, top1, effective_topk(), topk_acc, n,
                 "tokens" if cfg.MODEL.ARCH.startswith("gpt") else "samples")
+    if dist.is_primary():
+        metrics_log("eval", epoch=epoch + 1, loss=loss, top1=top1, topk=topk_acc, samples=n)
 
 
 def validate(loader, model, epoch: int, logger, device: torch.device,
@@ -635,18 +841,33 @@ def validate(loader, model, epoch: int, logger, device: torch.device,
     eval's caller logs the result at the join. On the card each eval batch
     shape is one graph (:class:`EvalStep`, on ``pool``), captured for
     this pass; ``graphed=False`` (concurrent eval, on its own stream over
-    a snapshot) runs the step eagerly."""
+    a snapshot) runs the step eagerly. Each batch's ``eval`` spans and
+    timeline record, and the ledger's ``eval_step`` at the first call."""
     if watch_preemption is None:
         watch_preemption = cfg.TRAIN.PREEMPT_SAVE
     model.eval()
     topk, num_batches, totals = effective_topk(), len(loader), None
     step = EvalStep(model, topk, device, graphed, pool)
+    emit_spans = _step_spans_on()
+    emit_timeline = cfg.TRAIN.TIMELINE and dist.is_primary()
     end = time.perf_counter()
-    for it, batch, _ in device_prefetch(loader, device, cfg.TRAIN.PREFETCH_DEVICE,
-                                        cfg.TRAIN.PIN_MEMORY):
+    for it, batch, tl in device_prefetch(loader, device, cfg.TRAIN.PREFETCH_DEVICE,
+                                         cfg.TRAIN.PIN_MEMORY):
+        if _cost_on("eval_step"):
+            costmodel.capture_step(_eval_work(model, batch, topk), label="eval_step",
+                                   phase="eval", images=int(batch["label"].shape[0]),
+                                   device=device, arch=cfg.MODEL.ARCH)
+        tl["step0"] = time.perf_counter()
         m = step(batch)
         totals = ({k: v.clone() for k, v in m.items()} if totals is None
                   else {k: totals[k] + m[k] for k in totals})
+        tl["step1"] = time.perf_counter()
+        costmodel.capture_memory(step.last_graph, label="eval_step", phase="eval",
+                                 device=device)
+        if emit_spans:
+            _emit_batch_spans("eval", epoch + 1, it, tl)
+        if emit_timeline:
+            timeline_log("eval", epoch + 1, it, tl.pop("n", 0), **tl)
         if (it + 1) % cfg.TEST.PRINT_FREQ == 0 and it + 1 < num_batches:
             if watch_preemption and preempt.requested_global():
                 logger.warning("preemption signaled — abandoning eval at batch %d/%d",
@@ -749,12 +970,25 @@ def train_model(records: list | None = None):
     ``TRAIN.CONCURRENT_EVAL`` an epoch boundary joins the previous eval
     (its best bookkeeping, the ``best`` side-write from its snapshot),
     saves with ``is_best=False`` and launches this epoch's eval; the last
-    eval joins before return. Every exit joins the eval and the committer."""
+    eval joins before return. Every exit joins the eval and the committer,
+    then closes the telemetry sinks (``metrics.jsonl``, the rank file)."""
     check_train_cfg()
     device = device_from_cfg()
     world = join_process_group(device)
     setup_env()
     logger = setup_logger()
+    setup_metrics_log(cfg.OUT_DIR, primary=dist.is_primary())
+    # every rank's sink: spans, graph captures, the ledger, registry
+    # snapshots, mirrored resilience records
+    telemetry.setup_from_cfg(cfg, rank=dist.get_rank())
+    try:
+        return _train_model(records, device, world, logger)
+    finally:
+        telemetry.close_telemetry()
+        close_metrics_log()
+
+
+def _train_model(records, device, world: int, logger):
     apply_backend_flags()
     model = build_model_from_cfg(setup_seed()).to(device)
     optimizer = construct_optimizer(model)
@@ -770,9 +1004,6 @@ def train_model(records: list | None = None):
         logger.info("train and eval steps: %s", "one CUDA graph each, captured at the first "
                     "call and replayed" if graphed else "eager (a gloo group holds CUDA "
                     "tensors: gloo's collectives cannot be captured)")
-    if cfg.TRAIN.TIMELINE:
-        logger.info("TRAIN.TIMELINE and the telemetry sinks: the port writes no "
-                    "records yet (ROADMAP.md Queue 1, Telemetry)")
     train_loader, val_loader = construct_train_loader(), construct_val_loader()
     logger.info("decode backend: %s (DATA.BACKEND %s); %d train and %d val batches of "
                 "%d and %d a process", train_loader.backend, cfg.DATA.BACKEND,
@@ -809,6 +1040,7 @@ def train_model(records: list | None = None):
 
     def preempt_exit(path, resume_epoch):
         committer.join_commits(reason="preemption exit")
+        telemetry.emit_snapshot()  # the final counters survive the preemption
         logger.warning("preempted: state saved to %s; rerun to resume at epoch %d",
                        path, resume_epoch + 1)
         return best_acc1
@@ -841,7 +1073,18 @@ def train_model(records: list | None = None):
         best_acc1 = max(acc1, best_acc1)
         save(epoch, is_best)
         logger.info("epoch %d done: Acc@1 %.3f (best %.3f)", epoch + 1, acc1, best_acc1)
+        if dist.is_primary():
+            metrics_log("epoch", epoch=epoch + 1, acc1=acc1, best_acc1=best_acc1)
         return None
+
+    def epoch_telemetry(epoch):
+        """At the epoch boundary: the card's memory and a registry
+        snapshot on every rank (run_report reads the last)."""
+        if not telemetry.enabled():
+            return
+        if cfg.TELEMETRY.MEMSTATS:
+            telemetry_runtime.sample_memstats(device, epoch=epoch + 1)
+        telemetry.emit_snapshot(epoch=epoch + 1)
 
     def timed_eval(snap, epoch):
         t0 = time.perf_counter()
@@ -873,6 +1116,8 @@ def train_model(records: list | None = None):
         if is_best:
             ckpt.save_best_checkpoint(snap.state_dict(), ep)
         logger.info("epoch %d done: Acc@1 %.3f (best %.3f)", ep + 1, acc1, best_acc1)
+        if dist.is_primary():
+            metrics_log("epoch", epoch=ep + 1, acc1=acc1, best_acc1=best_acc1)
 
     epoch, rollbacks_left = start_epoch, max(0, int(cfg.TRAIN.MAX_ROLLBACKS))
     try:
@@ -886,7 +1131,8 @@ def train_model(records: list | None = None):
         while epoch < cfg.OPTIM.MAX_EPOCH:
             try:
                 interrupted, done, record = train_epoch(train_loader, model, optimizer,
-                                                        state, epoch, logger, device, runner)
+                                                        state, epoch, logger, device, runner,
+                                                        first_epoch=start_epoch)
             except supervisor.NonFiniteLossError as e:
                 if cfg.TRAIN.NONFINITE != "rollback":
                     raise
@@ -940,6 +1186,7 @@ def train_model(records: list | None = None):
                 path = finish_epoch(epoch, record)
                 if path is not None:
                     return preempt_exit(path, epoch + 1)
+            epoch_telemetry(epoch)
             if watching and preempt.requested_global():
                 join_concurrent_eval()
                 return preempt_exit(ckpt.get_checkpoint(epoch), epoch + 1)
@@ -966,6 +1213,16 @@ def test_model():
     device = device_from_cfg()
     join_process_group(device)
     logger = setup_logger()
+    setup_metrics_log(cfg.OUT_DIR, primary=dist.is_primary())
+    telemetry.setup_from_cfg(cfg, rank=dist.get_rank())
+    try:
+        return _test_model(device, logger)
+    finally:
+        telemetry.close_telemetry()
+        close_metrics_log()
+
+
+def _test_model(device, logger):
     apply_backend_flags()
     model = build_model_from_cfg()
     if cfg.MODEL.WEIGHTS:
@@ -974,6 +1231,7 @@ def test_model():
     loader = construct_val_loader()
     logger.info("decode backend: %s (DATA.BACKEND %s)", loader.backend, cfg.DATA.BACKEND)
     result = validate(loader, model.to(device), 0, logger, device)
+    telemetry.emit_snapshot()
     if result is None:
         logger.warning("evaluation preempted before completion")
         return None

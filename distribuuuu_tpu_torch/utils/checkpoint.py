@@ -27,6 +27,11 @@ on the primary after it joins the committer, and every process takes the
 path it broadcasts. The payload is the same as with one process (the
 model's ``state_dict`` keys unchanged), so a checkpoint of either resumes
 the other. The orbax format is not ported (ROADMAP "Orbax weights").
+
+Telemetry, on the ``ckpt`` track of the primary's sink: a synchronous
+save is one ``ckpt_save`` span; a background one a ``ckpt_snapshot`` span
+(what the trainer blocked for), a ``ckpt_commit`` span on the committer
+thread and one ``ckpt.async`` record; a load is a ``ckpt_restore`` span.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import time
 
 import numpy as np
 import torch
@@ -42,6 +48,7 @@ from distribuuuu_tpu_torch.asyncplane import committer
 from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.parallel import dist
 from distribuuuu_tpu_torch.resilience import manifest
+from distribuuuu_tpu_torch.telemetry import spans as telemetry_spans
 from distribuuuu_tpu_torch.utils import faults
 from distribuuuu_tpu_torch.utils.logger import get_logger
 
@@ -220,9 +227,10 @@ def save_checkpoint(state: dict, epoch: int, best_acc1: float, is_best: bool) ->
     ``CHECKPOINT.ASYNC``); a synchronous save ends at a barrier."""
     path = get_checkpoint(epoch)
     if dist.is_primary():
-        payload = {**_cpu(state), "epoch": epoch, "best_acc1": float(best_acc1)}
+        name = os.path.basename(path)
+        tags = {"track": "ckpt", "ckpt": name, "epoch": int(epoch)}
 
-        def commit(durable):
+        def commit(durable, payload):
             _write(path, payload, "full", epoch, durable)
             if is_best:
                 _write(get_best_checkpoint(), _best_payload(payload["model"], epoch),
@@ -230,7 +238,22 @@ def save_checkpoint(state: dict, epoch: int, best_acc1: float, is_best: bool) ->
             prune_preempts(epoch)
             faults.maybe_corrupt_checkpoint(path, epoch)
 
-        _commit(os.path.basename(path), commit)
+        if cfg.CHECKPOINT.ASYNC:
+            t0 = time.perf_counter()
+            with telemetry_spans.span("ckpt_snapshot", **tags):
+                payload = {**_cpu(state), "epoch": epoch, "best_acc1": float(best_acc1)}
+            snapshot_s = time.perf_counter() - t0
+
+            def background():
+                c0 = time.perf_counter()
+                with telemetry_spans.span("ckpt_commit", **tags):
+                    commit(True, payload)
+                committer.emit_commit_record(name, snapshot_s, time.perf_counter() - c0)
+
+            committer.submit_commit(name, background)
+        else:
+            with telemetry_spans.span("ckpt_save", **tags):
+                commit(False, {**_cpu(state), "epoch": epoch, "best_acc1": float(best_acc1)})
     if not cfg.CHECKPOINT.ASYNC:
         dist.barrier()
     return path
@@ -289,7 +312,9 @@ def save_preempt_checkpoint(state: dict, epoch: int, best_acc1: float,
             payload["pending_eval"] = int(pending_eval)
         if data_state is not None:
             payload["data_state"] = encode_data_state(data_state)
-        _write(path, payload, "full", epoch - 1)
+        with telemetry_spans.span("ckpt_save", track="ckpt", ckpt=os.path.basename(path),
+                                  epoch=int(epoch - 1)):
+            _write(path, payload, "full", epoch - 1)
     dist.barrier()
     return path
 
@@ -298,7 +323,8 @@ def load_checkpoint(path: str) -> dict:
     """The payload at ``path`` (tensors on the CPU); raises
     :class:`CheckpointError` naming the path when it cannot be read."""
     try:
-        return torch.load(path, map_location="cpu", weights_only=True)
+        with telemetry_spans.span("ckpt_restore", track="ckpt", ckpt=os.path.basename(path)):
+            return torch.load(path, map_location="cpu", weights_only=True)
     except Exception as e:  # torch.load raises many concrete types
         raise CheckpointError(
             f"failed to load checkpoint {path} ({type(e).__name__}: {e}); move it "
