@@ -5,9 +5,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Build: compiles every kernel of the ported paths from csrc/ (sm_90a),
-   one nvcc per source, all at once; beside them four more nvcc report
-   ``-Xptxas -v`` (registers, spills, static shared memory, and any wgmma
-   ptxas serialises) of each kernel of csrc/conv_epilogue.cu,
+   one nvcc per source, all at once, and prints from their ``-Xptxas -v``
+   output (registers, spills, static shared memory, and any wgmma ptxas
+   serialises) each kernel of csrc/conv_epilogue.cu,
    csrc/flash_attention.cu, csrc/group_conv.cu and csrc/decode_attn.cu,
    with their build seconds.
 3. Kernel phases: each kernel's wrapper at the shapes its path gives it,
@@ -265,7 +265,35 @@ eval's.
      at the drain equal to the tokens served; four requests through the
      socket under ``SERVE.TRACE_SAMPLE 1.0``, each one connected
      ``trace.span`` tree from the client edge to the engine.
-13. Prints the ``{"kernels": [...]}`` line, the card's name and power
+13. A JAX-trained checkpoint served from a fleet (``slice18_phases``,
+   after telemetry):
+   * ``orbax_weights``: the committed fixture tests/data/orbax_toy/
+     (saved by the JAX package: a narrow RegNetX by its weights-only best
+     save and its full save, a narrow GPT) read by ``utils/orbax.py`` with
+     no JAX on the host, timed; the RegNet's f32 logits on the card
+     within ORBAX_REL_TOL of the JAX forward's scale, the GPT's greedy
+     streams through a GenerateEngine on the card JAX's tokens;
+   * ``quantize_serve``: config/resnet50.yaml at full width served full
+     precision, bf16 and int8 (engines kept, two bursts of 64 a mode, in
+     turns): ``rel_logits_delta`` against full precision within
+     ``quantize.TOLERANCE``, top-1 agreement, JAX's byte meta, allocated,
+     reserved, pool and packed bytes, img/s, p50/p99, 33 conv-epilogue
+     launches a forward, every bucket a graph; the int8 logits against
+     the port's f32 CPU forward of the packed weights (8 requests);
+   * ``fleet_serve``: ``serve_net --fleet 2`` of that int8 ResNet-50 in a
+     subprocess (replicas with their own CUDA contexts on this card): 128
+     answers through the router against the in-process int8 engine's;
+     the fleet's img/s over 16 connections against one replica's, the
+     router's added p50; a replica SIGKILLed in a burst: nothing lost,
+     the pool back at two; the replicas' conv-epilogue launches from
+     their logs; the router's ``fleet.*`` records valid;
+   * ``fleet_lm``: ``serve_net --fleet 2 --cfg config/gpt_nano.yaml``
+     at f32, weights a ``.pth`` the phase writes, LONG_PROMPT_THRESHOLD
+     32, started with the image fleet and run while the killed image
+     replica's replacement warms: 16 streamed greedy requests identical
+     to one in-process engine's, ``fleet.length_class`` rows for both
+     classes, the replicas' decode-attention launches.
+14. Prints the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``graph_vs_eager``: the graph against the eager body in
@@ -382,7 +410,14 @@ REGNET_EVAL_FORWARDS = 21  # 4096 images at batch 200
 REGNET_F32_REL_TOL = 1e-3  # f32 card vs f32 CPU logits, of the logit scale
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the run's seconds so far
+    (``at_s``), which says where the time limit goes."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -534,51 +569,35 @@ def _kernel_name(mangled: str) -> dict:
     return {"kernel": name, "targs": targs}
 
 
-def start_ptxas_report(_build, name: str = "conv_epilogue"):
-    """Compile one source to a cubin with ``-Xptxas -v`` beside the build
-    (its own nvcc process); the returned function waits for it and returns
-    each kernel's registers, spills and static shared memory."""
+def ptxas_report(log: str) -> list[dict]:
+    """Each kernel's registers, spills and static shared memory, and any
+    wgmma ptxas serialises, from a build's ``-Xptxas -v`` output
+    (``_build.build_logs``)."""
     import re
 
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ptxas_")
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    proc = subprocess.Popen(
-        [_build.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v",
-         "-o", os.path.join(out_dir, f"{name}.cubin"), os.path.join(_build.CSRC, f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-    def finish() -> list[dict]:
-        import shutil
-
-        log, _ = proc.communicate()
-        shutil.rmtree(out_dir, ignore_errors=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc -Xptxas -v {name}.cu failed:\n{log}")
-        kernels, cur, serialized = [], None, []
-        for line in log.splitlines():
-            if "serialized" in line:  # ptxas: wgmma issued one at a time, and why
-                serialized.append(line.strip())
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                cur = _kernel_name(m.group(1))
-                kernels.append(cur)
-                continue
-            if cur is None:
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m:
-                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                cur["registers"] = int(m.group(1))
-                sm = re.search(r"(\d+) bytes smem", line)
-                cur["static_smem"] = int(sm.group(1)) if sm else 0
-        for line in serialized:
-            m = re.search(r"'(_Z\S+)'", line)
-            kernels.append({**(_kernel_name(m.group(1)) if m else {}), "ptxas": line})
-        return kernels
-
-    return finish
+    kernels, cur, serialized = [], None, []
+    for line in log.splitlines():
+        if "serialized" in line:  # ptxas: wgmma issued one at a time, and why
+            serialized.append(line.strip())
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = _kernel_name(m.group(1))
+            kernels.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    for line in serialized:
+        m = re.search(r"'(_Z\S+)'", line)
+        kernels.append({**(_kernel_name(m.group(1)) if m else {}), "ptxas": line})
+    return kernels
 
 
 def _serve_bursts(engine_from_cfg, images):
@@ -3989,8 +4008,11 @@ TEL_EPOCHS = 2  # telemetry_train: the second, steady epoch gives the timeline's
 TEL_PROF = (20, 5)  # PROF.START_STEP, PROF.NUM_STEPS of telemetry_train
 TEL_TABLE_TRAIN = 3 * 2 * 4.09e9  # JAX's hand table: ResNet-50 train FLOPs an image
 TEL_NEUTRAL_STEPS = 6  # f32 ResNet-50 batch-8 steps with telemetry on, then off
-TEL_TURNS = (False, True, True, False, False, True)  # telemetry off/on, in turns
-TEL_TURN_STEPS = {"resnet50": (40, 10), "gpt_nano": (200, 50)}  # (steps, PRINT_FREQ)
+# telemetry off/on, in turns: two a side (three until the fleet's phases
+# needed the seconds)
+TEL_TURNS = (False, True, True, False)
+# (steps, PRINT_FREQ) a turn; (40, 10) and (200, 50) until the fleet's phases
+TEL_TURN_STEPS = {"resnet50": (30, 10), "gpt_nano": (120, 40)}
 TEL_SERVE_REQUESTS = 512  # served ResNet-50 requests a turn
 TEL_LM_TRACED = 4  # traced generate requests through the socket
 TEL_LM_BURSTS = 2  # bursts of LM_REQUESTS a telemetry_lm turn
@@ -4464,6 +4486,508 @@ def telemetry_phases(torch, ce, ou, da, dev) -> dict:
             "decode_attention": lm["decode_attention_launches"]}
 
 
+# -- slice 18: a JAX-trained checkpoint, quantized buckets, the fleet ---------
+
+ORBAX_TOY = "tests/data/orbax_toy"  # written by tests/make_orbax_toy.py with the JAX package
+ORBAX_REL_TOL = 1e-3  # the card's f32 logits against JAX's f32 logits, of their scale
+QUANT_REQUESTS = 64
+QUANT_CPU_CHECK = 8  # int8 card logits of these against the port's f32 CPU forward
+FLEET_REQUESTS = 128
+FLEET_CLIENTS = 16  # concurrent client connections of a fleet burst
+FLEET_SEQ = 32  # sequential requests timing the router's added latency
+LM_FLEET_REQUESTS = 16
+LM_FLEET_THRESHOLD = 32  # SERVE.LONG_PROMPT_THRESHOLD of the LM fleet: prompts are 8-64
+
+
+def orbax_weights_phase(torch, da, dev) -> dict:
+    """The committed orbax fixture (saved by the JAX package) read on the
+    card host with no JAX module loaded: the narrow RegNet from its weights-only and its
+    full save, f32 on the card against the JAX forward's logits; the
+    narrow GPT's greedy streams through a GenerateEngine on the card
+    (decode_attention on every T=1 step) against JAX's tokens."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch.lm.generate import GenerateEngine
+    from distribuuuu_tpu_torch.models.gpt import GPT
+    from distribuuuu_tpu_torch.models.regnet import _regnet
+    from distribuuuu_tpu_torch.utils import orbax, weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(ORBAX_TOY, "meta.json")) as f:
+        meta = json.load(f)
+    reads = {}
+    for name in ("cnn_best", "cnn_full", "gpt_best"):
+        path = os.path.join(ORBAX_TOY, name)
+        size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+        t0 = time.perf_counter()
+        tree = orbax.read_checkpoint(path, keys=orbax.WEIGHT_KEYS)
+        dt = time.perf_counter() - t0
+        n = sum(a.size for a in _tree_leaves(tree))
+        reads[name] = {"dir_bytes": size, "weights": n, "read_s": dt}
+    images = np.load(os.path.join(ORBAX_TOY, "cnn_images.npy")).astype(np.float32) / 64.0 - 2.0
+    want = np.load(os.path.join(ORBAX_TOY, "cnn_logits.npy"))
+    kw = {k: v for k, v in meta["regnet"].items() if k != "num_classes"}
+    errs = {}
+    for name in ("cnn_best", "cnn_full"):
+        model = _regnet(meta["regnet"]["num_classes"], **kw, dtype=torch.float32)
+        weights.load_weights(model, os.path.join(ORBAX_TOY, name))
+        model = model.to(dev).eval()
+        with torch.inference_mode():
+            got = model(torch.from_numpy(images).to(dev)).float().cpu().numpy()
+        errs[name] = float(np.abs(got - want).max() / np.abs(want).max())
+    g = meta["gpt"]
+    gpt = weights.load_weights(GPT(**g, dtype=torch.float32), os.path.join(ORBAX_TOY, "gpt_best"))
+    prompts = np.load(os.path.join(ORBAX_TOY, "gpt_prompts.npy"))
+    want_tokens = np.load(os.path.join(ORBAX_TOY, "gpt_tokens.npy")).tolist()
+    eng = GenerateEngine(gpt, device=dev, eos_id=-1, prompt_len=prompts.shape[1],
+                         max_new_tokens=meta["new_tokens"], batch_tiles=[1, 2],
+                         cache_tiles=[g["seq_len"]])
+    da.reset_launch_counts()
+    eng.start()
+    streams = [s.result(timeout=120) for s in [eng.submit(p.tolist()) for p in prompts]]
+    eng.drain()
+    jaxlike = ("jax", "jaxlib", "flax", "orbax", "tensorstore", "zstandard", "distribuuuu_tpu")
+    res = {"phase": "orbax_weights",
+           "jax_modules_loaded": sorted(m for m in sys.modules if m.split(".")[0] in jaxlike),
+           "reads": reads, "rel_err_vs_jax_f32": errs, "rel_tol": ORBAX_REL_TOL,
+           "gpt_streams_equal_jax": streams == want_tokens,
+           "decode_attention_launches": da.launches}
+    emit(res)
+    if max(errs.values()) > ORBAX_REL_TOL or streams != want_tokens \
+            or res["jax_modules_loaded"]:
+        raise AssertionError(f"orbax weights on the card: {res} (streams {streams}, "
+                             f"JAX {want_tokens})")
+    return res
+
+
+def _tree_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tree_leaves(v)
+        else:
+            yield v
+
+
+def _resnet50_serve_cfg(mode: str = "", queue: int = 4 * QUANT_REQUESTS):
+    """config/resnet50.yaml as slice_phase serves it (bf16, buckets
+    1/2/4/8, RNG_SEED 0), SERVE.QUANTIZE ``mode``; the same list the fleet's
+    replicas get on their command line."""
+    return ["DEVICE.COMPUTE_DTYPE", "bfloat16", "RNG_SEED", "0", "SERVE.MAX_BATCH", "8",
+            "SERVE.BUCKET_SIZES", "[1, 2, 4, 8]", "SERVE.MAX_QUEUE", str(queue),
+            "SERVE.MAX_WAIT_MS", "2.0", *(["SERVE.QUANTIZE", mode] if mode else [])]
+
+
+def quantize_serve_phase(torch, ce, dev, fleet_payloads) -> dict:
+    """config/resnet50.yaml at full width served full precision, bf16 and
+    int8 (engines built in turns, kept; two bursts of QUANT_REQUESTS each,
+    in turns): each mode's logits against full precision's
+    (``rel_logits_delta`` <= quantize.TOLERANCE), top-1 agreement, JAX's
+    byte meta, the engine's allocated and pool bytes, img/s and p50/p99,
+    conv-epilogue launches; every bucket a captured graph; the int8
+    logits against the port's f32 CPU forward of the same packed weights.
+    Also returns the int8 engine's answers to ``fleet_payloads`` (through
+    the replicas' val transform), the fleet's reference."""
+    import numpy as np
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.data.transforms import normalize_on_device
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.serve import ServeMetrics, engine_from_cfg, protocol
+    from distribuuuu_tpu_torch.serve import quantize as qlib
+
+    images = np.random.default_rng(18).integers(0, 256, (QUANT_REQUESTS, 224, 224, 3), np.uint8)
+    engines, rows = {}, {}
+    for mode in ("", "bf16", "int8"):
+        config.reset_cfg()
+        config.merge_from_file("config/resnet50.yaml")
+        cfg.merge_from_list(["DEVICE.PLATFORM", "auto", "SERVE.DEVICE", 0,
+                             *_resnet50_serve_cfg(mode)])
+        torch.cuda.synchronize(dev)
+        a0, r0 = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        ce.conv1x1_bn_act.launches = 0
+        t0 = time.perf_counter()
+        eng = engines[mode] = engine_from_cfg().start()
+        torch.cuda.synchronize(dev)
+        rows[mode] = {
+            "build_s": time.perf_counter() - t0, "warmup_conv_epilogue": ce.conv1x1_bn_act.launches,
+            "allocated_bytes": torch.cuda.memory_allocated(dev) - a0,
+            "reserved_bytes": torch.cuda.memory_reserved(dev) - r0,
+            "pool_bytes": eng.memory["pool_bytes"], "packed_bytes": eng.memory["packed_bytes"],
+            "meta": eng.quantize_meta, "walls": [], "p50_ms": [], "p99_ms": [],
+            "batches": 0, "conv_epilogue_launches": 0,
+            "graphs": sorted(b for b, g in eng._graphs.items() if g.graph is not None)}
+    logits = {}
+    for _ in range(2):  # bursts in turns
+        for mode, eng in engines.items():
+            eng.metrics = ServeMetrics()
+            ce.conv1x1_bn_act.launches = 0
+            t0 = time.perf_counter()
+            futs = [eng.submit(img) for img in images]
+            logits[mode] = np.stack([f.result(timeout=300) for f in futs])
+            row, st = rows[mode], eng.metrics.snapshot()
+            row["walls"].append(time.perf_counter() - t0)
+            row["p50_ms"].append(st["p50_ms"])
+            row["p99_ms"].append(st["p99_ms"])
+            row["batches"] += st["batches"]
+            row["conv_epilogue_launches"] += ce.conv1x1_bn_act.launches
+    transform = protocol.make_transform()  # the replicas' val pipeline, this cfg
+    eng = engines["int8"]
+    fleet_ref = np.stack([f.result(timeout=300) for f in
+                          [eng.submit(transform(p)) for p in fleet_payloads]])
+    for e in engines.values():
+        e.drain()
+    ref = logits[""]
+    scale = float(np.abs(ref).max())
+    for mode, row in rows.items():
+        row["img_per_s"] = [QUANT_REQUESTS / w for w in row.pop("walls")]
+        if mode:
+            row["rel_logits_delta"] = float(np.abs(logits[mode] - ref).max()) / scale
+            row["tolerance"] = qlib.TOLERANCE[mode]
+            row["top1_agree"] = float((logits[mode].argmax(1) == ref.argmax(1)).mean())
+    # the int8 card logits against the port's f32 CPU forward of the packed weights
+    seeded = trainer.build_model_from_cfg()
+    packed, _ = qlib.quantize_state(seeded, "int8")
+    cpu_model = build_model("resnet50", num_classes=cfg.MODEL.NUM_CLASSES, dtype=torch.float32)
+    cpu_model.load_state_dict({**seeded.state_dict(), **qlib.dequantize_state(packed)})
+    with torch.inference_mode():
+        cpu = cpu_model.eval()(normalize_on_device(torch.from_numpy(
+            images[:QUANT_CPU_CHECK]))).numpy()
+    int8_cpu = float(np.abs(logits["int8"][:QUANT_CPU_CHECK] - cpu).max() / np.abs(cpu).max())
+    res = {"phase": "quantize_serve", "arch": "resnet50", "requests": QUANT_REQUESTS,
+           "modes": {m or "full": r for m, r in rows.items()},
+           "int8_vs_cpu_f32_rel": int8_cpu, "rel_tol": SLICE_REL_TOL}
+    emit(res)
+    bad = [m for m, r in rows.items() if m and r["rel_logits_delta"] > r["tolerance"]]
+    bad += [m or "full" for m, r in rows.items() if r["graphs"] != [1, 2, 4, 8]
+            or r["conv_epilogue_launches"] != 33 * r["batches"]]
+    if bad or int8_cpu > SLICE_REL_TOL or rows["int8"]["meta"]["quantized_leaves"] != 54:
+        raise AssertionError(f"quantize_serve: {bad}, int8 vs CPU {int8_cpu}")
+    return {"conv_epilogue": sum(r["conv_epilogue_launches"] + r["warmup_conv_epilogue"]
+                                 for r in rows.values()),
+            "fleet_ref": fleet_ref}
+
+
+def _fleet_cmd(yaml: str, port: int, out: str, opts) -> list:
+    return [sys.executable, "-m", "distribuuuu_tpu_torch.serve_net", "--cfg", yaml,
+            "--fleet", "2", *opts, "SERVE.FLEET.AUTOSCALE", "False",
+            "SERVE.FLEET.HEALTH_PERIOD_S", "0.5", "SERVE.FLEET.EMIT_INTERVAL_S", "1.0",
+            "SERVE.PORT", str(port), "OUT_DIR", out]
+
+
+def _start_fleet(yaml: str, out: str, opts):
+    """``serve_net --fleet 2`` in a subprocess (its log in ``out``); returns
+    (process, router port)."""
+    from distribuuuu_tpu_torch.serve.fleet import free_port
+
+    port = free_port()
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    log = open(os.path.join(out, "router.log"), "w")
+    proc = subprocess.Popen(_fleet_cmd(yaml, port, out, opts), env=env, stdout=log,
+                            stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__)))
+    log.close()
+    return proc, port
+
+
+def _router_stats(port: int):
+    import socket
+
+    from distribuuuu_tpu_torch.serve import protocol
+
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=10) as c:
+            protocol.send_frame(c, protocol.ctrl_request("stats"))
+            return json.loads(protocol.recv_frame(c))
+    except OSError:
+        return None
+
+
+def _wait_for(pred, timeout: float, what: str):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(0.2)
+    raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+
+
+def _stop_fleet(proc, out: str) -> dict:
+    """SIGTERM the router (the fleet drains), wait, and read each
+    replica's kernel launches from its log (the drain's line, else the
+    warm-up's) and the router's records."""
+    import re
+
+    proc.terminate()
+    rc = proc.wait(timeout=120)
+    launches = {}
+    for name in sorted(os.listdir(os.path.join(out, "fleet"))):
+        if not name.endswith(".log"):
+            continue
+        text = open(os.path.join(out, "fleet", name)).read()
+        found = re.findall(r"kernel launches (after warm-up|at drain): (\{.*\})", text)
+        if found:
+            launches[name[:-4]] = {"drained": found[-1][0] == "at drain", **json.loads(found[-1][1])}
+    recs = _read_jsonl(os.path.join(out, "telemetry", "rank00000.jsonl"))
+    return {"rc": rc, "launches": launches, "router_records": recs}
+
+
+def _ask(port: int, payload: bytes, conn=None) -> dict:
+    import socket
+
+    from distribuuuu_tpu_torch.serve import protocol
+
+    c = conn or socket.create_connection(("127.0.0.1", port), timeout=120)
+    try:
+        protocol.send_frame(c, payload)
+        return json.loads(protocol.recv_frame(c))
+    finally:
+        if conn is None:
+            c.close()
+
+
+def _burst(port: int, payloads, clients: int = FLEET_CLIENTS, during=None):
+    """``payloads`` over ``clients`` persistent connections at once;
+    (answers in order, wall s, per-request ms). ``during`` runs once the
+    burst is under way."""
+    import socket
+    import threading
+
+    answers, lat = [None] * len(payloads), [0.0] * len(payloads)
+
+    def client(k):
+        with socket.create_connection(("127.0.0.1", port), timeout=120) as c:
+            for i in range(k, len(payloads), clients):
+                t0 = time.perf_counter()
+                answers[i] = _ask(port, payloads[i], c)
+                lat[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if during is not None:
+        time.sleep(0.1)
+        during()
+    for t in threads:
+        t.join(300)
+    return answers, time.perf_counter() - t0, lat
+
+
+def _npy_payload(img) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, img)
+    return buf.getvalue()
+
+
+def fleet_serve_phase(fleet, payloads, ref, meanwhile=None) -> dict:
+    """``serve_net --fleet 2 --cfg config/resnet50.yaml SERVE.QUANTIZE
+    int8`` (started by the caller): FLEET_REQUESTS answers through the
+    router against the in-process int8 engine's; the fleet's img/s over
+    FLEET_CLIENTS connections against one replica's (the same load sent
+    to its own port), the router's added p50 (FLEET_SEQ sequential
+    requests each way); a replica SIGKILLed 0.1 s into a burst of four
+    times the requests: no request lost, the pool back at its target
+    (``meanwhile()`` runs while the replacement warms); the replicas'
+    conv-epilogue launches from their logs; the router's fleet.* records
+    valid."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch.serve.fleet import probe_stats
+    from distribuuuu_tpu_torch.telemetry import schema
+
+    proc, port, out = fleet
+    t0 = time.perf_counter()
+    st = _wait_for(lambda: (lambda s: s if s and s["routable"] == 2 else None)(_router_stats(port)),
+                   300, "the image fleet's two replicas")
+    warm_s = time.perf_counter() - t0
+    answers, wall, _ = _burst(port, payloads)
+    got = np.array([a["logits"] for a in answers], np.float32)
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    top1 = float((got.argmax(1) == ref.argmax(1)).mean())
+    one = st["per_replica"][0]
+    _, one_wall, _ = _burst(one["port"], payloads)
+    _, fleet_wall, _ = _burst(port, payloads)
+    seq_router = _burst(port, payloads[:FLEET_SEQ], clients=1)[2]
+    seq_direct = _burst(one["port"], payloads[:FLEET_SEQ], clients=1)[2]
+    victim = _router_stats(port)["per_replica"][0]
+    pid = probe_stats(("127.0.0.1", victim["port"]))["pid"]
+    killed, kwall, _ = _burst(port, payloads * 4, during=lambda: os.kill(pid, 9))
+    lost = sum(1 for a in killed if a is None or "logits" not in a)
+    t1 = time.perf_counter()
+    side = meanwhile() if meanwhile is not None else None
+    after = _wait_for(lambda: (lambda s: s if s and s["routable"] == 2 and victim["replica"] not in
+                               [r["replica"] for r in s["per_replica"]] else None)(
+        _router_stats(port)), 300, "the replacement replica")
+    replace_s = time.perf_counter() - t1
+    stop = _stop_fleet(proc, out)
+    bad_recs = []
+    for r in stop["router_records"]:
+        try:
+            schema.validate_record(r)
+        except schema.SchemaError as e:
+            bad_recs.append(str(e))
+    kinds = sorted({r["kind"] for r in stop["router_records"] if r["kind"].startswith("fleet.")})
+    res = {"phase": "fleet_serve", "replicas": 2, "quantize": "int8",
+           "requests": len(payloads), "warm_s": warm_s,
+           "rel_err_vs_in_process_int8": rel, "rel_tol": SLICE_REL_TOL, "top1_agreement": top1,
+           "first_burst_img_per_s": len(payloads) / wall,
+           "fleet_img_per_s": len(payloads) / fleet_wall,
+           "one_replica_img_per_s": len(payloads) / one_wall,
+           "fleet_over_one": one_wall / fleet_wall,
+           "router_p50_ms": _pct(seq_router, 0.5), "direct_p50_ms": _pct(seq_direct, 0.5),
+           "router_added_p50_ms": _pct(seq_router, 0.5) - _pct(seq_direct, 0.5),
+           "killed_replica": victim["replica"], "burst_with_kill_answered": len(killed) - lost,
+           "lost": lost, "kill_burst_wall_s": kwall, "replacement_s": replace_s,
+           "replicas_after": [r["replica"] for r in after["per_replica"]],
+           "rerouted": after["rerouted"], "replica_failures": after["replica_failures"],
+           "router_rc": stop["rc"], "fleet_kinds": kinds, "invalid_records": bad_recs,
+           "replica_launches": stop["launches"]}
+    emit(res)
+    if rel > SLICE_REL_TOL or lost or stop["rc"] != 0 or bad_recs \
+            or not {"fleet.stats", "fleet.replica"} <= set(kinds) \
+            or not all(v["drained"] for k, v in stop["launches"].items()
+                       if k != f"replica{victim['replica']}"):
+        raise AssertionError(f"fleet_serve: {res}")
+    return {"conv_epilogue": sum(v["conv_epilogue"] for v in stop["launches"].values()),
+            "meanwhile": side}
+
+
+def _lm_fleet_opts(weights_path: str) -> list:
+    return ["DEVICE.COMPUTE_DTYPE", "float32", "RNG_SEED", "0", "GENERATE.EOS_ID", "-1",
+            "MODEL.WEIGHTS", weights_path, "SERVE.LONG_PROMPT_THRESHOLD",
+            str(LM_FLEET_THRESHOLD), "SERVE.MAX_QUEUE", "64"]
+
+
+def lm_fleet_weights(torch, path: str) -> str:
+    """A gpt_nano state dict from seed 5, written as the user's ``.pth``."""
+    from distribuuuu_tpu_torch.models import build_model
+
+    model = build_model("gpt_nano", num_classes=320, dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(5))
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def lm_fleet_reference(torch, weights_path: str, prompts) -> list:
+    """The greedy streams of one in-process engine under the LM fleet's
+    config: what every stream through the fleet must equal."""
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.lm import service as lm_service
+
+    config.reset_cfg()
+    config.merge_from_file("config/gpt_nano.yaml")
+    cfg.merge_from_list(["DEVICE.PLATFORM", "auto", "SERVE.DEVICE", 0,
+                         *_lm_fleet_opts(weights_path)])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng = lm_service.engine_from_cfg()
+    eng.start()
+    want = [s.result(timeout=300) for s in [eng.submit(p) for p in prompts]]
+    eng.drain()
+    return want
+
+
+def fleet_lm_phase(fleet, prompts, want) -> dict:
+    """``serve_net --fleet 2 --cfg config/gpt_nano.yaml`` at f32 with
+    ``MODEL.WEIGHTS`` a ``.pth`` and SERVE.LONG_PROMPT_THRESHOLD
+    LM_FLEET_THRESHOLD (started by the caller): LM_FLEET_REQUESTS streamed
+    greedy requests through the router, short and long prompts at once,
+    identical to one in-process engine's streams (``want``); the router's
+    fleet.length_class rows for both classes; the replicas'
+    decode-attention launches from their logs."""
+    import threading
+
+    from distribuuuu_tpu_torch.lm import service as lm_service
+    from distribuuuu_tpu_torch.telemetry import schema
+
+    proc, port, out = fleet
+    t0 = time.perf_counter()
+    _wait_for(lambda: (lambda s: s if s and s["routable"] == 2 else None)(_router_stats(port)),
+              300, "the LM fleet's two replicas")
+    warm_s = time.perf_counter() - t0
+    got = [None] * len(prompts)
+
+    def one(i):
+        frames = list(lm_service.generate_request("127.0.0.1", port, tokens=prompts[i],
+                                                  timeout=120))
+        got[i] = [f["token"] for f in frames if "token" in f]
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+    t1 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t1
+    stats = _router_stats(port)
+    stop = _stop_fleet(proc, out)
+    rows = {r["length_class"]: r for r in stop["router_records"]
+            if r["kind"] == "fleet.length_class"}
+    for r in stop["router_records"]:
+        schema.validate_record(r)
+    res = {"phase": "fleet_lm", "replicas": 2, "dtype": "float32", "requests": len(prompts),
+           "threshold": LM_FLEET_THRESHOLD, "warm_s_left": warm_s,
+           "streams_equal_in_process": got == want, "tokens": sum(len(s) for s in got),
+           "tokens_per_s": sum(len(s) for s in got) / wall, "wall_s": wall,
+           "length_classes": stats.get("length_classes"),
+           "length_class_records": sorted(rows), "router_rc": stop["rc"],
+           "replica_launches": stop["launches"]}
+    emit(res)
+    if got != want or set(rows) != {"short", "long"} or stop["rc"] != 0 \
+            or not all(v["drained"] for v in stop["launches"].values()):
+        raise AssertionError(f"fleet_lm: {res}")
+    return {"decode_attention": sum(v["decode_attn"] for v in stop["launches"].values())}
+
+
+def slice18_phases(torch, ce, da, dev) -> dict:
+    """orbax_weights, quantize_serve, then both fleets started at once:
+    while they warm, the LM fleet's in-process reference; the image fleet's
+    phase (fleet_serve), whose killed replica's replacement warms while
+    the LM fleet's phase (fleet_lm) runs. Their launch counts for the
+    kernels line."""
+    import shutil
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_slice18_")
+    fleets = []
+    try:
+        orbax_res = orbax_weights_phase(torch, da, dev)
+        payloads = [_npy_payload(img) for img in np.random.default_rng(19).integers(
+            0, 256, (FLEET_REQUESTS, 224, 224, 3), np.uint8)]
+        quant = quantize_serve_phase(torch, ce, dev, payloads)
+        img_out, lm_out = os.path.join(work, "fleet_img"), os.path.join(work, "fleet_lm")
+        pth = lm_fleet_weights(torch, os.path.join(work, "gpt_nano_seed5.pth"))
+        fleets.append(_start_fleet("config/resnet50.yaml", img_out,
+                                   _resnet50_serve_cfg("int8", 256)))
+        fleets.append(_start_fleet("config/gpt_nano.yaml", lm_out, _lm_fleet_opts(pth)))
+        prompts = _lm_prompts(LM_FLEET_REQUESTS, seed=18)
+        want = lm_fleet_reference(torch, pth, prompts)
+        fleet_img = fleet_serve_phase(
+            (*fleets[0], img_out), payloads, quant["fleet_ref"],
+            meanwhile=lambda: fleet_lm_phase((*fleets[1], lm_out), prompts, want))
+        fleet_lm = fleet_img["meanwhile"]
+    finally:
+        for proc, _ in fleets:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "slice18_seconds", "seconds": time.perf_counter() - t0})
+    return {"conv_epilogue": quant["conv_epilogue"] + fleet_img["conv_epilogue"],
+            "decode_attention": orbax_res["decode_attention_launches"]
+            + fleet_lm["decode_attention"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4507,17 +5031,12 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    ptxas = {n: start_ptxas_report(_build, n)
-             for n in ("conv_epilogue", "flash_attention", "group_conv", "decode_attn")}
-    try:
-        _build.build("conv_epilogue", "opt_update", "flash_attention", "decode_attn",
-                     "group_conv")
-    finally:
-        reports = {n: fn() for n, fn in ptxas.items()}  # waits for its nvcc either way
+    _build.build("conv_epilogue", "opt_update", "flash_attention", "decode_attn", "group_conv")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(_build.build_seconds)})
-    for n, report in reports.items():
-        emit({"phase": f"build_{n}", "seconds": _build.build_seconds[n], "ptxas": report})
+    for n in ("conv_epilogue", "flash_attention", "group_conv", "decode_attn"):
+        emit({"phase": f"build_{n}", "seconds": _build.build_seconds[n],
+              "ptxas": ptxas_report(_build.build_logs.get(n, ""))})
 
     rows, worst = kernel_phase(torch, ce, dev)
     emit(forward_total(rows, arch="resnet50", batch=8))
@@ -4607,6 +5126,10 @@ def main(argv=None) -> int:
     # LM's records and request traces
     tel = telemetry_phases(torch, ce, ou, da, dev)
     tf32_off()
+    # a JAX-trained checkpoint read with no JAX, quantized buckets, and
+    # two fleets of replica processes sharing this card
+    s18 = slice18_phases(torch, ce, da, dev)
+    tf32_off()
 
     # real images and process groups: SyncBN in a group of one, the
     # ImageFolder path in that group, then two ranks sharing the card
@@ -4654,7 +5177,7 @@ def main(argv=None) -> int:
         "source": "distribuuuu_tpu_torch/csrc/conv_epilogue.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/conv_epilogue.py:121",
         "launches": launches + reg_serve_ce + real["launches"]["conv_epilogue"]
-        + tel["conv_epilogue"]
+        + tel["conv_epilogue"] + s18["conv_epilogue"]
         + shards["launches"]["conv_epilogue"] + resume["launches"]["conv_epilogue"]
         + loop["conv_epilogue"] + zoo["conv_epilogue"]
         + sum(r["launches"]["conv_epilogue"] for a in ("resnet50", "regnety_160")
@@ -4705,7 +5228,7 @@ def main(argv=None) -> int:
         "source": "distribuuuu_tpu_torch/csrc/decode_attn.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/decode_attn.py:121",
         "launches": lm_launches + lm_big_launches + lm_plane["decode_attention"]
-        + tel["decode_attention"],
+        + tel["decode_attention"] + s18["decode_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in decode_rows.values()),
         **{k: tile[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })

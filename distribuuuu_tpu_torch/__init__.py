@@ -13,7 +13,9 @@ injection, and GPT-nano generation serving (``python -m
 distribuuuu_tpu_torch.serve_net`` / ``train_net --cfg
 config/<arch>.yaml``); on the card every serving bucket, LM tile, train
 step (``TRAIN.STEPS_PER_CALL`` of them at once) and eval step replays one
-CUDA graph (``graphs.py``).
+CUDA graph (``graphs.py``); the JAX package's orbax checkpoints load with
+no JAX (``utils/orbax.py``), serving quantizes weights (``SERVE.QUANTIZE``)
+and runs as a fleet of replica processes (``serve_net --fleet N``).
 """
 
 

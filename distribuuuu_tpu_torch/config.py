@@ -185,7 +185,10 @@ _C.MODEL.PRETRAINED = False
 # ghost groups of BN_GROUP samples (0 = TRAIN.BATCH_SIZE).
 _C.MODEL.SYNCBN = False
 _C.MODEL.BN_GROUP = 0
-# A torch .pth / .pth.tar state dict (utils/weights.load_weights).
+# Weights to load (utils/weights.load_weights): a torch .pth / .pth.tar
+# state dict, or an orbax checkpoint directory the JAX package saved (a
+# weights-only best, a full ckpt_ep_NNN, a sharded save; read without JAX
+# by utils/orbax.py, only its params and batch_stats decoded).
 _C.MODEL.WEIGHTS = None
 _C.MODEL.DUMMY_INPUT = False
 _C.MODEL.MOE = CfgNode()
@@ -323,7 +326,7 @@ _C.GENERATE.SAMPLE.TOP_K = 0
 _C.GENERATE.SAMPLE.TOP_P = 1.0
 _C.GENERATE.SAMPLE.SEED = 0
 # Draft-model speculative decoding: the DRAFT_ARCH model (a gpt_* arch; its
-# own seeded init, or DRAFT_WEIGHTS, a .pth) proposes K tokens a round in
+# own seeded init, or DRAFT_WEIGHTS, a .pth or an orbax directory) proposes K tokens a round in
 # T=1 decode steps, the target verifies all K+1 positions in one call; the
 # largest cache tile must hold PROMPT_LEN + MAX_NEW_TOKENS + K.
 _C.GENERATE.SPECULATE = CfgNode()
@@ -490,17 +493,68 @@ _C.SERVE.MAX_QUEUE = 64
 _C.SERVE.DEVICE = 0
 _C.SERVE.HOST = "127.0.0.1"
 _C.SERVE.PORT = 8765
-# Weight-only quantization: not ported (the port refuses anything but "").
+# Weight-only serving quantization (serve/quantize.py): "" (full
+# precision), "bf16" or "int8". The engine keeps the packed weights on the
+# card and dequantizes them inside every bucket's graph; buckets, protocol
+# and batching are unchanged. Tolerances per mode: quantize.TOLERANCE.
 _C.SERVE.QUANTIZE = ""
 # Length-aware LM admission: prompts of at least LONG_PROMPT_THRESHOLD
 # tokens form the "long" class, which may hold at most LONG_MAX_QUEUE of
 # the MAX_QUEUE slots (0 = no reservation; a reservation needs a threshold).
 _C.SERVE.LONG_PROMPT_THRESHOLD = 0
 _C.SERVE.LONG_MAX_QUEUE = 0
+# Optional per-length-class windowed p99 SLO targets (ms; 0 = no target):
+# the fleet router's `length:short` / `length:long` rows carry them.
+_C.SERVE.SHORT_P99_SLO_MS = 0.0
+_C.SERVE.LONG_P99_SLO_MS = 0.0
 # Request tracing (telemetry/tracectx.py): the fraction of requests a
 # client edge opens a trace for (head-based, a pure function of the trace
 # id). 0.0 keeps every frame byte-identical to an untraced one.
 _C.SERVE.TRACE_SAMPLE = 0.0
+
+# Serving fleet (serve/fleet/, `serve_net --fleet N`): a shared-nothing
+# replica pool behind a router process. The router owns SERVE.HOST:PORT;
+# each replica is a full serve_net engine in its own process (its own CUDA
+# context; several share one card) on an ephemeral port, dispatched to by
+# least-loaded policy (router in-flight depth + replica queue depth +
+# occupancy + EWMA latency), with idempotent retry on replica failure and
+# verbatim backpressure passthrough when the whole fleet is saturated.
+_C.SERVE.FLEET = CfgNode()
+# Initial replica count (`--fleet N` overrides). The autoscaler moves the
+# target inside [MIN_REPLICAS, MAX_REPLICAS]; the pool keeps the target
+# met (dead replicas are replaced automatically).
+_C.SERVE.FLEET.REPLICAS = 2
+_C.SERVE.FLEET.MIN_REPLICAS = 1
+_C.SERVE.FLEET.MAX_REPLICAS = 4
+# Autoscale-from-telemetry policy loop (fleet/autoscale.py): add a replica
+# after BREACH_N consecutive windows with fleet p99 over P99_TARGET_MS or
+# total queued work over QUEUE_HIGH; remove one after BREACH_N consecutive
+# calm windows (p99 under SCALE_DOWN_FRAC x target AND queue under
+# QUEUE_LOW); COOLDOWN_S of hysteresis after every action. False pins the
+# fleet at its launch size (the pool still replaces dead replicas).
+_C.SERVE.FLEET.AUTOSCALE = True
+_C.SERVE.FLEET.P99_TARGET_MS = 250.0
+_C.SERVE.FLEET.QUEUE_HIGH = 32
+_C.SERVE.FLEET.QUEUE_LOW = 2
+_C.SERVE.FLEET.SCALE_DOWN_FRAC = 0.5
+_C.SERVE.FLEET.BREACH_N = 3
+_C.SERVE.FLEET.EVAL_PERIOD_S = 2.0
+_C.SERVE.FLEET.COOLDOWN_S = 10.0
+# Replica health-checking (fleet/pool.py): a stats probe every
+# HEALTH_PERIOD_S; HEALTH_FAILS consecutive failures (or process exit)
+# marks the replica dead, removes it from routing, and spawns its
+# replacement. WARMUP_TIMEOUT_S bounds how long a fresh replica may take
+# to warm (capture) its bucket shapes before it is abandoned — a replica
+# is never routable before its warm-up probe reports every bucket warmed.
+_C.SERVE.FLEET.HEALTH_PERIOD_S = 1.0
+_C.SERVE.FLEET.HEALTH_FAILS = 3
+_C.SERVE.FLEET.WARMUP_TIMEOUT_S = 180.0
+# Per-request router->replica socket timeout; a replica that sits on one
+# request longer than this is treated as failed (the request reroutes).
+_C.SERVE.FLEET.REQUEST_TIMEOUT_S = 60.0
+# Fleet telemetry cadence: kind="fleet.stats"/"fleet.replica" records
+# into the router's per-rank telemetry sink every EMIT_INTERVAL_S.
+_C.SERVE.FLEET.EMIT_INTERVAL_S = 10.0
 
 # ------------------------------- telemetry ----------------------------------
 # The telemetry layer (telemetry/): per-rank JSONL files

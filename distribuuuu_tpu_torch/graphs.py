@@ -156,6 +156,13 @@ class StepGraph:
         return out
 
 
+def pool_bytes(pool) -> int:
+    """The bytes the caching allocator holds for the graph memory pool
+    ``pool`` (a ``torch.cuda.graph_pool_handle()``), over every card."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
 def capture_trivial(n: int, device) -> int:
     """Capture ``n`` trivial graphs (``x + 1``) at ``n`` distinct shapes,
     each after its warm-up call, and replay each once: real captures that

@@ -42,7 +42,7 @@ from distribuuuu_tpu_torch.telemetry import tracectx
 def engine_from_cfg(graphed: bool | None = None) -> GenerateEngine:
     """The generation engine from the global cfg: the configured gpt_*
     arch on ``cuda:{SERVE.DEVICE}`` (the CPU only under ``DEVICE.PLATFORM
-    cpu``), weights from ``MODEL.WEIGHTS`` (a torch ``.pth``) or made from
+    cpu``), weights from ``MODEL.WEIGHTS`` (a torch ``.pth`` or an orbax directory) or made from
     ``RNG_SEED``, GENERATE.* tiles warmed; ``graphed`` as
     :class:`GenerateEngine`'s. ``GENERATE.SPECULATE.ENABLED`` also builds
     the ``DRAFT_ARCH`` draft (:func:`_draft_from_cfg`), and every decode
@@ -72,7 +72,7 @@ def _draft_from_cfg() -> dict:
     """The draft half of a speculative engine from ``GENERATE.SPECULATE``:
     the ``DRAFT_ARCH`` model, made from ``RNG_SEED`` like the target (so
     ``DRAFT_ARCH`` = ``MODEL.ARCH`` drafts with the target's own weights)
-    or loaded from ``DRAFT_WEIGHTS`` (a ``.pth``), after the
+    or loaded from ``DRAFT_WEIGHTS`` (a ``.pth`` or an orbax directory), after the
     tokenizer-identity check: speculation verifies the draft's token ids
     under the target's distribution."""
     from distribuuuu_tpu_torch.models import build_model

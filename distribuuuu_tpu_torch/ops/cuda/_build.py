@@ -32,12 +32,15 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers, spills and shared memory, in build_logs
 )
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds each source took to compile in this process (0.0 = loaded as built)
 build_seconds: dict[str, float] = {}
+# nvcc's output of each source compiled in this process (ptxas' -v report)
+build_logs: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -104,6 +107,7 @@ def build(*names: str) -> dict[str, ctypes.CDLL]:
         for n, (proc, tmp, lib, t0) in procs.items():
             log, _ = proc.communicate()
             build_seconds[n] = time.perf_counter() - t0
+            build_logs[n] = log.decode()
             if proc.returncode != 0:
                 errors.append(f"{n}.cu (exit {proc.returncode}):\n{log.decode()}")
                 continue

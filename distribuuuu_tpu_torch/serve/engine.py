@@ -26,13 +26,21 @@ distribuuuu_tpu/serve/engine.py), in the order requests meet it:
 
 The forward is the model's eval forward. The fp32 master weights are cast
 to the compute dtype once, here (``model.prepare()``), not per forward.
+Under ``SERVE.QUANTIZE`` (``bf16`` or ``int8``, ``serve/quantize.py``) the
+engine keeps only the packed weights on the card; every bucket's graph
+dequantizes them and runs ``prepare()`` at its head, every replay, as the
+JAX engine dequantizes inside its compiled forward. ``memory`` holds the
+engine's ``torch.cuda.memory_allocated`` after warm-up and its graphs'
+pool bytes, to compare a quantized engine's footprint with full
+precision's.
 
 Telemetry: the warm-up's captures add to the registry's
 ``serve.aot_compiles`` (and, as every capture, to ``jit.compiles``); each
-bucket's ledger (``serve_bucket_{b}``: the forward counted on the meta
-device, and the graph's first-call memory) lands before it serves; the
-completer writes a ``kind="serve"`` snapshot every ``EMIT_INTERVAL_S`` and
-one at shutdown.
+bucket's ledger (``serve_bucket_{b}``, ``serve_bucket_{b}_{mode}`` when
+quantized: the forward counted on the meta device, and the graph's
+first-call memory) lands before it serves; a quantized engine emits one
+``kind="serve.quantized"`` record (JAX's byte meta); the completer writes
+a ``kind="serve"`` snapshot every ``EMIT_INTERVAL_S`` and one at shutdown.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ from queue import Queue
 import numpy as np
 import torch
 
-from distribuuuu_tpu_torch import graphs, not_ported
+from distribuuuu_tpu_torch import graphs
 from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.data.transforms import normalize_on_device
 from distribuuuu_tpu_torch.serve.admission import (
@@ -116,8 +124,10 @@ class Engine:
         max_queue: int | None = None,
         input_dtype=np.uint8,
         graphed: bool | None = None,
+        quantize: str | None = None,
     ):
-        self.quantize_mode = ""  # SERVE.QUANTIZE is refused by engine_from_cfg
+        self.quantize_mode = str((cfg.SERVE.QUANTIZE if quantize is None else quantize) or "")
+        self.quantize_meta = None
         self.device = torch.device(device)
         self.im_size = int(im_size)
         self.max_batch = int(max_batch if max_batch is not None else cfg.SERVE.MAX_BATCH)
@@ -144,7 +154,24 @@ class Engine:
             # fp32 means fp32: cuDNN convs would otherwise run TF32
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        self.model = model.to(self.device).eval().prepare()
+        model.eval()
+        count = telemetry_spans.enabled() and cfg.TELEMETRY.COSTMODEL
+        self._meta = costmodel.meta_copy(model.prepare()) if count else None
+        model.eval()  # a mode change drops the host caches prepare() made for the copy
+        self._packed = None
+        if self.quantize_mode:
+            from distribuuuu_tpu_torch.serve import quantize as quantize_lib
+
+            packed, self.quantize_meta = quantize_lib.quantize_state(model, self.quantize_mode)
+            self._packed = quantize_lib.Packed(model, packed, self.device)
+            telemetry_spans.emit_event(
+                "serve.quantized", arch=cfg.MODEL.ARCH, mode=self.quantize_mode,
+                **{k: self.quantize_meta[k] for k in ("bytes_before", "bytes_after", "leaves",
+                                                       "quantized_leaves")})
+            self.model = model.to(self.device)
+        else:
+            self.model = model.to(self.device).prepare()
+        self.memory: dict = {}
 
         # two staging buffers per bucket: the batcher fills one while the
         # other's copy may still be in flight
@@ -194,9 +221,11 @@ class Engine:
         if g is None:
             stage = self._stages[bucket][0].host
             x = torch.empty(stage.shape, dtype=stage.dtype, device=self.device)
-            model = self.model  # not self: the graph is freed with the engine
+            model, packed = self.model, self._packed  # not self: freed with the engine
 
             def body():
+                if packed is not None:  # dequant and prepare(), in the graph
+                    packed.bind()
                 return model(normalize_on_device(x) if x.dtype == torch.uint8 else x)
 
             g = self._graphs[bucket] = graphs.StepGraph(body, {"x": x}, device=self.device,
@@ -324,10 +353,9 @@ class Engine:
 
     def _warm_up(self) -> None:
         try:
-            count = telemetry_spans.enabled() and cfg.TELEMETRY.COSTMODEL
-            meta = costmodel.meta_copy(self.model) if count else None
+            meta, mode = self._meta, self.quantize_mode
             for b in self.buckets:  # each bucket's warm-up call and capture
-                label = f"serve_bucket_{b}"
+                label = f"serve_bucket_{b}_{mode}" if mode else f"serve_bucket_{b}"
                 if meta is not None:
                     costmodel.capture_step(self._bucket_work(meta, b), label=label,
                                            phase="serve", images=b, device=self.device,
@@ -340,6 +368,11 @@ class Engine:
             telemetry_registry.get_registry().counter("serve.aot_compiles").inc(self.n_compiles)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+                self.memory = {
+                    "allocated_bytes": torch.cuda.memory_allocated(self.device),
+                    "pool_bytes": graphs.pool_bytes(self._pool) if self._pool else 0,
+                    "packed_bytes": self._packed.resident_bytes if self._packed else 0,
+                }
         except BaseException as e:  # noqa: BLE001 — re-raised in __init__
             self._warm_error = e
         finally:
@@ -396,15 +429,19 @@ class Engine:
 def engine_from_cfg(graphed: bool | None = None) -> Engine:
     """Build a serving Engine from the global cfg: the configured arch on
     ``cuda:{SERVE.DEVICE}`` (or the CPU under ``DEVICE.PLATFORM cpu``),
-    weights from ``MODEL.WEIGHTS`` (a torch ``.pth``) or made from
-    ``RNG_SEED``, input dtype per ``DATA.DEVICE_NORMALIZE``; ``graphed``
+    weights from ``MODEL.WEIGHTS`` (a torch ``.pth`` or an orbax
+    directory) or made from ``RNG_SEED``, input dtype per
+    ``DATA.DEVICE_NORMALIZE``, packed per ``SERVE.QUANTIZE``; ``graphed``
     as :class:`Engine`'s."""
     from distribuuuu_tpu_torch import trainer
     from distribuuuu_tpu_torch.utils import weights
 
+    from distribuuuu_tpu_torch.serve.quantize import MODES
+
+    if cfg.SERVE.QUANTIZE and cfg.SERVE.QUANTIZE not in MODES:
+        raise ValueError(f"SERVE.QUANTIZE must be one of {MODES} (or empty), "
+                         f"got {cfg.SERVE.QUANTIZE!r}")
     device = trainer.device_from_cfg()
-    if cfg.SERVE.QUANTIZE:
-        raise not_ported(f"SERVE.QUANTIZE={cfg.SERVE.QUANTIZE!r}", "Serving quantization")
     model = trainer.build_model_from_cfg()
     if cfg.MODEL.WEIGHTS:
         weights.load_weights(model, cfg.MODEL.WEIGHTS)
@@ -421,4 +458,5 @@ def engine_from_cfg(graphed: bool | None = None) -> Engine:
         device=device,
         input_dtype=np.uint8 if cfg.DATA.DEVICE_NORMALIZE else np.float32,
         graphed=graphed,
+        quantize=str(cfg.SERVE.QUANTIZE or ""),
     )

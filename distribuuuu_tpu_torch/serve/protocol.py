@@ -250,8 +250,12 @@ def serve_forever(engine, listener: socket.socket, should_stop, topk: int = 5,
     finally:
         listener.close()
         engine.drain()
+        # one 5 s grace for all handlers, not 5 s each: a fleet router holds
+        # pooled connections open until the replica exits, so a handler may
+        # sit in recv until then (the threads are daemons)
+        deadline = time.perf_counter() + 5.0
         for t in handlers:
-            t.join(timeout=5.0)
+            t.join(timeout=max(0.0, deadline - time.perf_counter()))
 
 
 # -- batch mode -------------------------------------------------------------

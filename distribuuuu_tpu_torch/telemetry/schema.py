@@ -38,6 +38,29 @@ KINDS: dict[str, frozenset] = {
         {"requests", "rejected", "batches", "throughput_rps", "p50_ms",
          "p90_ms", "p99_ms", "batch_occupancy"}
     ),
+    # one per quantized engine start: the weight repack's footprint
+    "serve.quantized": frozenset(
+        {"arch", "mode", "bytes_before", "bytes_after", "leaves"}
+    ),
+    # -- the serving fleet (serve/fleet/: router, pool, autoscaler) -----------
+    "fleet.stats": frozenset(
+        {"replicas", "routable", "requests", "rejected", "rerouted",
+         "p50_ms", "p90_ms", "p99_ms"}
+    ),
+    "fleet.replica": frozenset(
+        {"replica", "routable", "inflight", "queue_depth", "ewma_ms",
+         "requests"}
+    ),
+    "fleet.scale": frozenset({"action", "reason", "n_before", "n_after"}),
+    "fleet.model_route": frozenset(
+        {"model", "requests", "rejected", "degraded_in", "degraded_out",
+         "p99_ms"}
+    ),
+    # one row a length class on a length-aware fleet (the router's split at
+    # SERVE.LONG_PROMPT_THRESHOLD prompt tokens)
+    "fleet.length_class": frozenset(
+        {"length_class", "threshold", "requests", "rejected", "p99_ms"}
+    ),
     # -- resilience (a rank's own: mirrored to its sink) ----------------------
     "stall": frozenset({"age_s", "count"}),
     "data_error": frozenset({"index", "attempts", "error"}),

@@ -17,10 +17,13 @@
   by the same paths, plus the step count.
 * :func:`load_weights` loads a torch ``.pth``/``.pth.tar`` (a state dict, a
   ``{"state_dict": ...}`` wrapper or a port checkpoint's ``{"model": ...}``,
-  ``module.`` prefixes stripped).
+  ``module.`` prefixes stripped), or an orbax checkpoint directory of the
+  JAX package (a weights-only ``best``, a full ``ckpt_ep_NNN``, a sharded
+  save), read by ``utils/orbax.py`` and mapped by
+  :func:`state_dict_from_jax`.
 
-An orbax directory (JAX's checkpoint format) and the pretrained URL zoo
-(``MODEL.PRETRAINED``, which needs the network) are refused.
+The pretrained URL zoo (``MODEL.PRETRAINED``, which needs the network) is
+refused.
 """
 
 from __future__ import annotations
@@ -30,8 +33,6 @@ import re
 
 import numpy as np
 import torch
-
-from distribuuuu_tpu_torch import not_ported
 
 # flax block module -> the number of its main ConvBNs (a further one is
 # the downsample)
@@ -354,13 +355,18 @@ def opt_state_from_jax(opt_state, params: dict) -> dict:
 
 
 def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load a torch ``.pth``/``.pth.tar`` into ``model`` (strict)."""
+    """Load a torch ``.pth``/``.pth.tar`` or an orbax checkpoint directory
+    into ``model`` (strict: a JAX leaf with no port tensor, or a port
+    tensor no leaf fills, raises; values are cast to the model's dtypes)."""
     if os.path.isdir(path):
-        raise not_ported(
-            f"MODEL.WEIGHTS={path!r} is a directory (an orbax checkpoint, JAX's "
-            "format); the port loads torch .pth files. Loading orbax checkpoints",
-            "Orbax weights",
-        )
+        from distribuuuu_tpu_torch.utils import orbax
+
+        tree = orbax.read_checkpoint(path, keys=orbax.WEIGHT_KEYS)
+        if "params" not in tree:
+            raise orbax.OrbaxFormatError(f"{path}: the checkpoint holds no 'params'")
+        model.load_state_dict(state_dict_from_jax(tree["params"], tree.get("batch_stats")),
+                              strict=True)
+        return model
     obj = torch.load(path, map_location="cpu", weights_only=True)
     sd = obj.get("state_dict", obj.get("model", obj)) if isinstance(obj, dict) else obj
     if not isinstance(sd, dict):

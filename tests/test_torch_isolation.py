@@ -1,6 +1,7 @@
 """The port stands alone: distribuuuu_tpu_torch, chip_smoke.py and
-flash_fwd_sweep.py import neither JAX (jax, jaxlib, flax, optax, orbax)
-nor anything of the JAX package distribuuuu_tpu — checked both by
+flash_fwd_sweep.py import neither JAX (jax, jaxlib, flax, optax, orbax,
+and orbax's tensorstore and zstandard) nor anything of the JAX package
+distribuuuu_tpu — checked both by
 importing every module in a fresh interpreter and by scanning the
 source — and load no file of it: the port's decoder is its own copy,
 built into distribuuuu_tpu_torch/_build, never the JAX package's
@@ -17,7 +18,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "distribuuuu_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "distribuuuu_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard",
+             "distribuuuu_tpu")
 
 
 def _sources():

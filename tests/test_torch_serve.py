@@ -130,11 +130,15 @@ def test_entry_point_refuses_cpu_unless_asked(platform):
 
 
 def test_unported_serving_features_raise(tmp_path):
-    tcfg.merge_from_list(["DEVICE.PLATFORM", "cpu", "SERVE.QUANTIZE", "bf16"])
-    with pytest.raises(NotImplementedError, match="Serving quantization"):
+    """What serving still refuses: an unknown SERVE.QUANTIZE mode (bf16
+    and int8 are ported), a fleet asked for one engine's batch mode, and
+    tensor-parallel decode."""
+    tcfg.merge_from_list(["DEVICE.PLATFORM", "cpu", "SERVE.QUANTIZE", "int4"])
+    with pytest.raises(ValueError, match="SERVE.QUANTIZE must be one of"):
         engine_from_cfg()
-    with pytest.raises(NotImplementedError, match="Serving fleet"):
-        serve_net.main(["--cfg", "config/resnet50.yaml", "--fleet", "2"])
+    with pytest.raises(SystemExit, match="one engine's one-shot mode"):
+        serve_net.main(["--cfg", "config/resnet50.yaml", "--fleet", "2",
+                        "--batch-input", str(tmp_path / "x.npy")])
     tcfg.defrost()
     with pytest.raises(NotImplementedError, match="Parallel layouts beyond DP"):  # TP decode
         serve_net.main(["--cfg", "config/gpt_nano.yaml", "MESH.MODEL", "2",

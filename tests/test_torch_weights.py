@@ -89,7 +89,11 @@ def test_torchvision_pth_with_module_prefix_loads(tmp_path, wrap):
 
 
 def test_orbax_dir_and_pretrained_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="Orbax weights"):
+    """A directory is read as an orbax checkpoint (tests/test_torch_orbax.py):
+    one that is not an orbax checkpoint is refused, and so is the URL zoo."""
+    from distribuuuu_tpu_torch.utils.orbax import OrbaxFormatError
+
+    with pytest.raises(OrbaxFormatError, match="no _METADATA"):
         weights.load_weights(tmodels.build_model("resnet18"), str(tmp_path))
     tconfig.merge_from_file("config/resnet18.yaml")
     tcfg.merge_from_list(["DEVICE.PLATFORM", "cpu", "MODEL.PRETRAINED", True,
