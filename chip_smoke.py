@@ -137,11 +137,11 @@ eval's.
    botnet50's attention value weights, which must move its f32 card
    logits); one bf16 forward each of densenet161/169/201 at batch 2
    against the CPU; densenet161's peak
-   memory over a bf16 train step at batch 32; the three served archs
+   memory over a bf16 train step at batch 32 (cuDNN's heuristics); the three served archs
    trained one epoch and its eval through ``trainer.train_model`` at their
-   yaml's batch (64, 32, 32); one f32 step card vs CPU each,
-   efficientnet_b0 with its dropout 0.2 on (the host-drawn mask is the
-   same on both).
+   yaml's batch (64, 32, 32); one f32 step card vs CPU each (with the
+   RegNet's, see 11), efficientnet_b0 with its dropout 0.2 on (the
+   host-drawn mask is the same on both).
 9. Real images and process groups:
    * ``syncbn_world1``: one f32 ResNet-50 step (batch 8, TF32 off, cuDNN
      deterministic) with ``BN_GROUP 0`` and no process group, then with
@@ -209,23 +209,29 @@ eval's.
      through the committer: the boundary's blocking time against the
      synchronous save's wall, the payloads bitwise equal, the manifests
      verifying, the steps that overlap the commit against those after;
-   * ``train_loop_drills``: ``train_net`` in subprocesses on the
-     ImageFolder of 8, each drill from a copy of one epoch-1 checkpoint,
-     the three at once: the NaN rollback (FAULTS.NAN_STEP in epoch 2,
+   * ``train_loop_drills``: ``train_net`` in subprocesses on an ImageFolder
+     of its own (8 classes of DRILL_TRAIN and DRILL_VAL JPEGs: DRILL_STEPS
+     steps an epoch), cuDNN's heuristics (no autotune), each drill from a
+     copy of one epoch-1 checkpoint, the three at once; all of it started
+     beside ``shards_exact_resume`` and ``two_ranks_one_card`` (which
+     check bits and logs, not times) and joined before
+     ``train_loop_accum``: the NaN rollback (FAULTS.NAN_STEP in epoch 2,
      MAX_ROLLBACKS 1: it raises after one rollback, a clean rerun
      finishes), a truncated ckpt_ep_001 and a SIGKILL between its rename
      and its manifest (CHECKPOINT.ASYNC), each walked back over;
    * ``train_loop_concurrent_eval``: two epochs of config/resnet50.yaml
      on that ImageFolder (two eval batches of 100 an epoch), after a
-     warm-up run in turns synchronous, with CONCURRENT_EVAL and
-     CHECKPOINT.ASYNC twice, synchronous (cuDNN deterministic): each
-     concurrent run's final state bitwise the synchronous one's beside
-     it, Acc@1 equal, 33 conv-epilogue launches per eval forward, every
+     warm-up run synchronous, then with CONCURRENT_EVAL and
+     CHECKPOINT.ASYNC (cuDNN deterministic): the concurrent run's final
+     state bitwise the synchronous one's before it, Acc@1 equal, 33 conv-epilogue launches per eval forward, every
      one of a concurrent run's off the default stream, a synchronous
      run's off it only in each eval graph's warm-up (its replays run on
      the default stream; a capture launches nothing), the walls.
 11. One graph per step, after the RegNet phases (regnety_160's served
-   weights):
+   weights). Before it, the card halves of the f32 steps card vs CPU of
+   5, 7 and 8; their CPU halves (the CPU f32 and f64 steps, the checks)
+   run in a thread beside ``graph_equal`` and ``recompile_drill``, which
+   read no time, and are joined before ``fold_train``:
    * ``graph_equal``: eager (``graphed=False``) against graph, cuDNN
      deterministic: ResNet-50's and regnety_160's served logits bitwise
      at every bucket, GPT-nano's bf16 greedy streams identical, and after
@@ -237,9 +243,10 @@ eval's.
      equal; then 24 steps of each timed: img/s, step ms, one opt_update
      launch a step;
    * ``recompile_drill``: ``train_model`` (resnet18 at 64², batch 16, one
-     epoch of 64 steps) with FAULTS.RECOMPILE_AT_BATCH 5 and
-     RECOMPILE_N 12 against the run without: 12 more captures in the
-     epoch's record, the final checkpoint bitwise the clean one.
+     epoch of 64 steps) with FAULTS.RECOMPILE_AT_BATCH 40 and
+     RECOMPILE_N 12 (and FAULTS.SLOWDOWN_MS 10, see 14) against the run
+     without: 12 more captures in the epoch's record, the final
+     checkpoint bitwise the clean one.
 12. Telemetry on the card (``telemetry_phases``, after the LM plane):
    * ``telemetry_train``: config/resnet50.yaml (bf16, batch 32, dummy
      data) through ``train_model``, two epochs of 64 graphed steps and
@@ -293,7 +300,40 @@ eval's.
      replica's replacement warms: 16 streamed greedy requests identical
      to one in-process engine's, ``fleet.length_class`` rows for both
      classes, the replicas' decode-attention launches.
-14. Prints the ``{"kernels": [...]}`` line, the card's name and power
+14. The live plane (``slice19_phases``, after the fleet):
+   * ``monitor_live``: ``python -m distribuuuu_tpu_torch.telemetry.live
+     RUN --json-lines --prometheus-port -1 --rules
+     config/monitor_rules.yaml`` (``LiveMonitor``) attached before the run
+     starts to ``telemetry_train``'s run (a tick every 0.5 s: no alert; its
+     last snapshot's steps and graph captures and its snapshots'
+     checkpoint saves equal ``telemetry/report.build_report`` of the
+     finished run; /metrics scraped once and carrying those totals) and to
+     ``recompile_drill``'s storm run (a tick every 0.1 s; that run sleeps
+     STORM_SLOWDOWN_MS a batch so its first step and its storm at batch
+     RECOMPILE_AT land in different windows: exactly recompile-storm);
+   * ``campaign_degrade`` and ``campaign_lm``: both fleets started at
+     once (``serve/campaign/fleet.MultiModelFleet``: resnet50 and resnet18
+     from config/resnet50.yaml at 224², bf16, with ``serve_campaign``'s
+     serving knobs; gpt_nano from config/gpt_nano.yaml at full width with
+     its queue, tiles and budgets), then in turn: the warmed premium
+     model's closed-loop capacity (CAMPAIGN_CAP_CLIENTS clients through
+     the router for CAMPAIGN_CAP_S), k = capacity / CAMPAIGN_REF_RPS, the
+     card spec of the shipped YAML (``card_spec``: rates times k, the ms
+     SLOs and thresholds over k), its replay by the port's
+     ``CampaignRunner`` (the degrade payloads uint8 224² npy, as
+     fleet_serve sends them; the LM's ``lm_payload_bank``), each phase's
+     raised and expected alerts, counts and the open-loop client's send
+     lag, the per-model rows, the replicas' kernel launches from their
+     logs at the drain. Each must be ``ok`` with a deterministic schedule,
+     the shipped schedule's hash JAX's (JAX_SCHEDULE_HASH) and no failed
+     request;
+   * ``soak_smoke``: ``python -m distribuuuu_tpu_torch.soak --smoke
+     --serve --per-class SOAK_PER_CLASS`` on the card: the control and
+     nonfinite intervals each raise exactly their alerts, the gate is
+     evaluated and passes, the fleet's hot-reload loses no request, the
+     monitored control run is bitwise the unmonitored rerun, the training
+     runs launch opt_update.
+15. Prints the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``graph_vs_eager``: the graph against the eager body in
@@ -447,7 +487,7 @@ def resnet50_sites(batch: int, im: int):
     return sites
 
 
-def time_ms(torch, fn, reps: int = 25, warmup: int = 3, hold_cycles: int = 50_000_000) -> float:
+def time_ms(torch, fn, reps: int = 15, warmup: int = 3, hold_cycles: int = 30_000_000) -> float:
     """Median device time of one call: CUDA events around each call, with
     the stream held by a sleep kernel of ``hold_cycles`` clock cycles while
     the host enqueues, so host launch overhead does not enter the device
@@ -1276,7 +1316,7 @@ def vit_train_phase(torch, fa, ou, out_dir: str):
 
 def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, tweak=None,
                       reach=None, host=None, hyper=None, lr: float = 0.1,
-                      num_classes: int = 1000, **model_kw):
+                      num_classes: int = 1000, defer: bool = False, **model_kw):
     """One f32 train step of ``arch`` (full width, TF32 off) on the card
     and on the port's CPU path, and one f64 step on the CPU, from the same
     weights and batch. The card's update agrees with the CPU's f32 update
@@ -1287,7 +1327,11 @@ def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, tweak=
     names the weights whose zeroing must move the card's train-mode
     logits (on a copy, before the step). ``host`` is the batch (default
     seeded 224² uint8 images), ``hyper`` and ``lr`` the optimizer's
-    (default SGD Nesterov at 0.1)."""
+    (default SGD Nesterov at 0.1). With ``defer`` the card's step runs now
+    and the function returned runs the two CPU steps and the checks (the
+    caller runs it beside phases that read no time); the steps read
+    ``RNG_SEED`` and ``DATA.DEVICE_NORMALIZE`` from the global config,
+    which those phases leave at 0 and True."""
     import copy
 
     import numpy as np
@@ -1305,8 +1349,11 @@ def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, tweak=
                 "label": torch.from_numpy(rng.integers(0, 1000, batch).astype(np.int32))}
     hyper = hyper or ou.Hyper(kind="sgd", wd=5e-5, mom=0.9, nesterov=True)
     cpu = torch.device("cpu")
-    deltas, losses = [], []
-    for device, dtype in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
+    deltas, losses, names = [], [], []
+    moved = None
+
+    def one(device, dtype):
+        nonlocal moved
         model = build_model(arch, num_classes=num_classes, dtype=dtype,
                             generator=torch.Generator().manual_seed(0), **model_kw)
         if tweak is not None:
@@ -1324,7 +1371,7 @@ def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, tweak=
                 raise AssertionError(f"{arch}: zeroing the kernel's weights moved the "
                                      f"logits by {moved} of their scale")
             del probe
-        names = [n for n, _ in model.named_parameters()]
+        names[:] = [n for n, _ in model.named_parameters()]
         before = [p.detach().cpu().clone() for p in model.parameters()]
         opt = Optimizer(list(model.named_parameters()), hyper, lr)
         m = trainer.train_step(model.train(), opt, {k: v.to(device) for k, v in host.items()},
@@ -1338,23 +1385,33 @@ def step_vs_cpu_phase(torch, dev, arch: str = "resnet50", batch: int = 4, tweak=
         return float(torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(xs, ys))
                                 / sum((y ** 2).sum() for y in ys)))
 
-    card, cpu32, cpu64 = deltas
-    upd_l2, card_f64, cpu_f64 = l2_rel(card, cpu32), l2_rel(card, cpu64), l2_rel(cpu32, cpu64)
-    per_tensor = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                  for a, b in zip(card, cpu32)]
-    worst = max(range(len(names)), key=per_tensor.__getitem__)
-    res = {"phase": "step_vs_cpu", "arch": arch, "batch": batch, "dtype": "float32",
-           "logits_moved_by_zeroed_kernel_weights": moved if reach is not None else None,
-           "loss_card": losses[0], "loss_cpu": losses[1], "loss_cpu_f64": losses[2],
-           "update_l2_rel_err": upd_l2, "update_l2_tol": STEP_UPDATE_L2_TOL,
-           "card_vs_f64_update_l2": card_f64, "cpu_f32_vs_f64_update_l2": cpu_f64,
-           "update_rel_err_median_tensor": float(np.median(per_tensor)),
-           "update_rel_err_worst_tensor": [names[worst], per_tensor[worst]]}
-    emit(res)
-    if not (upd_l2 <= STEP_UPDATE_L2_TOL and card_f64 <= STEP_F64_RATIO_MAX * cpu_f64):
-        raise AssertionError(f"{arch} f32 step card vs CPU: update L2 rel err {upd_l2} (tol "
-                             f"{STEP_UPDATE_L2_TOL}); from f64: card {card_f64}, CPU f32 "
-                             f"{cpu_f64} (ratio max {STEP_F64_RATIO_MAX})")
+    def finish() -> None:
+        """The CPU half: its f32 and f64 steps, the comparison, the row."""
+        one(cpu, torch.float32)
+        one(cpu, torch.float64)
+        card, cpu32, cpu64 = deltas
+        upd_l2, card_f64 = l2_rel(card, cpu32), l2_rel(card, cpu64)
+        cpu_f64 = l2_rel(cpu32, cpu64)
+        per_tensor = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                      for a, b in zip(card, cpu32)]
+        worst = max(range(len(names)), key=per_tensor.__getitem__)
+        res = {"phase": "step_vs_cpu", "arch": arch, "batch": batch, "dtype": "float32",
+               "logits_moved_by_zeroed_kernel_weights": moved if reach is not None else None,
+               "loss_card": losses[0], "loss_cpu": losses[1], "loss_cpu_f64": losses[2],
+               "update_l2_rel_err": upd_l2, "update_l2_tol": STEP_UPDATE_L2_TOL,
+               "card_vs_f64_update_l2": card_f64, "cpu_f32_vs_f64_update_l2": cpu_f64,
+               "update_rel_err_median_tensor": float(np.median(per_tensor)),
+               "update_rel_err_worst_tensor": [names[worst], per_tensor[worst]]}
+        emit(res)
+        if not (upd_l2 <= STEP_UPDATE_L2_TOL and card_f64 <= STEP_F64_RATIO_MAX * cpu_f64):
+            raise AssertionError(f"{arch} f32 step card vs CPU: update L2 rel err {upd_l2} (tol "
+                                 f"{STEP_UPDATE_L2_TOL}); from f64: card {card_f64}, CPU f32 "
+                                 f"{cpu_f64} (ratio max {STEP_F64_RATIO_MAX})")
+
+    one(dev, torch.float32)
+    if defer:
+        return finish
+    finish()
 
 
 # the real-data phase's ImageFolder: ImageNet-like JPEGs (quality 90, sides
@@ -1385,9 +1442,10 @@ TWO_RANK_LOSS_RTOL = 1e-6
 TWO_RANK_BATCH, TWO_RANK_STEPS, TWO_RANK_GHOST = 16, 2, 16
 
 
-def make_image_tree(root: str, seed: int = 0) -> str:
-    """``root/{train,val}/cNN/*.jpg``: REAL_CLASSES classes of REAL_TRAIN
-    and REAL_VAL JPEGs. Each image is a smooth random field (an 8x8 draw
+def make_image_tree(root: str, seed: int = 0, n_train: int = REAL_TRAIN,
+                    n_val: int = REAL_VAL) -> str:
+    """``root/{train,val}/cNN/*.jpg``: REAL_CLASSES classes of ``n_train``
+    and ``n_val`` JPEGs. Each image is a smooth random field (an 8x8 draw
     resized) blended with its class's colour plus fine noise, so it
     compresses like a photograph and its class shows in its colour."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1398,7 +1456,7 @@ def make_image_tree(root: str, seed: int = 0) -> str:
     rng = np.random.default_rng(seed)
     colours = rng.integers(0, 256, (REAL_CLASSES, 3))
     jobs = []
-    for split, n in (("train", REAL_TRAIN), ("val", REAL_VAL)):
+    for split, n in (("train", n_train), ("val", n_val)):
         for c in range(REAL_CLASSES):
             os.makedirs(os.path.join(root, split, f"c{c:02d}"))
             for i in range(n):
@@ -2055,8 +2113,14 @@ def two_ranks_one_card_phase(torch, dev):
 # they differ only in the order of the sums (remat: not even that)
 LOOP_F64_TOL = 1e-10
 LOOP_TIMED_STEPS = 12  # bf16 batch-32 steps timed per variant, after 3 warm-up steps
-# the rollback drill's NaN: the 7th step of epoch 2 (REAL_STEPS steps an epoch)
-LOOP_NAN_STEP = REAL_STEPS + 6
+# the drills' own ImageFolder: REAL_CLASSES classes of DRILL_TRAIN and
+# DRILL_VAL JPEGs (DRILL_STEPS steps an epoch at batch 32), and cuDNN's
+# heuristics (no autotune): they check logs, exit codes and manifests
+DRILL_TRAIN, DRILL_VAL = 32, 8
+DRILL_STEPS = REAL_CLASSES * DRILL_TRAIN // 32
+DRILL_OPTS = ["CUDNN.BENCHMARK", False]
+# the rollback drill's NaN: the 7th step of epoch 2 (DRILL_STEPS steps an epoch)
+LOOP_NAN_STEP = DRILL_STEPS + 6
 # the train loop's model: its yaml and arch, and overrides after the yaml
 # (none on the card; a CPU rehearsal shrinks the model and images here)
 LOOP_YAML, LOOP_ARCH, LOOP_OPTS = "config/resnet50.yaml", "resnet50", []
@@ -2371,9 +2435,10 @@ LOOP_DRILLS = {
 }
 
 
-def loop_drills_phase(root: str, work: str) -> dict:
-    """The resilience drills of ``train_net`` in subprocesses on the
-    ImageFolder, each from a copy of one epoch-1 checkpoint (MAX_EPOCH 2):
+def loop_drills_phase(work: str) -> dict:
+    """The resilience drills of ``train_net`` in subprocesses on an
+    ImageFolder of their own (DRILL_TRAIN and DRILL_VAL a class), each from
+    a copy of one epoch-1 checkpoint (MAX_EPOCH 2):
     the NaN rollback (NAN_STEP in epoch 2, MAX_ROLLBACKS 1: it raises
     after one rollback, then a clean rerun finishes from ckpt_ep_000), a
     truncated ckpt_ep_001 walked back over, and a SIGKILL between
@@ -2384,9 +2449,11 @@ def loop_drills_phase(root: str, work: str) -> dict:
 
     from distribuuuu_tpu_torch.resilience import manifest
 
-    base = os.path.join(work, "drill_base")
     t0 = time.perf_counter()
-    rc, log, _ = _train_net(root, base, "OPTIM.MAX_EPOCH", 1)
+    root = make_image_tree(os.path.join(work, "drill_tree"), seed=1, n_train=DRILL_TRAIN,
+                           n_val=DRILL_VAL)
+    base = os.path.join(work, "drill_base")
+    rc, log, _ = _train_net(root, base, "OPTIM.MAX_EPOCH", 1, *DRILL_OPTS)
     if rc != 0:
         raise AssertionError(f"drill base run exited {rc}: {log[-3000:]}")
     base_s = time.perf_counter() - t0
@@ -2397,7 +2464,7 @@ def loop_drills_phase(root: str, work: str) -> dict:
         rows = []
         for opts, want_rc, needles in LOOP_DRILLS[name]:
             t1 = time.perf_counter()
-            rc, log, _ = _train_net(root, out, "OPTIM.MAX_EPOCH", 2, *opts)
+            rc, log, _ = _train_net(root, out, "OPTIM.MAX_EPOCH", 2, *DRILL_OPTS, *opts)
             missing = [n for n in needles if n not in log]
             rows.append({"rc": rc, "want_rc": want_rc, "missing": missing,
                          "seconds": time.perf_counter() - t1})
@@ -2411,7 +2478,8 @@ def loop_drills_phase(root: str, work: str) -> dict:
 
     with ThreadPoolExecutor(len(LOOP_DRILLS)) as pool:
         drills = dict(pool.map(drill, LOOP_DRILLS))
-    res = {"phase": "train_loop_drills", "arch": LOOP_ARCH, "base_epoch_s": base_s,
+    res = {"phase": "train_loop_drills", "arch": LOOP_ARCH, "steps_an_epoch": DRILL_STEPS,
+           "base_epoch_s": base_s, "seconds": time.perf_counter() - t0,
            "nan_step": LOOP_NAN_STEP, "drills": drills}
     emit(res)
     for name, d in drills.items():
@@ -2422,15 +2490,15 @@ def loop_drills_phase(root: str, work: str) -> dict:
 
 
 CONC_EVAL_BATCH = 100  # two eval batches of the ImageFolder's 200 val images
+CONC_EVAL_RUNS = (False, False, True)  # concurrent? a warm-up, then synchronous, concurrent
 
 
 def loop_concurrent_eval_phase(torch, ce, ou, root: str, work: str) -> dict:
     """``TRAIN.CONCURRENT_EVAL``: two epochs of config/resnet50.yaml on the
     ImageFolder through ``trainer.train_model``, with cuDNN deterministic:
-    a synchronous run to warm up, then in turns synchronous, concurrent
-    (with async commits), concurrent, synchronous: each concurrent run's
-    final parameters, running stats and
-    momentum bitwise the synchronous run's beside it, each epoch's Acc@1
+    a synchronous run to warm up, then synchronous and concurrent (with
+    async commits): the concurrent run's final parameters, running stats
+    and momentum bitwise the synchronous run's before it, each epoch's Acc@1
     equal; 33 conv-epilogue launches per eval forward (two eval batches of
     CONC_EVAL_BATCH an epoch, so each synchronous eval replays its graph);
     off the default stream, in a concurrent run every one of them (the
@@ -2457,7 +2525,7 @@ def loop_concurrent_eval_phase(torch, ce, ou, root: str, work: str) -> dict:
     runs = []
     ce._launch = counted
     try:
-        for i, concurrent in enumerate((False, False, True, True, False)):
+        for i, concurrent in enumerate(CONC_EVAL_RUNS):
             config.reset_cfg()
             config.merge_from_file(LOOP_YAML)
             cfg.merge_from_list([
@@ -2486,7 +2554,7 @@ def loop_concurrent_eval_phase(torch, ce, ou, root: str, work: str) -> dict:
         ce._launch = launch
     states = [r.pop("state") for r in runs]
     differ = []
-    for c, p in ((2, 1), (3, 4)):  # each concurrent run against the synchronous one beside it
+    for c, p in ((2, 1),):  # the concurrent run against the synchronous one before it
         a, b = states[c], states[p]
         pairs = [(f"model/{k}", a["model"][k], v) for k, v in b["model"].items()]
         pairs += [(f"m/{k}", a["opt"]["m"][k], v) for k, v in b["opt"]["m"].items()]
@@ -2514,14 +2582,17 @@ def loop_concurrent_eval_phase(torch, ce, ou, root: str, work: str) -> dict:
     return res
 
 
-def train_loop_phases(torch, ce, ou, dev, root: str, work: str) -> dict:
-    """The rest of the train loop, each phase in turn; returns the kernel
-    launches its train runs made (the accumulated and remat bf16 steps, the
-    async phase's steps, the five concurrent-eval runs)."""
+def train_loop_phases(torch, ce, ou, dev, root: str, work: str, drills) -> dict:
+    """The rest of the train loop, each phase in turn; ``drills`` is the
+    future of ``loop_drills_phase``, which the caller started beside
+    shards_exact_resume and two_ranks_one_card, joined before the timed
+    phases. Returns the kernel launches its train runs made (the
+    accumulated and remat bf16 steps, the async phase's steps, the three
+    concurrent-eval runs)."""
+    drills.result()
     accum = loop_accum_phase(torch, ou, dev)
     remat = loop_remat_phase(torch, ou, dev)
     saves = loop_async_phase(torch, ou, dev, work)
-    loop_drills_phase(root, work)
     conc = loop_concurrent_eval_phase(torch, ce, ou, root, work)
     return {"opt_update": sum(r["opt_update_launches"] for r in accum["bf16"] + remat["bf16"])
             + saves["opt_update_launches"]
@@ -3120,7 +3191,8 @@ def zoo_forward_phase(torch, ce, dev, arch: str, batch: int = ZOO_FORWARD_BATCH,
 
 def zoo_memory_phase(torch, ou, dev, arch: str = "densenet161", batch: int = ZOO_MEMORY_BATCH):
     """Peak ``max_memory_allocated`` of one warm bf16 train step of
-    ``arch`` at ``batch`` (224², ghost BN over the batch), and its ms.
+    ``arch`` at ``batch`` (224², ghost BN over the batch, cuDNN's
+    heuristic algorithms), and its ms.
     The concatenations copy a growing tensor at every dense layer."""
     import numpy as np
 
@@ -3137,7 +3209,10 @@ def zoo_memory_phase(torch, ou, dev, arch: str = "densenet161", batch: int = ZOO
             "label": torch.from_numpy(rng.integers(0, 1000, batch).astype(np.int32))}
     b = {k: v.to(dev) for k, v in host.items()}
     ou.update.launches = 0
-    trainer.train_step(model, opt, b, 5)  # warm-up: cuDNN's choices, the workspaces
+    # cuDNN's heuristic algorithms: autotuning densenet161's convs (forward
+    # and both backward passes of each) took 30 s of the phase
+    bench, torch.backends.cudnn.benchmark = torch.backends.cudnn.benchmark, False
+    trainer.train_step(model, opt, b, 5)  # warm-up: the workspaces
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
@@ -3145,8 +3220,10 @@ def zoo_memory_phase(torch, ou, dev, arch: str = "densenet161", batch: int = ZOO
     loss = trainer.train_step(model, opt, b, 5)["loss"]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
+    torch.backends.cudnn.benchmark = bench
     peak = torch.cuda.max_memory_allocated(dev)
     res = {"phase": "zoo_memory", "arch": arch, "batch": batch, "dtype": "bfloat16",
+           "cudnn_benchmark": False,
            "peak_bytes": peak, "peak_gib": peak / 2 ** 30, "resident_bytes": base,
            "step_ms": ms, "loss": float(loss), "opt_update_launches": ou.update.launches}
     emit(res)
@@ -3205,10 +3282,9 @@ def zoo_weights(torch, arch: str, path: str) -> str:
 def zoo_phases(torch, ce, gc, ou, dev, n_requests: int) -> dict:
     """The image zoo on the card, under DISTRIBUUUU_GROUP_CONV=pallas:
     efficientnet_b0, botnet50 and densenet121 served and trained, the
-    three other DenseNets' forwards, densenet161's peak memory, one f32
-    step card vs CPU each (efficientnet_b0 with its dropout 0.2 on: the
-    host-drawn mask is the same on both). Returns the launches and
-    reports."""
+    three other DenseNets' forwards, densenet161's peak memory (their f32
+    steps card vs CPU run with the RegNet's, before graph_equal). Returns
+    the launches and reports."""
     import shutil
 
     out = {"conv_epilogue": 0, "opt_update": 0, "serve": {}, "train": {}}
@@ -3234,13 +3310,6 @@ def zoo_phases(torch, ce, gc, ou, dev, n_requests: int) -> dict:
         emit({"phase": "zoo_train_seconds", "seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
-    for arch in ("efficientnet_b0", "botnet50", "densenet121"):
-        step_vs_cpu_phase(torch, dev, arch, bn_group=4, tweak=lambda m: seeded_bn(torch, m),
-                          reach=botnet_values if arch == "botnet50" else None)
-    emit({"phase": "zoo_step_vs_cpu_seconds", "seconds": time.perf_counter() - t0})
     return out
 
 
@@ -3254,7 +3323,8 @@ GRAPH_EQUAL_TRAIN = [  # (arch, yaml, overrides): SGD, AdamW (c1, c2 move), drop
 ]
 GRAPH_EQUAL_LM_PROMPTS = 8
 FOLD_K, FOLD_CALLS = 4, 6  # fold_train: steps a call, timed calls
-RECOMPILE_AT, RECOMPILE_N = 5, 12
+RECOMPILE_AT, RECOMPILE_N = 40, 12
+STORM_SLOWDOWN_MS = 10.0  # the faulted recompile_drill run's sleep a batch
 
 
 def _train_cfg(yaml: str, opts: list):
@@ -3416,12 +3486,15 @@ def fold_train_phase(torch, dev) -> dict:
     return res
 
 
-def recompile_drill_phase(torch, work: str) -> dict:
+def recompile_drill_phase(torch, work: str, watch=None) -> dict:
     """``trainer.train_model`` (what train_net runs) on dummy data,
     resnet18 at 64², batch 16, one epoch, cuDNN deterministic, with and
     without FAULTS.RECOMPILE_AT_BATCH RECOMPILE_AT / RECOMPILE_N
     RECOMPILE_N: the faulted epoch records RECOMPILE_N more captures and
-    the final checkpoint is bitwise the clean run's."""
+    the final checkpoint is bitwise the clean run's. The faulted run also
+    sleeps STORM_SLOWDOWN_MS a batch (FAULTS.SLOWDOWN_MS), so its first
+    step and its storm land in different windows of a live monitor;
+    ``watch(run_dir)``, when given, is attached to it (``LiveMonitor``)."""
     from distribuuuu_tpu_torch import trainer
     from distribuuuu_tpu_torch.utils import checkpoint as ckpt
     from distribuuuu_tpu_torch.utils import faults
@@ -3429,16 +3502,20 @@ def recompile_drill_phase(torch, work: str) -> dict:
     out = {}
     t0 = time.perf_counter()
     for fault in (False, True):
+        run_dir = os.path.join(work, "fault" if fault else "clean")
         _train_cfg("config/resnet18.yaml", [
             "MODEL.DUMMY_INPUT", True, "TRAIN.IM_SIZE", 64, "TEST.IM_SIZE", 64,
             "TRAIN.BATCH_SIZE", 16, "TEST.BATCH_SIZE", 256, "OPTIM.MAX_EPOCH", 1,
-            "TRAIN.WORKERS", 2, "TRAIN.PRINT_FREQ", 16,
-            "OUT_DIR", os.path.join(work, "fault" if fault else "clean"),
+            "TRAIN.WORKERS", 2, "TRAIN.PRINT_FREQ", 16, "OUT_DIR", run_dir,
             *(["FAULTS.ENABLED", True, "FAULTS.RECOMPILE_AT_BATCH", RECOMPILE_AT,
-               "FAULTS.RECOMPILE_N", RECOMPILE_N] if fault else [])])
+               "FAULTS.RECOMPILE_N", RECOMPILE_N, "FAULTS.SLOWDOWN_MS", STORM_SLOWDOWN_MS]
+              if fault else [])])
         faults.reset()
         records = []
+        mon = watch(run_dir) if fault and watch is not None else None
         trainer.train_model(records)
+        if mon is not None:
+            mon.finish()
         payload = ckpt.load_checkpoint(ckpt.get_checkpoint(0))
         out[fault] = (records[0]["captures"], payload["model"], payload["opt"]["m"],
                       payload["step"])
@@ -4067,7 +4144,7 @@ def _device_split(path: str, steps: int, classify) -> dict:
                                         key=lambda kv: -kv[1])[:6])}
 
 
-def telemetry_train_phase(torch, ce, ou, out_dir: str) -> dict:
+def telemetry_train_phase(torch, ce, ou, out_dir: str, watch=None) -> dict:
     """config/resnet50.yaml (bf16, batch 32, dummy data) through
     ``trainer.train_model`` with telemetry on: TEL_EPOCHS epochs of 64
     graphed steps and their evals of 2048 images, ``PROF`` over TEL_PROF
@@ -4081,7 +4158,9 @@ def telemetry_train_phase(torch, ce, ou, out_dir: str) -> dict:
     that parses. Prints the ledger's FLOPs an image and MFU against the
     measured step (epoch 2, between its first and last metric flush),
     the roofline, the headroom, the step span's p50 (the host's dispatch)
-    and the timeline's img/s (run_report's) beside the measured img/s."""
+    and the timeline's img/s (run_report's) beside the measured img/s.
+    ``watch(out_dir)``, when given, is attached to the run (``LiveMonitor``)
+    and finished, /metrics scraped, with the run's report."""
     import distribuuuu_tpu_torch.config as config
     from distribuuuu_tpu_torch import graphs, trainer
     from distribuuuu_tpu_torch.config import cfg
@@ -4096,10 +4175,13 @@ def telemetry_train_phase(torch, ce, ou, out_dir: str) -> dict:
                          "PROF.NUM_STEPS", TEL_PROF[1]])
     ou.update.launches = ce.conv1x1_bn_act.launches = 0
     c0, recs = graphs.captures, []
+    mon = watch(out_dir) if watch is not None else None
     t0 = time.perf_counter()
     trainer.train_model(recs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if mon is not None:
+        mon.finish(scrape=True)
     launches = {"opt_update": ou.update.launches, "conv_epilogue": ce.conv1x1_bn_act.launches}
     captures = graphs.captures - c0
     rank = _read_jsonl(os.path.join(out_dir, "telemetry", "rank00000.jsonl"))
@@ -4470,13 +4552,14 @@ def telemetry_lm_phase(torch, da, out_dir: str) -> dict:
     return res
 
 
-def telemetry_phases(torch, ce, ou, da, dev) -> dict:
-    """The three telemetry phases; their launch counts for the kernels line."""
+def telemetry_phases(torch, ce, ou, da, dev, watch=None) -> dict:
+    """The three telemetry phases (``watch`` attached to telemetry_train's
+    run); their launch counts for the kernels line."""
     import shutil
 
     work = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
     try:
-        train = telemetry_train_phase(torch, ce, ou, os.path.join(work, "train"))
+        train = telemetry_train_phase(torch, ce, ou, os.path.join(work, "train"), watch)
         neutral = telemetry_neutral_phase(torch, ou, dev, os.path.join(work, "neutral"))
         lm = telemetry_lm_phase(torch, da, os.path.join(work, "lm"))
     finally:
@@ -4988,6 +5071,380 @@ def slice18_phases(torch, ce, da, dev) -> dict:
             + fleet_lm["decode_attention"]}
 
 
+# -- slice 19: the live plane: campaigns, the run monitor, the soak -----------
+CAMPAIGN_DEGRADE = "config/campaigns/degrade.yaml"
+CAMPAIGN_LM = "config/campaigns/lm_decode.yaml"
+# the schedule hashes the JAX package's DSL gives the two shipped YAMLs (its
+# committed SERVE_CAMPAIGN_r03.json; tests/test_torch_campaign.py holds the
+# port's DSL to the JAX package's on every shipped YAML on the CPU)
+JAX_SCHEDULE_HASH = {
+    "degrade_under_pressure": "7f8bc2618a919260d5e3047428feb6ae8fe5225344a833b410d2c1e29ce8e895",
+    "lm_decode": "ec7f68c1effa99320cab0d5cda1033d3cd8be0dc26f9a306c50195f3aa7b5a9c",
+}
+# the capacity each shipped YAML's rates were written for: the requests a
+# second the premium model's one replica answered while the YAML's own
+# burst saturated it, in the JAX package's committed run of it on a
+# one-core CPU (SERVE_CAMPAIGN_r03.json): the model's answers in the burst
+# phase, less the phase's off-burst arrivals, over the burst window.
+# resnet50: (214 - 9 - 11 - 2 * 14 * 0.55) / (14 * 0.45) s; gpt_nano:
+# (222 - 2 * 12 * 0.65) / (12 * 0.35) s. Scaling by card capacity over
+# these keeps each burst's overload factor (2.1x and 4.1x) as shipped.
+CAMPAIGN_REF_RPS = {"degrade_under_pressure": (214 - 9 - 11 - 2 * 14 * 0.55) / (14 * 0.45),
+                    "lm_decode": (222 - 2 * 12 * 0.65) / (12 * 0.35)}
+CAMPAIGN_CAP_CLIENTS = 4  # closed-loop clients of the capacity probe
+CAMPAIGN_CAP_S = 3.0  # seconds of the capacity probe
+# threads of the open-loop client: a thread is held for a request's whole
+# latency. The degrade burst's answered requests wait in two 16-deep queues
+# (hundreds of ms on a slow host); the LM's refused streams return in about a
+# ms, and more threads than that cost the client more CPU than its requests
+CAMPAIGN_WORKERS = {"degrade_under_pressure": 512, "lm_decode": 128}
+CAMPAIGN_PAYLOADS = 16  # distinct uint8 224² images of the degrade campaign
+MONITOR_RULES = "config/monitor_rules.yaml"
+MONITOR_TICK_S = {"telemetry_train": 0.5, "recompile_storm": 0.1}
+SOAK_PER_CLASS = 8  # images a class of the soak's corpus: 8 batches of 4 an epoch
+SOAK_TICK_S = 1.0  # the soak monitor's interval
+
+
+class LiveMonitor:
+    """``python -m distribuuuu_tpu_torch.telemetry.live RUN --json-lines
+    --prometheus-port -1 --rules config/monitor_rules.yaml`` in a
+    subprocess, attached to a run directory before the run starts.
+    ``finish()`` waits two ticks past the run's end, optionally scrapes
+    /metrics once, reads the monitor's CPU seconds, interrupts it (its
+    drain), and keeps its snapshots and alerts in ``result``."""
+
+    def __init__(self, run_dir: str, interval: float):
+        import threading
+
+        os.makedirs(run_dir, exist_ok=True)
+        self.run_dir, self.interval = run_dir, interval
+        self.lines, self.result = [], None
+        self._ready = threading.Event()
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "distribuuuu_tpu_torch.telemetry.live", run_dir,
+             "--json-lines", "--prometheus-port", "-1", "--rules", MONITOR_RULES,
+             "--interval", str(interval)],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        if not self._ready.wait(60):
+            self.proc.kill()
+            raise AssertionError(f"monitor did not start: {self.lines}")
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            if line.startswith("monitor: watching"):
+                self._ready.set()
+
+    def finish(self, scrape: bool = False) -> dict:
+        import signal
+        import urllib.request
+
+        time.sleep(2 * self.interval + 0.2)
+        page = None
+        if scrape:
+            url = next(ln.split(" on ", 1)[1] for ln in self.lines if "/metrics on " in ln)
+            with urllib.request.urlopen(url, timeout=10) as r:
+                page = r.read().decode()
+        with open(f"/proc/{self.proc.pid}/stat") as f:
+            ticks = f.read().rsplit(")", 1)[1].split()
+        cpu_s = (int(ticks[11]) + int(ticks[12])) / os.sysconf("SC_CLK_TCK")
+        self.proc.send_signal(signal.SIGINT)
+        rc = self.proc.wait(30)
+        self._reader.join(10)
+        snaps = [json.loads(ln) for ln in self.lines if ln.startswith("{")]
+        alerts = [r for r in _read_jsonl(os.path.join(self.run_dir, "MONITOR.jsonl"))
+                  if r["kind"] == "alert"]
+        self.result = {"rc": rc, "snapshots": snaps, "alerts": alerts, "metrics_page": page,
+                       "cpu_s": cpu_s, "done_line": self.lines[-1] if self.lines else ""}
+        if scrape:
+            from distribuuuu_tpu_torch.telemetry import report
+
+            self.result["report"] = report.build_report(self.run_dir)
+        return self.result
+
+
+def monitor_live_phase(runs: dict) -> None:
+    """The two monitored runs: telemetry_train's must raise no alert, its
+    last snapshot's totals (steps, graph captures) and the checkpoint saves
+    of its snapshots must equal ``telemetry/report.build_report`` of the
+    finished run, and the scraped /metrics must carry those totals; the
+    recompile drill's storm run must raise exactly recompile-storm."""
+    tel, storm = runs["telemetry_train"].result, runs["recompile_storm"].result
+    rep, last = tel["report"], tel["snapshots"][-1]
+    saves = sum(s["ckpt"]["saves"] for s in tel["snapshots"])
+    totals = {"steps": last["totals"]["steps"], "compiles": last["totals"]["compiles"],
+              "ckpt_saves": saves}
+    want = {"steps": rep["step"]["count"], "compiles": rep["recompiles"]["count"],
+            "ckpt_saves": rep["checkpoint"]["saves"]}
+    page_ok = (f"dtpu_steps_total {totals['steps']}\n" in tel["metrics_page"]
+               and f"dtpu_recompiles_total {totals['compiles']}\n" in tel["metrics_page"])
+    storm_rules = sorted(a["rule"] for a in storm["alerts"])
+    res = {"phase": "monitor_live", "rules": MONITOR_RULES,
+           "telemetry_train": {"tick_s": MONITOR_TICK_S["telemetry_train"],
+                               "ticks": len(tel["snapshots"]),
+                               "alerts": [a["rule"] for a in tel["alerts"]],
+                               "totals": totals, "report": want, "metrics_scraped": page_ok,
+                               "monitor_cpu_s": tel["cpu_s"], "rc": tel["rc"]},
+           "recompile_storm": {"tick_s": MONITOR_TICK_S["recompile_storm"],
+                               "ticks": len(storm["snapshots"]), "alerts": storm_rules,
+                               "alert_values": [a["value"] for a in storm["alerts"]],
+                               "monitor_cpu_s": storm["cpu_s"], "rc": storm["rc"]}}
+    emit(res)
+    if tel["alerts"] or totals != want or not page_ok or storm_rules != ["recompile-storm"] \
+            or tel["rc"] or storm["rc"]:
+        raise AssertionError(f"monitor_live: {res}")
+
+
+def card_spec(path: str, k: float):
+    """The card's spec of a shipped campaign YAML: every ``rate_rps`` and
+    ``peak_rps`` times ``k``, every model's ``p99_slo_ms`` and every
+    p99-breach threshold (the ms thresholds) over ``k``; the seed, phase
+    kinds, burst shapes, durations, rules, expectations and count
+    thresholds as shipped."""
+    import yaml
+
+    from distribuuuu_tpu_torch.serve.campaign import dsl
+
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    for p in doc["phases"]:
+        for key in ("rate_rps", "peak_rps"):
+            if key in p:
+                p[key] = float(p[key]) * k
+    for m in doc["models"]:
+        if m.get("p99_slo_ms") is not None:
+            m["p99_slo_ms"] = float(m["p99_slo_ms"]) / k
+    for r in doc.get("rules") or []:
+        if r["kind"] == "p99-breach":
+            r["threshold"] = float(r["threshold"]) / k
+    return dsl.parse_campaign(doc)
+
+
+def _capacity_rps(router, model: str, payload_for) -> float:
+    """Closed-loop capacity of a warmed fleet's ``model``: CAMPAIGN_CAP_CLIENTS
+    clients through the router for CAMPAIGN_CAP_S, answered requests a
+    second."""
+    import threading
+
+    from distribuuuu_tpu_torch.serve import protocol
+
+    done, stop = [0] * CAMPAIGN_CAP_CLIENTS, time.perf_counter() + CAMPAIGN_CAP_S
+
+    def client(i):
+        while time.perf_counter() < stop:
+            payload = payload_for(model)
+            if payload.startswith(protocol.CTRL_MAGIC):
+                resp = router.dispatch_generate(payload, model=model)
+            else:
+                resp = router.dispatch(protocol.model_envelope(model, payload))
+            done[i] += not resp.startswith(b'{"error"')
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(CAMPAIGN_CAP_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return sum(done) / (time.perf_counter() - t0)
+
+
+def _replica_launches(fleet) -> dict:
+    """The kernel launches each replica named in its log at its drain."""
+    import re
+
+    out = {}
+    for model, logs in fleet.replica_logs().items():
+        for path in logs:
+            with open(path) as f:
+                found = re.findall(r"kernel launches (after warm-up|at drain): (\{.*\})", f.read())
+            if found:
+                out[f"{model}/{os.path.basename(path)[:-4]}"] = {
+                    "drained": found[-1][0] == "at drain", **json.loads(found[-1][1])}
+    return out
+
+
+def campaign_phase(name: str, path: str, fleet, payloads):
+    """One shipped campaign on its warmed fleet: the capacity probe, k, the
+    card spec, the open-loop replay refereed phase by phase; then the
+    fleet drains in the background. Returns ``finish()``, which joins the
+    drain, reads the replicas' launches, emits the phase and requires
+    ``ok`` (alerts exact, control clean), a deterministic schedule, the
+    shipped schedule JAX's, and no request failed."""
+    import threading
+
+    from distribuuuu_tpu_torch import serve_campaign
+    from distribuuuu_tpu_torch.serve.campaign import dsl
+    from distribuuuu_tpu_torch.serve.campaign.runner import CampaignRunner
+
+    t0 = time.perf_counter()
+    shipped = dsl.load_campaign(path)
+    shipped_hash = dsl.schedule_hash(dsl.build_schedule(shipped))
+    payload_for = serve_campaign.cycler(payloads)
+    model = shipped.models[0]["name"]
+    cap = _capacity_rps(fleet.router, model, payload_for)
+    k = cap / CAMPAIGN_REF_RPS[shipped.name]
+    spec = card_spec(path, k)
+    for m in spec.models:  # the router's SLO targets become the card spec's
+        fleet.router.register_model(m["name"], slo_class=m["slo_class"],
+                                    p99_slo_ms=m["p99_slo_ms"], overflow_to=m["overflow_to"])
+    h1, h2 = (dsl.schedule_hash(dsl.build_schedule(spec)) for _ in range(2))
+    try:
+        verdict = CampaignRunner(spec, fleet.router, payload_for=payload_for, fleet=fleet,
+                                 max_workers=CAMPAIGN_WORKERS[shipped.name]).run()
+    finally:  # the fleet drains while the caller goes on
+        drain = threading.Thread(target=fleet.shutdown)
+        drain.start()
+    seconds = time.perf_counter() - t0
+    failed = sum(p["counts"]["failed"] + p["counts"]["unknown_model"]
+                 for p in verdict["phases"])
+    slo = {m["name"]: m["p99_slo_ms"] for m in spec.models}
+    res = {"phase": f"campaign_{name}", "yaml": path, "campaign": shipped.name,
+           "capacity_rps": cap, "ref_rps": CAMPAIGN_REF_RPS[shipped.name], "k": k,
+           "shipped_schedule_hash": shipped_hash,
+           "shipped_hash_is_jax": shipped_hash == JAX_SCHEDULE_HASH[shipped.name],
+           "card_schedule_hash": verdict["schedule_hash"], "deterministic": h1 == h2
+           == verdict["schedule_hash"], "requests_scheduled": verdict["requests_scheduled"],
+           "phases": [{**{key: p[key] for key in ("name", "expected", "raised", "ok", "counts",
+                                                  "degraded_delta", "p99_ms_end",
+                                                  "send_lag_ms")},
+                       "alert_values": [[a["rule"], a["value"]] for a in p["alerts"]]}
+                      for p in verdict["phases"]],
+           "models": {m: dict(r, p99_over_slo=(r["p99_ms"] / slo[m] if slo.get(m) else None))
+                      for m, r in verdict["models"].items()},
+           "alerts_exact": verdict["alerts_exact"], "control_clean": verdict["control_clean"],
+           "failed": failed, "seconds": seconds}
+
+    def finish() -> dict:
+        drain.join()
+        res["replica_launches"] = launches = _replica_launches(fleet)
+        emit(res)
+        if not (verdict["ok"] and res["deterministic"] and res["shipped_hash_is_jax"]
+                and failed == 0 and launches and all(v["drained"] for v in launches.values())):
+            raise AssertionError(f"campaign_{name}: {res}")
+        return res
+
+    return finish
+
+
+def soak_smoke_phase(work: str, on_divergence=None) -> dict:
+    """``python -m distribuuuu_tpu_torch.soak --smoke --serve --per-class
+    SOAK_PER_CLASS`` on the card: the control and nonfinite intervals each
+    raise exactly their expected alerts, the nonfinite interval's gate is
+    evaluated and passes, the fleet's hot-reloads lose no request and
+    change the served logits, the monitored control run is bitwise the
+    unmonitored rerun, and the training runs launch opt_update.
+    ``on_divergence()`` runs once the soak starts its unmonitored rerun,
+    whose time nothing reads."""
+    t0 = time.perf_counter()
+    out = os.path.join(work, "SOAK.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-m", "distribuuuu_tpu_torch.soak", "--smoke",
+                             "--serve", "--per-class", str(SOAK_PER_CLASS), "--interval-s",
+                             str(SOAK_TICK_S), "--work-dir", work, "--out", out],
+                            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    for line in proc.stdout:
+        lines.append(line)
+        if on_divergence is not None and line.startswith("soak: divergence check"):
+            on_divergence()
+    rc = proc.wait(900)
+    log = "".join(lines)
+    if rc != 0 and not os.path.exists(out):
+        raise AssertionError(f"soak_smoke rc {rc}: {log[-3000:]}")
+    with open(out) as f:
+        v = json.load(f)
+    serve = v["serve"] or {}
+    res = {"phase": "soak_smoke", "rc": rc, "ok": v["ok"],
+           "per_class": SOAK_PER_CLASS, "batches": v["train_batches_per_interval"],
+           "intervals": [{key: i.get(key) for key in ("name", "expected_alerts", "raised_alerts",
+                                                      "alerts_exact", "duration_s", "rc")}
+                         | {"gate": None if i["gate"] is None else
+                            {"ok": i["gate"]["ok"], "expected": i["gate"]["expected"],
+                             "rows": {r["metric"]: [r["baseline"], r["current"], r["tol_pct"],
+                                                    r["ok"]] for r in i["gate"]["rows"]}}}
+                         for i in v["intervals"]],
+           "control_clean": v["control_clean"], "gates_evaluated": v["gates_evaluated"],
+           "requests_ok": serve.get("requests_ok"), "requests_failed": serve.get("requests_failed"),
+           "hot_reloads": [{key: h[key] for key in ("ok", "failed_during_reload",
+                                                    "logits_changed")}
+                           for h in serve.get("hot_reloads", [])],
+           "bit_identical": v["divergence"].get("bit_identical"),
+           "divergence": v["divergence"].get("detail"), "launches": v["kernel_launches"],
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if not (rc == 0 and v["ok"] and [i["name"] for i in v["intervals"]]
+            == ["control", "nonfinite"] and v["gates_evaluated"] and res["hot_reloads"]
+            and all(h["ok"] and h["failed_during_reload"] == 0 and h["logits_changed"]
+                    for h in res["hot_reloads"])
+            and res["requests_failed"] == 0 and res["bit_identical"]
+            and v["kernel_launches"].get("opt_update", 0) >= 3 * v["train_batches_per_interval"]):
+        raise AssertionError(f"soak_smoke: {res} {log[-2000:]}")
+    return res
+
+
+def slice19_phases(torch, monitors: dict) -> dict:
+    """monitor_live over the two runs ``monitors`` watched; soak_smoke,
+    during whose unmonitored rerun both campaign fleets start (their
+    warm-ups overlap each other and the rerun); the degrade campaign,
+    whose fleet drains while the LM campaign runs. Launch counts for the
+    kernels line."""
+    import shutil
+
+    import numpy as np
+
+    from distribuuuu_tpu_torch import serve_campaign
+    from distribuuuu_tpu_torch.serve.campaign import dsl
+    from distribuuuu_tpu_torch.serve.campaign.fleet import MultiModelFleet
+
+    t0 = time.perf_counter()
+    monitor_live_phase(monitors)
+    work = tempfile.mkdtemp(prefix="chip_smoke_slice19_")
+    fleets, started = {}, []
+    try:
+        for name, path, base, yaml in (
+                ("degrade", CAMPAIGN_DEGRADE, serve_campaign.base_cfg, "config/resnet50.yaml"),
+                ("lm", CAMPAIGN_LM, serve_campaign.lm_base_cfg, "config/gpt_nano.yaml")):
+            spec = dsl.load_campaign(path)
+            cdir = os.path.join(work, name)
+            fleets[name] = MultiModelFleet(base(cdir, yaml, ["DEVICE.PLATFORM", "auto"]),
+                                           serve_campaign.fleet_specs(spec), out_dir=cdir)
+
+        def start_fleets():
+            if not started:
+                started.append(time.perf_counter())
+                for fleet in fleets.values():
+                    fleet.start(wait=False)
+
+        soak = soak_smoke_phase(os.path.join(work, "soak"), on_divergence=start_fleets)
+        start_fleets()
+        t1 = time.perf_counter()
+        for fleet in fleets.values():
+            fleet.wait_routable()
+        emit({"phase": "campaign_fleets_warm", "seconds": time.perf_counter() - started[0],
+              "waited_after_soak_s": time.perf_counter() - t1,
+              "replicas": {n: f.router.n_routable() for n, f in fleets.items()}})
+        images = np.random.default_rng(19).integers(0, 256, (CAMPAIGN_PAYLOADS, 224, 224, 3),
+                                                    np.uint8)
+        finish_degrade = campaign_phase("degrade", CAMPAIGN_DEGRADE, fleets["degrade"],
+                                        [_npy_payload(img) for img in images])
+        lm = campaign_phase("lm", CAMPAIGN_LM, fleets["lm"], serve_campaign.lm_payload_bank())()
+        degrade = finish_degrade()
+    finally:
+        for fleet in fleets.values():
+            if fleet.router.replicas():  # a campaign phase drains its own fleet
+                fleet.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "slice19_seconds", "seconds": time.perf_counter() - t0})
+    return {"conv_epilogue": sum(v["conv_epilogue"] for v in degrade["replica_launches"].values()),
+            "decode_attention": sum(v["decode_attn"] for v in lm["replica_launches"].values()),
+            "opt_update": soak["launches"].get("opt_update", 0)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5076,11 +5533,14 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
     tf32_off()
-    step_vs_cpu_phase(torch, dev, "resnet50", bn_group=4)
-    step_vs_cpu_phase(torch, dev, "vit_small", attn_impl="flash")
+    # f32 steps card vs CPU: the card halves here, the CPU halves beside
+    # graph_equal and recompile_drill below, which read no time
+    cpu_halves = [step_vs_cpu_phase(torch, dev, "resnet50", bn_group=4, defer=True),
+                  step_vs_cpu_phase(torch, dev, "vit_small", attn_impl="flash", defer=True)]
     vit_auto_phase(torch, fa, dev)
 
     # RegNet: every stride-1 grouped 3x3 at <= 14² through the kernel
+    monitors = {}  # live monitors attached to runs, read by slice19_phases
     os.environ["DISTRIBUUUU_GROUP_CONV"] = "pallas"
     reg_dir = tempfile.mkdtemp(prefix="chip_smoke_regnet_")
     try:
@@ -5090,18 +5550,37 @@ def main(argv=None) -> int:
         del model
         runs["regnety_160"] = regnet_train_phase(torch, ce, gc, ou,
                                                  os.path.join(reg_dir, "train"), weights)
-        # one graph per step: eager against graph, the folded step, the
-        # recompile storm (and, profiling, the graphs' numbers beside eager)
-        graph_equal_phase(torch, dev, weights)
+        tf32_off()
+        cpu_halves.append(step_vs_cpu_phase(torch, dev, "regnety_160", bn_group=4,
+                                            tweak=lambda m: regnet_last_bn(torch, m),
+                                            reach=regnet_kernel_weights, defer=True))
+        # the zoo's (under DISTRIBUUUU_GROUP_CONV=pallas, as their serving)
+        for arch in ("efficientnet_b0", "botnet50", "densenet121"):
+            cpu_halves.append(step_vs_cpu_phase(
+                torch, dev, arch, bn_group=4, tweak=lambda m: seeded_bn(torch, m),
+                reach=botnet_values if arch == "botnet50" else None, defer=True))
+        # one graph per step: eager against graph, the recompile storm, the
+        # folded step (and, profiling, the graphs' numbers beside eager)
+        from concurrent.futures import ThreadPoolExecutor
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as side:
+            halves = side.submit(lambda: [finish() for finish in cpu_halves])
+            graph_equal_phase(torch, dev, weights)
+            recompile_drill_phase(torch, os.path.join(reg_dir, "recompile"),
+                                  watch=lambda d: monitors.setdefault(
+                                      "recompile_storm",
+                                      LiveMonitor(d, MONITOR_TICK_S["recompile_storm"])))
+            t1 = time.perf_counter()
+            halves.result()
+        emit({"phase": "step_vs_cpu_cpu_halves", "archs": len(cpu_halves),
+              "waited_s": time.perf_counter() - t1, "seconds": time.perf_counter() - t0})
         fold_train_phase(torch, dev)
-        recompile_drill_phase(torch, os.path.join(reg_dir, "recompile"))
         if args.profile:
             graph_profile_phases(torch, dev, weights)
     finally:
         shutil.rmtree(reg_dir, ignore_errors=True)
     tf32_off()
-    step_vs_cpu_phase(torch, dev, "regnety_160", bn_group=4,
-                      tweak=lambda m: regnet_last_bn(torch, m), reach=regnet_kernel_weights)
     if args.profile:
         train_profile_phase(torch, dev, "regnety_160", batch=64, classify=_regnet_kind,
                             bn_group=64)
@@ -5124,11 +5603,18 @@ def main(argv=None) -> int:
     tf32_off()
     # telemetry on the card: a ResNet-50 run's records, on against off, the
     # LM's records and request traces
-    tel = telemetry_phases(torch, ce, ou, da, dev)
+    tel = telemetry_phases(torch, ce, ou, da, dev,
+                           watch=lambda d: monitors.setdefault(
+                               "telemetry_train",
+                               LiveMonitor(d, MONITOR_TICK_S["telemetry_train"])))
     tf32_off()
     # a JAX-trained checkpoint read with no JAX, quantized buckets, and
     # two fleets of replica processes sharing this card
     s18 = slice18_phases(torch, ce, da, dev)
+    tf32_off()
+    # the live plane: the monitor over the two watched runs, the shipped
+    # degrade and LM campaigns at the card's rates, the soak referee
+    s19 = slice19_phases(torch, monitors)
     tf32_off()
 
     # real images and process groups: SyncBN in a group of one, the
@@ -5152,14 +5638,21 @@ def main(argv=None) -> int:
         finally:
             leave_world1(dist)
         tf32_off()
-        resume = shards_exact_resume_phase(torch, shards["pack_root"],
-                                           os.path.join(real_dir, "shards_resume"))
-        tf32_off()
-        two_ranks_one_card_phase(torch, dev)
-        # the rest of the train loop, in one process with no process group,
-        # on the same ImageFolder
-        tf32_off()
-        loop = train_loop_phases(torch, ce, ou, dev, root, real_dir)
+        # the resilience drills' train_net subprocesses (on a small tree of
+        # their own) run beside the two phases that check bits and logs,
+        # not times
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(1) as side:
+            drills = side.submit(loop_drills_phase, real_dir)
+            resume = shards_exact_resume_phase(torch, shards["pack_root"],
+                                               os.path.join(real_dir, "shards_resume"))
+            tf32_off()
+            two_ranks_one_card_phase(torch, dev)
+            # the rest of the train loop, in one process with no process
+            # group, on the same ImageFolder
+            tf32_off()
+            loop = train_loop_phases(torch, ce, ou, dev, root, real_dir, drills)
     finally:
         shutil.rmtree(real_dir, ignore_errors=True)
 
@@ -5177,7 +5670,7 @@ def main(argv=None) -> int:
         "source": "distribuuuu_tpu_torch/csrc/conv_epilogue.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/conv_epilogue.py:121",
         "launches": launches + reg_serve_ce + real["launches"]["conv_epilogue"]
-        + tel["conv_epilogue"] + s18["conv_epilogue"]
+        + tel["conv_epilogue"] + s18["conv_epilogue"] + s19["conv_epilogue"]
         + shards["launches"]["conv_epilogue"] + resume["launches"]["conv_epilogue"]
         + loop["conv_epilogue"] + zoo["conv_epilogue"]
         + sum(r["launches"]["conv_epilogue"] for a in ("resnet50", "regnety_160")
@@ -5195,7 +5688,7 @@ def main(argv=None) -> int:
         "replaces": "distribuuuu_tpu/ops/pallas/opt_update.py:75",
         "launches": real["launches"]["opt_update"] + shards["launches"]["opt_update"]
         + resume["launches"]["opt_update"] + loop["opt_update"] + zoo["opt_update"]
-        + lm_plane["opt_update"] + tel["opt_update"]
+        + lm_plane["opt_update"] + tel["opt_update"] + s19["opt_update"]
         + sum(r["launches"]["opt_update"] for rs in runs.values() for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in opt_rows.values()),
         "ms": main_body["ms"],
@@ -5228,7 +5721,7 @@ def main(argv=None) -> int:
         "source": "distribuuuu_tpu_torch/csrc/decode_attn.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/decode_attn.py:121",
         "launches": lm_launches + lm_big_launches + lm_plane["decode_attention"]
-        + tel["decode_attention"] + s18["decode_attention"],
+        + tel["decode_attention"] + s18["decode_attention"] + s19["decode_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in decode_rows.values()),
         **{k: tile[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })

@@ -15,7 +15,11 @@ config/<arch>.yaml``); on the card every serving bucket, LM tile, train
 step (``TRAIN.STEPS_PER_CALL`` of them at once) and eval step replays one
 CUDA graph (``graphs.py``); the JAX package's orbax checkpoints load with
 no JAX (``utils/orbax.py``), serving quantizes weights (``SERVE.QUANTIZE``)
-and runs as a fleet of replica processes (``serve_net --fleet N``).
+and runs as a fleet of replica processes (``serve_net --fleet N``); the
+live plane referees it: serving campaigns against multi-model fleets
+(``python -m distribuuuu_tpu_torch.serve_campaign``), the run monitor
+(``python -m distribuuuu_tpu_torch.telemetry.live``) and the train+serve
+soak (``python -m distribuuuu_tpu_torch.soak``).
 """
 
 

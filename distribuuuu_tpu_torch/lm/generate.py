@@ -1326,17 +1326,21 @@ class GenerateEngine:
                             break
                         self._lock.wait(timeout=self._poll_s)
                         continue
-                    try:
-                        if self.spec_k:
-                            self._spec_round()
-                        else:
-                            self._decode_step()
-                    except Exception as e:  # noqa: BLE001 — a device fault fails
-                        # every in-flight request loudly; new ones are still served
-                        for i, s in enumerate(self._slots):
-                            if s is not None:
-                                self._slots[i] = None
-                                s.stream._close("error", e)
+                # the step runs outside the lock: ``submit`` (the serving
+                # threads) enqueues or refuses while the card decodes, instead
+                # of waiting for a gap between steps; only this thread touches
+                # the slots
+                try:
+                    if self.spec_k:
+                        self._spec_round()
+                    else:
+                        self._decode_step()
+                except Exception as e:  # noqa: BLE001 — a device fault fails
+                    # every in-flight request loudly; new ones are still served
+                    for i, s in enumerate(self._slots):
+                        if s is not None:
+                            self._slots[i] = None
+                            s.stream._close("error", e)
                 if time.perf_counter() - last_emit >= EMIT_INTERVAL_S:
                     self._emit_token_counters()
                     last_emit = time.perf_counter()

@@ -283,6 +283,14 @@ class Engine:
             self._cond.notify()
         return req.future
 
+    def precheck(self) -> None:
+        """Raise what ``submit`` would raise for a request arriving now
+        (``QueueFullError``, ``EngineClosedError``) without queueing one:
+        the socket front refuses a request to a full engine before it
+        decodes the payload, so refusals cost no image decode."""
+        with self._cond:
+            self._admission.admit(len(self._pending), self._retry_after_ms())
+
     def drain(self, timeout: float | None = 60.0) -> None:
         """Graceful shutdown: stop accepting, finish every queued and
         in-flight request, stop the threads. Idempotent."""

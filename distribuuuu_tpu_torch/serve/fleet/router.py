@@ -167,6 +167,16 @@ class Replica:
         return resp
 
 
+class _LastFrame:
+    """A stand-in client socket for ``Router.dispatch_generate``: keeps the
+    payload of the last frame ``protocol.send_frame`` wrote to it."""
+
+    frame = None
+
+    def sendall(self, data: bytes) -> None:
+        self.frame = data[4:]  # one send_frame: the length prefix, then the payload
+
+
 class NoRoutableReplicaError(RuntimeError):
     """Every replica is dead, draining, or not yet warm."""
 
@@ -618,10 +628,11 @@ class Router:
             conn = None
             streamed = 0
             try:
-                conn = socket.create_connection(
-                    rep.addr, timeout=self.request_timeout_s
-                )
-                conn.settimeout(self.request_timeout_s)
+                # a pooled connection, as ``Replica.roundtrip``'s: the
+                # replica serves one stream after another on it, so a
+                # stream costs it no accept and no handler thread (under a
+                # burst of refused streams those were its bottleneck)
+                conn = rep._get_conn(self.request_timeout_s)
                 protocol.send_frame(conn, payload)
                 busy = False
                 while True:
@@ -665,8 +676,12 @@ class Router:
                     protocol.send_frame(client, frame)
                     streamed += 1
                     if done:
+                        rep._put_conn(conn)
+                        conn = None
                         return
                 if busy:
+                    rep._put_conn(conn)
+                    conn = None
                     continue  # busy rejection: next replica
             except (OSError, ValueError) as e:
                 self._note_failure(rep)
@@ -718,6 +733,21 @@ class Router:
         protocol.send_frame(client, json.dumps(
             {"error": "no_routable_replicas", "retry_after_ms": 1000.0}
         ).encode())
+
+    def dispatch_generate(self, payload: bytes,
+                          model: str | None = None) -> bytes:
+        """In-process façade over ``dispatch_stream`` for callers that
+        want one classified outcome per generate request rather than a
+        client socket to relay into (the campaign runner's LM path): the
+        stream's frames go to an in-memory sink that keeps the last, and
+        the FINAL frame (done / busy / error) is returned."""
+        sink = _LastFrame()
+        self.dispatch_stream(payload, sink, model=model)
+        if sink.frame is None:
+            return json.dumps(
+                {"error": "no_routable_replicas", "retry_after_ms": 1000.0}
+            ).encode()
+        return sink.frame
 
     # -- observability -----------------------------------------------------
     def window_stats(self, window_s: float) -> dict:

@@ -59,6 +59,14 @@ def parse_ctrl(payload: bytes) -> dict | None:
     return json.loads(payload[len(CTRL_MAGIC):])
 
 
+def model_envelope(model: str, payload: bytes) -> bytes:
+    """Wrap a request payload with the model id it must route to."""
+    mid = model.encode("utf-8")
+    if not 0 < len(mid) < 256:
+        raise ValueError(f"model id must be 1..255 utf-8 bytes, got {model!r}")
+    return MODEL_MAGIC + bytes([len(mid)]) + mid + payload
+
+
 def split_model_envelope(payload: bytes) -> tuple[str | None, bytes]:
     """(model_id, inner_payload) for an enveloped payload; (None, payload)
     for a bare one."""
@@ -151,7 +159,10 @@ def open_listener(host: str, port: int) -> socket.socket:
     sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
     sock.bind((host, port))
-    sock.listen(128)
+    # a deep accept queue: under a burst of new connections (a stream a
+    # connection) a full queue drops SYNs, and the client's retry backoff
+    # (1 s, 3 s, ...) turns an overload into seconds of latency
+    sock.listen(socket.SOMAXCONN)
     return sock
 
 
@@ -169,6 +180,7 @@ def _answer(engine, payload: bytes, transform, topk: int) -> dict:
             }
         return {"error": f"unknown control op {ctrl.get('op')!r}"}
     try:
+        getattr(engine, "precheck", lambda: None)()
         logits = engine.submit(transform(payload)).result()
         order = np.argsort(logits)[::-1][: max(1, topk)]
         return {

@@ -12,13 +12,19 @@ fields, span names and tracks, under the same files of ``OUT_DIR``.
                  roofline, the graph's memory headroom
     export.py    N rank files + timeline records -> a Perfetto trace
     tracectx.py  request trace contexts and trace.span records
+    live.py      the live monitor: tailer, windowed aggregates, the alert
+                 rule engine, Prometheus text (``python -m
+                 distribuuuu_tpu_torch.telemetry.live RUN``)
+    report.py    the post-mortem report and its regression gate (the
+                 port's copy of ``tools/run_report.py``'s)
 
 ``utils/jsonlog.py`` is the primary's ``metrics.jsonl``. Readers:
-``tools/run_report.py`` (unchanged: a report and ``--trace``), Perfetto.
+``report.py`` and ``tools/run_report.py`` (unchanged: a report and
+``--trace``), the live monitor, Perfetto.
 
 On or off, telemetry trains the same bits and serves the same tokens
-(``tests/test_torch_telemetry.py``). ``live.py`` (the monitor and soak
-referee) is not ported.
+(``tests/test_torch_telemetry.py``), and an attached monitor changes no
+bit (``tests/test_torch_live.py``).
 """
 
 from distribuuuu_tpu_torch.telemetry.registry import (  # noqa: F401

@@ -109,6 +109,29 @@ KINDS: dict[str, frozenset] = {
     # -- request traces (telemetry/tracectx.py) -------------------------------
     "trace.span": frozenset({"v", "trace", "span", "parent", "name",
                              "t0", "dur"}),
+    # one an exemplar trace id a fired p99-breach or backpressure alert names
+    "trace.exemplar": frozenset({"v", "rule", "trace", "latency_ms"}),
+    # -- the live monitor (telemetry/live.py; MONITOR.jsonl) ------------------
+    "monitor.snapshot": frozenset(
+        {"v", "window_s", "steps", "straggler_skew", "events", "compiles",
+         "totals"}
+    ),
+    "alert": frozenset({"rule", "value", "threshold", "message"}),
+    # -- the soak referee (soak.py) -------------------------------------------
+    "soak.interval": frozenset(
+        {"interval", "name", "expected_alerts", "raised_alerts", "ok"}
+    ),
+    "soak.verdict": frozenset(
+        {"ok", "intervals", "alerts_exact", "control_clean",
+         "gates_evaluated"}
+    ),
+    # -- serving campaigns (serve/campaign/) ----------------------------------
+    "campaign.phase": frozenset(
+        {"campaign", "phase", "expected_alerts", "raised_alerts", "ok"}
+    ),
+    "campaign.verdict": frozenset(
+        {"campaign", "phases", "alerts_exact", "control_clean", "ok"}
+    ),
 }
 
 
