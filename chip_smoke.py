@@ -117,10 +117,10 @@ eval's.
    through ``engine_from_cfg`` as ResNet-50 is (10 group-conv and 36
    conv-epilogue launches per forward; bf16 logits and f32 card logits
    against the port's f32 CPU forward) and trained through
-   ``trainer.train_model`` at the yaml's batch 64 (10 forward and 10 dx
-   launches per step, 10 per eval forward; the eval is 4096 images at
-   batch 200); one f32 step card vs CPU at
-   batch 4. Every block's zero-initialised last BN scale is first set to
+   ``trainer.train_model`` at the yaml's batch 64 for one epoch (10
+   forward and 10 dx launches per step, 10 per eval forward; the eval is
+   4096 images at batch 200; no resume to epoch 2: ResNet-50 and ViT-S
+   hold it); one f32 step card vs CPU at batch 4. Every block's zero-initialised last BN scale is first set to
    seeded N(1, 0.1) values (``MODEL.WEIGHTS``), or the residual branch,
    and with it the kernel, would not reach the logits at init; zeroing
    the grouped weights of the kernel's sites must move the logits.
@@ -333,7 +333,37 @@ eval's.
      evaluated and passes, the fleet's hot-reload loses no request, the
      monitored control run is bitwise the unmonitored rerun, the training
      runs launch opt_update.
-15. Prints the ``{"kernels": [...]}`` line, the card's name and power
+15. The MoE family and the model and expert axes (``slice20_phases``,
+    after the live plane):
+   * ``moe_vit``: config/vit_tiny_moe.yaml at full width (ViT-Ti/16, 8
+     experts top-2 in every 2nd block, 224², batch 32, SGD Nesterov at
+     its warm-up rate): MOE_VIT_STEPS graphed f32 steps (TF32 off) from
+     one seeded init against the port's CPU f32 run of the same steps
+     (run beside the card work), once the first MoE block routed every
+     token of the first batch alike on both, losses within
+     MOE_VIT_LOSS_RTOL; then bf16 graphed steps: device ms a step (CUDA
+     events over MOE_VIT_TIMED replays) and the six MoE layers' share of
+     it (their forward and backward on the step's activations, timed
+     alone); one opt_update launch a step; one served burst of
+     MOE_VIT_REQUESTS through the graphed buckets (img/s, p50/p99), the
+     logits against the port's f32 CPU forward;
+   * ``moe_gpt``: config/gpt_nano_moe.yaml at MESH.MODEL 1 MESH.EXPERT 1
+     trained one epoch (bf16, batch 16, AdamW, graphed) on a generated
+     pack of MOE_LM_CORPUS_MB: tokens/s, step ms, one opt_update launch a
+     step, the loss falling; greedy f32 streams on the card equal the
+     port's CPU engine's (divergence only at a near-tie, as lm_check);
+     a bf16 burst's tokens/s with decode_attention once a block a step;
+   * ``tp_ep_one_card``: the YAML's own stanza as 4 gloo ranks sharing
+     cuda:0 (dp1·tp2·ep2, eager: ``trainer.step_graphed``; the script
+     re-run as ``--tp-ep-worker``), ``train_model`` of TP_EP_STEPS f32
+     steps on a generated pack against one process on the card from the
+     same weights and batches: the losses within TP_EP_LOSS_RTOL, the
+     sharded save tensor for tensor within TP_EP_STATE_RTOL of the
+     one-process save (the attention's key bias, whose gradient is 0 and
+     AdamW's steps noise, within 2·lr·steps) and the two updates' L2
+     difference within TP_EP_UPDATE_RTOL, and one process resuming the
+     sharded save for a second epoch as it resumes its own.
+16. Prints the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``graph_vs_eager``: the graph against the eager body in
@@ -1106,12 +1136,14 @@ def regnet_train_phase(torch, ce, gc, ou, out_dir: str, weights: str):
             raise AssertionError(f"regnety_160 launches {got} != {want} ({steps} steps, "
                                  f"{evals} eval forwards, want {REGNET_EVAL_FORWARDS})")
 
+    # one epoch: the resume to epoch 2 is held on ResNet-50 and ViT-S
     return train_phase(torch, out_dir, "config/regnety_160.yaml",
                        ["MODEL.PRETRAINED", True, "MODEL.WEIGHTS", weights], reset,
                        lambda: {"opt_update": ou.update.launches,
                                 "group_conv": gc.group_conv3x3.launches,
                                 "group_conv_dx": gc.group_conv3x3.launches_dx,
-                                "conv_epilogue": ce.conv1x1_bn_act.launches}, check)
+                                "conv_epilogue": ce.conv1x1_bn_act.launches}, check,
+                       epochs=(1,))
 
 
 def resnet50_leaves(torch):
@@ -3710,15 +3742,15 @@ LM_SPEC_K = 4
 LM_SPEC_REQUESTS = 16
 
 
-def lm_corpus(path: str, seed: int = 0) -> dict:
-    """A text of LM_CORPUS_MB of seeded word salad over LM_WORDS, one
+def lm_corpus(path: str, seed: int = 0, mb: float = LM_CORPUS_MB) -> dict:
+    """A text of ``mb`` MB of seeded word salad over LM_WORDS, one
     document a paragraph (40-400 words each)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     words = np.asarray(LM_WORDS)
     docs, size = [], 0
-    while size < LM_CORPUS_MB * 1e6:
+    while size < mb * 1e6:
         n = int(rng.integers(40, 400))
         doc = " ".join(words[rng.integers(0, len(words), n)]) + "."
         docs.append(doc)
@@ -5445,6 +5477,485 @@ def slice19_phases(torch, monitors: dict) -> dict:
             "opt_update": soak["launches"].get("opt_update", 0)}
 
 
+# -- slice 20: the MoE family, the model and expert axes ----------------------
+MOE_VIT_STEPS = 3  # f32 steps card vs CPU
+MOE_VIT_BATCH = 32
+MOE_VIT_TIMED = 10  # bf16 graphed steps timed after MOE_VIT_STEPS warm ones
+MOE_VIT_LOSS_RTOL = 1e-4  # f32 card vs CPU over MOE_VIT_STEPS steps
+MOE_VIT_REQUESTS = 64
+MOE_VIT_CPU_CHECK = 8  # served bf16 logits of these against the CPU f32 forward
+MOE_LM_CORPUS_MB = 0.3
+MOE_LM_PROMPTS = 8
+TP_EP_RANKS = 4  # config/gpt_nano_moe.yaml's MODEL 2 x EXPERT 2, DATA -1 -> 1
+TP_EP_BATCH = 4  # a process, and the one process's global batch (data axis 1)
+TP_EP_STEPS = 3  # sequences in the pack: TP_EP_STEPS x TP_EP_BATCH
+TP_EP_LOSS_RTOL = 1e-5
+TP_EP_STATE_RTOL = 1e-3  # of each tensor's scale: f32 AdamW steps from sums in other orders
+TP_EP_UPDATE_RTOL = 1e-3  # L2 of the difference of the two updates over the one-process one
+
+
+def _moe_vit_cfg(dtype: str):
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch.config import cfg
+
+    config.reset_cfg()
+    config.merge_from_file("config/vit_tiny_moe.yaml")
+    cfg.merge_from_list(["DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE", dtype,
+                         "RNG_SEED", 0, "SERVE.DEVICE", 0, "SERVE.MAX_BATCH", 8,
+                         "SERVE.BUCKET_SIZES", [1, 2, 4, 8],
+                         "SERVE.MAX_QUEUE", 2 * MOE_VIT_REQUESTS, "SERVE.MAX_WAIT_MS", 2.0])
+    return cfg
+
+
+def _moe_vit_steps(torch, device, dtype: str, steps: int, graphed=None):
+    """Under config/vit_tiny_moe.yaml in ``dtype`` (RNG_SEED 0 weights):
+    the model on ``device``, its optimizer at the warm-up rate and a
+    ``trainer.TrainStep``, made here (they read the global config), and
+    a function that runs ``steps`` steps on seeded uint8 batches and
+    reads no config, so a side thread may run it: it returns the losses,
+    the first MoE block's top-k indices of the first batch (before any
+    step) and, with ``timed``, the device ms a step over ``timed`` more
+    replays and the MoE layers' ms."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.ops import moe
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer, set_lr
+    from distribuuuu_tpu_torch.utils.schedules import get_epoch_lr
+
+    cfg = _moe_vit_cfg(dtype)
+    if dtype == "float32":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(20)
+    im = cfg.TRAIN.IM_SIZE
+    batches = [{"image": torch.from_numpy(rng.integers(0, 256, (MOE_VIT_BATCH, im, im, 3),
+                                                       np.uint8)),
+                "label": torch.from_numpy(rng.integers(0, 1000, MOE_VIT_BATCH).astype(np.int32))}
+               for _ in range(steps)]
+    model = trainer.build_model_from_cfg().to(device).train()
+    opt = construct_optimizer(model)
+    set_lr(opt, get_epoch_lr(0))
+    step = trainer.TrainStep(model, opt, 5, device=device, graphed=graphed)
+
+    def run(timed: int = 0) -> dict:
+        first = model.moe_layers()[0]
+        seen = []
+        hook = first.register_forward_hook(lambda m, a, o: seen.append(a[0].detach()))
+        dev_batches = [{k: v.to(device) for k, v in b.items()} for b in batches]
+        with torch.no_grad():  # no autograd graph may outlive this into a capture
+            model(trainer.prep_images(dev_batches[0]["image"]))
+            x = seen[0].reshape(-1, seen[0].shape[-1]).to(first.dtype)
+            idx = moe.top_k_gating(x, first.gate, first.top_k)[1]
+        hook.remove()
+        losses = [float(step([b], [False])[0, 0]) for b in dev_batches]
+        out = {"losses": losses, "routing": idx.cpu(), "lr": opt.lr}
+        if timed:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for i in range(timed):
+                step([dev_batches[i % steps]], [False])
+            ev[1].record()
+            torch.cuda.synchronize()
+            out["step_ms"] = ev[0].elapsed_time(ev[1]) / timed
+            out["moe_ms"] = _moe_layers_ms(torch, model, dev_batches[0])
+        return out
+
+    return run
+
+
+def _moe_layers_ms(torch, model, batch, reps: int = 20) -> float:
+    """The MoE layers' forward and backward (routing, every expert over
+    every token, the balancing aux), each on the activation it takes in a
+    train forward of ``batch``, as one CUDA graph (``graphs.StepGraph``,
+    as the step runs), its replays timed with CUDA events: the device
+    time the step spends in them."""
+    from distribuuuu_tpu_torch import graphs, trainer
+
+    layers = model.moe_layers()
+    ins = []
+    hooks = [m.register_forward_hook(lambda m, a, o: ins.append(a[0].detach().clone()))
+             for m in layers]
+    with torch.no_grad():
+        model(trainer.prep_images(batch["image"]))
+    for h in hooks:
+        h.remove()
+    xs = [x.requires_grad_(True) for x in ins]
+
+    def body():
+        out = []
+        for m, x in zip(layers, xs):
+            y = m(x)
+            out.extend(torch.autograd.grad(y.float().sum() + m.aux, [x, *m.parameters()]))
+            m.aux = None
+        return out
+
+    g = graphs.StepGraph(body, device=batch["image"].device)
+    g()
+    g()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(reps):
+        g()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def moe_vit_phase(torch, ou, dev) -> dict:
+    """config/vit_tiny_moe.yaml on the card (module docstring, 15)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from distribuuuu_tpu_torch.models import build_model
+    from distribuuuu_tpu_torch.serve import engine_from_cfg
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as side:
+        cpu_run = side.submit(_moe_vit_steps(torch, torch.device("cpu"), "float32",
+                                             MOE_VIT_STEPS))
+        run = _moe_vit_steps(torch, dev, "float32", MOE_VIT_STEPS)
+        ou.update.launches = 0
+        card = run()
+        f32_launches = ou.update.launches
+        run = _moe_vit_steps(torch, dev, "bfloat16", MOE_VIT_STEPS)
+        ou.update.launches = 0
+        bf16 = run(timed=MOE_VIT_TIMED)
+        bf16_launches = ou.update.launches
+        # one served burst through the graphed buckets (bf16)
+        cfg = _moe_vit_cfg("bfloat16")
+        im = cfg.TRAIN.IM_SIZE
+        images = np.random.default_rng(21).integers(0, 256, (MOE_VIT_REQUESTS, im, im, 3),
+                                                    np.uint8)
+        engine, t_build, walls, batches, logits = _serve_bursts(engine_from_cfg, images)
+        stats = engine.stats()
+        sd = {k: t.cpu() for k, t in engine.model.state_dict().items()}
+        del engine
+        cpu = cpu_run.result()
+    ref = build_model("vit_tiny_moe", num_classes=1000, dtype=torch.float32, img_size=im)
+    ref.load_state_dict(sd)
+    from distribuuuu_tpu_torch.data.transforms import normalize_on_device
+
+    with torch.inference_mode():
+        want = ref.eval()(normalize_on_device(torch.from_numpy(images[:MOE_VIT_CPU_CHECK])))
+    want = want.numpy()
+    rel = float(np.abs(logits[:MOE_VIT_CPU_CHECK] - want).max() / np.abs(want).max())
+    routed_apart = int((card["routing"] != cpu["routing"]).any(-1).sum())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    res = {"phase": "moe_vit", "arch": "vit_tiny_moe", "batch": MOE_VIT_BATCH,
+           "lr": card["lr"], "f32_losses_card": card["losses"], "f32_losses_cpu": cpu["losses"],
+           "f32_loss_rel_err": loss_rel, "loss_rtol": MOE_VIT_LOSS_RTOL,
+           "first_moe_tokens": int(card["routing"].shape[0]),
+           "first_moe_tokens_routed_apart": routed_apart,
+           "bf16_losses": bf16["losses"], "bf16_step_ms": bf16["step_ms"],
+           "bf16_train_img_per_s": MOE_VIT_BATCH / bf16["step_ms"] * 1e3,
+           "moe_layers_ms": bf16["moe_ms"], "moe_share_of_step": bf16["moe_ms"] / bf16["step_ms"],
+           "opt_update_launches": {"f32": f32_launches, "bf16": bf16_launches},
+           "serve_img_per_s": MOE_VIT_REQUESTS / walls[-1], "serve_p50_ms": stats["p50_ms"],
+           "serve_p99_ms": stats["p99_ms"], "serve_batches": batches,
+           "engine_build_s": t_build, "serve_rel_err_vs_cpu_f32": rel,
+           "serve_rel_tol": SLICE_REL_TOL, "seconds": time.perf_counter() - t0}
+    emit(res)
+    import math
+
+    if routed_apart or loss_rel > MOE_VIT_LOSS_RTOL:
+        raise AssertionError(f"moe_vit card vs CPU f32: {routed_apart} tokens routed apart, "
+                             f"loss rel err {loss_rel} (tol {MOE_VIT_LOSS_RTOL})")
+    if (f32_launches != MOE_VIT_STEPS or bf16_launches != MOE_VIT_STEPS + MOE_VIT_TIMED
+            or not all(math.isfinite(x) for x in bf16["losses"])):
+        raise AssertionError(f"moe_vit: opt_update launches {f32_launches}, {bf16_launches} "
+                             f"or bf16 losses {bf16['losses']}")
+    if logits.shape != (MOE_VIT_REQUESTS, 1000) or rel > SLICE_REL_TOL:
+        raise AssertionError(f"moe_vit served logits: shape {logits.shape}, rel err {rel}")
+    return {"opt_update": f32_launches + bf16_launches}
+
+
+def moe_gpt_phase(torch, ou, da, dev, work: str) -> dict:
+    """config/gpt_nano_moe.yaml on one card (module docstring, 15)."""
+    import contextlib
+    import io
+    import math
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.data.shards import pack_tokens
+    from distribuuuu_tpu_torch.lm import service as lm_service
+
+    t0 = time.perf_counter()
+    src, pack = os.path.join(work, "corpus.txt"), os.path.join(work, "tokens")
+    lm_corpus(src, seed=20, mb=MOE_LM_CORPUS_MB)
+    with contextlib.redirect_stdout(io.StringIO()):
+        if pack_tokens.main(["--src", src, "--out", pack, "--pack-len", "256",
+                             "--val-frac", "0.05"]):
+            raise AssertionError("moe_gpt: pack_tokens failed")
+    one_card = ["MESH.MODEL", 1, "MESH.EXPERT", 1]
+
+    def lm_cfg(dtype: str, *opts):
+        config.reset_cfg()
+        config.merge_from_file("config/gpt_nano_moe.yaml")
+        cfg.merge_from_list(["DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE", dtype,
+                             "RNG_SEED", 0, "SERVE.DEVICE", 0, "GENERATE.EOS_ID", -1,
+                             "SERVE.MAX_QUEUE", 2 * LM_REQUESTS, *one_card, *opts])
+
+    lm_cfg("bfloat16", "OPTIM.MAX_EPOCH", 1, "TRAIN.DATASET", pack, "TEST.DATASET", pack,
+           "TRAIN.PRINT_FREQ", 100, "OUT_DIR", os.path.join(work, "train"))
+    ou.update.launches = 0
+    recs = []
+    trainer.train_model(recs)
+    torch.cuda.synchronize()
+    rec, train_launches = recs[0], ou.update.launches
+    losses, steps = rec["losses"], rec["steps"]
+    w = min(LM_TRAIN_WINDOW, steps // 3)
+    # greedy f32 streams on the card against the port's CPU engine
+    prompts = _lm_prompts(MOE_LM_PROMPTS, seed=20)
+    streams = []
+    da.reset_launch_counts()
+    for platform in ("auto", "cpu"):
+        lm_cfg("float32", "DEVICE.PLATFORM", platform)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        eng = lm_service.engine_from_cfg().start()
+        streams.append([s.result(timeout=300) for s in [eng.submit(p) for p in prompts]])
+        cpu_model = eng.model
+        eng.drain()
+    f32_launches = da.launches
+    gaps, same = [], 0
+    for p, a, b in zip(prompts, *streams):
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is None:
+            same += 1
+            continue
+        with torch.inference_mode():
+            row = cpu_model(torch.tensor([p + b[:k]]))[0, -1]
+        gaps.append({"step": k, "rel_logit_gap": float((row[b[k]] - row[a[k]]).abs()
+                                                       / row.abs().max())})
+    # a bf16 burst through the graphed tiles
+    lm_cfg("bfloat16")
+    eng = lm_service.engine_from_cfg().start()
+    burst = _lm_prompts(LM_REQUESTS)
+    eng.submit(burst[0]).result(timeout=300)
+    st0 = eng.stats()
+    da.reset_launch_counts()
+    t1 = time.perf_counter()
+    outs = [s.result(timeout=300) for s in [eng.submit(p) for p in burst]]
+    wall = time.perf_counter() - t1
+    burst_launches = da.launches
+    decode_steps = eng.stats()["decode_steps"] - st0["decode_steps"]
+    eng.drain()
+    tokens = sum(len(o) for o in outs)
+    res = {"phase": "moe_gpt", "arch": "gpt_nano_moe", "mesh": "MODEL 1 EXPERT 1",
+           "steps": steps, "batch": cfg.TRAIN.BATCH_SIZE, "train_tokens_per_s":
+           rec["tokens_per_s"], "step_ms": rec["step_ms"], "first_loss": losses[0],
+           f"loss_first{w}_mean": statistics.mean(losses[:w]),
+           f"loss_last{w}_mean": statistics.mean(losses[-w:]),
+           "opt_update_launches": train_launches, "f32_prompts": len(prompts),
+           "f32_streams_equal": same, "f32_divergences": gaps, "f32_gap_tol": LM_F32_GAP_TOL,
+           "f32_decode_attention_launches": f32_launches, "bf16_requests": len(burst),
+           "bf16_tokens": tokens, "bf16_tokens_per_s": tokens / wall,
+           "bf16_decode_steps": decode_steps, "bf16_decode_attention_launches": burst_launches,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if train_launches != steps or not all(math.isfinite(x) for x in losses) \
+            or not statistics.mean(losses[-w:]) < statistics.mean(losses[:w]):
+        raise AssertionError(f"moe_gpt train: launches {train_launches} for {steps} steps, "
+                             f"losses {losses}")
+    if [g for g in gaps if not g["rel_logit_gap"] <= LM_F32_GAP_TOL] or not f32_launches:
+        raise AssertionError(f"moe_gpt f32 card vs CPU streams: {gaps}, decode_attention "
+                             f"launches {f32_launches}")
+    if tokens != LM_REQUESTS * LM_NEW_TOKENS or burst_launches != LM_DEPTH * decode_steps:
+        raise AssertionError(f"moe_gpt burst: {tokens} tokens, {burst_launches} launches for "
+                             f"{decode_steps} decode steps")
+    return {"opt_update": train_launches,
+            "decode_attention": f32_launches + burst_launches}
+
+
+def _tp_ep_opts(pack: str, out: str, epochs: int) -> list:
+    return ["DEVICE.PLATFORM", "auto", "DEVICE.COMPUTE_DTYPE", "float32", "RNG_SEED", 0,
+            "LM.SEQ_LEN", 256, "TRAIN.BATCH_SIZE", TP_EP_BATCH, "TEST.BATCH_SIZE", TP_EP_BATCH,
+            "TRAIN.DATASET", pack, "TEST.DATASET", pack, "TEST.SPLIT", "train",
+            "TRAIN.WORKERS", 1, "TRAIN.PRINT_FREQ", 1, "OPTIM.MAX_EPOCH", epochs,
+            "TELEMETRY.ENABLED", False, "OUT_DIR", out]
+
+
+def _tp_ep_train(torch, opts: list) -> list:
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+
+    config.reset_cfg()
+    config.merge_from_file("config/gpt_nano_moe.yaml")
+    cfg.merge_from_list(opts)
+    recs = []
+    trainer.train_model(recs)
+    return recs
+
+
+def tp_ep_worker(work: str) -> int:
+    """One rank of ``tp_ep_one_card_phase`` (``--tp-ep-worker``): gloo on
+    cuda:0, config/gpt_nano_moe.yaml's own stanza, one epoch."""
+    import torch
+
+    from distribuuuu_tpu_torch.parallel import dist
+
+    torch.cuda.set_device(0)
+    dist.setup_distributed("gloo", timeout_s=600)
+    recs = _tp_ep_train(torch, _tp_ep_opts(os.path.join(work, "tokens"),
+                                           os.path.join(work, "sharded"), 1))
+    with open(os.path.join(work, f"rank{dist.get_rank()}.json"), "w") as f:
+        json.dump({"losses": recs[0]["losses"], "step_ms": recs[0].get("step_ms")}, f)
+    dist.shutdown_distributed()
+    return 0
+
+
+def _tp_ep_pack(work: str) -> str:
+    """A pack of exactly TP_EP_STEPS x TP_EP_BATCH sequences of 256."""
+    import numpy as np
+
+    from distribuuuu_tpu_torch.data.shards import tokens as ttok
+
+    rng = np.random.default_rng(22)
+    seqs = rng.integers(0, 256, (TP_EP_STEPS * TP_EP_BATCH, 257)).astype(np.uint16)
+    out = os.path.join(work, "tokens")
+    ttok.write_token_shards(os.path.join(out, "train"), [(q, 0) for q in seqs], 256)
+    return out
+
+
+def _state_rel(torch, got: dict, want: dict, lr: float, steps: int):
+    """(worst relative difference of a tensor, its key), the attention's
+    key bias apart: its gradient is 0 in exact arithmetic, so AdamW steps
+    it by rounding noise; returns also its worst absolute difference
+    against the bound 2·lr·steps."""
+    worst, key, kb = 0.0, None, 0.0
+    for k, w in want.items():
+        if not (torch.is_tensor(w) and w.is_floating_point()):
+            continue
+        g, w = got[k].double(), w.double()
+        if k.endswith("attn.qkv.bias"):
+            d = w.shape[0] // 3
+            kb = max(kb, float((g[d:2 * d] - w[d:2 * d]).abs().max()))
+            g, w = torch.cat([g[:d], g[2 * d:]]), torch.cat([w[:d], w[2 * d:]])
+        err = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        if err > worst:
+            worst, key = err, k
+    return worst, key, kb, 2 * lr * steps
+
+
+def tp_ep_one_card_phase(torch, ou) -> dict:
+    """config/gpt_nano_moe.yaml's stanza on 4 gloo ranks sharing cuda:0
+    (module docstring, 15)."""
+    import shutil
+    import socket
+
+    from distribuuuu_tpu_torch.parallel import mesh as mesh_lib
+    from distribuuuu_tpu_torch.utils import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_ep_")
+    procs = []
+    try:
+        pack = _tp_ep_pack(work)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "WORLD_SIZE": str(TP_EP_RANKS), "PYTHONPATH": here}
+        for r in range(TP_EP_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-ep-worker", work],
+                cwd=here, env={**env, "RANK": str(r), "LOCAL_RANK": "0"}))
+        one = os.path.join(work, "one")
+        ou.update.launches = 0
+        ref1, ref2 = _tp_ep_train(torch, [*_tp_ep_opts(pack, one, 2), "MESH.MODEL", 1,
+                                          "MESH.EXPERT", 1])
+        for p in procs:
+            if p.wait(timeout=600):
+                raise AssertionError(f"tp_ep worker exited {p.returncode}")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(TP_EP_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        sharded_dir = os.path.join(work, "sharded")
+        got = ckpt.load_checkpoint(os.path.join(sharded_dir, "checkpoints", "ckpt_ep_000.pth"))
+        want = ckpt.load_checkpoint(os.path.join(one, "checkpoints", "ckpt_ep_000.pth"))
+        resumed = os.path.join(work, "resumed")
+        shutil.copytree(sharded_dir, resumed)
+        res2 = _tp_ep_train(torch, [*_tp_ep_opts(pack, resumed, 2), "MESH.MODEL", 1,
+                                    "MESH.EXPERT", 1])
+        launches = ou.update.launches
+        got2 = ckpt.load_checkpoint(os.path.join(resumed, "checkpoints", "ckpt_ep_001.pth"))
+        want2 = ckpt.load_checkpoint(os.path.join(one, "checkpoints", "ckpt_ep_001.pth"))
+        from distribuuuu_tpu_torch import trainer
+
+        init = trainer.build_model_from_cfg().state_dict()  # RNG_SEED 0, as every run
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        mesh_lib.reset()
+        shutil.rmtree(work, ignore_errors=True)
+    from distribuuuu_tpu_torch.config import cfg
+
+    lr = float(cfg.OPTIM.BASE_LR)
+    sharded = ranks[0]["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sharded, ref1["losses"]))
+    resume_rel = max(abs(a - b) / abs(b) for a, b in zip(res2[0]["losses"], ref2["losses"]))
+    save = _state_rel(torch, got["model"], want["model"], lr, TP_EP_STEPS)
+    opt_m = _state_rel(torch, got["opt"]["m"], want["opt"]["m"], lr, TP_EP_STEPS)
+    save2 = _state_rel(torch, got2["model"], want2["model"], lr, 2 * TP_EP_STEPS)
+    keys = [k for k, v in want["model"].items() if v.is_floating_point()]
+    upd = [(got["model"][k].double() - init[k].double(), want["model"][k].double()
+            - init[k].double()) for k in keys]
+    upd_rel = float(torch.sqrt(sum(((a - b) ** 2).sum() for a, b in upd)
+                               / sum((b ** 2).sum() for _, b in upd)))
+    res = {"phase": "tp_ep_one_card", "arch": "gpt_nano_moe", "stanza": "dp1·tp2·ep2",
+           "ranks": TP_EP_RANKS, "dist_backend": "gloo", "dtype": "float32",
+           "batch_per_rank": TP_EP_BATCH, "steps": TP_EP_STEPS,
+           "losses_ranks": [r["losses"] for r in ranks], "losses_one_process": ref1["losses"],
+           "loss_rel_err": loss_rel, "loss_rtol": TP_EP_LOSS_RTOL,
+           "step_ms_sharded": ranks[0]["step_ms"], "step_ms_one_process": ref1.get("step_ms"),
+           "save_worst_rel": save[:2], "save_opt_m_worst_rel": opt_m[:2],
+           "save_key_bias_abs": save[2], "key_bias_bound": save[3],
+           "state_rtol": TP_EP_STATE_RTOL, "update_l2_rel_err": upd_rel,
+           "update_rtol": TP_EP_UPDATE_RTOL, "resumed_epoch": res2[0]["epoch"] + 1,
+           "resumed_loss_rel_err": resume_rel, "resumed_save_worst_rel": save2[:2],
+           "opt_update_launches_one_process": launches, "wall_s": wall,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if (any(r["losses"] != sharded for r in ranks) or loss_rel > TP_EP_LOSS_RTOL
+            or resume_rel > TP_EP_LOSS_RTOL or res["resumed_epoch"] != 2
+            or upd_rel > TP_EP_UPDATE_RTOL):
+        raise AssertionError(f"tp_ep_one_card losses: {res}")
+    for worst, key, kb, bound in (save, opt_m, save2):
+        if worst > TP_EP_STATE_RTOL or kb > bound:
+            raise AssertionError(f"tp_ep_one_card save: {key} {worst}, key bias {kb} > {bound}")
+    if launches != 3 * TP_EP_STEPS:
+        raise AssertionError(f"tp_ep_one_card: opt_update launches {launches} != "
+                             f"{3 * TP_EP_STEPS} one-process steps")
+    return {"opt_update": launches}
+
+
+def slice20_phases(torch, ou, da, dev) -> dict:
+    """moe_vit, moe_gpt, tp_ep_one_card; launch counts for the kernels line."""
+    import shutil
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_slice20_")
+    try:
+        vit = moe_vit_phase(torch, ou, dev)
+        gpt = moe_gpt_phase(torch, ou, da, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    tp_ep = tp_ep_one_card_phase(torch, ou)
+    emit({"phase": "slice20_seconds", "seconds": time.perf_counter() - t0})
+    return {"opt_update": vit["opt_update"] + gpt["opt_update"] + tp_ep["opt_update"],
+            "decode_attention": gpt["decode_attention"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5454,12 +5965,15 @@ def main(argv=None) -> int:
                          "32; served img/s and tokens/s both ways) and one regnety_160 "
                          "train step at batch 64")
     ap.add_argument("--two-ranks-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-ep-worker", metavar="DIR", help=argparse.SUPPRESS)
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--counted-train-net"]:  # train_net's own arguments follow
         return counted_train_net(argv[1], argv[2:])
     args = ap.parse_args(argv)
     if args.two_ranks_worker:
         return two_ranks_worker(args.two_ranks_worker)
+    if args.tp_ep_worker:
+        return tp_ep_worker(args.tp_ep_worker)
 
     import torch
 
@@ -5616,6 +6130,10 @@ def main(argv=None) -> int:
     # degrade and LM campaigns at the card's rates, the soak referee
     s19 = slice19_phases(torch, monitors)
     tf32_off()
+    # the MoE family on one card, and the model and expert axes as gloo
+    # ranks sharing it
+    s20 = slice20_phases(torch, ou, da, dev)
+    tf32_off()
 
     # real images and process groups: SyncBN in a group of one, the
     # ImageFolder path in that group, then two ranks sharing the card
@@ -5688,7 +6206,7 @@ def main(argv=None) -> int:
         "replaces": "distribuuuu_tpu/ops/pallas/opt_update.py:75",
         "launches": real["launches"]["opt_update"] + shards["launches"]["opt_update"]
         + resume["launches"]["opt_update"] + loop["opt_update"] + zoo["opt_update"]
-        + lm_plane["opt_update"] + tel["opt_update"] + s19["opt_update"]
+        + lm_plane["opt_update"] + tel["opt_update"] + s19["opt_update"] + s20["opt_update"]
         + sum(r["launches"]["opt_update"] for rs in runs.values() for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in opt_rows.values()),
         "ms": main_body["ms"],
@@ -5721,7 +6239,8 @@ def main(argv=None) -> int:
         "source": "distribuuuu_tpu_torch/csrc/decode_attn.cu",
         "replaces": "distribuuuu_tpu/ops/pallas/decode_attn.py:121",
         "launches": lm_launches + lm_big_launches + lm_plane["decode_attention"]
-        + tel["decode_attention"] + s18["decode_attention"] + s19["decode_attention"],
+        + tel["decode_attention"] + s18["decode_attention"] + s19["decode_attention"]
+        + s20["decode_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in decode_rows.values()),
         **{k: tile[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })

@@ -19,7 +19,10 @@ and runs as a fleet of replica processes (``serve_net --fleet N``); the
 live plane referees it: serving campaigns against multi-model fleets
 (``python -m distribuuuu_tpu_torch.serve_campaign``), the run monitor
 (``python -m distribuuuu_tpu_torch.telemetry.live``) and the train+serve
-soak (``python -m distribuuuu_tpu_torch.soak``).
+soak (``python -m distribuuuu_tpu_torch.soak``); the mixture-of-experts
+archs (``vit_tiny_moe``, ``gpt_nano_moe``) train and serve, and the
+``MESH.MODEL`` and ``MESH.EXPERT`` axes run across processes (tensor- and
+expert-parallel, ``parallel/``).
 """
 
 

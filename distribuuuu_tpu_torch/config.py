@@ -7,9 +7,11 @@ with the part of the default tree that the image configs and the ported
 slices use. Every shipped image config (``config/resnet*.yaml`` and the
 other CNN and ViT yamls) merges into it unchanged, and so does
 ``config/gpt_nano.yaml`` (LM, GENERATE, the decode-attention knobs,
-DATA.FORMAT). The JAX package's ``ASYNC`` node (its dispatch sequencer
-and cross-host ring) has no counterpart: the port's concurrent eval runs
-on its own CUDA stream and its own process group instead.
+DATA.FORMAT). The tree holds every key of the JAX package's, with its
+defaults; a key whose mechanism the port does not have yet is accepted at
+its default and raises away from it (``trainer.check_unported_cfg``), and
+``COMPILE_CACHE`` and ``LOG_DEST`` are inert, as noted where they are
+defined.
 """
 
 from __future__ import annotations
@@ -196,6 +198,15 @@ _C.MODEL.MOE.NUM_EXPERTS = 8
 _C.MODEL.MOE.TOP_K = 2
 _C.MODEL.MOE.EVERY = 2
 _C.MODEL.MOE.AUX_WEIGHT = 0.01
+# Execution strategy over a populated expert axis (ops/moe.py): "partial"
+# = local experts on all tokens + one sum over the axis (exact);
+# "dispatch" = switch routing through two all_to_alls at a fixed capacity
+# (over-capacity assignments drop: the ``moe_dropped`` train metric). At
+# an axis of 1 both run the dense reference formulation.
+_C.MODEL.MOE.IMPL = "partial"
+# Dispatch capacity: ceil(T_shard * top_k / E * this) slots per expert
+# and source rank.
+_C.MODEL.MOE.CAPACITY_FACTOR = 2.0
 
 # ------------------------------- training ----------------------------------
 _C.TRAIN = CfgNode()
@@ -375,7 +386,20 @@ _C.MESH.DATA = -1
 _C.MESH.MODEL = 1
 _C.MESH.SEQ = 1
 _C.MESH.PIPE = 1
+# Expert-parallel axis of the *_moe archs: 1 keeps the experts on the model
+# axis (the legacy layout), > 1 gives them an axis of their own (dp x tp x
+# ep). One process a card: the axes' product is the number of processes
+# (parallel/partition/topology.py, parallel/mesh.py).
+_C.MESH.EXPERT = 1
 _C.MESH.MICROBATCH = 0
+# ZeRO stage over the data axis (0 off, 1, 3): not ported, > 0 raises.
+_C.MESH.ZERO = 0
+
+# ZeRO collective scheduling: read only under MESH.ZERO > 0, which the port
+# refuses; a value away from the default raises (trainer.check_unported_cfg).
+_C.ZERO = CfgNode()
+_C.ZERO.OVERLAP = True
+_C.ZERO.GATHER_AHEAD = -1
 
 # ------------------------------- data ----------------------------------------
 _C.DATA = CfgNode()
@@ -598,6 +622,28 @@ _C.PROF.NUM_STEPS = 5
 _C.OUT_DIR = "./output"
 _C.CFG_DEST = "config.yaml"
 _C.RNG_SEED = None
+# Read by neither package's logger (both log to stderr and the primary to
+# {OUT_DIR}/{time}.log whatever it says): accepted and inert, as in the JAX
+# package.
+_C.LOG_DEST = "stdout"
+
+# The JAX package's dispatch sequencer, cross-host ring and commit barrier
+# (its asyncplane): not ported; a value away from the default raises
+# (trainer.check_unported_cfg).
+_C.ASYNC = CfgNode()
+_C.ASYNC.SEQUENCER = True
+_C.ASYNC.BARRIER_TIMEOUT_S = 600.0
+_C.ASYNC.RING_DEADLINE_S = 30.0
+
+# XLA's persistent compilation cache has no counterpart: the port's
+# compiled artifacts are the nvcc builds, cached by source hash in
+# _build/ (ops/cuda/_build.py), and CUDA graphs are captured in each
+# process. Accepted and inert.
+_C.COMPILE_CACHE = CfgNode()
+_C.COMPILE_CACHE.ENABLED = False
+_C.COMPILE_CACHE.DIR = ""
+_C.COMPILE_CACHE.MIN_COMPILE_TIME_S = 0.0
+_C.COMPILE_CACHE.MAX_SIZE_MB = 0
 
 _CFG_DEFAULT = _C.clone()
 _CFG_DEFAULT.freeze()

@@ -56,6 +56,7 @@ from distribuuuu_tpu_torch.config import cfg
 from distribuuuu_tpu_torch.data.dummy import DummyDataset
 from distribuuuu_tpu_torch.data.sampler import DistributedSampler
 from distribuuuu_tpu_torch.parallel import dist
+from distribuuuu_tpu_torch.parallel import mesh as mesh_lib
 from distribuuuu_tpu_torch.telemetry import registry as telemetry_registry
 from distribuuuu_tpu_torch.telemetry import spans as telemetry_spans
 from distribuuuu_tpu_torch.utils import faults
@@ -82,7 +83,11 @@ class Loader:
         self.retries = max(0, int(cfg.DATA.RETRIES))
         self.retry_backoff = float(cfg.DATA.RETRY_BACKOFF_S)
         self.skip_corrupt = bool(cfg.DATA.SKIP_CORRUPT)
-        world, rank = dist.get_world_size(), dist.get_rank()
+        # the data axis's shard: every rank of one model x expert line reads
+        # the same batches (parallel/mesh.py; (rank, world) without one)
+        mesh = mesh_lib.current()
+        rank, world = (mesh.data_coords() if mesh.sharded()
+                       else (dist.get_rank(), dist.get_world_size()))
         make = getattr(dataset, "make_sampler", None)
         self.sampler = make(num_replicas=world, rank=rank, shuffle=shuffle, seed=seed) \
             if make is not None else None

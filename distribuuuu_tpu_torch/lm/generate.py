@@ -161,7 +161,10 @@ class GPTDecoder:
     are ``clip(lengths + arange(T), 0, seq_len − 1)``. Returns the logits
     ``[B, T, vocab]`` (head dtype); the cache is updated in place. The
     decode-attention kernel takes the step when ``decode_attn.supported``
-    holds for (T, cache tile, head dim, ``KERNELS.DECODE_BLOCK``)."""
+    holds for (T, cache tile, head dim, ``KERNELS.DECODE_BLOCK``). A MoE
+    block's FFN (``gpt_nano_moe``) runs as the block's own ``mlp``: every
+    expert over the T tokens, the dense reference formulation, as the JAX
+    package's decoder."""
 
     def __init__(self, model, decode_block: int | None = None):
         self.model = model

@@ -55,9 +55,10 @@ def engine_from_cfg(graphed: bool | None = None) -> GenerateEngine:
             f"lm.service serves the gpt_* archs, got {cfg.MODEL.ARCH!r} — "
             "image archs serve through serve/engine.py"
         )
-    if int(cfg.MESH.MODEL) > 1:
-        raise not_ported(f"tensor-parallel decode (MESH.MODEL={cfg.MESH.MODEL})",
-                         "Parallel layouts beyond DP")
+    if int(cfg.MESH.MODEL) > 1 or int(cfg.MESH.EXPERT) > 1:
+        raise not_ported(f"tensor- or expert-parallel decode (MESH.MODEL={cfg.MESH.MODEL}, "
+                         f"EXPERT={cfg.MESH.EXPERT}); a MoE GPT decodes on one card at "
+                         "MESH.MODEL 1 MESH.EXPERT 1", "Parallel layouts beyond DP")
     kwargs = _draft_from_cfg() if cfg.GENERATE.SPECULATE.ENABLED else {}
     device = trainer.device_from_cfg()
     model = trainer.build_model_from_cfg()

@@ -2,13 +2,12 @@
 
 The ResNet family, the RegNets (regnetx_160, regnety_160, regnety_320),
 DenseNet-121/161/169/201, BoTNet-50, EfficientNet-B0, the ViTs (vit_tiny,
-vit_small) and gpt_nano are ported; vit_tiny_moe raises with the ROADMAP
-item that ports it.
+vit_small), the MoE ViT-Ti (vit_tiny_moe), gpt_nano and gpt_nano_moe
+are ported.
 """
 
 from __future__ import annotations
 
-from distribuuuu_tpu_torch import not_ported
 from distribuuuu_tpu_torch.models.botnet import botnet50
 from distribuuuu_tpu_torch.models.densenet import (
     densenet121,
@@ -30,7 +29,7 @@ from distribuuuu_tpu_torch.models.resnet import (
     wide_resnet50_2,
     wide_resnet101_2,
 )
-from distribuuuu_tpu_torch.models.vit import vit_small, vit_tiny
+from distribuuuu_tpu_torch.models.vit import vit_small, vit_tiny, vit_tiny_moe
 
 _REGISTRY = {
     fn.__name__: fn
@@ -39,12 +38,9 @@ _REGISTRY = {
         resnext50_32x4d, resnext101_32x8d, wide_resnet50_2, wide_resnet101_2,
         regnetx_160, regnety_160, regnety_320,
         densenet121, densenet161, densenet169, densenet201, botnet50, efficientnet_b0,
-        vit_tiny, vit_small, gpt_nano, gpt_nano_moe,
+        vit_tiny, vit_small, vit_tiny_moe, gpt_nano, gpt_nano_moe,
     )
 }
-
-# archs of the JAX zoo that later slices port -> their ROADMAP item
-_UNPORTED = {"vit_tiny_moe": "Parallel layouts beyond DP"}
 
 
 def available_models():
@@ -54,8 +50,6 @@ def available_models():
 def build_model(arch: str, **kwargs):
     """Construct a model by name. Keyword arguments go to the constructor
     (``num_classes``, ``dtype``, ``generator``, ``device``, ...)."""
-    if arch in _UNPORTED:
-        raise not_ported(f"arch {arch!r}", _UNPORTED[arch])
     if arch not in _REGISTRY:
         raise KeyError(f"Unknown arch '{arch}'. Available: {', '.join(available_models())}.")
     return _REGISTRY[arch](**kwargs)

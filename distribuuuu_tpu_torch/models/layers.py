@@ -39,7 +39,7 @@ from torch import nn
 from distribuuuu_tpu_torch import graphs, not_ported
 from distribuuuu_tpu_torch.ops import cuda as kernel_tier
 from distribuuuu_tpu_torch.ops.cuda import conv_epilogue, group_conv
-from distribuuuu_tpu_torch.parallel import dist
+from distribuuuu_tpu_torch.parallel import dist, tp
 
 GROUP_CONV_MODES = ("auto", "unrolled", "fused", "blockdiag", "pallas")
 
@@ -540,10 +540,16 @@ class CNN(nn.Module):
 
 
 class Dense(nn.Linear):
-    """Linear head computed in the input's dtype (the head dtype)."""
+    """Linear head computed in the input's dtype (the head dtype);
+    column-parallel when ``parallel/partition/specs.place_model`` gives it
+    a ``shard`` (``parallel/tp.linear``)."""
+
+    shard = None
+    bias_sharded = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return tp.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.shard,
+                         self.bias_sharded)
 
 
 class LayerNorm(nn.Module):

@@ -94,8 +94,11 @@ def setup_distributed(backend: str | None = None, port: int | None = None,
 
 
 def shutdown_distributed() -> None:
-    """Leave the process group (and forget the rank groups)."""
+    """Leave the process group (and forget the rank groups and the mesh)."""
+    from distribuuuu_tpu_torch.parallel import mesh
+
     _groups.clear()
+    mesh.reset()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -189,23 +192,36 @@ def side_group():
     return dist.new_group(list(range(get_world_size())), backend="gloo")
 
 
-def scaled_all_reduce(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """The mean over processes of each tensor: sum, then scale by 1/world
-    (the reference's ``scaled_all_reduce``). One collective for the lot."""
+def _size(group) -> int:
+    return get_world_size() if group is None else dist.get_world_size(group)
+
+
+def scaled_all_reduce(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """The mean over ``group``'s processes (default: all) of each tensor:
+    sum, then scale by 1/size (the reference's ``scaled_all_reduce``). One
+    collective for the lot. Under a model or expert axis the caller passes
+    the data group: the ranks of one line hold the same values."""
     if not is_initialized():
         return list(tensors)
-    return [t / get_world_size() for t in all_reduce_sum(tensors)]
+    if group is None:
+        return [t / get_world_size() for t in all_reduce_sum(tensors)]
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    flat = torch.stack([t.to(dtype) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return list((flat / _size(group)).unbind(0))
 
 
-def all_reduce_grads(grads: list[torch.Tensor]) -> None:
-    """Average each gradient over the processes, in place: the gradients
-    are packed in order into flat buckets of one dtype and at most
-    ``BUCKET_BYTES`` (a larger tensor is a bucket alone), one all-reduce a
-    bucket, then scaled by 1/world and written back in each tensor's own
-    layout."""
+def all_reduce_grads(grads: list[torch.Tensor], group=None) -> None:
+    """Average each gradient over ``group``'s processes (default: all), in
+    place: the gradients are packed in order into flat buckets of one
+    dtype and at most ``BUCKET_BYTES`` (a larger tensor is a bucket
+    alone), one all-reduce a bucket, then scaled by 1/size and written
+    back in each tensor's own layout. Under a model or expert axis it is
+    the data group: the other axes' ranks hold a shard or a whole copy of
+    the same gradient."""
     if not is_initialized():
         return
-    world = get_world_size()
+    world = _size(group)
     buckets: list[list[torch.Tensor]] = []
     size = 0
     for g in grads:
@@ -217,7 +233,7 @@ def all_reduce_grads(grads: list[torch.Tensor]) -> None:
         size += nbytes
     for bucket in buckets:
         flat = torch.cat([g.reshape(-1) for g in bucket])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat /= world
         offset = 0
         for g in bucket:

@@ -56,9 +56,16 @@ several processes, else ``cuda:{SERVE.DEVICE}``, under ``DEVICE.PLATFORM``
 over the global micro-batch (``models/layers.BatchNorm``); ``MODEL.SYNCBN``
 is one group of the whole global micro-batch. ``TRAIN.GRAD_ACCUM_STEPS``
 splits each step into micro-batches; ``TRAIN.REMAT`` recomputes the
-ResNets' stages 1-2 in the backward. What the port does not run raises
-with its ROADMAP item: mesh axes beyond data, the token shards and the
-fault knobs whose mechanism the port does not have.
+ResNets' stages 1-2 in the backward. ``MESH`` is resolved against the
+number of processes and held to the JAX package's capability rules
+(``parallel/partition/topology.py``); under a model or expert axis the
+model is placed on this rank's shards (``parallel/partition/specs.
+place_model``), the gradients and metrics average over the data group,
+the loss adds the MoE blocks' balancing loss (``MODEL.MOE.AUX_WEIGHT``),
+dispatch MoE reports ``moe_dropped``, and checkpoints hold full tensors.
+What the port does not run raises with its ROADMAP item: ZeRO, the
+sequence and pipe axes, a model axis on a CNN, the config keys of
+mechanisms it lacks and the fault knobs whose mechanism it does not have.
 """
 
 from __future__ import annotations
@@ -85,6 +92,8 @@ from distribuuuu_tpu_torch.models import build_model
 from distribuuuu_tpu_torch.models.layers import DropoutSlot, head_dtype, resolve_dtype
 from distribuuuu_tpu_torch.ops import cuda as kernel_tier
 from distribuuuu_tpu_torch.parallel import dist
+from distribuuuu_tpu_torch.parallel import mesh as mesh_lib
+from distribuuuu_tpu_torch.parallel.partition import specs, topology
 from distribuuuu_tpu_torch.resilience import manifest, supervisor
 from distribuuuu_tpu_torch.telemetry import costmodel
 from distribuuuu_tpu_torch.telemetry import runtime as telemetry_runtime
@@ -98,7 +107,7 @@ from distribuuuu_tpu_torch.utils.jsonlog import (
     timeline_log,
 )
 from distribuuuu_tpu_torch.utils.logger import get_logger, setup_logger
-from distribuuuu_tpu_torch.utils.meters import construct_meters
+from distribuuuu_tpu_torch.utils.meters import AverageMeter, construct_meters
 from distribuuuu_tpu_torch.utils.metrics import accuracy, count_parameters, cross_entropy
 from distribuuuu_tpu_torch.utils.optim import construct_optimizer, set_lr
 from distribuuuu_tpu_torch.utils.schedules import get_epoch_lr
@@ -175,7 +184,10 @@ def build_model_from_cfg(generator: torch.Generator | None = None):
     ``ceil(TRAIN.IM_SIZE / 16)`` squared, and ``DEVICE.ATTN_IMPL``; the
     ViTs, LayerNorm-only, take ``DEVICE.ATTN_IMPL`` and the input size; the
     GPTs take ``LM.SEQ_LEN`` and ``DEVICE.ATTN_IMPL``, where ``auto`` is
-    the dense causal region, as in the JAX trainer."""
+    the dense causal region, as in the JAX trainer; the ``*_moe`` archs
+    ``MODEL.MOE.*``. The model is built whole, then placed on this
+    process's mesh (``parallel/partition/specs.place_model``: the shards of
+    a model or expert axis; nothing on one process)."""
     kernel_tier.validate_kernels_cfg(cfg.KERNELS)
     if cfg.DEVICE.S2D_STEM:
         raise not_ported("DEVICE.S2D_STEM (space-to-depth stem)", "S2D stem")
@@ -189,6 +201,11 @@ def build_model_from_cfg(generator: torch.Generator | None = None):
                       seq_len=int(cfg.LM.SEQ_LEN))
     else:
         kwargs["bn_group"] = bn_group_from_cfg()
+    if arch.endswith("_moe"):
+        moe = cfg.MODEL.MOE
+        kwargs.update(moe_experts=int(moe.NUM_EXPERTS), moe_top_k=int(moe.TOP_K),
+                      moe_every=int(moe.EVERY), moe_impl=str(moe.IMPL),
+                      moe_capacity_factor=float(moe.CAPACITY_FACTOR))
     if arch == "botnet50":
         # each stride-2 op maps n → ceil(n/2): the stride-16 trunk gives
         # ceil(IM_SIZE/16); eval crops to TRAIN.IM_SIZE, so both see it
@@ -200,13 +217,15 @@ def build_model_from_cfg(generator: torch.Generator | None = None):
             f"rematerialization); {arch!r} does not take the knob")
     if cfg.TRAIN.REMAT:
         kwargs["remat"] = True
-    return build_model(
+    model = build_model(
         arch,
         num_classes=cfg.MODEL.NUM_CLASSES,
         dtype=resolve_dtype(cfg.DEVICE.COMPUTE_DTYPE),
         generator=generator or torch.Generator().manual_seed(int(cfg.RNG_SEED or 0)),
         **kwargs,
     )
+    mesh = mesh_lib.current()
+    return specs.place_model(model, mesh, specs.table_for(arch, mesh.topology().moe_axis()))
 
 
 def effective_topk() -> int:
@@ -227,20 +246,58 @@ def check_train_cfg(eval_only: bool = False) -> None:
                          "MODEL.DUMMY_INPUT False")
     if not lm and cfg.DATA.FORMAT == "tokens":
         raise ValueError(f"DATA.FORMAT tokens feeds the gpt_* archs, not {cfg.MODEL.ARCH!r}")
-    world, mesh = dist.env_world_size(), cfg.MESH
-    if mesh.MODEL != 1 or mesh.SEQ != 1 or mesh.PIPE != 1:
-        raise not_ported(f"MESH axes beyond data (MODEL={mesh.MODEL}, SEQ={mesh.SEQ}, "
-                         f"PIPE={mesh.PIPE})", PARALLEL)
-    if mesh.DATA not in (-1, world):
-        raise ValueError(f"MESH.DATA={mesh.DATA}: the port runs one card a process, so the "
-                         f"data axis is -1 or the number of processes ({world})")
+    topo = topology_from_cfg()
+    check_unported_cfg()
+    if topo.model > 1 or topo.expert > 1:
+        if cfg.TRAIN.CONCURRENT_EVAL:
+            raise not_ported("TRAIN.CONCURRENT_EVAL under a model or expert axis (the eval "
+                             "thread's collectives would interleave with the step's on the "
+                             "same groups)", PARALLEL)
     if not eval_only:
         supervisor.validate_policy(str(cfg.TRAIN.NONFINITE))
     faults.validate_cfg(cfg.DEVICE.PLATFORM)
     if cfg.MODEL.PRETRAINED and not cfg.MODEL.WEIGHTS:
         raise pretrained_refusal(cfg.MODEL.ARCH)
     if not eval_only:
-        check_batch_geometry(world)
+        check_batch_geometry(topo.data)
+
+
+def topology_from_cfg() -> topology.Topology:
+    """``MESH`` resolved against the number of processes (one card a
+    process) and validated by the capability rules; what the port does not
+    run raises ``not_ported`` (``parallel/partition/topology.from_cfg``)."""
+    world, m = dist.env_world_size(), cfg.MESH
+    try:
+        return topology.from_cfg(cfg, world)
+    except topology.TopologyError:
+        raise
+    except ValueError as e:
+        raise ValueError(
+            f"MESH.DATA={m.DATA} MODEL={m.MODEL} SEQ={m.SEQ} PIPE={m.PIPE} EXPERT={m.EXPERT}: "
+            f"the port runs one card a process, so the axes multiply to the number of "
+            f"processes ({world}), -1 on one axis taking the rest ({e})") from None
+
+
+# keys of the JAX config whose mechanism the port does not have yet, refused
+# away from their defaults -> the ROADMAP item that holds them
+UNPORTED_KEYS = {
+    "ZERO.OVERLAP": PARALLEL,
+    "ZERO.GATHER_AHEAD": PARALLEL,
+    "ASYNC.SEQUENCER": "Async, resilience, live plane, shards and analysis",
+    "ASYNC.RING_DEADLINE_S": "Async, resilience, live plane, shards and analysis",
+    "ASYNC.BARRIER_TIMEOUT_S": "Async, resilience, live plane, shards and analysis",
+}
+
+
+def check_unported_cfg() -> None:
+    """``not_ported`` for a key of :data:`UNPORTED_KEYS` set away from its
+    default (``MESH.ZERO`` is refused by the topology)."""
+    from distribuuuu_tpu_torch.config import _CFG_DEFAULT
+
+    for key, item in UNPORTED_KEYS.items():
+        node, leaf = key.split(".")
+        if cfg[node][leaf] != _CFG_DEFAULT[node][leaf]:
+            raise not_ported(f"{key}={cfg[node][leaf]!r}", item)
 
 
 def check_batch_geometry(world: int) -> None:
@@ -248,8 +305,8 @@ def check_batch_geometry(world: int) -> None:
     ``check_batch_geometry`` does: a process's batch (``TRAIN.BATCH_SIZE``)
     divides into ``TRAIN.GRAD_ACCUM_STEPS`` micro-batches, and the ghost-BN
     group divides the global micro-batch (a process's micro-batch ×
-    ``world``). In the port a group must also divide a process's
-    micro-batch or be whole ones."""
+    ``world``, the data axis's size). In the port a group must also divide
+    a process's micro-batch or be whole ones."""
     accum = max(1, int(cfg.TRAIN.GRAD_ACCUM_STEPS))
     n = cfg.TRAIN.BATCH_SIZE
     if n % accum:
@@ -309,6 +366,23 @@ class _StepBody:
         self.slots, self.poison = slots, poison
         self.bufs = list(model.buffers())
         self.snap = [torch.empty_like(b) for b in self.bufs] if skip else None
+        self.moe = model.moe_layers() if hasattr(model, "moe_layers") else []
+        self.aux_weight = float(cfg.MODEL.MOE.AUX_WEIGHT)
+        self.dispatch = [m for m in self.moe if m.ep is not None and m.impl == "dispatch"]
+        # the gradients and metrics average over the data group under a
+        # model or expert axis (its other ranks hold the same values),
+        # over every process otherwise
+        mesh = mesh_lib.current()
+        self.group = mesh.group("data") if mesh.sharded() else None
+        self.reduce = not mesh.sharded()
+
+    def loss(self, logits, labels) -> torch.Tensor:
+        """Cross-entropy plus ``MODEL.MOE.AUX_WEIGHT`` times the mean of the
+        MoE blocks' balancing losses (JAX ``lowering.loss_fn``)."""
+        loss = cross_entropy(logits, labels)
+        if self.moe and self.aux_weight:
+            loss = loss + self.aux_weight * sum(m.aux for m in self.moe) / len(self.moe)
+        return loss
 
     def __call__(self, k: int, inputs: dict) -> torch.Tensor:
         self.opt.row.zero_()
@@ -330,19 +404,27 @@ class _StepBody:
             if self.slots:
                 model.dropout_key = self.slots[s * accum + i]
             logits = model(prep_images(images[rows]))
-            loss = cross_entropy(logits, labels[rows]) * self.poison[s]
+            loss = self.loss(logits, labels[rows]) * self.poison[s]
             grads = torch.autograd.grad(loss, opt.params)
+            for m in self.moe:  # no autograd graph outlives the step (graph capture)
+                m.aux = None
             gsum = list(grads) if gsum is None else [a + g for a, g in zip(gsum, grads)]
             micro.append((loss.detach(), *accuracy(logits.detach(), labels[rows],
-                                                   topk=(1, self.topk))))
+                                                   topk=(1, self.topk)),
+                          *self.dropped()))
         with torch.no_grad():
             # the fused update walks each leaf's memory: the static buffers
             # are laid out as the parameters
             for buf, g in zip(opt.grads, gsum):
                 buf.copy_(g / accum if accum > 1 else g)
-        dist.all_reduce_grads(opt.grads)
         metrics = micro[0] if accum == 1 else [torch.stack(m).mean() for m in zip(*micro)]
-        loss, acc1, acck = dist.scaled_all_reduce(list(metrics))
+        if self.group is not None:
+            dist.all_reduce_grads(opt.grads, self.group)
+            metrics = dist.scaled_all_reduce(list(metrics), self.group)
+        elif self.reduce:  # every process
+            dist.all_reduce_grads(opt.grads)
+            metrics = dist.scaled_all_reduce(list(metrics))
+        loss, acc1, acck, *dropped = metrics
         bad = torch.logical_not(torch.isfinite(loss))
         opt.apply(skip=None if self.snap is None else bad.to(torch.float32))
         if self.snap is not None:
@@ -350,7 +432,15 @@ class _StepBody:
                 for b, c in zip(self.bufs, self.snap):
                     b.copy_(torch.where(bad, c, b))
         return torch.stack([loss, acc1.to(loss.dtype), acck.to(loss.dtype),
-                            bad.to(loss.dtype)])
+                            bad.to(loss.dtype), *(d.to(loss.dtype) for d in dropped)])
+
+    def dropped(self) -> list:
+        """The mean over the dispatch MoE blocks of the fraction of routed
+        assignments lost to the capacity (JAX's ``moe_dropped``), as a
+        one-element list; empty without such blocks."""
+        if not self.dispatch:
+            return []
+        return [sum(m.dropped for m in self.dispatch) / len(self.dispatch)]
 
 
 class TrainStep:
@@ -376,7 +466,8 @@ class TrainStep:
     ``policy="skip"`` the flag goes to the kernel, which then changes
     nothing, and the BN buffers are restored from the step's snapshot by
     ``torch.where``: JAX's in-graph skip. The body reads nothing on the
-    host. Returns the ``[k, 4]`` metrics (loss, top1, topk, nonfinite),
+    host. Returns the ``[k, 4]`` metrics (loss, top1, topk, nonfinite;
+    a fifth column, ``moe_dropped``, with dispatch MoE blocks),
     valid until the next call; under ``skip`` the call reads the flags
     (one sync a call, as the eager step's ``bool(bad)`` was one a step)
     so that ``optimizer.count`` counts applied steps only.
@@ -710,15 +801,19 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
     pending, done, calls = [], start_batch, 0
     preempt_every = 1 if dist.get_world_size() == 1 else 8
 
+    moe_dropped = AverageMeter("MoEDrop", ":.4f")  # dispatch MoE only
+
     def flush():
         for rows in pending:
             for m in rows.tolist():
-                m = dict(zip(("loss", "top1", "topk", "nonfinite"), m))
+                m = dict(zip(("loss", "top1", "topk", "nonfinite", "moe_dropped"), m))
                 if monitor.observe(m["loss"], m["nonfinite"], done):
                     continue
                 losses.update(m["loss"])
                 top1.update(m["top1"])
                 topk_m.update(m["topk"])
+                if "moe_dropped" in m:
+                    moe_dropped.update(m["moe_dropped"])
                 record["losses"].append(m["loss"])
         pending.clear()
         record["flushes"].append((done, time.perf_counter()))
@@ -773,9 +868,10 @@ def train_epoch(loader, model, optimizer, state: dict, epoch: int, logger,
                     done, (num_batches - done) + (cfg.OPTIM.MAX_EPOCH - epoch - 1) * num_batches)
                 logger.info("%s  LR %.5f  ETA %s", progress.display(done), lr, eta)
                 if primary:
+                    extra = {"moe_dropped": moe_dropped.avg} if moe_dropped.count else {}
                     metrics_log("train", epoch=epoch + 1, batch=done, loss=losses.avg,
                                 top1=top1.avg, topk=topk_m.avg, lr=lr,
-                                batch_time=batch_time.avg, data_time=data_time.avg)
+                                batch_time=batch_time.avg, data_time=data_time.avg, **extra)
             now = time.perf_counter()
             record["step_t"].extend([now] * n)
             batch_time.update((now - end) / n, n=n)
@@ -811,7 +907,9 @@ def _log_lm_rate(logger, epoch: int, record: dict, loader) -> None:
     if not seq or not steps:
         return
     span = t[-1] - t[0]
-    seqs = steps * loader.batch_size * dist.get_world_size()
+    mesh = mesh_lib.current()
+    shards = mesh.size("data") if mesh.sharded() else dist.get_world_size()
+    seqs = steps * loader.batch_size * shards
     record.update(seqs_per_s=seqs / span, tokens_per_s=seqs * seq / span,
                   step_ms=span / steps * 1e3)
     logger.info("Epoch[%d] train: %.1f sequences/s, %.0f tokens/s, %.3f ms a step (%d steps "
@@ -882,8 +980,14 @@ def validate(loader, model, epoch: int, logger, device: torch.device,
                             * 100)
             end = time.perf_counter()
     keys = sorted(totals)
-    totals = dict(zip(keys, (float(v) for v in
-                             dist.all_reduce_sum([totals[k] for k in keys], group))))
+    vals, mesh = [totals[k] for k in keys], mesh_lib.current()
+    if group is None and mesh.sharded():
+        # the ranks of one model x expert line evaluated the same batches
+        if mesh.size("data") > 1:
+            vals = dist.all_reduce_sum(vals, mesh.group("data"))
+    else:
+        vals = dist.all_reduce_sum(vals, group)
+    totals = dict(zip(keys, (float(v) for v in vals)))
     n = max(totals["count"], 1.0)
     top1, topk_acc = totals["correct1"] / n * 100.0, totals["correctk"] / n * 100.0
     loss = totals["loss_sum"] / n
@@ -906,10 +1010,10 @@ def _resume(model, optimizer, state: dict, logger):
             "/ MOE differ from the checkpoint's; match the config to the save, or start a "
             "fresh OUT_DIR")
     payload = ckpt.load_checkpoint(path)
-    model.load_state_dict(payload["model"])
+    specs.load_full_model(model, payload["model"])
     if cfg.TRAIN.LOAD_OPT and "opt" in payload:
         try:
-            optimizer.load_state_dict(payload["opt"])
+            specs.load_full_opt(model, optimizer, payload["opt"])
         except ValueError as e:
             logger.warning("optimizer state not restored (%s); fresh optimizer", e)
     state["step"] = int(payload.get("step", 0))
@@ -948,12 +1052,30 @@ def _arm_exact_resume(train_loader, data_state, start_epoch: int, logger) -> Non
 
 def join_process_group(device: torch.device) -> int:
     """``setup_distributed`` for this process's device (NCCL on the card,
-    gloo on the CPU) when the environment launches several processes;
+    gloo on the CPU) when the environment launches several processes, and
+    the mesh of ``MESH`` over them (``parallel/mesh.setup``: its groups);
     returns the world size."""
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.setup_distributed("nccl" if device.type == "cuda" else "gloo")
+    mesh_lib.setup(topology_from_cfg())
     return dist.get_world_size()
+
+
+def broadcast_start(model) -> None:
+    """Every rank starts from the same weights: the primary's, broadcast
+    to all (DDP's start-up broadcast), or under a model or expert axis
+    the data group's first rank's to its group (the other ranks of a line
+    hold other shards)."""
+    mesh = mesh_lib.current()
+    if not mesh.sharded():
+        dist.broadcast_tensors_from_primary(model.state_dict().values())
+    elif mesh.size("data") > 1:
+        import torch.distributed as tdist
+
+        src = mesh_lib.rank_of({**mesh.coords, "data": 0}, mesh.sizes)
+        for t in model.state_dict().values():
+            tdist.broadcast(t, src=src, group=mesh.group("data"))
 
 
 def train_model(records: list | None = None):
@@ -1029,14 +1151,13 @@ def _train_model(records, device, world: int, logger):
     elif not resumed and cfg.MODEL.WEIGHTS:
         logger.warning("MODEL.WEIGHTS is ignored during training unless "
                        "MODEL.PRETRAINED True (evaluation uses test_net)")
-    dist.broadcast_tensors_from_primary(model.state_dict().values())
+    broadcast_start(model)
     if cfg.TRAIN.PREEMPT_SAVE:
         preempt.install()
     by_epoch = {}
 
     def full_state():
-        return {"model": model.state_dict(), "opt": optimizer.state_dict(),
-                "step": state["step"]}
+        return {**specs.full_train_state(model, optimizer), "step": state["step"]}
 
     def preempt_exit(path, resume_epoch):
         committer.join_commits(reason="preemption exit")

@@ -26,7 +26,9 @@ process loads. A synchronous save ends at a barrier; the walk-back runs
 on the primary after it joins the committer, and every process takes the
 path it broadcasts. The payload is the same as with one process (the
 model's ``state_dict`` keys unchanged), so a checkpoint of either resumes
-the other. The orbax format is not ported (ROADMAP "Orbax weights").
+the other: under a model or expert axis the trainer gathers the shards
+into full tensors before the save and slices them at the load
+(``parallel/partition/specs.full_train_state``, ``load_full_model``). The orbax format is not ported (ROADMAP "Orbax weights").
 
 Telemetry, on the ``ckpt`` track of the primary's sink: a synchronous
 save is one ``ckpt_save`` span; a background one a ``ckpt_snapshot`` span

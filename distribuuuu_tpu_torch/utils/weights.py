@@ -34,13 +34,18 @@ import re
 import numpy as np
 import torch
 
+from distribuuuu_tpu_torch.parallel.partition import specs
+
 # flax block module -> the number of its main ConvBNs (a further one is
 # the downsample)
 _BLOCK_CONVS = {"BasicBlock": 2, "Bottleneck": 3}
 # the GPT's token table: [vocab, dim] in both frameworks, not transposed
 EMBEDDING = "tok_embed.weight"
-# 2-D leaves that are tables, not dense kernels: kept as they are
-TABLES = (EMBEDDING, "rel_height", "rel_width", "emb_height", "emb_width")
+# a MoE layer's tensors, in the flax order; kept in the JAX layout
+MOE_LEAVES = ("gate", "w_in", "b_in", "w_out", "b_out")
+# 2-D leaves that are not [in, out] Dense kernels: not transposed
+TABLES = (EMBEDDING, "rel_height", "rel_width", "emb_height", "emb_width",
+          "mlp.gate", "mlp.b_in", "mlp.b_out")
 
 
 def _idx(name: str) -> int:
@@ -54,10 +59,12 @@ def _sorted(names, prefix):
 def _vit_path_map(params: dict) -> dict[tuple[str, ...], str]:
     """The ViT tree: ``Conv_0`` (patch embed), ``pos_embed``, ``Block_N``
     with ``LayerNorm_0/1``, ``Attention_0/Dense_{0,1}/Dense_0`` (qkv, proj)
-    and ``Mlp_0/Dense_{0,1}/Dense_0`` (fc1, fc2), ``LayerNorm_0`` (the
-    final norm) and ``Dense_0/Dense_0`` (the head). The GPT tree (told
-    apart by ``tok_embed``) has ``tok_embed/embedding`` in place of the
-    patch conv and ``head/Dense_0`` for the head, the rest alike."""
+    and ``Mlp_0/Dense_{0,1}/Dense_0`` (fc1, fc2) or, in a MoE block,
+    ``MoeMlp_0/{gate, w_in, b_in, w_out, b_out}`` (``mlp.*``, in the JAX
+    layout), ``LayerNorm_0`` (the final norm) and ``Dense_0/Dense_0`` (the
+    head). The GPT tree (told apart by ``tok_embed``) has
+    ``tok_embed/embedding`` in place of the patch conv and ``head/Dense_0``
+    for the head, the rest alike."""
     out: dict[tuple[str, ...], str] = {("pos_embed",): "pos_embed"}
     gpt = "tok_embed" in params
 
@@ -80,8 +87,12 @@ def _vit_path_map(params: dict) -> dict[tuple[str, ...], str]:
         dense((blk, "Attention_0", "Dense_0"), f"{base}.attn.qkv")
         dense((blk, "Attention_0", "Dense_1"), f"{base}.attn.proj")
         norm((blk, "LayerNorm_1"), f"{base}.norm2")
-        dense((blk, "Mlp_0", "Dense_0"), f"{base}.mlp.fc1")
-        dense((blk, "Mlp_0", "Dense_1"), f"{base}.mlp.fc2")
+        if "MoeMlp_0" in params[blk]:
+            for leaf in MOE_LEAVES:
+                out[(blk, "MoeMlp_0", leaf)] = f"{base}.mlp.{leaf}"
+        else:
+            dense((blk, "Mlp_0", "Dense_0"), f"{base}.mlp.fc1")
+            dense((blk, "Mlp_0", "Dense_1"), f"{base}.mlp.fc2")
     norm(("LayerNorm_0",), "norm")
     dense(("head",) if gpt else ("Dense_0",), "head")
     return out
@@ -357,22 +368,23 @@ def opt_state_from_jax(opt_state, params: dict) -> dict:
 def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Load a torch ``.pth``/``.pth.tar`` or an orbax checkpoint directory
     into ``model`` (strict: a JAX leaf with no port tensor, or a port
-    tensor no leaf fills, raises; values are cast to the model's dtypes)."""
+    tensor no leaf fills, raises; values are cast to the model's dtypes;
+    a model placed on a model or expert axis takes its shards of them)."""
     if os.path.isdir(path):
         from distribuuuu_tpu_torch.utils import orbax
 
         tree = orbax.read_checkpoint(path, keys=orbax.WEIGHT_KEYS)
         if "params" not in tree:
             raise orbax.OrbaxFormatError(f"{path}: the checkpoint holds no 'params'")
-        model.load_state_dict(state_dict_from_jax(tree["params"], tree.get("batch_stats")),
-                              strict=True)
+        specs.load_full_model(model, state_dict_from_jax(tree["params"],
+                                                         tree.get("batch_stats")))
         return model
     obj = torch.load(path, map_location="cpu", weights_only=True)
     sd = obj.get("state_dict", obj.get("model", obj)) if isinstance(obj, dict) else obj
     if not isinstance(sd, dict):
         raise ValueError(f"{path}: expected a state dict, got {type(sd).__name__}")
     sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
-    model.load_state_dict(sd, strict=True)
+    specs.load_full_model(model, sd)
     return model
 
 

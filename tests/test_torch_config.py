@@ -1,6 +1,7 @@
-"""The port's config (distribuuuu_tpu_torch/config.py): every shipped image
-config merges into it unchanged, its defaults equal the JAX package's for
-every key both hold, and the kernel knob accepts only ``auto``."""
+"""The port's config (distribuuuu_tpu_torch/config.py): every shipped
+config merges into it unchanged, it holds exactly the JAX package's keys
+with its defaults, a key whose mechanism is not ported raises naming its
+ROADMAP item, and the kernel knob accepts only ``auto``."""
 
 from __future__ import annotations
 
@@ -41,9 +42,57 @@ def _leaves(node, prefix=""):
 
 def test_defaults_match_jax_package():
     jax_leaves = dict(_leaves(jcfg))
-    for key, value in _leaves(tcfg):
-        assert key in jax_leaves, key
+    port_leaves = dict(_leaves(tcfg))
+    assert set(port_leaves) == set(jax_leaves)
+    for key, value in port_leaves.items():
         assert value == jax_leaves[key], key
+
+
+def _model_yamls():
+    import glob
+    import os
+
+    import yaml
+
+    out = []
+    for path in sorted(glob.glob("config/*.yaml")):
+        with open(path) as f:
+            if "MODEL" in (yaml.safe_load(f) or {}):
+                out.append(os.path.basename(path))
+    return out
+
+
+@pytest.mark.parametrize("name", _model_yamls())
+def test_every_shipped_model_yaml_merges(name):
+    """Every model YAML the JAX package ships (the MoE and sequence-parallel
+    LM stanzas included) merges into the port's config: no KeyError."""
+    tconfig.merge_from_file(f"config/{name}")
+    assert tcfg.MODEL.ARCH
+
+
+UNPORTED_VALUES = [
+    ("MESH.ZERO", 1, "Parallel layouts beyond DP"),
+    ("ZERO.OVERLAP", False, "Parallel layouts beyond DP"),
+    ("ZERO.GATHER_AHEAD", 2, "Parallel layouts beyond DP"),
+    ("ASYNC.SEQUENCER", False, "Async, resilience, live plane, shards and analysis"),
+    ("ASYNC.RING_DEADLINE_S", 5.0, "Async, resilience, live plane, shards and analysis"),
+    ("ASYNC.BARRIER_TIMEOUT_S", 5.0, "Async, resilience, live plane, shards and analysis"),
+]
+
+
+@pytest.mark.parametrize("key,value,item", UNPORTED_VALUES,
+                         ids=[k for k, _, _ in UNPORTED_VALUES])
+def test_unported_keys_raise_naming_their_item(key, value, item):
+    """Away from its default a key the port does not run raises
+    ``NotImplementedError`` naming its Queue 1 item, not ``KeyError``; at
+    its default, and for the inert ``COMPILE_CACHE`` and ``LOG_DEST``, the
+    config is accepted."""
+    tconfig.merge_from_file("config/resnet18.yaml")
+    tcfg.merge_from_list(["COMPILE_CACHE.ENABLED", True, "LOG_DEST", "stderr"])
+    trainer.check_train_cfg()
+    tcfg.merge_from_list([key, value])
+    with pytest.raises(NotImplementedError, match=item):
+        trainer.check_train_cfg()
 
 
 def test_overrides_and_freeze():

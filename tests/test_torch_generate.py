@@ -267,7 +267,9 @@ ENGINE_CFG_REFUSALS = [
      ValueError, "is not a gpt_"),
     (["GENERATE.CHUNK_PREFILL", 12], ValueError, "does not divide"),
     (["SERVE.LONG_MAX_QUEUE", 4], ValueError, "without SERVE.LONG_PROMPT_THRESHOLD"),
-    (["MODEL.ARCH", "gpt_nano_moe"], NotImplementedError, "Parallel layouts beyond DP"),
+    # the MoE GPT decodes since it was ported; across an expert axis it does not
+    (["MODEL.ARCH", "gpt_nano_moe", "MESH.EXPERT", 2], NotImplementedError,
+     "Parallel layouts beyond DP"),
     (["KERNELS.DECODE_ATTN", "pallas"], ValueError, "accepts only"),
     (["KERNELS.DECODE_BLOCK", 12], ValueError, "multiple of 8"),
     (["MODEL.ARCH", "resnet18"], ValueError, "serves the gpt_"),

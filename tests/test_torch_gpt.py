@@ -116,9 +116,13 @@ def test_build_model_from_cfg_routes_attention():
     with pytest.raises(NotImplementedError, match="Parallel layouts beyond DP"):
         trainer.build_model_from_cfg()
     tcfg.MESH.SEQ = 1
-    tcfg.MODEL.ARCH = "gpt_nano_moe"
-    with pytest.raises(NotImplementedError, match="Parallel layouts beyond DP"):
-        trainer.build_model_from_cfg()
+    tcfg.MODEL.ARCH = "gpt_nano_moe"  # ported: MoE FFNs in blocks 1 and 3
+    assert [b.mlp.__class__.__name__ for b in trainer.build_model_from_cfg().blocks] == [
+        "Mlp", "MoeMlp", "Mlp", "MoeMlp"]
+    tcfg.MESH.EXPERT = 2  # one process: the stanza needs two
+    with pytest.raises(ValueError, match="number of processes"):
+        trainer.check_train_cfg()
+    tcfg.MESH.EXPERT = 1
     tcfg.MODEL.ARCH = "gpt_nano"
     trainer.check_train_cfg()  # gpt_nano.yaml's DATA.FORMAT tokens
     tcfg.DATA.FORMAT = "imagefolder"

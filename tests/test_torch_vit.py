@@ -259,8 +259,7 @@ def test_refusals(tmp_path):
     tcfg.TRAIN.REMAT = True
     with pytest.raises(ValueError, match="TRAIN.REMAT"):
         trainer.build_model_from_cfg()
-    with pytest.raises(NotImplementedError, match="Parallel layouts beyond DP"):
-        tmodels.build_model("vit_tiny_moe")
+    assert len(tmodels.build_model("vit_tiny_moe", img_size=32).moe_layers()) == 6
     with pytest.raises(NotImplementedError, match="pipelined"):
         tmodels.build_model("vit_tiny", pipe_stages=2)
     with pytest.raises(ValueError, match="dropout"):

@@ -9,7 +9,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_port_util import jax_resnet, random_variables, reset_port_cfg
+from torch_port_util import assemble, jax_resnet, random_variables, reset_port_cfg
 
 import distribuuuu_tpu_torch.config as tconfig
 from distribuuuu_tpu_torch import models as tmodels
@@ -111,3 +111,54 @@ def test_jax_tree_paths_come_from_model_init():
     assert set(p["Bottleneck_0"]) == {f"ConvBN_{i}" for i in range(4)}
     assert set(p["Bottleneck_1"]) == {f"ConvBN_{i}" for i in range(3)}
     assert jax.tree.structure(shapes["batch_stats"]["ConvBN_0"]).num_leaves == 2
+
+
+@pytest.mark.parametrize("arch", ["vit_tiny_moe", "gpt_nano_moe"])
+def test_moe_leaves_round_trip_through_the_shards(arch, tmp_path):
+    """A MoE model's ``MoeMlp_0/{gate, w_in, b_in, w_out, b_out}`` leaves
+    land in ``blocks.N.mlp.*`` in the JAX layout (not transposed); every
+    rank's ``shard_state_dict`` of a dp2·tp2·ep2 mesh reassembles to the
+    whole, and a ``.pth`` of it loads into a model placed on one rank's
+    shards."""
+    import jax.numpy as jnp
+    from flax import linen as nn
+
+    from distribuuuu_tpu import models as jmodels
+    from distribuuuu_tpu_torch.parallel import mesh as tmesh
+    from distribuuuu_tpu_torch.parallel import tp
+    from distribuuuu_tpu_torch.parallel.partition import specs
+
+    gpt = arch.startswith("gpt")
+    kw = dict(num_classes=320, seq_len=8) if gpt else dict(num_classes=8)
+    jm = jmodels.build_model(arch, dim=32, depth=2, num_heads=2, moe_experts=4, **kw)
+    dummy = jnp.zeros((2, 8), jnp.int32) if gpt else jnp.zeros((1, 32, 32, 3))
+    shapes = nn.unbox(jax.eval_shape(lambda k: jm.init(k, dummy, train=False),
+                                     jax.random.key(0)))
+    params = random_variables(shapes["params"], seed=4)
+    sd = weights.state_dict_from_jax(params)
+    for leaf in weights.MOE_LEAVES:
+        np.testing.assert_array_equal(sd[f"blocks.1.mlp.{leaf}"].numpy(),
+                                      params["Block_1"]["MoeMlp_0"][leaf])
+    sizes = {"data": 2, "model": 2, "seq": 1, "pipe": 1, "expert": 2}
+    table = specs.table_for(arch, "expert")
+    shards = {r: specs.shard_state_dict(sd, table, sizes, tmesh.coords_of(r, sizes))
+              for r in range(8)}
+    assert shards[1]["blocks.1.mlp.w_in"].shape[0] == 2
+    back = assemble(shards, table, sizes)
+    assert all(torch.equal(back[k], v) for k, v in sd.items())
+    torch.save(sd, tmp_path / "w.pth")
+    model = tmodels.build_model(arch, dim=32, depth=2, num_heads=2, moe_experts=4,
+                                **({"num_classes": 320, "seq_len": 8} if gpt
+                                   else {"num_classes": 8, "img_size": 32}))
+    rank = tmesh.coords_of(5, sizes)
+    model.shards = {k: tp.Shard(None, rank[table.spec_for(k)[d]], 2, d)
+                    for k in sd for d in range(len(table.spec_for(k)))
+                    if table.spec_for(k)[d] is not None}
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if k in model.shards:
+                p.data = model.shards[k].take(p.data).clone()
+    weights.load_weights(model, str(tmp_path / "w.pth"))
+    got = model.state_dict()
+    for k, v in shards[5].items():
+        assert torch.equal(got[k], v), k

@@ -134,7 +134,8 @@ def random_variables(shapes, seed: int = 0) -> dict:
     the eval fold is exercised. BN scales near 0.4 keep the residual sums,
     and so the logits, O(1), where an absolute tolerance means something.
     LayerNorm scales near 1 and biases near 0, ``pos_embed`` at 0.1 and a
-    token ``embedding`` at 0.5."""
+    token ``embedding`` at 0.5; a MoE layer's router and experts
+    fan-in-scaled, its biases at 0.1."""
     rng = np.random.default_rng(seed)
 
     def leaf(parent, name, s):
@@ -150,8 +151,12 @@ def random_variables(shapes, seed: int = 0) -> dict:
         elif name == "kernel" and len(shape) == 4:
             std = np.sqrt(2.0 / (shape[0] * shape[1] * shape[2]))
             v = rng.standard_normal(shape) * std
-        elif name == "kernel":
+        elif name == "kernel" or name == "gate":  # a MoE router is [d, E]
             v = rng.standard_normal(shape) / np.sqrt(shape[0])
+        elif name in ("w_in", "w_out"):  # MoE experts [E, in, out]
+            v = rng.standard_normal(shape) / np.sqrt(shape[1])
+        elif name in ("b_in", "b_out"):
+            v = 0.1 * rng.standard_normal(shape)
         elif name == "scale":
             v = 0.4 + 0.1 * rng.standard_normal(shape)
         elif name in ("bias", "mean"):
@@ -258,3 +263,76 @@ def make_tree(root: str, n_val: int = 5) -> str:
             Image.fromarray(arr.clip(0, 255).astype(np.uint8)).save(
                 os.path.join(d, f"{i:03d}.jpg"), "JPEG", quality=90)
     return root
+
+
+TP_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_tp_worker.py")
+
+
+class Ranks:
+    """``world`` ranks of ``tests/torch_tp_worker.py`` on one spec, started
+    at once (gloo on the CPU, one thread each); :meth:`join` waits (killing
+    all past ``timeout``), asserts every rank exited 0 and returns their
+    outputs, rank order. The caller computes its references meanwhile."""
+
+    def __init__(self, world: int, scenarios: list, tmp, tag: str, timeout: float = 150):
+        import json
+        import socket
+        import subprocess
+        import sys
+
+        self.out, self.world, self.timeout = os.path.join(str(tmp), tag), world, timeout
+        os.makedirs(self.out, exist_ok=True)
+        spec = os.path.join(self.out, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"out": self.out, "scenarios": scenarios}, f)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                   OMP_NUM_THREADS="1")
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        self.procs = []
+        for r in range(world):
+            log = open(os.path.join(self.out, f"rank{r}.log"), "w+")
+            self.procs.append((subprocess.Popen(
+                [sys.executable, TP_WORKER, spec], cwd=repo, stdout=log,
+                stderr=subprocess.STDOUT,
+                env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}), log))
+
+    def join(self) -> list[dict]:
+        texts = []
+        try:
+            for p, _ in self.procs:
+                p.wait(timeout=self.timeout)
+        finally:
+            for p, log in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                log.seek(0)
+                texts.append((p.returncode, log.read()))
+                log.close()
+        for rc, text in texts:
+            assert rc == 0, text[-4000:]
+        return [torch.load(os.path.join(self.out, f"rank{r}.pt"), weights_only=False)
+                for r in range(self.world)]
+
+
+def assemble(shards: dict, table, sizes: dict) -> dict:
+    """The full state dict from every rank's ``shard_state_dict`` (``{rank:
+    sd}`` over the row-major mesh of axis ``sizes``): its inverse, with no
+    process group."""
+    from distribuuuu_tpu_torch.parallel import mesh
+    from distribuuuu_tpu_torch.parallel.partition import specs
+
+    out = {}
+    for key, t in shards[0].items():
+        split = specs.split_of(table, key, sizes)
+        if split is None:
+            out[key] = t
+            continue
+        axis, dim = split
+        parts = {mesh.coords_of(r, sizes)[axis]: sd[key] for r, sd in shards.items()}
+        out[key] = torch.cat([parts[i] for i in range(sizes[axis])], dim)
+    return out
