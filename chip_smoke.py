@@ -5,7 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Build: compiles every kernel of the ported paths from csrc/ (sm_90a),
-   one nvcc per source, all at once, and prints from their ``-Xptxas -v``
+   one nvcc per source, all at once (csrc/flash_attention.cu, the slowest,
+   beside the phases up to ResNet-50's serving and training, which do not
+   load it, and joined before the flash kernels), and prints from their
+   ``-Xptxas -v``
    output (registers, spills, static shared memory, and any wgmma ptxas
    serialises) each kernel of csrc/conv_epilogue.cu,
    csrc/flash_attention.cu, csrc/group_conv.cu and csrc/decode_attn.cu,
@@ -317,14 +320,16 @@ eval's.
      serving knobs; gpt_nano from config/gpt_nano.yaml at full width with
      its queue, tiles and budgets), then in turn: the warmed premium
      model's closed-loop capacity (CAMPAIGN_CAP_CLIENTS clients through
-     the router for CAMPAIGN_CAP_S), k = capacity / CAMPAIGN_REF_RPS, the
+     the router for CAMPAIGN_CAP_S, CAMPAIGN_PROBES times in a row, their
+     median), k = capacity / CAMPAIGN_REF_RPS, the
      card spec of the shipped YAML (``card_spec``: rates times k, the ms
      SLOs and thresholds over k), its replay by the port's
      ``CampaignRunner`` (the degrade payloads uint8 224² npy, as
      fleet_serve sends them; the LM's ``lm_payload_bank``), each phase's
      raised and expected alerts, counts and the open-loop client's send
-     lag, the per-model rows, the replicas' kernel launches from their
-     logs at the drain. Each must be ``ok`` with a deterministic schedule,
+     lag, each phase's client-side latency tail and this process's
+     garbage collections over the replay, the per-model rows, the
+     replicas' kernel launches from their logs at the drain. Each must be ``ok`` with a deterministic schedule,
      the shipped schedule's hash JAX's (JAX_SCHEDULE_HASH) and no failed
      request;
    * ``soak_smoke``: ``python -m distribuuuu_tpu_torch.soak --smoke
@@ -363,7 +368,28 @@ eval's.
      AdamW's steps noise, within 2·lr·steps) and the two updates' L2
      difference within TP_EP_UPDATE_RTOL, and one process resuming the
      sharded save for a second epoch as it resumes its own.
-16. Prints the ``{"kernels": [...]}`` line, the card's name and power
+16. ZeRO on the data axis (``zero_one_card``, its ranks started beside
+    ``shards_exact_resume`` and the drills, which check bits, not times):
+    two gloo ranks sharing cuda:0 (the script re-run as ``--zero-worker``,
+    eager),
+    config/resnet50.yaml at full width (f32, SGD Nesterov, ZERO_BATCH a
+    rank) at MESH.ZERO 0, 1 and 3 and config/gpt_nano.yaml (f32, AdamW)
+    at stage 0 and stage 3 with GATHER_AHEAD -1 and 0, ZERO_STEPS steps
+    each from the same seeded weights and batches with cuDNN
+    deterministic: every stage and schedule's losses and final state
+    (parameters, moments) bitwise stage 0's on each rank; one opt_update
+    launch a step on each rank; the data-axis all-gathers within JAX's
+    bound; each rank's resting bytes (parameters, gradient buffers,
+    moments and ZeRO's shard buffers, between steps) exactly the layout's
+    prediction and below stage 0's (0.78 and 0.50 of it for ResNet-50);
+    the update over rank 0's
+    shards through the kernel bitwise its plain version, timed beside
+    its bound and fused torch.optim; the stage-3 run's sharded
+    CHECKPOINT.ASYNC save (snapshot, write, barrier s) resumed by one
+    process bitwise and served through ``engine_from_cfg`` with
+    MODEL.WEIGHTS the directory, f32 logits within ZERO_SERVE_REL_TOL of
+    that state's eval forward.
+17. Prints the ``{"kernels": [...]}`` line, the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``graph_vs_eager``: the graph against the eager body in
@@ -5124,7 +5150,8 @@ JAX_SCHEDULE_HASH = {
 CAMPAIGN_REF_RPS = {"degrade_under_pressure": (214 - 9 - 11 - 2 * 14 * 0.55) / (14 * 0.45),
                     "lm_decode": (222 - 2 * 12 * 0.65) / (12 * 0.35)}
 CAMPAIGN_CAP_CLIENTS = 4  # closed-loop clients of the capacity probe
-CAMPAIGN_CAP_S = 3.0  # seconds of the capacity probe
+CAMPAIGN_CAP_S = 1.0  # seconds of one capacity probe
+CAMPAIGN_PROBES = 3  # capacity probes in a row; k from their median
 # threads of the open-loop client: a thread is held for a request's whole
 # latency. The degrade burst's answered requests wait in two 16-deep queues
 # (hundreds of ms on a slow host); the LM's refused streams return in about a
@@ -5299,13 +5326,66 @@ def _replica_launches(fleet) -> dict:
     return out
 
 
+class _GcPauses:
+    """Every garbage collection of this process while armed (``gc.callbacks``):
+    its generation, milliseconds and start on the ``perf_counter`` clock."""
+
+    def __init__(self):
+        self.events, self._t = [], None
+
+    def __call__(self, phase, info):
+        now = time.perf_counter()
+        if phase == "start":
+            self._t = now
+        elif self._t is not None:
+            self.events.append((info["generation"], (now - self._t) * 1e3, self._t))
+            self._t = None
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self)
+
+    def summary(self, since: float) -> dict:
+        out = {}
+        for gen in (0, 1, 2):
+            ms = [e[1] for e in self.events if e[0] == gen]
+            out[f"gen{gen}"] = {"count": len(ms), "max_ms": max(ms, default=0.0),
+                                "total_ms": sum(ms)}
+        out["over_10ms"] = [[e[0], e[1], e[2] - since] for e in self.events if e[1] > 10.0]
+        return out
+
+
+def _tail(lat: list, since: float = 0.0) -> dict:
+    """p50/p99/max ms of ``(scheduled s, seconds)`` requests and the five
+    slowest with their scheduled times."""
+    import numpy as np
+
+    if not lat:
+        return {"n": 0}
+    ms = np.array([x[1] for x in lat]) * 1e3
+    slow = sorted(lat, key=lambda x: -x[1])[:5]
+    return {"n": len(lat), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "max_ms": float(ms.max()),
+            "slowest": [[round(t, 3), round(d * 1e3, 3)] for t, d in slow]}
+
+
 def campaign_phase(name: str, path: str, fleet, payloads):
-    """One shipped campaign on its warmed fleet: the capacity probe, k, the
-    card spec, the open-loop replay refereed phase by phase; then the
-    fleet drains in the background. Returns ``finish()``, which joins the
-    drain, reads the replicas' launches, emits the phase and requires
-    ``ok`` (alerts exact, control clean), a deterministic schedule, the
-    shipped schedule JAX's, and no request failed."""
+    """One shipped campaign on its warmed fleet: CAMPAIGN_PROBES capacity
+    probes in a row (k from their median, the spread printed), the card
+    spec, the open-loop replay refereed phase by phase, each phase's
+    client-side latency tail and this process's garbage collections over
+    the replay; then the fleet drains in the background. Returns
+    ``finish()``, which joins the drain, reads the replicas' launches,
+    emits the phase and requires ``ok`` (alerts exact, control clean), a
+    deterministic schedule, the shipped schedule JAX's, and no request
+    failed."""
     import threading
 
     from distribuuuu_tpu_torch import serve_campaign
@@ -5317,16 +5397,25 @@ def campaign_phase(name: str, path: str, fleet, payloads):
     shipped_hash = dsl.schedule_hash(dsl.build_schedule(shipped))
     payload_for = serve_campaign.cycler(payloads)
     model = shipped.models[0]["name"]
-    cap = _capacity_rps(fleet.router, model, payload_for)
+    probes = [_capacity_rps(fleet.router, model, payload_for) for _ in range(CAMPAIGN_PROBES)]
+    cap = statistics.median(probes)
     k = cap / CAMPAIGN_REF_RPS[shipped.name]
     spec = card_spec(path, k)
     for m in spec.models:  # the router's SLO targets become the card spec's
         fleet.router.register_model(m["name"], slo_class=m["slo_class"],
                                     p99_slo_ms=m["p99_slo_ms"], overflow_to=m["overflow_to"])
     h1, h2 = (dsl.schedule_hash(dsl.build_schedule(spec)) for _ in range(2))
+    runner = CampaignRunner(spec, fleet.router, payload_for=payload_for, fleet=fleet,
+                            max_workers=CAMPAIGN_WORKERS[shipped.name])
+    import gc
+
+    t_gc = time.perf_counter()
+    gc.collect()  # the same collection on the frozen heap (fleet.gc_full_ms: before it froze)
+    gc_frozen_ms = (time.perf_counter() - t_gc) * 1e3
     try:
-        verdict = CampaignRunner(spec, fleet.router, payload_for=payload_for, fleet=fleet,
-                                 max_workers=CAMPAIGN_WORKERS[shipped.name]).run()
+        with _GcPauses() as gcp:
+            t_replay = time.perf_counter()
+            verdict = runner.run()
     finally:  # the fleet drains while the caller goes on
         drain = threading.Thread(target=fleet.shutdown)
         drain.start()
@@ -5335,7 +5424,9 @@ def campaign_phase(name: str, path: str, fleet, payloads):
                  for p in verdict["phases"])
     slo = {m["name"]: m["p99_slo_ms"] for m in spec.models}
     res = {"phase": f"campaign_{name}", "yaml": path, "campaign": shipped.name,
-           "capacity_rps": cap, "ref_rps": CAMPAIGN_REF_RPS[shipped.name], "k": k,
+           "capacity_rps": cap, "capacity_probes_rps": probes,
+           "probe_spread": max(probes) / max(min(probes), 1e-9),
+           "ref_rps": CAMPAIGN_REF_RPS[shipped.name], "k": k,
            "shipped_schedule_hash": shipped_hash,
            "shipped_hash_is_jax": shipped_hash == JAX_SCHEDULE_HASH[shipped.name],
            "card_schedule_hash": verdict["schedule_hash"], "deterministic": h1 == h2
@@ -5348,6 +5439,10 @@ def campaign_phase(name: str, path: str, fleet, payloads):
            "models": {m: dict(r, p99_over_slo=(r["p99_ms"] / slo[m] if slo.get(m) else None))
                       for m, r in verdict["models"].items()},
            "alerts_exact": verdict["alerts_exact"], "control_clean": verdict["control_clean"],
+           "client_latency": {p.name: _tail(lat) for p, lat in zip(spec.phases,
+                                                                  runner.latencies)},
+           "gc": gcp.summary(t_replay), "gc_full_ms_at_routable": fleet.gc_full_ms,
+           "gc_full_ms_frozen": gc_frozen_ms,
            "failed": failed, "seconds": seconds}
 
     def finish() -> dict:
@@ -5956,6 +6051,352 @@ def slice20_phases(torch, ou, da, dev) -> dict:
             "decode_attention": gpt["decode_attention"]}
 
 
+# -- slice 21: ZeRO stages 1 and 3 on the data axis -------------------------------
+
+ZERO_RANKS = 2
+ZERO_BATCH = 8       # ResNet-50 images a rank at 224²
+ZERO_STEPS = 3
+ZERO_LM_BATCH = 4    # GPT-nano sequences of 256 a rank
+ZERO_SERVE_REL_TOL = 1e-3  # f32 served logits against the eval forward, of the scale
+ZERO_LM_ARMS = (("s0", ["MESH.ZERO", 0]),
+                ("s3", ["MESH.ZERO", 3, "ZERO.GATHER_AHEAD", -1, "ZERO.OVERLAP", False]),
+                ("s3_per_use", ["MESH.ZERO", 3, "ZERO.GATHER_AHEAD", 0,
+                                "ZERO.OVERLAP", False]))
+
+
+def _zero_run(torch, dev, work: str, yaml: str, opts: list, batches: list, rank: int,
+              keep_state: bool = False) -> dict:
+    """``ZERO_STEPS`` eager train steps of ``yaml`` under ``opts`` on this
+    rank's ``batches`` (the trainer's model, optimizer and step): losses,
+    step ms, opt_update launches, data-axis all-gathers, resting bytes
+    against the layout's prediction, peak memory, and the full state."""
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
+    from distribuuuu_tpu_torch.parallel import dist, zero
+    from distribuuuu_tpu_torch.parallel import mesh as mesh_lib
+    from distribuuuu_tpu_torch.parallel.partition import specs
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    config.reset_cfg()
+    config.merge_from_file(yaml)
+    cfg.merge_from_list([*opts, "MESH.DATA", ZERO_RANKS, "DEVICE.COMPUTE_DTYPE", "float32",
+                         "CUDNN.DETERMINISTIC", True, "CUDNN.BENCHMARK", False,
+                         "CHECKPOINT.ASYNC", True, "OUT_DIR", work])
+    trainer.apply_backend_flags()
+    trainer.check_train_cfg()
+    mesh = mesh_lib.setup(trainer.topology_from_cfg())
+    model = trainer.build_model_from_cfg().to(dev).train()
+    opt = construct_optimizer(model)
+    rt = opt.zero
+    if rt is not None:
+        rt.rest(model)
+    step = trainer.TrainStep(model, opt, trainer.effective_topk(), "raise", 1, device=dev,
+                             graphed=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ou.update.launches, g0 = 0, dist.zero_gathers.count
+    losses, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        out = step([{k: v.to(dev) for k, v in b.items()}], [False])
+        losses.append(float(out[0, 0]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches, gathers = ou.update.launches, dist.zero_gathers.count - g0
+    zdims = rt.zdims if rt is not None else [None] * len(opt.params)
+    moments = [bufs for bufs in (opt.m, opt.v) if bufs]
+    resting = zero.resting_bytes(opt)
+    predicted = zero.predict_resting_bytes([tuple(p.shape) for p in opt.params], zdims,
+                                           ZERO_RANKS, int(cfg.MESH.ZERO), 4,
+                                           [bufs[0].element_size() for bufs in moments])
+    res = {"losses": losses, "step_ms": ms, "launches": launches, "gathers": gathers,
+           "bound": None if rt is None else zero.gather_bound(rt.plan, cfg.ZERO.GATHER_AHEAD),
+           "sharded": 0 if rt is None else len(rt.sharded), "leaves": len(opt.params),
+           "resting_bytes": resting, "predicted_bytes": predicted,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    with zero.gathered(model):
+        full = zero.kept(specs.full_train_state(model, opt), model)
+    res["state"] = {"model": {k: v.detach().cpu().clone() for k, v in full["model"].items()},
+                    "opt": {k: {n: t.detach().cpu().clone() for n, t in full["opt"][k].items()}
+                            for k in ("m", "v") if full["opt"][k] is not None}}
+    res["_live"] = (model, opt, mesh) if keep_state else None
+    return res
+
+
+def _state_bitwise(torch, a: dict, b: dict) -> bool:
+    if a["model"].keys() != b["model"].keys() or a["opt"].keys() != b["opt"].keys():
+        return False
+    return all(torch.equal(a["model"][k], b["model"][k]) for k in a["model"]) and all(
+        torch.equal(a["opt"][m][n], b["opt"][m][n]) for m in a["opt"] for n in a["opt"][m])
+
+
+def _zero_shard_kernel(torch, ou, dev, rt, opt) -> dict:
+    """The fused update over this rank's update leaves (the split leaves'
+    shards, the others whole) as the step runs it, once through the
+    kernel and once through its plain version on the same inputs, and
+    timed beside the fused torch.optim step over the same leaves."""
+    def clone(ts):
+        return None if ts is None else [t.detach().clone() for t in ts]
+
+    p = [q if s is None else s for q, s in zip(opt.params, rt.pshard)]
+    p, g, m, v = clone(p), clone(opt.grads), clone(opt.m), clone(opt.v)
+    kp, km, kv = clone(p), clone(m), clone(v)
+    h = opt.hyper
+    scal = ou.staged_scalars(h, 0.1, 5, kp, km)
+    table = ou.leaf_table(kp, g, km, kv)
+    ou.update(kp, g, km, kv, h, scal, table=table)
+    ou.update_plain(p, g, m, v, h, scal)
+    torch.cuda.synchronize()
+    worst, n_diff = 0, 0
+    for got, want in zip([*kp, *(km or []), *(kv or [])], [*p, *(m or []), *(v or [])]):
+        u, n = _ulps(torch, got, want)
+        worst, n_diff = max(worst, u), n_diff + n
+    nbytes = ou.pass_bytes(p, m, v)
+    n_elem = sum(t.numel() for t in p)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_elem * OPT_FLOPS_PER_ELEM[h.body()] / PEAK_FLOPS["float32"] * 1e3
+    lp = [t.clone() for t in kp]
+    for t, gt in zip(lp, g):
+        t.grad = gt
+    lib = (torch.optim.AdamW(lp, lr=0.1, eps=1e-8, weight_decay=h.wd, fused=True)
+           if h.kind == "adamw" else
+           torch.optim.SGD(lp, lr=0.1, momentum=h.mom, nesterov=h.nesterov,
+                           weight_decay=h.wd, fused=True))
+    return {"leaves": len(p), "shard_leaves": len(rt.sharded), "elements": n_elem,
+            "max_ulp": worst, "elements_differing": n_diff,
+            "max_abs_err": max(float((a.float() - b.float()).abs().max()) for a, b in
+                               zip([*kp, *(km or []), *(kv or [])],
+                                   [*p, *(m or []), *(v or [])])),
+            "ms": time_ms(torch, lambda: ou.update(kp, g, km, kv, h, scal, table=table),
+                          reps=20, hold_cycles=OPT_HOLD_CYCLES),
+            "plain_ms": time_ms(torch, lambda: ou.update_plain(p, g, m, v, h, scal), reps=5,
+                                warmup=1),
+            "library_ms": time_ms(torch, lib.step, reps=20, hold_cycles=OPT_HOLD_CYCLES),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes}
+
+
+def zero_worker(work: str) -> int:
+    """One rank of ``zero_one_card_phase`` (``--zero-worker``): gloo on
+    cuda:0, ResNet-50 (f32, the YAML's SGD Nesterov) at ZeRO 0, 1 and 3,
+    the stage-3 run's update on its shards against the plain version and
+    its sharded background save; GPT-nano (AdamW) at stage 0 and at stage 3
+    with GATHER_AHEAD -1 and 0."""
+    import torch
+
+    from distribuuuu_tpu_torch.asyncplane import committer
+    from distribuuuu_tpu_torch.ops.cuda import opt_update as ou
+    from distribuuuu_tpu_torch.parallel import dist
+    from distribuuuu_tpu_torch.parallel import mesh as mesh_lib
+    from distribuuuu_tpu_torch.utils import checkpoint as ckpt
+
+    # one host thread a rank: the ranks run beside shards_exact_resume's four
+    # train_net processes, and their host work is gloo's copies and sums
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.setup_distributed("gloo", timeout_s=600)
+    r = dist.get_rank()
+    gen = torch.Generator().manual_seed(2100 + r)
+    images = [{"image": torch.randint(0, 256, (ZERO_BATCH, 224, 224, 3), generator=gen,
+                                      dtype=torch.uint8),
+               "label": torch.randint(0, 1000, (ZERO_BATCH,), generator=gen)}
+              for _ in range(ZERO_STEPS)]
+    tokens = []
+    for _ in range(ZERO_STEPS):
+        t = torch.randint(0, 256, (ZERO_LM_BATCH, 257), generator=gen, dtype=torch.int32)
+        tokens.append({"image": t[:, :-1].contiguous(), "label": t[:, 1:].long()})
+    out, states = {"rank": r}, {}
+    for stage in (0, 1, 3):
+        run = _zero_run(torch, dev, os.path.join(work, f"r50_s{stage}"), "config/resnet50.yaml",
+                        ["MESH.ZERO", stage, "TRAIN.BATCH_SIZE", ZERO_BATCH], images, r,
+                        keep_state=stage == 3)
+        states[stage] = run.pop("state")
+        live = run.pop("_live")
+        if stage == 3:
+            model, opt, _ = live
+            dist.barrier()  # rank 1 waits on the CPU while rank 0 times the kernel
+            if r == 0:
+                run["shard_kernel"] = _zero_shard_kernel(torch, ou, dev, opt.zero, opt)
+            dist.barrier()
+            t0 = time.perf_counter()
+            ckpt.save_sharded_checkpoint(model, opt, ZERO_STEPS, 0, 0.0, False)
+            run["save_snapshot_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            committer.join_commits()
+            run["save_commit_s"] = time.perf_counter() - t1
+            run["save_barrier_s"] = committer._state["barrier_s"]
+            run["save_shard"] = committer._state["shard"]
+            if r == 0:
+                torch.save(states[3], os.path.join(work, "r50_s3_state.pt"))
+            del model, opt, live
+        out[f"resnet50_s{stage}"] = run
+        mesh_lib.reset()
+        torch.cuda.empty_cache()
+    for stage in (1, 3):
+        out[f"resnet50_s{stage}"]["bitwise_s0"] = _state_bitwise(torch, states[stage], states[0])
+    lm = {}
+    for name, opts in ZERO_LM_ARMS:
+        run = _zero_run(torch, dev, os.path.join(work, f"lm_{name}"), "config/gpt_nano.yaml",
+                        [*opts, "TRAIN.BATCH_SIZE", ZERO_LM_BATCH], tokens, r)
+        lm[name] = run.pop("state")
+        run.pop("_live")
+        if name != "s0":
+            run["bitwise_s0"] = _state_bitwise(torch, lm[name], lm["s0"])
+        out[f"gpt_nano_{name}"] = run
+        mesh_lib.reset()
+        torch.cuda.empty_cache()
+    with open(os.path.join(work, f"rank{r}.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown_distributed()
+    return 0
+
+
+def zero_start() -> tuple:
+    """Start the two ``--zero-worker`` ranks of ``zero_one_card_phase``;
+    ``(procs, work dir, start time)`` for :func:`zero_finish`."""
+    import socket
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(ZERO_RANKS), "PYTHONPATH": here}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--zero-worker", work],
+                              cwd=here, env={**env, "RANK": str(r), "LOCAL_RANK": "0"})
+             for r in range(ZERO_RANKS)]
+    return procs, work, t0
+
+
+def zero_one_card_phase(torch, dev, started=None, beside: str | None = None) -> dict:
+    """ZeRO on two gloo ranks sharing cuda:0 (``--zero-worker``, started
+    here or by :func:`zero_start`; ``beside`` names what ran alongside):
+    stages 1 and 3 bitwise stage 0 (losses and final state, each rank),
+    every GATHER_AHEAD arm too, opt_update launched once a step on each
+    rank, the per-shard update held against its plain version, each
+    rank's resting bytes equal to the layout's prediction and below stage
+    0's; the stage-3
+    run's sharded background save resumed by one process bitwise and
+    served through MODEL.WEIGHTS, f32 logits against that state's eval
+    forward."""
+    import shutil
+
+    import numpy as np
+
+    import distribuuuu_tpu_torch.config as config
+    from distribuuuu_tpu_torch import serve, trainer
+    from distribuuuu_tpu_torch.config import cfg
+    from distribuuuu_tpu_torch.utils.logger import get_logger
+    from distribuuuu_tpu_torch.utils.optim import construct_optimizer
+
+    procs, work, t0 = started if started is not None else zero_start()
+    try:
+        for p in procs:
+            if p.wait(timeout=600):
+                raise AssertionError(f"zero worker exited {p.returncode}")
+        ranks = []
+        for r in range(ZERO_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        # one process resumes the sharded save: the state is the save's
+        config.reset_cfg()
+        config.merge_from_file("config/resnet50.yaml")
+        out3 = os.path.join(work, "r50_s3")
+        cfg.merge_from_list(["MESH.ZERO", 3, "DEVICE.COMPUTE_DTYPE", "float32",
+                             "OUT_DIR", out3, "CUDNN.BENCHMARK", False])
+        trainer.apply_backend_flags()
+        model = trainer.build_model_from_cfg().to(dev)
+        opt = construct_optimizer(model)
+        st = {"step": 0}
+        epoch = trainer._resume(model, opt, st, get_logger())[0]
+        want = torch.load(os.path.join(work, "r50_s3_state.pt"), weights_only=True)
+        got_opt = opt.state_dict()
+        resumed_bitwise = (epoch == 1 and st["step"] == ZERO_STEPS and all(
+            torch.equal(v.cpu(), want["model"][k]) for k, v in model.state_dict().items())
+            and all(torch.equal(got_opt["m"][n].cpu(), t) for n, t in want["opt"]["m"].items()))
+        # served through MODEL.WEIGHTS (the sharded directory), f32
+        ckpt_dir = os.path.join(out3, "checkpoints", "ckpt_ep_000")
+        config.reset_cfg()
+        config.merge_from_file("config/resnet50.yaml")
+        cfg.merge_from_list(["MODEL.WEIGHTS", ckpt_dir, "DEVICE.COMPUTE_DTYPE", "float32",
+                             "SERVE.BUCKET_SIZES", "[4]", "SERVE.MAX_BATCH", 4,
+                             "CUDNN.BENCHMARK", False])
+        images = np.random.default_rng(21).integers(0, 256, (4, 224, 224, 3), dtype=np.uint8)
+        t_serve = time.perf_counter()
+        engine = serve.engine_from_cfg().start()
+        served = np.stack([f.result(timeout=300) for f in [engine.submit(i) for i in images]])
+        engine.drain()
+        t_serve = time.perf_counter() - t_serve
+        with torch.inference_mode():
+            ref = model.eval()(trainer.prep_images(torch.from_numpy(images).to(dev)))
+        ref = ref.float().cpu().numpy()
+        serve_rel = float(np.abs(served - ref).max() / np.abs(ref).max())
+        del model, opt, engine
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+        config.reset_cfg()
+    runs = [k for k in ranks[0] if k != "rank"]
+    launches = sum(r[k]["launches"] for r in ranks for k in runs)
+    s3 = [r["resnet50_s3"] for r in ranks]
+    kern = ranks[0]["resnet50_s3"]["shard_kernel"]
+    res = {"phase": "zero_one_card", "ranks": ZERO_RANKS, "dist_backend": "gloo",
+           "dtype": "float32", "steps": ZERO_STEPS, "resnet50_batch_per_rank": ZERO_BATCH,
+           "gpt_nano_batch_per_rank": ZERO_LM_BATCH,
+           "runs": {k: [{f: r[k][f] for f in ("losses", "step_ms", "launches", "gathers",
+                                               "bound", "sharded", "leaves", "resting_bytes",
+                                               "predicted_bytes", "peak_bytes")
+                          if f in r[k]} | {"bitwise_s0": r[k].get("bitwise_s0")}
+                         for r in ranks] for k in runs},
+           "resting_over_stage0": {k: ranks[0][k]["resting_bytes"]
+                                   / ranks[0][k[:k.index("_s") + 1] + "s0"]["resting_bytes"]
+                                   for k in runs if not k.endswith("s0")},
+           "shard_kernel": kern,
+           "save": [{"snapshot_s": x["save_snapshot_s"], "commit_s": x["save_commit_s"],
+                     "barrier_s": x["save_barrier_s"], **(x["save_shard"] or {})} for x in s3],
+           "resumed_one_process_bitwise": resumed_bitwise, "served_rel_err": serve_rel,
+           "served_rel_tol": ZERO_SERVE_REL_TOL, "serve_s": t_serve,
+           "opt_update_launches": launches, "beside": beside,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    bad = []
+    for r in ranks:
+        for k in runs:
+            x = r[k]
+            if x["launches"] != ZERO_STEPS:
+                bad.append(f"{k}: {x['launches']} opt_update launches")
+            if x["resting_bytes"] != x["predicted_bytes"]:
+                bad.append(f"{k}: resting {x['resting_bytes']} != {x['predicted_bytes']}")
+            if k.endswith("s0"):
+                continue
+            s0 = r[k[:k.index("_s") + 1] + "s0"]
+            if x["resting_bytes"] >= s0["resting_bytes"]:
+                bad.append(f"{k}: resting {x['resting_bytes']} not below stage 0's "
+                           f"{s0['resting_bytes']}")
+            if not x.get("bitwise_s0") or x["losses"] != r[k[:k.index("_s") + 1] + "s0"][
+                    "losses"]:
+                bad.append(f"{k}: not bitwise stage 0")
+            if not 0 < x["gathers"] <= ZERO_STEPS * x["bound"]:
+                bad.append(f"{k}: {x['gathers']} all-gathers, bound {x['bound']} a step")
+    if kern["max_ulp"] > OPT_MAX_ULP or (kern["max_ulp"] and
+                                         kern["elements_differing"] > OPT_MAX_ULP_ELEMS):
+        bad.append(f"per-shard update kernel vs plain: {kern['max_ulp']} ulp")
+    if not resumed_bitwise:
+        bad.append("the one-process resume is not the save's state")
+    if serve_rel > ZERO_SERVE_REL_TOL:
+        bad.append(f"served logits {serve_rel} of the scale from the eval forward")
+    if bad:
+        raise AssertionError(f"zero_one_card: {bad} {res}")
+    return {"opt_update": launches, "shard_kernel": kern}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5966,6 +6407,7 @@ def main(argv=None) -> int:
                          "train step at batch 64")
     ap.add_argument("--two-ranks-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--tp-ep-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--zero-worker", metavar="DIR", help=argparse.SUPPRESS)
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--counted-train-net"]:  # train_net's own arguments follow
         return counted_train_net(argv[1], argv[2:])
@@ -5974,6 +6416,8 @@ def main(argv=None) -> int:
         return two_ranks_worker(args.two_ranks_worker)
     if args.tp_ep_worker:
         return tp_ep_worker(args.tp_ep_worker)
+    if args.zero_worker:
+        return zero_worker(args.zero_worker)
 
     import torch
 
@@ -6001,13 +6445,19 @@ def main(argv=None) -> int:
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    _build.build("conv_epilogue", "opt_update", "flash_attention", "decode_attn", "group_conv")
+    _build.build("conv_epilogue", "opt_update", "decode_attn", "group_conv")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(_build.build_seconds)})
-    for n in ("conv_epilogue", "flash_attention", "group_conv", "decode_attn"):
+    for n in ("conv_epilogue", "group_conv", "decode_attn"):
         emit({"phase": f"build_{n}", "seconds": _build.build_seconds[n],
               "ptxas": ptxas_report(_build.build_logs.get(n, ""))})
+    # flash_attention.cu, the slowest source, builds beside the phases up to
+    # ResNet-50's serving and training, which do not load it
+    flash_pool = ThreadPoolExecutor(1)
+    flash_build = flash_pool.submit(_build.build, "flash_attention")
 
     rows, worst = kernel_phase(torch, ce, dev)
     emit(forward_total(rows, arch="resnet50", batch=8))
@@ -6029,23 +6479,30 @@ def main(argv=None) -> int:
     if len(shapes) != 161:
         raise AssertionError(f"ResNet-50 has {len(shapes)} parameter leaves, not 161")
     opt_rows = opt_kernel_phase(torch, ou, dev, shapes)
-    flash_rows = flash_kernel_phase(torch, fa, dev)
     decode_rows = decode_kernel_phase(torch, da, dev)
 
     launches, model = slice_phase(torch, ce, N_REQUESTS)
     del model
-    vit_serve_fwd = vit_slice_phase(torch, fa, dev, N_REQUESTS)
 
     import shutil
 
-    runs = {}
-    for arch, phase in (("resnet50", lambda d: resnet_train_phase(torch, ce, ou, d)),
-                        ("vit_small", lambda d: vit_train_phase(torch, fa, ou, d))):
+    def train_run(arch, phase):
         out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_train_{arch}_")
         try:
-            runs[arch] = phase(out_dir)
+            return phase(out_dir)
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
+
+    runs = {"resnet50": train_run("resnet50", lambda d: resnet_train_phase(torch, ce, ou, d))}
+    t1 = time.perf_counter()
+    flash_build.result()
+    flash_pool.shutdown()
+    emit({"phase": "build_flash_attention", "seconds": _build.build_seconds["flash_attention"],
+          "waited_s": time.perf_counter() - t1,
+          "ptxas": ptxas_report(_build.build_logs.get("flash_attention", ""))})
+    flash_rows = flash_kernel_phase(torch, fa, dev)
+    vit_serve_fwd = vit_slice_phase(torch, fa, dev, N_REQUESTS)
+    runs["vit_small"] = train_run("vit_small", lambda d: vit_train_phase(torch, fa, ou, d))
     tf32_off()
     # f32 steps card vs CPU: the card halves here, the CPU halves beside
     # graph_equal and recompile_drill below, which read no time
@@ -6163,8 +6620,14 @@ def main(argv=None) -> int:
 
         with ThreadPoolExecutor(1) as side:
             drills = side.submit(loop_drills_phase, real_dir)
+            # ZeRO's two gloo ranks sharing the card run beside these two,
+            # which check bits and logs, not times
+            zero_ranks = zero_start()
             resume = shards_exact_resume_phase(torch, shards["pack_root"],
                                                os.path.join(real_dir, "shards_resume"))
+            tf32_off()
+            s21 = zero_one_card_phase(torch, dev, zero_ranks,
+                                      beside="shards_exact_resume, train_loop_drills")
             tf32_off()
             two_ranks_one_card_phase(torch, dev)
             # the rest of the train loop, in one process with no process
@@ -6207,6 +6670,7 @@ def main(argv=None) -> int:
         "launches": real["launches"]["opt_update"] + shards["launches"]["opt_update"]
         + resume["launches"]["opt_update"] + loop["opt_update"] + zoo["opt_update"]
         + lm_plane["opt_update"] + tel["opt_update"] + s19["opt_update"] + s20["opt_update"]
+        + s21["opt_update"]
         + sum(r["launches"]["opt_update"] for rs in runs.values() for r in rs),
         "max_abs_err": max(r["max_abs_err"] for r in opt_rows.values()),
         "ms": main_body["ms"],

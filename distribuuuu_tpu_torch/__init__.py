@@ -22,7 +22,9 @@ live plane referees it: serving campaigns against multi-model fleets
 soak (``python -m distribuuuu_tpu_torch.soak``); the mixture-of-experts
 archs (``vit_tiny_moe``, ``gpt_nano_moe``) train and serve, and the
 ``MESH.MODEL`` and ``MESH.EXPERT`` axes run across processes (tensor- and
-expert-parallel, ``parallel/``).
+expert-parallel, ``parallel/``), and ZeRO stages 1 and 3 split the
+optimizer state and the parameters over the data axis (``parallel/zero.py``),
+with sharded background saves behind a cross-host commit barrier.
 """
 
 

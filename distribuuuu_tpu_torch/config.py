@@ -392,11 +392,19 @@ _C.MESH.PIPE = 1
 # (parallel/partition/topology.py, parallel/mesh.py).
 _C.MESH.EXPERT = 1
 _C.MESH.MICROBATCH = 0
-# ZeRO stage over the data axis (0 off, 1, 3): not ported, > 0 raises.
+# ZeRO stage over the data axis (parallel/zero.py): 0 off; 1 splits the
+# optimizer's moments and the gradient mean over the data group (the
+# parameters stay replicated, all-gathered after each update); 3 also rests
+# the parameters as shards between steps. 2 raises the JAX package's
+# TopologyError; at MESH.DATA 1 every stage is stage 0.
 _C.MESH.ZERO = 0
 
-# ZeRO collective scheduling: read only under MESH.ZERO > 0, which the port
-# refuses; a value away from the default raises (trainer.check_unported_cfg).
+# ZeRO collective scheduling, read under MESH.ZERO > 0 (parallel/zero.py).
+# GATHER_AHEAD: -1 gathers every stage-3 leaf once at step entry, 0 at each
+# use (again in the backward), N >= 1 hoists the first N block groups.
+# OVERLAP is accepted and recorded in the zero.schedule record: the port
+# joins each collective before the next, so it changes neither values nor
+# timing.
 _C.ZERO = CfgNode()
 _C.ZERO.OVERLAP = True
 _C.ZERO.GATHER_AHEAD = -1

@@ -17,7 +17,11 @@ the CPU, or the backend the caller names. With none of them set (or one
 Slurm task) it does nothing and every helper below is the one-process
 identity. ``all_reduce_grads`` is the gradient all-reduce DDP would do,
 one collective per flat bucket; the model's BatchNorm does its own
-collectives (``models/layers.BatchNorm``).
+collectives (``models/layers.BatchNorm``). ZeRO's reduce-scatter and
+all-gather (``parallel/zero.py``) are ``reduce_scatter_tensor`` and
+``all_gather`` on the data group, on NCCL and on gloo, CPU or CUDA
+tensors alike (gloo carries both on CUDA tensors under torch 2.11);
+``zero_gathers`` counts the all-gathers.
 """
 
 from __future__ import annotations
@@ -34,6 +38,18 @@ DEFAULT_PORT = 29566  # the reference's default port
 BUCKET_BYTES = 25 * 2 ** 20  # DDP's default bucket size
 
 _groups: dict[int, object] = {}
+
+
+class _Count:
+    """A plain counter the tests and ``chip_smoke.py`` read and reset."""
+
+    def __init__(self):
+        self.count = 0
+
+
+# data-axis all-gathers issued by ZeRO (``parallel/zero.py``), one a
+# collective: a step's share is the difference across it
+zero_gathers = _Count()
 
 
 def _slurm_env() -> tuple[str, int, int]:

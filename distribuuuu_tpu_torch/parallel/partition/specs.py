@@ -140,14 +140,20 @@ def _opt_map(state: dict, fn) -> dict:
     return {**state, **{k: None if state.get(k) is None else fn(state[k]) for k in ("m", "v")}}
 
 
+def full_model_state(model) -> dict:
+    """The model's state dict as one process would hold it (full tensors;
+    collective under a sharded placement)."""
+    shards = getattr(model, "shards", {})
+    return gather_state_dict(model.state_dict(), shards) if shards else model.state_dict()
+
+
 def full_train_state(model, optimizer) -> dict:
     """The model's and the optimizer's state as one process would hold
     them (full tensors; collective under a sharded placement)."""
     shards = getattr(model, "shards", {})
-    if not shards:
-        return {"model": model.state_dict(), "opt": optimizer.state_dict()}
-    return {"model": gather_state_dict(model.state_dict(), shards),
-            "opt": _opt_map(optimizer.state_dict(), lambda d: gather_state_dict(d, shards))}
+    opt = optimizer.state_dict()
+    return {"model": full_model_state(model),
+            "opt": _opt_map(opt, lambda d: gather_state_dict(d, shards)) if shards else opt}
 
 
 def load_full_model(model, sd: dict, strict: bool = True):

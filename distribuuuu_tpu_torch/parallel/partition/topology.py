@@ -3,7 +3,7 @@ distribuuuu_tpu/parallel/partition/topology.py): resolve a ``MESH`` stanza
 against the number of processes (one card a process) into a
 :class:`Topology`, and validate it against the JAX package's capability
 rules, with their names and messages. A stanza the rules pass but the port
-does not run yet (a pipe or sequence axis, ZeRO, a model axis on a CNN)
+does not run yet (a pipe or sequence axis, a model axis on a CNN)
 raises ``not_ported`` after the rules, naming the ROADMAP item that holds
 it; :func:`from_cfg` does both, :func:`validate` the rules alone.
 """
@@ -227,8 +227,6 @@ def refuse_unported(topo: Topology, arch: str) -> Topology:
         raise not_ported(f"the pipelined ViT (MESH.PIPE={topo.pipe})", PARALLEL)
     if topo.seq > 1:
         raise not_ported(f"sequence-sharded attention (MESH.SEQ={topo.seq})", PARALLEL)
-    if topo.zero > 0:
-        raise not_ported(f"ZeRO (MESH.ZERO={topo.zero})", PARALLEL)
     if topo.model > 1 and not (_is_vit(arch) or _is_gpt(arch)):
         raise not_ported(f"a model axis on the CNN {arch!r} (MESH.MODEL={topo.model}: "
                          "output-channel-sharded convs)", PARALLEL)

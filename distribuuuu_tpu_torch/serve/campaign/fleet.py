@@ -31,7 +31,7 @@ import os
 import threading
 
 from distribuuuu_tpu_torch.serve.fleet.pool import PoolManager, spawn_serve_net
-from distribuuuu_tpu_torch.serve.fleet.router import Router
+from distribuuuu_tpu_torch.serve.fleet.router import Router, freeze_heap, thaw_heap
 from distribuuuu_tpu_torch.utils.logger import get_logger
 
 # per-model override keys a fleet spec may set on top of the base cfg
@@ -71,6 +71,8 @@ class MultiModelFleet:
         self._targets: dict[str, int] = {}
         self._cfg_paths: dict[str, str] = {}
         self.logger = get_logger()
+        self.gc_full_ms = None  # the full collection before the heap froze
+        self._frozen = False
         for spec in model_specs:
             bad = sorted(set(spec) - _SPEC_KEYS)
             if bad:
@@ -149,11 +151,15 @@ class MultiModelFleet:
 
     def wait_routable(self) -> "MultiModelFleet":
         """Join the warm-ups ``start(wait=False)`` began (each pool waits
-        on its own model's replicas only), then start supervision."""
+        on its own model's replicas only), start supervision, and freeze
+        this process's heap while the fleet serves (``router.freeze_heap``;
+        ``gc_full_ms`` is what its full collection took)."""
         for name, pool in self.pools.items():
             pool._wait_routable(self._targets[name])
         for pool in self.pools.values():
             pool.start_supervisor()
+        if not self._frozen:
+            self.gc_full_ms, self._frozen = freeze_heap(), True
         return self
 
     def rolling_update(self, model: str, overrides: dict,
@@ -200,3 +206,6 @@ class MultiModelFleet:
         for t in threads:
             t.join(timeout=90)
         self.router.emit_telemetry()
+        if self._frozen:
+            self._frozen = False
+            thaw_heap()

@@ -25,7 +25,9 @@ promises zero).
 Each phase record also carries ``send_lag_ms``: p50/p99 of each
 request's actual send time minus its scheduled time. A phase whose
 client fell behind its schedule did not offer the load it names, so its
-verdict says nothing about the fleet.
+verdict says nothing about the fleet. ``latencies[i]`` holds phase i's
+image requests as ``(scheduled s, client-side seconds)``, for a caller
+that reads the tail the router's windows referee.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ class CampaignRunner:
             for _ in spec.phases
         ]
         self._lags: list[list[float]] = [[] for _ in spec.phases]
+        self.latencies: list[list[tuple]] = [[] for _ in spec.phases]
         self._t0 = 0.0
         self.logger = get_logger()
 
@@ -145,7 +148,10 @@ class CampaignRunner:
                         self._counts[pi]["sent"] += 1
                         self._counts[pi][cls] += 1
                     continue
+                t_req = time.perf_counter()
                 resp = self.router.dispatch(frame)
+                with self._lock:
+                    self.latencies[pi].append((t, time.perf_counter() - t_req))
                 if not resp.startswith(b'{"error"'):
                     cls = "ok"
                 else:

@@ -490,11 +490,14 @@ class FleetService:
                 eval_period_s=fl.EVAL_PERIOD_S,
             )
         self.emit_interval_s = fl.EMIT_INTERVAL_S
+        self._frozen = False
 
     def start(self, *, wait: bool = True) -> "FleetService":
         """Spawn the initial replicas concurrently (each warm-up gated);
         with ``wait`` block until all are routable (or the warm-up budget
         lapses), then start supervision and the autoscaler loop."""
+        from distribuuuu_tpu_torch.serve.fleet.router import freeze_heap
+
         n = self.pool.set_target(self.n_initial)
         self.pool._spawn_toward_target()
         if wait:
@@ -502,6 +505,9 @@ class FleetService:
         self.pool.start_supervisor()
         if self.autoscaler is not None:
             self.autoscaler.start()
+        if not self._frozen:  # the router serves from a frozen heap
+            freeze_heap()
+            self._frozen = True
         return self
 
     def serve(self, listener, should_stop, poll_s: float = 0.25) -> None:
@@ -511,7 +517,12 @@ class FleetService:
         )
 
     def shutdown(self) -> None:
+        from distribuuuu_tpu_torch.serve.fleet.router import thaw_heap
+
         if self.autoscaler is not None:
             self.autoscaler.stop()
         self.pool.shutdown()
         self.router.emit_telemetry()
+        if self._frozen:
+            self._frozen = False
+            thaw_heap()

@@ -37,10 +37,19 @@ latency histogram, plus one histogram per replica) and a recent-latency
 window for the autoscaler's p99 reads; ``emit_telemetry`` lands
 ``kind="fleet.stats"`` / ``"fleet.replica"`` records in the per-rank sink
 (declared in telemetry/schema.py).
+
+Heap: the process that hosts a router serves from Python threads, so a
+full garbage collection of its heap stalls every request in flight for
+as long as the collection walks it. Once a fleet is routable its owner
+calls :func:`freeze_heap` (a collection, then ``gc.freeze``: what the
+process holds from before serving leaves the collector's walks; later
+collections walk only what serving allocates) and :func:`thaw_heap` at
+its shutdown.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import socket
 import threading
@@ -54,6 +63,37 @@ from distribuuuu_tpu_torch.telemetry.registry import Registry, percentile
 _ERROR_PREFIX = b'{"error"'
 # replica rejections the router may retry elsewhere (read-only requests):
 _BUSY_ERRORS = ("queue_full", "draining")
+
+
+# -- the host process's heap while a fleet serves ---------------------------
+
+class _Heap:
+    """How many routable fleets of this process keep its heap frozen."""
+
+    lock = threading.Lock()
+    fleets = 0
+
+
+def freeze_heap() -> float:
+    """Collect, then freeze what this process holds (``gc.freeze``), for
+    one more routable fleet; returns the collection's milliseconds: what
+    a full collection of that heap costs the requests in flight."""
+    with _Heap.lock:
+        t0 = time.perf_counter()
+        gc.collect()
+        ms = (time.perf_counter() - t0) * 1e3
+        gc.freeze()
+        _Heap.fleets += 1
+    return ms
+
+
+def thaw_heap() -> None:
+    """One fleet fewer; the last one hands the frozen heap back to the
+    collector (``gc.unfreeze``)."""
+    with _Heap.lock:
+        _Heap.fleets = max(0, _Heap.fleets - 1)
+        if not _Heap.fleets:
+            gc.unfreeze()
 
 
 # -- the least-loaded policy (pure; tests feed synthetic snapshots) ----------

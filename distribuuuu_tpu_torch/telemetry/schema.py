@@ -73,6 +73,16 @@ KINDS: dict[str, frozenset] = {
     "memstats": frozenset({"device", "bytes_in_use", "peak_bytes_in_use"}),
     # one per background checkpoint commit: on-path snapshot, off-path commit
     "ckpt.async": frozenset({"ckpt", "snapshot_s", "commit_s", "ok"}),
+    # one per process per many-process background save: its wait at the
+    # cross-host commit barrier (asyncplane/committer.multihost_commit)
+    "ckpt.barrier": frozenset({"ckpt", "host", "hosts", "wait_s"}),
+    # one per process per sharded background save: its own shard write
+    "ckpt.shard": frozenset({"ckpt", "host", "hosts", "shards", "bytes", "write_s"}),
+    # once per distinct ZeRO schedule (parallel/zero.log_schedule): leaves
+    # resting split over data, entry gathers hoisted, the ZERO.* knobs
+    "zero.schedule": frozenset(
+        {"stage", "leaves", "sharded", "hoisted", "overlap", "gather_ahead"}
+    ),
     "compile.cache": frozenset({"event", "hits", "misses"}),
     # -- the FLOP/byte ledger (telemetry/costmodel.py) ------------------------
     "cost.step": frozenset(

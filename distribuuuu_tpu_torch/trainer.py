@@ -63,13 +63,22 @@ model is placed on this rank's shards (``parallel/partition/specs.
 place_model``), the gradients and metrics average over the data group,
 the loss adds the MoE blocks' balancing loss (``MODEL.MOE.AUX_WEIGHT``),
 dispatch MoE reports ``moe_dropped``, and checkpoints hold full tensors.
-What the port does not run raises with its ROADMAP item: ZeRO, the
-sequence and pipe axes, a model axis on a CNN, the config keys of
+``MESH.ZERO`` 1 or 3 splits the optimizer's moments (and at 3 the
+parameters, between steps) over the data group (``parallel/zero.py``):
+the step reduce-scatters the gradients into each rank's shards, runs the
+fused update on them and, at stage 1, all-gathers the parameters; at
+stage 3 it gathers them as ``ZERO.GATHER_AHEAD`` schedules and an eval
+or a save gathers them once. A stage-3 run's steps run eagerly, and its
+background saves are sharded across the processes
+(``utils/checkpoint.save_sharded_checkpoint``). What the port does not
+run raises with its ROADMAP item: the sequence and pipe axes, a model
+axis on a CNN, ZeRO-3 with concurrent eval, the config keys of
 mechanisms it lacks and the fault knobs whose mechanism it does not have.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import time
@@ -93,6 +102,7 @@ from distribuuuu_tpu_torch.models.layers import DropoutSlot, head_dtype, resolve
 from distribuuuu_tpu_torch.ops import cuda as kernel_tier
 from distribuuuu_tpu_torch.parallel import dist
 from distribuuuu_tpu_torch.parallel import mesh as mesh_lib
+from distribuuuu_tpu_torch.parallel import zero as zero_lib
 from distribuuuu_tpu_torch.parallel.partition import specs, topology
 from distribuuuu_tpu_torch.resilience import manifest, supervisor
 from distribuuuu_tpu_torch.telemetry import costmodel
@@ -253,6 +263,16 @@ def check_train_cfg(eval_only: bool = False) -> None:
             raise not_ported("TRAIN.CONCURRENT_EVAL under a model or expert axis (the eval "
                              "thread's collectives would interleave with the step's on the "
                              "same groups)", PARALLEL)
+    zero_lib.check_gather_ahead(cfg.ZERO.GATHER_AHEAD)
+    if topo.zero == 3 and topo.data > 1:
+        if cfg.TRAIN.CONCURRENT_EVAL:
+            raise not_ported("TRAIN.CONCURRENT_EVAL under ZeRO stage 3 (the eval snapshot "
+                             "would gather the resting shards on the eval thread while the "
+                             "step gathers them on the data group)", PARALLEL)
+        if cfg.TRAIN.REMAT and int(cfg.ZERO.GATHER_AHEAD) != -1:
+            raise not_ported("TRAIN.REMAT with ZeRO-3 per-use gathers (ZERO.GATHER_AHEAD "
+                             f"{int(cfg.ZERO.GATHER_AHEAD)}: the recomputed stages would read "
+                             "parameters freed after their forward)", PARALLEL)
     if not eval_only:
         supervisor.validate_policy(str(cfg.TRAIN.NONFINITE))
     faults.validate_cfg(cfg.DEVICE.PLATFORM)
@@ -281,17 +301,14 @@ def topology_from_cfg() -> topology.Topology:
 # keys of the JAX config whose mechanism the port does not have yet, refused
 # away from their defaults -> the ROADMAP item that holds them
 UNPORTED_KEYS = {
-    "ZERO.OVERLAP": PARALLEL,
-    "ZERO.GATHER_AHEAD": PARALLEL,
     "ASYNC.SEQUENCER": "Async, resilience, live plane, shards and analysis",
     "ASYNC.RING_DEADLINE_S": "Async, resilience, live plane, shards and analysis",
-    "ASYNC.BARRIER_TIMEOUT_S": "Async, resilience, live plane, shards and analysis",
 }
 
 
 def check_unported_cfg() -> None:
     """``not_ported`` for a key of :data:`UNPORTED_KEYS` set away from its
-    default (``MESH.ZERO`` is refused by the topology)."""
+    default."""
     from distribuuuu_tpu_torch.config import _CFG_DEFAULT
 
     for key, item in UNPORTED_KEYS.items():
@@ -390,7 +407,7 @@ class _StepBody:
                             for s in range(k)])
 
     def step(self, s: int, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        model, opt, accum = self.model, self.opt, self.accum
+        model, opt, accum, z = self.model, self.opt, self.accum, self.opt.zero
         n = labels.shape[0]
         if n % accum:
             raise ValueError(f"batch dim {n} not divisible by GRAD_ACCUM_STEPS={accum}")
@@ -398,13 +415,16 @@ class _StepBody:
         if self.snap is not None:
             for b, c in zip(self.bufs, self.snap):
                 c.copy_(b)
+        if z is not None:  # ZeRO-3: the hoisted leaves, gathered once
+            z.begin_step()
         gsum, micro = None, []
         for i in range(accum):
             rows = slice(i * mb, (i + 1) * mb)
             if self.slots:
                 model.dropout_key = self.slots[s * accum + i]
-            logits = model(prep_images(images[rows]))
-            loss = self.loss(logits, labels[rows]) * self.poison[s]
+            with self.saved():
+                logits = model(prep_images(images[rows]))
+                loss = self.loss(logits, labels[rows]) * self.poison[s]
             grads = torch.autograd.grad(loss, opt.params)
             for m in self.moe:  # no autograd graph outlives the step (graph capture)
                 m.aux = None
@@ -415,24 +435,42 @@ class _StepBody:
         with torch.no_grad():
             # the fused update walks each leaf's memory: the static buffers
             # are laid out as the parameters
-            for buf, g in zip(opt.grads, gsum):
-                buf.copy_(g / accum if accum > 1 else g)
+            if accum > 1:
+                gsum = [g / accum for g in gsum]
+            if z is None:
+                for buf, g in zip(opt.grads, gsum):
+                    buf.copy_(g)
         metrics = micro[0] if accum == 1 else [torch.stack(m).mean() for m in zip(*micro)]
-        if self.group is not None:
+        if z is not None:  # reduce-scatter into the shards, the rest all-reduced
+            with torch.no_grad():
+                z.reduce(gsum, opt.grads)
+        elif self.group is not None:
             dist.all_reduce_grads(opt.grads, self.group)
-            metrics = dist.scaled_all_reduce(list(metrics), self.group)
         elif self.reduce:  # every process
             dist.all_reduce_grads(opt.grads)
+        if self.group is not None:
+            metrics = dist.scaled_all_reduce(list(metrics), self.group)
+        elif self.reduce:
             metrics = dist.scaled_all_reduce(list(metrics))
         loss, acc1, acck, *dropped = metrics
         bad = torch.logical_not(torch.isfinite(loss))
+        if z is not None:
+            z.stage_params()
         opt.apply(skip=None if self.snap is None else bad.to(torch.float32))
+        if z is not None:  # stage 1: all-gather the params; stage 3: free them
+            z.publish()
         if self.snap is not None:
             with torch.no_grad():
                 for b, c in zip(self.bufs, self.snap):
                     b.copy_(torch.where(bad, c, b))
         return torch.stack([loss, acc1.to(loss.dtype), acck.to(loss.dtype),
                             bad.to(loss.dtype), *(d.to(loss.dtype) for d in dropped)])
+
+    def saved(self):
+        """The forward's context: ZeRO-3's per-use leaves are gathered at
+        their use and again where the backward reads them."""
+        z = self.opt.zero
+        return z.use_scope() if z is not None else contextlib.nullcontext()
 
     def dropped(self) -> list:
         """The mean over the dispatch MoE blocks of the fraction of routed
@@ -706,8 +744,10 @@ def _train_work(model, optimizer, batch: dict, topk: int, accum: int):
         meta.dropout_key = DropoutSlot()
         meta.dropout_key.key = (0, 0, 0)
     params = [p for _, p in meta.named_parameters()]
-    m = None if optimizer.m is None else [torch.empty_like(t, device="meta") for t in optimizer.m]
-    v = None if optimizer.v is None else [torch.empty_like(t, device="meta") for t in optimizer.v]
+    m = None if optimizer.m is None else [torch.empty(p.shape, dtype=t.dtype, device="meta")
+                                          for p, t in zip(params, optimizer.m)]
+    v = None if optimizer.v is None else [torch.empty(p.shape, dtype=t.dtype, device="meta")
+                                          for p, t in zip(params, optimizer.v)]
     scal = torch.as_tensor(opt_update.scalar_rows(optimizer.hyper, optimizer.lr, 1, 1,
                                                   optimizer.trace_dtype(), params[0].dtype))
     mb = _meta_batch({"image": batch["image"], "label": batch["label"]})
@@ -943,6 +983,13 @@ def validate(loader, model, epoch: int, logger, device: torch.device,
     timeline record, and the ledger's ``eval_step`` at the first call."""
     if watch_preemption is None:
         watch_preemption = cfg.TRAIN.PREEMPT_SAVE
+    with zero_lib.gathered(model):  # ZeRO-3: one gather for the whole pass
+        return _validate(loader, model, epoch, logger, device, watch_preemption, quiet, group,
+                         graphed, pool)
+
+
+def _validate(loader, model, epoch, logger, device, watch_preemption, quiet, group, graphed,
+              pool):
     model.eval()
     topk, num_batches, totals = effective_topk(), len(loader), None
     step = EvalStep(model, topk, device, graphed, pool)
@@ -1010,7 +1057,8 @@ def _resume(model, optimizer, state: dict, logger):
             "/ MOE differ from the checkpoint's; match the config to the save, or start a "
             "fresh OUT_DIR")
     payload = ckpt.load_checkpoint(path)
-    specs.load_full_model(model, payload["model"])
+    with zero_lib.gathered(model, write_back=True):
+        specs.load_full_model(model, payload["model"])
     if cfg.TRAIN.LOAD_OPT and "opt" in payload:
         try:
             specs.load_full_opt(model, optimizer, payload["opt"])
@@ -1117,7 +1165,10 @@ def _train_model(records, device, world: int, logger):
     m_params, mb = count_parameters(model)
     logger.info("model %s: %.3fM params (%.2f MB fp32) on %s, %d process(es)",
                 cfg.MODEL.ARCH, m_params, mb, device, world)
-    graphed = step_graphed(device)
+    zero = optimizer.zero
+    # ZeRO-3 frees and re-allocates the full parameters around every step
+    # and eval: addresses a graph could not replay
+    graphed = step_graphed(device) and (zero is None or zero.plan.stage != 3)
     pool = torch.cuda.graph_pool_handle() if graphed else None
     runner = TrainStep(model, optimizer, effective_topk(), str(cfg.TRAIN.NONFINITE),
                        max(1, int(cfg.TRAIN.GRAD_ACCUM_STEPS)),
@@ -1125,7 +1176,8 @@ def _train_model(records, device, world: int, logger):
     if device.type == "cuda":
         logger.info("train and eval steps: %s", "one CUDA graph each, captured at the first "
                     "call and replayed" if graphed else "eager (a gloo group holds CUDA "
-                    "tensors: gloo's collectives cannot be captured)")
+                    "tensors: gloo's collectives cannot be captured; or ZeRO-3 frees the "
+                    "parameters between steps)")
     train_loader, val_loader = construct_train_loader(), construct_val_loader()
     logger.info("decode backend: %s (DATA.BACKEND %s); %d train and %d val batches of "
                 "%d and %d a process", train_loader.backend, cfg.DATA.BACKEND,
@@ -1152,12 +1204,22 @@ def _train_model(records, device, world: int, logger):
         logger.warning("MODEL.WEIGHTS is ignored during training unless "
                        "MODEL.PRETRAINED True (evaluation uses test_net)")
     broadcast_start(model)
+    if int(cfg.MESH.ZERO):
+        plan = zero.plan if zero is not None else zero_lib.plan_model(
+            model, mesh_lib.current(), int(cfg.MESH.ZERO), cfg.MODEL.ARCH)
+        zero_lib.log_schedule(plan, bool(cfg.ZERO.OVERLAP), int(cfg.ZERO.GATHER_AHEAD))
+        logger.info("ZeRO stage %d over %d data rank(s): %d of %d leaves split over data",
+                    plan.stage, plan.size, len(plan.sharded()), len(plan.leaves))
+    if zero is not None:
+        zero.rest(model)  # ZeRO-3: the parameters rest as shards from here on
     if cfg.TRAIN.PREEMPT_SAVE:
         preempt.install()
     by_epoch = {}
 
     def full_state():
-        return {**specs.full_train_state(model, optimizer), "step": state["step"]}
+        with zero_lib.gathered(model):
+            return {**zero_lib.kept(specs.full_train_state(model, optimizer), model),
+                    "step": state["step"]}
 
     def preempt_exit(path, resume_epoch):
         committer.join_commits(reason="preemption exit")
@@ -1166,9 +1228,17 @@ def _train_model(records, device, world: int, logger):
                        path, resume_epoch + 1)
         return best_acc1
 
+    def model_state():
+        with zero_lib.gathered(model):
+            return zero_lib.kept({"model": specs.full_model_state(model)}, model)["model"]
+
     def save(epoch, is_best):
         t0 = time.perf_counter()
-        path = ckpt.save_checkpoint(full_state(), epoch, best_acc1, is_best)
+        if ckpt.sharded_protocol(model):  # each process writes its own blocks
+            path = ckpt.save_sharded_checkpoint(model, optimizer, state["step"], epoch,
+                                                best_acc1, is_best, model_state)
+        else:
+            path = ckpt.save_checkpoint(full_state(), epoch, best_acc1, is_best)
         if epoch in by_epoch:
             by_epoch[epoch]["save_s"] = time.perf_counter() - t0
         if dist.is_primary():

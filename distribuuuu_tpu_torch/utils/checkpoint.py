@@ -17,18 +17,38 @@ save; :class:`NoValidCheckpointError` when none survives.
 
 ``CHECKPOINT.ASYNC`` (``asyncplane/committer.py``): the trainer blocks for
 the host snapshot only; the write, fsync, rename and manifest run on the
-committer thread, in the same order. Preemption saves are synchronous and
-join the committer first; under the shards format they also hold the
-loader's exact cursor (``data_state``, a uint8 tensor of its JSON).
+committer thread, in the same order. With several processes the commit
+goes through the cross-host commit barrier (``committer.multihost_
+commit``): the manifest is written strictly last, once every process has
+arrived. Preemption saves are synchronous and join the committer first;
+under the shards format they also hold the loader's exact cursor
+(``data_state``, a uint8 tensor of its JSON).
 
-With several processes only the primary writes and quarantines; every
-process loads. A synchronous save ends at a barrier; the walk-back runs
-on the primary after it joins the committer, and every process takes the
-path it broadcasts. The payload is the same as with one process (the
-model's ``state_dict`` keys unchanged), so a checkpoint of either resumes
-the other: under a model or expert axis the trainer gathers the shards
-into full tensors before the save and slices them at the load
-(``parallel/partition/specs.full_train_state``, ``load_full_model``). The orbax format is not ported (ROADMAP "Orbax weights").
+A ZeRO run whose state is split across the processes (``MESH.ZERO`` 1 or
+3 at two or more data ranks) saves in the background by the sharded
+protocol (:func:`save_sharded_checkpoint`, JAX's ``_save_sharded``): a
+directory ``ckpt_ep_NNN/`` in the JAX package's layout, each process
+writing the blocks it owns as ``shards_host<r>.npz`` + ``SHARDS_host<r>.
+json`` and the primary ``MANIFEST.json`` last, behind the barrier. Its
+``params`` and ``batch_stats`` are under the JAX package's paths and
+layouts (``utils/weights.jax_tree_from_state_dict``), so the JAX
+package's ``committer.read_sharded_checkpoint`` and the port's
+``MODEL.WEIGHTS`` reader both read it; the optimizer's moments, its
+count and learning rate, the step, epoch and best Acc@1, and the BN
+counters JAX does not keep are under the port's own names. The
+weights-only ``best`` of such a save is written up front, synchronously.
+A synchronous save is one full-tensor ``.pth`` whatever the stage.
+
+With several processes only the primary writes a full-tensor save and
+quarantines; every process loads. A synchronous save ends at a barrier;
+the walk-back runs on the primary after it joins the committer, and every
+process takes the path it broadcasts. The payload is the same as with one
+process (the model's ``state_dict`` keys unchanged), so a checkpoint of
+either resumes the other: under a model or expert axis the trainer
+gathers the shards into full tensors before the save and slices them at
+the load (``parallel/partition/specs.full_train_state``,
+``load_full_model``); a sharded save is put back together into the same
+full tensors (:func:`load_checkpoint`).
 
 Telemetry, on the ``ckpt`` track of the primary's sink: a synchronous
 save is one ``ckpt_save`` span; a background one a ``ckpt_snapshot`` span
@@ -84,11 +104,18 @@ def get_best_checkpoint() -> str:
     return os.path.join(get_checkpoint_dir(), _BEST_NAME + _EXT)
 
 
+def get_sharded_checkpoint(epoch: int) -> str:
+    """The sharded save directory of epoch ``epoch``."""
+    return os.path.join(get_checkpoint_dir(), f"{_NAME_PREFIX}{epoch:03d}")
+
+
 def _scan(prefix: str) -> dict[int, str]:
+    """``{epoch: path}`` of the saves named ``prefix`` + NNN: ``.pth`` files
+    and sharded directories alike."""
     d = get_checkpoint_dir()
     if not os.path.isdir(d):
         return {}
-    pat = re.compile(re.escape(prefix) + r"(\d+)" + re.escape(_EXT))
+    pat = re.compile(re.escape(prefix) + r"(\d+)(?:" + re.escape(_EXT) + ")?")
     return {int(m.group(1)): os.path.join(d, f)
             for f in os.listdir(d) if (m := pat.fullmatch(f))}
 
@@ -176,11 +203,11 @@ def _cpu(tree):
     return tree
 
 
-def _write(path: str, payload: dict, kind: str, epoch: int | None,
-           durable: bool = False) -> str:
-    """Payload to a temporary file, renamed into place, then the manifest
-    strictly last. ``durable`` (the committer) fsyncs the payload before
-    the rename, so the order holds through a power loss too."""
+def _write_payload(path: str, payload: dict, kind: str, epoch: int | None,
+                   durable: bool = False) -> None:
+    """Payload to a temporary file, renamed into place. ``durable`` (the
+    committer) fsyncs it before the rename, so the manifest's order holds
+    through a power loss too."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
@@ -192,6 +219,13 @@ def _write(path: str, payload: dict, kind: str, epoch: int | None,
         # the crash window, injectable: the payload is in place, its
         # manifest is not (no-op unless FAULTS.*)
         faults.maybe_kill_mid_async_save(path, epoch if epoch is not None else -1)
+
+
+def _write(path: str, payload: dict, kind: str, epoch: int | None,
+           durable: bool = False) -> str:
+    """The payload (:func:`_write_payload`), then the manifest strictly
+    last."""
+    _write_payload(path, payload, kind, epoch, durable)
     manifest.write_manifest(path, payload, kind=kind, epoch=epoch,
                             world=dist.get_world_size())
     return path
@@ -228,17 +262,34 @@ def save_checkpoint(state: dict, epoch: int, best_acc1: float, is_best: bool) ->
     checkpoint fault hook. The primary writes (on the committer under
     ``CHECKPOINT.ASYNC``); a synchronous save ends at a barrier."""
     path = get_checkpoint(epoch)
+    world = dist.get_world_size()
+    name = os.path.basename(path)
+    tags = {"track": "ckpt", "ckpt": name, "epoch": int(epoch)}
+    if cfg.CHECKPOINT.ASYNC and world > 1 and not dist.is_primary():
+        # a peer of the cross-host barrier: nothing of its own to write
+        committer.submit_commit(name, lambda: committer.multihost_commit(
+            path, epoch, None, manifest.manifest_path(path), dist.get_rank(), world))
     if dist.is_primary():
-        name = os.path.basename(path)
-        tags = {"track": "ckpt", "ckpt": name, "epoch": int(epoch)}
 
-        def commit(durable, payload):
-            _write(path, payload, "full", epoch, durable)
+        def post(durable, payload):
             if is_best:
                 _write(get_best_checkpoint(), _best_payload(payload["model"], epoch),
                        "weights", epoch, durable)
             prune_preempts(epoch)
             faults.maybe_corrupt_checkpoint(path, epoch)
+
+        def commit(durable, payload):
+            if world > 1 and durable:  # behind the barrier, the manifest last
+                committer.multihost_commit(
+                    path, epoch,
+                    lambda: manifest.write_manifest(path, payload, kind="full", epoch=epoch,
+                                                    world=world),
+                    manifest.manifest_path(path), 0, world,
+                    write_payload=lambda: _write_payload(path, payload, "full", epoch, True),
+                    post_commit=lambda: post(durable, payload))
+                return
+            _write(path, payload, "full", epoch, durable)
+            post(durable, payload)
 
         if cfg.CHECKPOINT.ASYNC:
             t0 = time.perf_counter()
@@ -322,13 +373,200 @@ def save_preempt_checkpoint(state: dict, epoch: int, best_acc1: float,
 
 
 def load_checkpoint(path: str) -> dict:
-    """The payload at ``path`` (tensors on the CPU); raises
+    """The payload at ``path`` (tensors on the CPU; a sharded directory put
+    back together into the same full-tensor payload); raises
     :class:`CheckpointError` naming the path when it cannot be read."""
     try:
         with telemetry_spans.span("ckpt_restore", track="ckpt", ckpt=os.path.basename(path)):
+            if manifest.is_dir_checkpoint(path):
+                return _payload_from_tree(committer.read_sharded_checkpoint(path))
             return torch.load(path, map_location="cpu", weights_only=True)
     except Exception as e:  # torch.load raises many concrete types
         raise CheckpointError(
             f"failed to load checkpoint {path} ({type(e).__name__}: {e}); move it "
             "aside to resume from the previous one, or start a fresh OUT_DIR"
         ) from e
+
+
+# ---------------------------------------------------------------- sharded saves
+
+_LAYOUT_DTYPE = {torch.float32: "float32", torch.float64: "float64",
+                 torch.bfloat16: "bfloat16", torch.int64: "int64"}
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` the next steps cannot touch (bfloat16 as its
+    raw 16-bit words)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def sharded_protocol(model) -> bool:
+    """Whether a background save of ``model``'s run takes the sharded
+    protocol: several processes and a ZeRO runtime that splits leaves
+    over data."""
+    return bool(cfg.CHECKPOINT.ASYNC) and dist.get_world_size() > 1 and \
+        getattr(model, "zero_runtime", None) is not None
+
+
+def _owner(mesh, split_axes) -> bool:
+    """This rank owns its blocks of a leaf split over ``split_axes``: its
+    coordinate is 0 on every other populated axis."""
+    return all(mesh.index(a) == 0 for a, n in mesh.sizes.items()
+               if n > 1 and a not in split_axes)
+
+
+def _block(shape, tp, zdim, rt):
+    """The ``[start, stop]`` ranges (port dims) of this rank's block of a
+    leaf of full ``shape``: its model/expert slice (``tp``), then its data
+    shard of that (``zdim``)."""
+    rng = [[0, int(d)] for d in shape]
+    if tp is not None:
+        k = shape[tp.dim] // tp.size
+        rng[tp.dim] = [tp.index * k, (tp.index + 1) * k]
+    if zdim is not None:
+        a, b = rng[zdim]
+        k = (b - a) // rt.n
+        rng[zdim] = [a + rt.r * k, a + (rt.r + 1) * k]
+    return rng
+
+
+def sharded_tree(model, optimizer, step: int, epoch: int, best_acc1: float) -> dict:
+    """This process's view of the sharded save's tree: each parameter and
+    moment a ``committer.Blocks`` of the blocks it owns (the JAX layout
+    under JAX's paths for parameters, the port's layout under its names
+    for moments), the BN statistics and counters and the scalars as host
+    values (written by rank 0)."""
+    from distribuuuu_tpu_torch.parallel import mesh as mesh_lib
+    from distribuuuu_tpu_torch.parallel import zero
+    from distribuuuu_tpu_torch.utils import weights
+
+    mesh, rt = mesh_lib.current(), model.zero_runtime
+    shards = getattr(model, "shards", {})
+    sd = model.state_dict()
+    paths = weights.port_path_map(sd)
+    tree: dict = {}
+
+    def put(path, leaf):
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = leaf
+
+    moments = {"m": optimizer.m, "v": optimizer.v}
+    for i, name in enumerate(optimizer.names):
+        p, tp, zdim = optimizer.params[i], shards.get(name), rt.zdims[i]
+        full = list(p.shape)
+        if tp is not None:
+            full[tp.dim] *= tp.size
+        rng = _block(full, tp, zdim, rt)
+        split = ({"data"} if zdim is not None else set()) | \
+            ({a for a, g in mesh.groups.items() if tp is not None and g is tp.group})
+        own = _owner(mesh, split)
+        if zdim is None:
+            data = p
+        elif rt.resting:
+            data = rt.pshard[i]
+        else:
+            data = zero.shard_of(p, zdim, rt.n, rt.r)
+        dtype = _LAYOUT_DTYPE[p.dtype]
+        put(paths[name], committer.Blocks(
+            zero.to_jax(name, tuple(full)), dtype,
+            [(zero.to_jax(name, tuple(rng)), weights.jax_layout(_host(data), name))]
+            if own else []))
+        for key, bufs in moments.items():
+            if bufs is None:
+                continue
+            put(("opt", key, name), committer.Blocks(
+                tuple(full), _LAYOUT_DTYPE[bufs[i].dtype],
+                [(tuple(rng), _host(bufs[i]))] if own else []))
+    params = {n for n, _ in model.named_parameters()}
+    for key, t in sd.items():
+        if key in params:
+            continue
+        if key in paths:
+            put(paths[key], weights.jax_layout(_host(t), key))
+        else:  # what JAX does not keep (BN counters)
+            put(("model_extra", key), _host(t))
+    put(("opt", "count"), np.int64(optimizer.count))
+    put(("opt", "lr"), np.float64(optimizer.lr))
+    put(("step",), np.int64(step))
+    put(("epoch",), np.int64(epoch))
+    put(("best_acc1",), np.float64(best_acc1))
+    return tree
+
+
+def _payload_from_tree(tree: dict) -> dict:
+    """A sharded save's tree (full numpy arrays) as the port's payload: the
+    model's state dict (``utils/weights.state_dict_from_jax``, each leaf's
+    dtype kept, plus the counters), the optimizer state and the scalars."""
+    from distribuuuu_tpu_torch.utils import weights
+
+    sd = weights.state_dict_from_jax(tree["params"], tree.get("batch_stats"), keep_dtype=True)
+    for key, arr in tree.get("model_extra", {}).items():
+        sd[key] = torch.from_numpy(np.array(arr))
+    opt = tree.get("opt", {})
+    out = {"model": sd, "step": int(tree.get("step", 0)), "epoch": int(tree["epoch"]),
+           "best_acc1": float(tree.get("best_acc1", 0.0))}
+    if opt:
+        out["opt"] = {"count": int(opt["count"]), "lr": float(opt["lr"]),
+                      **{k: None if k not in opt else
+                         {n: torch.from_numpy(np.array(a)) for n, a in opt[k].items()}
+                         for k in ("m", "v")}}
+    return out
+
+
+def save_sharded_checkpoint(model, optimizer, step: int, epoch: int, best_acc1: float,
+                            is_best: bool, best_state=None) -> str:
+    """The sharded background save of epoch ``epoch`` (every process calls
+    it, JAX's ``_save_sharded``). On-path: the best side-write up front
+    (``best_state()``: the full model state dict, a collective; the
+    primary writes ``best.pth`` synchronously), then this process's
+    snapshot of the blocks it owns and the tree spec. Off-path, on the
+    committer: each process writes its ``shards_host<r>.npz`` and layout
+    and arrives at the barrier; the primary commits ``MANIFEST.json``
+    last, whose digest walk covers every process's files, then prunes the
+    preemption saves. Bounded by ``ASYNC.BARRIER_TIMEOUT_S``; a failure
+    surfaces as ``AsyncCommitError`` at the next join."""
+    path = get_sharded_checkpoint(epoch)
+    name = os.path.basename(path)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    committer.join_commits()
+    if is_best:
+        sd = best_state()
+        if dist.is_primary():
+            _write(get_best_checkpoint(), _best_payload(_cpu(sd), epoch), "weights", epoch)
+        dist.barrier()
+    t0 = time.perf_counter()
+    with telemetry_spans.span("ckpt_snapshot", track="ckpt", ckpt=name, epoch=int(epoch)):
+        owned, layout = committer.snapshot_host_shards(
+            sharded_tree(model, optimizer, step, epoch, best_acc1), rank)
+        tree = {"/".join(leaf["path"]): {"shape": leaf["shape"], "dtype": leaf["dtype"]}
+                for leaf in layout["leaves"]}
+    snapshot_s = time.perf_counter() - t0
+    record = {"hosts": world, "files": [committer.shards_name(r) for r in range(world)]}
+
+    def write_mine():
+        w0 = time.perf_counter()
+        nbytes = committer.write_host_shards(path, rank, world, owned, layout)
+        committer.emit_shard_record(name, rank, world, len(owned), nbytes,
+                                    time.perf_counter() - w0)
+
+    def post():
+        faults.maybe_drop_shard_file(path, epoch, world)
+        prune_preempts(epoch)
+
+    def background():
+        c0 = time.perf_counter()
+        with telemetry_spans.span("ckpt_commit", track="ckpt", ckpt=name, epoch=int(epoch)):
+            committer.multihost_commit(
+                path, epoch,
+                lambda: manifest.write_dir_manifest(path, tree, "full", epoch, world, record),
+                manifest.manifest_path(path), rank, world, write_payload=write_mine,
+                write_local=write_mine, post_commit=post, sharded=True)
+        committer.emit_commit_record(name, snapshot_s, time.perf_counter() - c0)
+
+    committer.submit_commit(name, background)
+    return path

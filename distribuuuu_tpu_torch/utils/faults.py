@@ -29,7 +29,20 @@ event here, so the tests drive the real recovery code:
   recompile storm        ``FAULTS.RECOMPILE_EPOCH/RECOMPILE_AT_BATCH/
                          RECOMPILE_N``: N real CUDA graph captures of
                          trivial bodies at distinct shapes, once, at that
-                         batch (the card only: the CPU has no graph).
+                         batch (the card only: the CPU has no graph);
+  killed at barrier      ``FAULTS.KILL_AT_COMMIT_BARRIER``: SIGKILL the
+                         primary between the cross-host commit barrier
+                         (every process's share durable) and the manifest
+                         of a many-process ``CHECKPOINT.ASYNC`` save;
+  killed at shard barrier ``FAULTS.KILL_AT_SHARD_BARRIER``: the same window
+                         of a SHARDED save (every process's shard files
+                         durable, ``MANIFEST.json`` not): the restart
+                         quarantines the directory and walks back;
+  dropped shard file     ``FAULTS.DROP_SHARD_FILE/DROP_SHARD_HOST``: delete
+                         process r's ``shards_host<r>.npz`` from a
+                         committed sharded save: the restart's digest walk
+                         fails it, a direct load refuses naming the
+                         recorded sharding.
 
 Every hook is one attribute read unless ``FAULTS.ENABLED``. The knobs whose
 mechanism the port does not have are refused by :func:`validate_cfg`,
@@ -48,16 +61,10 @@ from distribuuuu_tpu_torch.parallel import dist
 
 # knob -> (what it exercises, the ROADMAP item that brings its mechanism)
 REFUSED = {
-    "KILL_AT_SHARD_BARRIER": ("a kill inside a sharded checkpoint commit",
-                              "Parallel layouts beyond DP"),
-    "DROP_SHARD_FILE": ("a lost shard file of a sharded checkpoint",
-                        "Parallel layouts beyond DP"),
     "WEDGE_DISPATCH": ("a wedged dispatch sequencer",
                        "Async, resilience, live plane, shards and analysis"),
     "WEDGE_RING": ("a wedged cross-host dispatch ring",
                    "Async, resilience, live plane, shards and analysis"),
-    "KILL_AT_COMMIT_BARRIER": ("a kill at the cross-host commit barrier",
-                               "Async, resilience, live plane, shards and analysis"),
 }
 
 
@@ -66,7 +73,7 @@ class InjectedFault(RuntimeError):
 
 
 _state: dict = {"decode_raised": set(), "preempted": False, "truncated_shards": set(),
-                "recompiled": False}
+                "recompiled": False, "dropped_shard": False}
 
 
 def reset() -> None:
@@ -75,6 +82,7 @@ def reset() -> None:
     _state["preempted"] = False
     _state["truncated_shards"] = set()
     _state["recompiled"] = False
+    _state["dropped_shard"] = False
 
 
 def enabled() -> bool:
@@ -93,6 +101,11 @@ def validate_cfg(platform: str = "auto") -> None:
     if int(cfg.FAULTS.RECOMPILE_AT_BATCH) >= 0 and platform == "cpu":
         raise ValueError("FAULTS.RECOMPILE_AT_BATCH needs the card: its storm is CUDA graph "
                          "captures, and the CPU has no graph")
+    if cfg.FAULTS.DROP_SHARD_FILE >= 0 and int(cfg.FAULTS.DROP_SHARD_HOST) < 0:
+        raise ValueError(
+            f"FAULTS.DROP_SHARD_HOST ({int(cfg.FAULTS.DROP_SHARD_HOST)}) must be a host rank "
+            ">= 0 (it indexes shards_host<r>.npz; the upper bound is checked against the "
+            "live world at the injection site)")
     for knob, modes in (("DECODE_ERROR_MODE", ("once", "always")),
                         ("CORRUPT_MODE", ("truncate", "partial"))):
         if cfg.FAULTS[knob] not in modes:
@@ -223,3 +236,52 @@ def maybe_corrupt_checkpoint(path: str, epoch: int) -> None:
     size = os.path.getsize(path)
     with open(path, "r+b") as f:
         f.truncate(max(1, size // 2))
+
+
+def _kill_primary_at(knob: str, path: str, epoch: int) -> None:
+    if not enabled() or int(cfg.FAULTS[knob]) < 0:
+        return
+    if not os.path.basename(path).startswith("ckpt_ep_") or not dist.is_primary():
+        return
+    if epoch == int(cfg.FAULTS[knob]):
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_kill_at_commit_barrier(path: str, epoch: int) -> None:
+    """SIGKILL the primary between the cross-host commit barrier (every
+    process's share of the payload durable) and the manifest commit of a
+    many-process background save: the restart walks back over the
+    manifest-less save. Epoch checkpoints only."""
+    _kill_primary_at("KILL_AT_COMMIT_BARRIER", path, epoch)
+
+
+def maybe_kill_at_shard_barrier(path: str, epoch: int) -> None:
+    """SIGKILL the primary inside a SHARDED commit's window: every
+    process's shard file and layout durable, ``MANIFEST.json`` not. The
+    restart quarantines the directory, shards and all, and walks back.
+    Epoch checkpoints only."""
+    _kill_primary_at("KILL_AT_SHARD_BARRIER", path, epoch)
+
+
+def maybe_drop_shard_file(path: str, epoch: int, world: int) -> None:
+    """Delete process ``FAULTS.DROP_SHARD_HOST``'s ``shards_host<r>.npz``
+    from the just-committed sharded checkpoint of epoch
+    ``FAULTS.DROP_SHARD_FILE`` (a disk lost between the save and the
+    restart): the next start's digest walk fails it, a direct load
+    refuses naming the recorded sharding. The primary, once; the process
+    index is checked against the live world here."""
+    if not enabled() or cfg.FAULTS.DROP_SHARD_FILE < 0:
+        return
+    if _state["dropped_shard"] or epoch != int(cfg.FAULTS.DROP_SHARD_FILE):
+        return
+    if not dist.is_primary():
+        return
+    victim = int(cfg.FAULTS.DROP_SHARD_HOST)
+    if not 0 <= victim < int(world):
+        raise ValueError(
+            f"FAULTS.DROP_SHARD_HOST ({victim}) must satisfy 0 <= host < world ({int(world)}): "
+            f"the sharded save wrote shards_host0.npz .. shards_host{int(world) - 1}.npz")
+    _state["dropped_shard"] = True
+    shard = os.path.join(path, f"shards_host{victim}.npz")
+    if os.path.isfile(shard):
+        os.unlink(shard)

@@ -37,21 +37,27 @@ class Optimizer:
     """Moment buffers and step count for a list of named parameters."""
 
     def __init__(self, named_params, hyper: opt_update.Hyper, lr: float,
-                 momentum_dtype: torch.dtype | None = None, fold: int = 1):
+                 momentum_dtype: torch.dtype | None = None, fold: int = 1, zero=None):
         """``momentum_dtype`` is the SGD trace's dtype (None: the
         parameter's own, as optax's default); ``fold`` the most steps one
-        call stages (``TRAIN.STEPS_PER_CALL``)."""
+        call stages (``TRAIN.STEPS_PER_CALL``); ``zero`` a
+        ``parallel/zero.ZeroRuntime`` over these parameters (ZeRO stage 1
+        or 3): the moments of the leaves it splits are shard-sized, and
+        the update runs on its shard buffers."""
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         self.hyper = hyper
         self.lr = float(lr)
         self.count = 0
+        self.zero = zero
         body = hyper.body()
         mdt = momentum_dtype if body == "sgd" else None
+        like = self.params if zero is None else [
+            p if s is None else s for p, s in zip(self.params, zero.pshard)]
         self.m = None if body == "sgd_plain" else [
-            torch.zeros_like(p, dtype=mdt or p.dtype) for p in self.params
+            torch.zeros_like(t, dtype=mdt or t.dtype) for t in like
         ]
-        self.v = [torch.zeros_like(p) for p in self.params] if body == "adamw" else None
+        self.v = [torch.zeros_like(t) for t in like] if body == "adamw" else None
         self.fold = max(1, int(fold))
         self.grads = self.scal = self.row = self._table = None
 
@@ -66,8 +72,10 @@ class Optimizer:
         if k > self.fold:
             raise ValueError(f"{k} steps a call, the optimizer stages at most {self.fold}")
         p0 = self.params[0]
-        if self.scal is None:
-            self.grads = [torch.empty_like(p) for p in self.params]
+        if self.scal is None:  # under ZeRO a split leaf's buffer is its grad shard
+            gshard = self.zero.gshard if self.zero is not None else [None] * len(self.params)
+            self.grads = [torch.empty_like(p) if s is None else s
+                          for p, s in zip(self.params, gshard)]
             self.scal = torch.zeros((self.fold, len(opt_update.SCALARS)), dtype=p0.dtype,
                                     device=p0.device)
             self.row = torch.zeros((), dtype=torch.int32, device=p0.device)
@@ -79,13 +87,15 @@ class Optimizer:
         buffers ``grads``) and move ``row`` on; with ``skip`` (a device
         flag) nonzero nothing changes and ``row`` stays. No host read: a
         graph captures it."""
-        if grads is None:
+        params, static = self.params, grads is None
+        if static:
             grads = self.grads
+            if self.zero is not None:  # the split leaves' shards
+                params = [p if s is None else s for p, s in zip(self.params, self.zero.pshard)]
             if self._table is None and kernel_tier.use_kernel(self.params[0]):
-                self._table = opt_update.leaf_table(self.params, grads, self.m, self.v)
-        table = self._table if grads is self.grads else None
-        opt_update.update(self.params, grads, self.m, self.v, self.hyper, self.scal,
-                          self.row, skip, table)
+                self._table = opt_update.leaf_table(params, grads, self.m, self.v)
+        opt_update.update(params, grads, self.m, self.v, self.hyper, self.scal,
+                          self.row, skip, self._table if static else None)
         self.row += 1 if skip is None else (skip == 0).to(torch.int32)
 
     def advance(self, n: int) -> None:
@@ -100,18 +110,27 @@ class Optimizer:
         self.apply(list(grads))
         self.advance(1)
 
+    def _full(self, bufs):
+        """The moments as full (placed) tensors: under ZeRO the split
+        leaves' shards are all-gathered over the data group (a collective:
+        every data rank calls it)."""
+        if bufs is None:
+            return None
+        if self.zero is None:
+            return dict(zip(self.names, bufs))
+        return dict(zip(self.names, self.zero.full_tensors(bufs)))
+
     def state_dict(self) -> dict:
-        return {
-            "count": self.count,
-            "lr": self.lr,
-            "m": None if self.m is None else dict(zip(self.names, self.m)),
-            "v": None if self.v is None else dict(zip(self.names, self.v)),
-        }
+        """Full moments by parameter name, whatever the ZeRO stage: a save
+        of any stage loads into any stage and any number of processes."""
+        return {"count": self.count, "lr": self.lr, "m": self._full(self.m),
+                "v": self._full(self.v)}
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
-        """Copy a saved state in, by parameter name; a structure that does
-        not match this optimizer raises ``ValueError``."""
+        """Copy a saved state in, by parameter name (full moments; under
+        ZeRO each split leaf takes this rank's shard); a structure that
+        does not match this optimizer raises ``ValueError``."""
         for key, bufs in (("m", self.m), ("v", self.v)):
             saved = sd.get(key)
             if (saved is None) != (bufs is None):
@@ -122,9 +141,11 @@ class Optimizer:
                 continue
             if set(saved) != set(self.names):
                 raise ValueError(f"optimizer state {key!r} names differ from the model's")
-            for name, buf in zip(self.names, bufs):
+            for i, (name, buf) in enumerate(zip(self.names, bufs)):
                 src = saved[name]
                 src = src if torch.is_tensor(src) else torch.from_numpy(np.array(src))
+                if self.zero is not None and src.shape == self.params[i].shape:
+                    src = self.zero.shard_moment(i, src)  # this rank's shard
                 if src.shape != buf.shape:
                     raise ValueError(f"optimizer state {key!r}/{name}: saved "
                                      f"{tuple(src.shape)}, live {tuple(buf.shape)}")
@@ -159,10 +180,15 @@ def hyper_from_cfg() -> opt_update.Hyper:
 
 def construct_optimizer(model: torch.nn.Module) -> Optimizer:
     """The configured optimizer over every parameter of ``model``, at
-    ``OPTIM.BASE_LR``."""
+    ``OPTIM.BASE_LR``, over the shards of ``MESH.ZERO`` (``parallel/
+    zero.runtime_from_cfg``; the runtime is also ``model.zero_runtime``)."""
+    from distribuuuu_tpu_torch.parallel import zero
+
+    rt = zero.runtime_from_cfg(model)
+    model.zero_runtime = rt
     return Optimizer(list(model.named_parameters()), hyper_from_cfg(),
                      cfg.OPTIM.BASE_LR, _momentum_dtype(),
-                     fold=max(1, int(cfg.TRAIN.STEPS_PER_CALL)))
+                     fold=max(1, int(cfg.TRAIN.STEPS_PER_CALL)), zero=rt)
 
 
 def set_lr(optimizer: Optimizer, lr: float) -> Optimizer:

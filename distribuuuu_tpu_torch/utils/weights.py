@@ -17,10 +17,14 @@
   by the same paths, plus the step count.
 * :func:`load_weights` loads a torch ``.pth``/``.pth.tar`` (a state dict, a
   ``{"state_dict": ...}`` wrapper or a port checkpoint's ``{"model": ...}``,
-  ``module.`` prefixes stripped), or an orbax checkpoint directory of the
+  ``module.`` prefixes stripped, torchvision's legacy DenseNet keys
+  renamed), or an orbax checkpoint directory of the
   JAX package (a weights-only ``best``, a full ``ckpt_ep_NNN``, a sharded
   save), read by ``utils/orbax.py`` and mapped by
   :func:`state_dict_from_jax`.
+* :func:`port_path_map` and :func:`jax_tree_from_state_dict` go the other
+  way: each port key's JAX path, and the JAX ``params``/``batch_stats``
+  trees of a port state dict (the sharded checkpoint's layout).
 
 The pretrained URL zoo (``MODEL.PRETRAINED``, which needs the network) is
 refused.
@@ -292,6 +296,121 @@ def jax_path_map(params: dict) -> dict[tuple[str, ...], str]:
     return out
 
 
+class _Kernel:
+    """A skeleton leaf with only a shape (``_efficientnet_path_map`` reads
+    the last conv's output width)."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
+def _skeleton(sd: dict) -> dict:
+    """The key structure of the JAX ``params`` tree that maps onto the
+    port state dict ``sd`` (keys and, where the path map reads one, a
+    kernel's shape): what :func:`jax_path_map` walks."""
+    keys = list(sd)
+
+    def blocks(pattern):
+        found = {}
+        for k in keys:
+            m = re.match(pattern, k)
+            if m:
+                found.setdefault(tuple(int(g) for g in m.groups()), set()).add(k)
+        return dict(sorted(found.items()))
+
+    if "pos_embed" in sd:
+        tree = {"pos_embed": 0, **({"tok_embed": {}} if EMBEDDING in sd else {})}
+        for (i,), ks in blocks(r"blocks\.(\d+)\.").items():
+            tree[f"Block_{i}"] = {"MoeMlp_0": {}} if f"blocks.{i}.mlp.w_in" in ks else {}
+        return tree
+    if any(k.startswith("s1.b1.") for k in keys):  # RegNet
+        tree, n = {"ConvBN_0": {}}, 0
+        for (s, b), ks in blocks(r"s(\d+)\.b(\d+)\.").items():
+            down = any(".downsample." in k for k in ks)
+            blk = {f"ConvBN_{c}": {} for c in range(3 + down)}
+            if any(".se." in k for k in ks):
+                blk["SqueezeExcite_0"] = {}
+            tree[f"RegNetBlock_{n}"], n = blk, n + 1
+        return tree
+    if any(k.startswith("features.denseblock") for k in keys):
+        tree = {}
+        for (i, j), _ in blocks(r"features\.denseblock(\d+)\.denselayer(\d+)\.").items():
+            tree[f"block{i - 1}_layer{j - 1}"] = {}
+        return tree
+    if "conv_stem.weight" in sd:  # EfficientNet
+        tree, n = {}, 0
+        for (s, b), ks in blocks(r"blocks\.(\d+)\.(\d+)\.").items():
+            last = f"blocks.{s}.{b}.conv_pwl.weight"
+            if last not in sd:
+                last = f"blocks.{s}.{b}.conv_pw.weight"
+            convs = 3 if f"blocks.{s}.{b}.conv_pwl.weight" in sd else 2
+            blk = {f"Conv_{c}": {} for c in range(convs)}
+            blk[f"Conv_{convs - 1}"] = {"kernel": _Kernel((1, 1, 1, sd[last].shape[0]))}
+            tree[f"MBConv_{n}"], n = blk, n + 1
+        return tree
+    # the ResNet family and BoTNet's trunk
+    kind = "Bottleneck" if "layer1.0.conv3.weight" in sd else "BasicBlock"
+    main = _BLOCK_CONVS[kind]
+    tree, n, bot = {"ConvBN_0": {}}, 0, 0
+    for (s, b), ks in blocks(r"layer(\d+)\.(\d+)\.").items():
+        down = any(".downsample." in k for k in ks)
+        if any(".mhsa." in k for k in ks):
+            blk = {f"ConvBN_{c}": {} for c in range(2 + down)}
+            blk["MHSA2D_0"] = {t: 0 for t in ("rel_height", "rel_width", "emb_height",
+                                               "emb_width") if f"layer{s}.{b}.mhsa.{t}" in sd}
+            tree[f"BoTBlock_{bot}"], bot = blk, bot + 1
+            continue
+        tree[f"{kind}_{n}"], n = {f"ConvBN_{c}": {} for c in range(main + down)}, n + 1
+    return tree
+
+
+def port_path_map(sd: dict) -> dict[str, tuple[str, ...]]:
+    """``{port state-dict key: flax path}``, the inverse of
+    :func:`jax_path_map` for the model whose state dict is ``sd`` (every
+    arch the map knows; BN counters, which JAX does not keep, have none).
+    The path's first entry is the tree, ``params`` or ``batch_stats``."""
+    inv = {}
+    for path, key in jax_path_map(_skeleton(sd)).items():
+        tree = "batch_stats" if path[-1] in ("mean", "var") and "BatchNorm_0" in path \
+            else "params"
+        inv[key] = (tree, *path)
+    missing = [k for k in sd if k not in inv and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"port keys with no JAX path: {missing[:5]}")
+    return inv
+
+
+def jax_tree_from_state_dict(sd: dict) -> dict:
+    """The JAX package's ``{"params", "batch_stats"}`` trees (numpy, JAX
+    layouts) for the port state dict ``sd``: the inverse of
+    :func:`state_dict_from_jax` (BN counters dropped)."""
+    out: dict = {}
+    for key, path in port_path_map(sd).items():
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = jax_layout(sd[key], key)
+    return out
+
+
+def jax_perm(key: str, ndim: int) -> tuple:
+    """``perm`` with JAX dim j = port dim ``perm[j]`` for the port leaf
+    ``key`` (:func:`_port_layout`'s transposes): a conv ``[O, I, kh, kw]``
+    is JAX's ``[kh, kw, I, O]``, a Dense weight ``[out, in]`` JAX's ``[in,
+    out]``; tables, MoE tensors and vectors as they are."""
+    if ndim == 4:
+        return (2, 3, 1, 0)
+    if ndim == 2 and not key.endswith(TABLES):
+        return (1, 0)
+    return tuple(range(ndim))
+
+
+def jax_layout(t, key: str) -> np.ndarray:
+    """A port tensor in its JAX leaf's layout (inverse of ``_port_layout``)."""
+    a = t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+    return np.ascontiguousarray(a.transpose(jax_perm(key, a.ndim)))
+
+
 def _leaves(tree: dict, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -309,17 +428,19 @@ def _port_layout(arr, dtype=np.float32, key: str = "") -> np.ndarray:
     return np.ascontiguousarray(a)
 
 
-def state_dict_from_jax(params: dict, batch_stats: dict | None = None
-                        ) -> dict[str, torch.Tensor]:
+def state_dict_from_jax(params: dict, batch_stats: dict | None = None,
+                        keep_dtype: bool = False) -> dict[str, torch.Tensor]:
     """The port's state dict for a JAX model's variables (numpy leaves; a
-    ViT's or GPT's ``batch_stats`` is empty or None).
-    Every leaf lands in exactly one tensor; an unmapped leaf raises."""
+    ViT's or GPT's ``batch_stats`` is empty or None), in f32 (each leaf's
+    own dtype with ``keep_dtype``). Every leaf lands in exactly one
+    tensor; an unmapped leaf raises."""
     paths = jax_path_map(params)
     sd: dict[str, torch.Tensor] = {}
     for path, arr in [*_leaves(params), *_leaves(batch_stats or {})]:
         if path not in paths:
             raise KeyError(f"JAX leaf {'/'.join(path)} has no port tensor")
-        sd[paths[path]] = torch.from_numpy(_port_layout(arr, key=paths[path]))
+        dtype = np.asarray(arr).dtype if keep_dtype else np.float32
+        sd[paths[path]] = torch.from_numpy(_port_layout(arr, dtype, key=paths[path]))
     for key in [k for k in sd if k.endswith(".running_var")]:
         sd[key.replace("running_var", "num_batches_tracked")] = torch.zeros((), dtype=torch.long)
     return sd
@@ -384,8 +505,26 @@ def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     if not isinstance(sd, dict):
         raise ValueError(f"{path}: expected a state dict, got {type(sd).__name__}")
     sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
-    specs.load_full_model(model, sd)
+    specs.load_full_model(model, densenet_legacy_keys(sd))
     return model
+
+
+# torchvision's legacy DenseNet names: ``denselayerN.norm.1.weight`` for
+# ``denselayerN.norm1.weight`` (its own ``_load_state_dict`` remap)
+_DENSE_LEGACY = re.compile(
+    r"^(.*denselayer\d+\.(?:norm|relu|conv))\.((?:[12])\.(?:weight|bias|running_mean|"
+    r"running_var|num_batches_tracked))$")
+
+
+def densenet_legacy_keys(sd: dict) -> dict:
+    """``sd`` with torchvision's legacy DenseNet keys (``norm.1.``,
+    ``relu.1.``, ``conv.1.``) renamed as torchvision renames them; other
+    keys as they are."""
+    out = {}
+    for k, v in sd.items():
+        m = _DENSE_LEGACY.match(k)
+        out[m.group(1) + m.group(2) if m else k] = v
+    return out
 
 
 def pretrained_refusal(arch: str) -> NotImplementedError:

@@ -373,7 +373,7 @@ rules:
 phases:
   - {name: control, kind: steady, duration_s: 3, rate_rps: 2, mix: {resnet50: 1.0},
      expect: []}
-  - {name: pressure, kind: flash, duration_s: 6, rate_rps: 2, burst_x: 60,
+  - {name: pressure, kind: flash, duration_s: 6, rate_rps: 2, burst_x: 100,
      burst_window: [0.3, 0.6], mix: {resnet50: 1.0}, expect: [degrade-spill]}
   - {name: calm, kind: steady, duration_s: 3, rate_rps: 1, mix: {resnet50: 1.0},
      expect: []}

@@ -70,27 +70,57 @@ def test_every_shipped_model_yaml_merges(name):
     assert tcfg.MODEL.ARCH
 
 
+PARALLEL = "Parallel layouts beyond DP"
+ASYNC = "Async, resilience, live plane, shards and analysis"
+# (key, value, its Queue 1 item, what now takes over the refusal check:
+# (overrides, launched processes) of the next unported value of the item,
+# or None while the key itself is still refused)
 UNPORTED_VALUES = [
-    ("MESH.ZERO", 1, "Parallel layouts beyond DP"),
-    ("ZERO.OVERLAP", False, "Parallel layouts beyond DP"),
-    ("ZERO.GATHER_AHEAD", 2, "Parallel layouts beyond DP"),
-    ("ASYNC.SEQUENCER", False, "Async, resilience, live plane, shards and analysis"),
-    ("ASYNC.RING_DEADLINE_S", 5.0, "Async, resilience, live plane, shards and analysis"),
-    ("ASYNC.BARRIER_TIMEOUT_S", 5.0, "Async, resilience, live plane, shards and analysis"),
+    ("MESH.ZERO", 1, PARALLEL, (["MODEL.ARCH", "vit_tiny", "MESH.SEQ", 2], 2)),
+    ("ZERO.OVERLAP", False, PARALLEL, (["MODEL.ARCH", "vit_tiny", "MESH.PIPE", 2], 2)),
+    ("ZERO.GATHER_AHEAD", 2, PARALLEL, (["MESH.MODEL", 2], 2)),
+    ("ASYNC.SEQUENCER", False, ASYNC, None),
+    ("ASYNC.RING_DEADLINE_S", 5.0, ASYNC, None),
+    ("ASYNC.BARRIER_TIMEOUT_S", 5.0, ASYNC, (["ASYNC.SEQUENCER", False], 1)),
 ]
 
 
-@pytest.mark.parametrize("key,value,item", UNPORTED_VALUES,
-                         ids=[k for k, _, _ in UNPORTED_VALUES])
-def test_unported_keys_raise_naming_their_item(key, value, item):
+@pytest.mark.parametrize("key,value,item,successor", UNPORTED_VALUES,
+                         ids=[k for k, *_ in UNPORTED_VALUES])
+def test_unported_keys_raise_naming_their_item(key, value, item, successor, monkeypatch):
     """Away from its default a key the port does not run raises
     ``NotImplementedError`` naming its Queue 1 item, not ``KeyError``; at
     its default, and for the inert ``COMPILE_CACHE`` and ``LOG_DEST``, the
-    config is accepted."""
+    config is accepted. A key a later slice ported (ZeRO and its knobs, the
+    commit barrier's timeout) is accepted away from its default, and the
+    next unported value of its item takes over the refusal check (the
+    sequence and pipe axes, a model axis on a CNN, the dispatch
+    sequencer); ``MESH.ZERO 2`` and ``ZERO.GATHER_AHEAD -2`` raise as the
+    JAX package's checks do."""
     tconfig.merge_from_file("config/resnet18.yaml")
     tcfg.merge_from_list(["COMPILE_CACHE.ENABLED", True, "LOG_DEST", "stderr"])
     trainer.check_train_cfg()
     tcfg.merge_from_list([key, value])
+    if successor is None:
+        with pytest.raises(NotImplementedError, match=item):
+            trainer.check_train_cfg()
+        return
+    trainer.check_train_cfg()
+    if key == "MESH.ZERO":
+        tcfg.merge_from_list([key, 2])
+        with pytest.raises(ValueError, match="MESH.ZERO=2: stages are 0"):
+            trainer.check_train_cfg()
+        tcfg.merge_from_list([key, value])
+    if key == "ZERO.GATHER_AHEAD":
+        tcfg.merge_from_list([key, -2])
+        with pytest.raises(ValueError, match="ZERO.GATHER_AHEAD=-2: must be -1"):
+            trainer.check_train_cfg()
+        tcfg.merge_from_list([key, value])
+    opts, world = successor
+    if world > 1:
+        monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+        monkeypatch.setenv("WORLD_SIZE", str(world))
+    tcfg.merge_from_list(opts)
     with pytest.raises(NotImplementedError, match=item):
         trainer.check_train_cfg()
 

@@ -38,6 +38,7 @@ from torch_port_util import (
 from distribuuuu_tpu import models as jmodels
 from distribuuuu_tpu import trainer as jtrainer
 from distribuuuu_tpu.config import cfg as jcfg
+from distribuuuu_tpu.parallel.partition import topology as jtopo
 from distribuuuu_tpu.parallel.partition.lowering import TrainState
 from distribuuuu_tpu.utils.optim import construct_optimizer as jax_construct_optimizer
 from distribuuuu_tpu_torch import models as tmodels
@@ -45,6 +46,7 @@ from distribuuuu_tpu_torch import trainer
 from distribuuuu_tpu_torch.config import cfg as tcfg
 from distribuuuu_tpu_torch.data import loader as tloader
 from distribuuuu_tpu_torch.ops.cuda import opt_update
+from distribuuuu_tpu_torch.parallel.partition import topology as ttopo
 from distribuuuu_tpu_torch.resilience.supervisor import NonFiniteLossError
 from distribuuuu_tpu_torch.utils import checkpoint as ckpt
 from distribuuuu_tpu_torch.utils import faults
@@ -280,13 +282,25 @@ def test_nonfinite_raise_and_skip():
     assert len(rec["losses"]) == 1 and np.isfinite(rec["losses"][0])
 
 
+# the fault knobs as the port refused them before the commit barrier and
+# the sharded saves were ported: the ids stay, the ported ones now run
+_FAULT_KNOBS = [("KILL_AT_SHARD_BARRIER", "Parallel layouts beyond DP"),
+                ("DROP_SHARD_FILE", "Parallel layouts beyond DP"),
+                ("WEDGE_DISPATCH", "Async, resilience, live plane, shards and analysis"),
+                ("WEDGE_RING", "Async, resilience, live plane, shards and analysis"),
+                ("KILL_AT_COMMIT_BARRIER", "Async, resilience, live plane, shards and analysis")]
 UNPORTED = [
-    # a model axis needs processes since it was ported; ZeRO still raises
+    # ZeRO runs since it was ported (one process: the base layout)
     (["MESH.ZERO", 1], "MESH", "Parallel layouts beyond DP"),
     (["DEVICE.S2D_STEM", True], "S2D", "S2D stem"),
     *[(["FAULTS.ENABLED", True, f"FAULTS.{knob}", 0], f"FAULTS.{knob}", item)
-      for knob, (_, item) in faults.REFUSED.items()],
+      for knob, item in _FAULT_KNOBS],
 ]
+
+
+def _ported(opts) -> bool:
+    return opts[0] == "MESH.ZERO" or (opts[0] == "FAULTS.ENABLED"
+                                      and opts[2][len("FAULTS."):] not in faults.REFUSED)
 
 
 # ids numbered as they were: case 0 (TRAIN.STEPS_PER_CALL) runs since folded
@@ -295,14 +309,29 @@ UNPORTED = [
 @pytest.mark.parametrize("opts,what,item", UNPORTED,
                          ids=[f"opts{i + (1 if i < 1 else 2)}-{w}-{it}"
                               for i, (_, w, it) in enumerate(UNPORTED)])
-def test_unported_configurations_raise_with_roadmap_item(tmp_path, opts, what, item):
+def test_unported_configurations_raise_with_roadmap_item(tmp_path, opts, what, item,
+                                                         monkeypatch):
     """What the port does not run raises before any work, naming its
-    ROADMAP item: mesh axes beyond data, the S2D stem, and each fault
-    knob whose mechanism the port lacks."""
+    ROADMAP item: the S2D stem and each fault knob whose mechanism the
+    port lacks. What a later slice ported runs: ``MESH.ZERO 1`` (on one
+    process the base layout; ``MESH.ZERO 2`` raises JAX's TopologyError)
+    and the commit-barrier and shard-file faults (armed, with nothing of
+    their kind to hit in a one-process run)."""
     _toy_cfg(tmp_path, 1)
     tcfg.merge_from_list(opts)
-    with pytest.raises(NotImplementedError, match=rf"(?s){what}.*{item}"):
-        trainer.train_model()
+    if not _ported(opts):
+        with pytest.raises(NotImplementedError, match=rf"(?s){what}.*{item}"):
+            trainer.train_model()
+        return
+    _small_dummy_data(monkeypatch)
+    assert trainer.train_model() >= 0.0
+    if opts[0] == "MESH.ZERO":
+        tcfg.merge_from_list(["MESH.ZERO", 2])
+        with pytest.raises(ttopo.TopologyError) as e:
+            trainer.check_train_cfg()
+        with pytest.raises(jtopo.TopologyError) as j:
+            jtopo.validate(jtopo.Topology(zero=2), "resnet18")
+        assert (str(e.value), e.value.rule) == (str(j.value), "zero_stage")
 
 
 def test_more_processes_and_no_cuda_raise(tmp_path, monkeypatch):

@@ -162,3 +162,111 @@ def test_moe_leaves_round_trip_through_the_shards(arch, tmp_path):
     got = model.state_dict()
     for k, v in shards[5].items():
         assert torch.equal(got[k], v), k
+
+
+# -- torchvision's legacy DenseNet keys, and every arch's names both ways ------
+
+DENSE_TOY = dict(growth_rate=8, block_config=(2, 3, 2, 2), num_init_features=16, bn_size=2)
+
+
+@pytest.fixture
+def x64():
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def _legacy(key: str) -> str:
+    """torchvision's pre-0.3 DenseNet name of a port key
+    (``denselayerN.norm1.weight`` → ``denselayerN.norm.1.weight``)."""
+    import re
+
+    return re.sub(r"(denselayer\d+\.(?:norm|relu|conv))([12])\.", r"\1.\2.", key)
+
+
+def test_densenet_legacy_keys_load_in_both_packages(tmp_path, x64):
+    """A DenseNet ``.pth`` under torchvision's legacy keys (``norm.1.``,
+    ``conv.1.``) loads into the port (``load_weights``) and into the JAX
+    package (``torch_ingest.convert_state_dict``, as its trainer loads
+    ``MODEL.WEIGHTS``): the f64 eval logits agree to 1e-12."""
+    import jax.numpy as jnp
+    from torch_port_util import jax_model
+
+    from distribuuuu_tpu.models.densenet import DenseNet as JaxDenseNet
+    from distribuuuu_tpu.utils import torch_ingest
+    from distribuuuu_tpu_torch.models import layers as tlayers
+    from distribuuuu_tpu_torch.models.densenet import DenseNet
+
+    jmodel, shapes = jax_model(JaxDenseNet(num_classes=10, dtype=jnp.float64, **DENSE_TOY))
+    v = jax.tree.map(lambda a: np.asarray(a, np.float64), random_variables(shapes, seed=3))
+    sd = weights.state_dict_from_jax(v["params"], v["batch_stats"], keep_dtype=True)
+    ref = tlayers.build_on(DenseNet, num_classes=10, dtype=torch.float64, **DENSE_TOY)
+    ref.to(torch.float64).load_state_dict(sd)
+    # torchvision's definition order, under its legacy names
+    legacy = {_legacy(k): t for k, t in ref.state_dict().items()}
+    assert sum(k != _legacy(k) for k in sd) > 40
+    assert all(k.startswith("features.") or k.startswith("classifier") for k in legacy)
+    path = tmp_path / "densenet_legacy.pth"
+    torch.save({"state_dict": {f"module.{k}": t for k, t in legacy.items()}}, path)
+    x = np.random.default_rng(4).standard_normal((2, 32, 32, 3))
+    port = weights.load_weights(tlayers.build_on(DenseNet, num_classes=10, dtype=torch.float64,
+                                                 **DENSE_TOY).to(torch.float64), str(path))
+    with torch.inference_mode():
+        got = port.eval()(torch.from_numpy(x)).numpy()
+    ingested = torch_ingest.convert_state_dict(
+        {k: t.numpy() for k, t in legacy.items()},
+        torch_ingest.ordered_variables(jmodel, im_size=32))
+    want = np.asarray(jmodel.apply(ingested, jnp.asarray(x), train=False))
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+ZOO = tmodels.available_models()
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_every_arch_names_map_to_jax_paths_and_back(arch):
+    """Each arch's reference (torchvision/timm) names, on the meta device at
+    full width: every key but BN's counters has a JAX path
+    (``port_path_map``), and ``jax_path_map`` of those paths gives the key
+    back; a legacy-key remap leaves every non-DenseNet key alone."""
+    kw = {"seq_len": 32} if arch.startswith("gpt") else {}
+    if arch == "botnet50":
+        kw["fmap_size"] = (14, 14)
+    model = tmodels.build_model(arch, num_classes=10, device="meta", **kw)
+    sd = model.state_dict()
+    inv = weights.port_path_map(sd)
+    assert set(inv) == {k for k in sd if not k.endswith("num_batches_tracked")}
+    tree: dict = {}
+    for key, path in inv.items():
+        node = tree
+        for p in path[1:-1]:
+            node = node.setdefault(p, {})
+        shape = tuple(sd[key].shape)  # the JAX leaf's (the map reads a kernel's width)
+        node[path[-1]] = weights._Kernel(
+            (shape[2], shape[3], shape[1], shape[0]) if len(shape) == 4 else shape)
+    assert {v: k for k, v in weights.jax_path_map(tree).items()} == \
+        {key: path[1:] for key, path in inv.items()}
+    if not arch.startswith("densenet"):
+        assert weights.densenet_legacy_keys(sd).keys() == sd.keys()
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "densenet121", "efficientnet_b0", "vit_tiny",
+                                  "gpt_nano"])
+def test_reference_named_pth_loads_by_name(arch, tmp_path):
+    """A ``.pth`` under each arch's reference names loads through
+    ``load_weights`` into a fresh model, tensor for tensor (a DenseNet's
+    also under torchvision's legacy names)."""
+    kw = {"seq_len": 32} if arch.startswith("gpt") else {}
+    src = tmodels.build_model(arch, num_classes=10, dtype=torch.float32,
+                              generator=torch.Generator().manual_seed(1), **kw)
+    sd = src.state_dict()
+    names = {_legacy(k): t for k, t in sd.items()} if arch.startswith("densenet") else sd
+    torch.save(names, tmp_path / "w.pth")
+    dst = tmodels.build_model(arch, num_classes=10, dtype=torch.float32,
+                              generator=torch.Generator().manual_seed(2), **kw)
+    weights.load_weights(dst, str(tmp_path / "w.pth"))
+    for k, t in dst.state_dict().items():
+        assert torch.equal(t, sd[k]), k

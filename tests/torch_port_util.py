@@ -266,15 +266,17 @@ def make_tree(root: str, n_val: int = 5) -> str:
 
 
 TP_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_tp_worker.py")
+ZERO_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_zero_worker.py")
 
 
 class Ranks:
-    """``world`` ranks of ``tests/torch_tp_worker.py`` on one spec, started
+    """``world`` ranks of ``tests/torch_tp_worker.py`` (or ``worker``) on one spec, started
     at once (gloo on the CPU, one thread each); :meth:`join` waits (killing
     all past ``timeout``), asserts every rank exited 0 and returns their
     outputs, rank order. The caller computes its references meanwhile."""
 
-    def __init__(self, world: int, scenarios: list, tmp, tag: str, timeout: float = 150):
+    def __init__(self, world: int, scenarios: list, tmp, tag: str, timeout: float = 150,
+                 worker: str | None = None):
         import json
         import socket
         import subprocess
@@ -296,11 +298,13 @@ class Ranks:
         for r in range(world):
             log = open(os.path.join(self.out, f"rank{r}.log"), "w+")
             self.procs.append((subprocess.Popen(
-                [sys.executable, TP_WORKER, spec], cwd=repo, stdout=log,
+                [sys.executable, worker or TP_WORKER, spec], cwd=repo, stdout=log,
                 stderr=subprocess.STDOUT,
                 env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}), log))
 
-    def join(self) -> list[dict]:
+    def join(self, check: bool = True) -> list:
+        """Every rank's output (``check``: each exited 0), or with ``check``
+        False their ``(returncode, log)``."""
         texts = []
         try:
             for p, _ in self.procs:
@@ -313,8 +317,10 @@ class Ranks:
                 log.seek(0)
                 texts.append((p.returncode, log.read()))
                 log.close()
+        if not check:
+            return texts
         for rc, text in texts:
-            assert rc == 0, text[-4000:]
+            assert rc == 0, f"rc {rc}: {text[-4000:]}"
         return [torch.load(os.path.join(self.out, f"rank{r}.pt"), weights_only=False)
                 for r in range(self.world)]
 
